@@ -1,0 +1,62 @@
+"""Plain PyTorch version of the fused candidate-score + top-N kernel
+(`repro/kernels/candidate_score/ref.py`).
+
+Plane rows are gathered per tile of ``tile_b`` users, so the gather
+intermediate is ``[tile_b, C, F+1]`` and the full ``[B, C, F]`` cube never
+exists.  Top-N is a *stable* descending sort: equal scores keep the lower
+slot first, the tie rule of `lax.top_k` and of the kernel's argmax.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# effective -inf that survives f32 arithmetic (masked slots), and the
+# kernel's knock-out value, strictly below it
+NEG = -3e38
+NEG2 = -3.4e38
+
+
+def candidate_score_topn_ref(urow, plane, cand, mask, *, topn: int,
+                             tile_b: int = 8):
+    """urow [B, F+1] (= U‖(μ+b) rows, pre-gathered); plane [N, F+1] = V‖b̂;
+    cand [B, C] int32 ids (pre-clipped to [0, N)); mask [B, C] (1.0 valid)
+    → (scores [B, topn] f32, idx [B, topn] int32 slots into C)."""
+    B, C = cand.shape
+    if C < topn:
+        raise ValueError("need at least topn candidate slots")
+    F = plane.shape[1] - 1
+    scores, idx = [], []
+    for t0 in range(0, B, tile_b):
+        u = urow[t0:t0 + tile_b]
+        rows = plane[cand[t0:t0 + tile_b].long()]           # [tb, C, F+1]
+        s = (torch.einsum("bf,bcf->bc", u[:, :F], rows[..., :F])
+             + rows[..., F] + u[:, F][:, None])
+        s = torch.where(mask[t0:t0 + tile_b] > 0, s, torch.full_like(s, NEG))
+        sv, si = torch.sort(s, dim=1, descending=True, stable=True)
+        scores.append(sv[:, :topn])
+        idx.append(si[:, :topn].to(torch.int32))
+    if not scores:
+        return (torch.empty((0, topn), dtype=torch.float32,
+                            device=urow.device),
+                torch.empty((0, topn), dtype=torch.int32, device=urow.device))
+    return torch.cat(scores), torch.cat(idx)
+
+
+def assert_topn_close(s, i, s_want, i_want, tol: float = 1e-5) -> float:
+    """The agreement rule of the kernel with this version: scores within
+    rtol/atol ``tol`` (the JAX package's tolerance), and slots equal
+    wherever a score differs from its neighbours in the list by more than
+    ``tol`` (the summation order differs, so exact near-ties may swap).
+    Raises `AssertionError` otherwise; returns the max abs score error."""
+    s, i, s_want, i_want = (x.cpu().numpy() if isinstance(x, torch.Tensor)
+                            else np.asarray(x)
+                            for x in (s, i, s_want, i_want))
+    np.testing.assert_allclose(s, s_want, rtol=tol, atol=tol)
+    gap = np.full(s_want.shape, np.inf)
+    d = np.abs(np.diff(s_want, axis=1))
+    gap[:, 1:] = np.minimum(gap[:, 1:], d)
+    gap[:, :-1] = np.minimum(gap[:, :-1], d)
+    sure = gap > tol
+    np.testing.assert_array_equal(i[sure], i_want[sure])
+    return float(np.abs(s - s_want).max()) if s.size else 0.0

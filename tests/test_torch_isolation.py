@@ -1,0 +1,49 @@
+"""The port stands alone: no module of `src/repro_torch/` and no part of
+`chip_smoke.py` imports JAX or the JAX package `repro` (only the tests
+import both).  Checked on the syntax tree, so an import inside a function
+counts as much as one at the top."""
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: pathlib.Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", None))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_the_port_has_its_files():
+    names = {p.relative_to(ROOT).as_posix() for p in FILES}
+    assert "chip_smoke.py" in names
+    assert "src/repro_torch/serve/service.py" in names
+    assert len(names) >= 20
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.relative_to(
+    ROOT).as_posix())
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & set(FORBIDDEN)
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_the_scan_sees_nested_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("def g():\n    from repro.obs import get\n"
+                 "    import jax.numpy\n    return __import__('repro')\n")
+    assert {"repro", "jax"} <= _imported_roots(f)
