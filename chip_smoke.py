@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving main path on one CUDA card.
+"""Smoke run of the PyTorch port's main paths, serving and the offline
+fit, on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -25,17 +26,42 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. timing — each kernel and its plain version at the phase-5 shapes
    (median of 30 CUDA-event-timed calls, each after an L2-evicting
    scrub), beside the least time the card could take (bytes over
-   3.35 TB/s, operations over 67 TFLOP/s).
+   3.35 TB/s, operations over 67 TFLOP/s);
+8. fit set-up — the repo's ~100M-parameter LSH-MF model
+   (`examples/train_lshmf_100m.py`: M = 700,000 users, N = 30,000 items,
+   F = 128, K = 64) on `synthetic.MOVIELENS_LIKE` data reshaped to those
+   M, N and 2,000,000 ratings (10 % held out), with each stage of `fit`
+   timed on the card (encode, Top-K, the host scheduler, the
+   schedule-ordered data, the eval cache), its resident MB, the
+   schedule's statistics, and the signature bits that differ between two
+   encodes;
+9. kernel vs plain — both fused SGD steps against their plain versions
+   on tiles gathered from that state (B = 512, 7, 250, a tier's last
+   partial batch, all rows invalid, BCE both ways), and padding slots that
+   repeat live ids adding nothing to the planes;
+10. fit — `fit(use_kernels=True)` for 3 epochs with the `culsh_sgd_step`
+    counter zeroed just before (it must equal the conflict-free steps x
+    epochs), the same fit on the plain steps (final RMSE within 1e-3),
+    one epoch of plain MF (``method="none"``) through `mf_sgd_step`, then
+    one more epoch of each under `torch.profiler`;
+11. timing — both fused steps and their plain versions at B = 512: the
+    device time per call in a CUDA graph of 50 calls (median of 20
+    replays, so the host's time per call does not enter it), beside
+    phase 7's cold-L2 reading, the host-paced back-to-back rate and the
+    bound.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000`` rehearses phases 3–7 on the CPU with the plain versions and then
-exits 3, also without a result.
+20000 --fit-scale 0.01`` rehearses phases 3–11 on the CPU with the plain
+versions and then exits 3, also without a result; on the card both
+sizes must keep their defaults, so a result always comes from the full
+configurations.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -53,6 +79,12 @@ F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 BATCHES = 64                # phase 5 micro-batches
 PROFILED = 16               # flushes under the profiler
 PROBE = 1024                # phase 6 probe users
+N_ITEMS = 1_000_000         # the serving catalog (phases 3–7)
+# the fit: the repo's ~100M-parameter LSH-MF model
+# (`examples/train_lshmf_100m.py`), 3 epochs
+FIT_M, FIT_N, FIT_NNZ, FIT_F, FIT_K, FIT_EPOCHS = (700_000, 30_000, 2_000_000,
+                                                   128, 64, 3)
+SGD_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's (tests/test_kernels.py)
 
 
 def make_catalog(N: int, device, *, seed: int = 0, F: int = 48,
@@ -124,11 +156,82 @@ def median_ms(fn, device, iters: int = 30, warmup: int = 3) -> float:
     return float(np.median([a.elapsed_time(b) for a, b in marks]))
 
 
+def graph_ms(fn, device, n: int = 50, reps: int = 20) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph, replayed ``reps`` times between two CUDA events (warm L2, as
+    the epoch loop finds freshly gathered tiles); the median per call.
+    The host launches each replay as one call, so its speed does not
+    enter the reading.  Host clock on the CPU (rehearsal only)."""
+    if device.type != "cuda":
+        return back_to_back_ms(fn, device, n)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm up off the capture stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    marks = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    out = float(np.median([a.elapsed_time(b) / n for a, b in marks]))
+    del graph
+    return out
+
+
+def back_to_back_ms(fn, device, n: int = 200) -> float:
+    """Time per call of ``n`` calls issued back to back (warm L2): the
+    rate a loop of launches sustains, which the host's time per call sets
+    when it exceeds the device's.  Host clock on the CPU."""
+    fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / F32_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_activity(prof):
+    """(activities, busy µs, {name: µs}) of a profile's device events; busy
+    is the union of their intervals."""
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    busy, end = 0.0, -np.inf
+    for a, b in sorted(spans):          # union of the device intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return spans, busy, by_name
 
 
 def profile_flushes(svc, batches) -> None:
@@ -144,17 +247,7 @@ def profile_flushes(svc, batches) -> None:
         svc.flush()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (
-                e.time_range.end - e.time_range.start)
-    busy, end = 0.0, -np.inf
-    for a, b in sorted(spans):          # union of the device intervals
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+    spans, busy, by_name = device_activity(prof)
     svc.take_results()
     print(f"[5 profile] {len(batches)} flushes: host wall {wall_us:.0f} us, "
           f"device busy {busy:.0f} us ({busy / wall_us:.3f} of the wall), "
@@ -164,20 +257,325 @@ def profile_flushes(svc, batches) -> None:
               f"{name[:90]}", flush=True)
 
 
+def megabytes(*ts) -> float:
+    return sum(t.numel() * t.element_size() for t in ts) / 1e6
+
+
+def check_sgd(got, want, valid, inputs) -> float:
+    """Hold a fused step's outputs against its plain version's (rtol 1e-5,
+    atol 1e-6) and its invalid rows against ``inputs`` (bit for bit);
+    → the largest absolute error."""
+    err = 0.0
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SGD_TOL)
+        err = max(err, float((g - w).abs().max()))
+    off = valid == 0
+    for g, x in zip(got, inputs):
+        if not torch.equal(g[off], x[off]):
+            raise AssertionError("an invalid row of a fused step changed")
+    return err
+
+
+def fit_phases(args, dev, on_card: bool, power: str) -> list:
+    """Phases 8–11: the offline CULSH-MF fit (`train.trainer.fit`) at the
+    width of the repo's ~100M-parameter model; → the two fused steps'
+    entries of the kernels line."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import prng
+    from repro_torch.core import model, sgd, simlsh, topk
+    from repro_torch.data import synthetic
+    from repro_torch.data.sparse import (conflict_free_schedule, from_coo,
+                                         train_test_split)
+    from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
+    from repro_torch.kernels.mf_sgd.ops import (apply_culsh_sgd, culsh_hyper,
+                                                mf_hyper)
+    from repro_torch.kernels.mf_sgd.ref import (culsh_sgd_step_ref,
+                                                mf_sgd_step_ref)
+    from repro_torch.train.trainer import FitConfig, fit
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    secs = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    # ---- 8. fit set-up: the stages `fit` runs, each timed ----
+    M = max(1, int(FIT_M * args.fit_scale))
+    N = max(1, int(FIT_N * args.fit_scale))
+    nnz = int(FIT_NNZ * args.fit_scale)
+    F, K = FIT_F, FIT_K
+    cfg = FitConfig(F=F, K=K, epochs=FIT_EPOCHS, method="simlsh",
+                    lsh=simlsh.SimLSHConfig(G=8, p=1, q=10, band_cap=16),
+                    seed=args.seed, use_kernels=True)
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=M, N=N, nnz=nnz)
+
+    def data():
+        rows, cols, vals, _ = synthetic.generate(spec, seed=args.seed)
+        return train_test_split(np.random.default_rng(args.seed), rows,
+                                cols, vals)
+
+    tr, te = stage("data", data)
+    k_nb, k_init, k_ep = prng.split(prng.PRNGKey(cfg.seed), 3)  # as `fit`
+    k_sig, k_top = prng.split(k_nb)
+    sp = stage("from_coo", lambda: from_coo(*tr, (M, N), device=dev))
+    sigs = stage("encode", lambda: simlsh.encode(sp, cfg.lsh, k_sig))
+    flips = simlsh.encode(sp, cfg.lsh, k_sig) ^ sigs
+    flipped = int(sum(((flips >> b) & 1).sum()
+                      for b in range(cfg.lsh.sig_bits)))
+    JK = stage("topk_from_signatures", lambda: topk.topk_from_signatures(
+        sigs, k_top, K=K, band_cap=cfg.lsh.band_cap))
+    sched = stage("conflict_free_schedule (host)",
+                  lambda: conflict_free_schedule(
+                      sp.rows.cpu().numpy(), sp.cols.cpu().numpy(),
+                      batch=cfg.cf_batch, tiers=cfg.tiers,
+                      tier_shrink=cfg.tier_shrink,
+                      min_fill_frac=cfg.min_fill_frac, shards=1, M=M, N=N,
+                      seed=cfg.seed))
+    sd = stage("build_scheduled_data",
+               lambda: model.build_scheduled_data(sp, JK, sched))
+    te_r, te_c, te_v = (torch.as_tensor(a, device=dev) for a in te)
+    ec = stage("build_eval_cache",
+               lambda: model.build_eval_cache(sp, JK, te_r, te_c))
+    pp = model.pack_params(model.init_from_data(k_init, sp, F, K))
+    fields = lambda x: [getattr(x, f.name) for f in dataclasses.fields(x)]
+    resident = dict(ratings=megabytes(sp.rows, sp.cols, sp.vals),
+                    row_plane=megabytes(pp.row), col_plane=megabytes(pp.col),
+                    scheduled_data=megabytes(*fields(sd)),
+                    eval_cache=megabytes(*fields(ec)), JK=megabytes(JK))
+    st = sched.stats()
+    print(f"[8 setup] M={M} N={N} F={F} K={K}: {sp.nnz} train + "
+          f"{te_v.numel()} test ratings; seconds: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()), flush=True)
+    print(f"[8 setup] resident MB: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in resident.items())
+          + f"; total {sum(resident.values()):.1f}", flush=True)
+    print(f"[8 setup] schedule: cf_frac {st['cf_frac']:.4f}, {st['nb_cf']} "
+          f"conflict-free steps + {st['nb_lo']} leftover batches; "
+          + "; ".join(f"width {t['width']}: {t['rounds']} steps, fill "
+                      f"{t['fill']:.3f}" for t in st["tiers"]), flush=True)
+    print(f"[8 setup] encode run twice: {flipped} of "
+          f"{sigs.numel() * cfg.lsh.sig_bits} signature bits differ",
+          flush=True)
+
+    # ---- 9. kernel vs plain, on tiles gathered from the fit's state ----
+    decay = sgd.lr_decay(cfg.hp, 0, dev)
+    hpv = culsh_hyper(cfg.hp, decay, pp.mu)
+    hmf = mf_hyper(cfg.hp, decay, dev)
+
+    def window(t, k):
+        return model.slice_batch(sd, int(sched.tier_starts[t][k]),
+                                 sched.widths[t], torch.as_tensor(
+                                     sched.tier_valid[t][k], device=dev).float())
+
+    def tiles(bt):
+        return [pp.row[bt.i.long()], pp.col[bt.j.long()], bt.rnb,
+                pp.bh[bt.nb.long()], bt.expl, bt.r, bt.valid, hpv]
+
+    bt = window(0, 0)
+    W0 = sched.widths[0]
+    base = tiles(bt)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    wc = list(base)                     # W and C as a trained state has them
+    wc[1] = base[1].clone()
+    wc[1][:, F:F + 2 * K] = 0.1 * torch.randn((W0, 2 * K), generator=gen,
+                                              device=dev)
+    cut = lambda a, n: [t[:n].contiguous() for t in a[:7]] + [a[7]]
+    off = list(base)
+    off[6] = torch.zeros_like(base[6])
+    last_t = max(t for t, s in enumerate(sched.tier_starts) if len(s))
+    padded_real = tiles(window(last_t, -1))   # a tier's last, partial batch
+    culsh_cases = {f"B={W0}": base, f"B={W0} random W,C": wc,
+                   "B=7": cut(wc, 7), "B=250": cut(wc, 250),
+                   "all invalid": off,
+                   f"last batch of width {sched.widths[last_t]} "
+                   f"({int(padded_real[6].sum())} valid)": padded_real}
+    culsh_err = 0.0
+    for a in culsh_cases.values():
+        for bce in (False, True):
+            culsh_err = max(culsh_err, check_sgd(
+                sgd_kernel.culsh_sgd_step(*a, bce=bce),
+                culsh_sgd_step_ref(*a, bce=bce), a[6], a[:2]))
+    mfa = lambda a: [a[0][:, :F].contiguous(), a[1][:, :F].contiguous(),
+                     a[5], a[6], hmf]
+    mf_err = 0.0
+    for a in culsh_cases.values():
+        for bce in (False, True):
+            m = mfa(a)
+            mf_err = max(mf_err, check_sgd(
+                sgd_kernel.mf_sgd_step(*m, bce=bce),
+                mf_sgd_step_ref(*m, bce=bce), m[3], m[:2]))
+    # padding slots that repeat live ids add exactly nothing to the planes
+    q = W0 // 4
+    i2, j2, v2 = bt.i.clone(), bt.j.clone(), bt.valid.clone()
+    i2[-q:], j2[-q:], v2[-q:] = bt.i[:q], bt.j[:q], 0.0
+    with_pad = dataclasses.replace(bt, i=i2, j=j2, valid=v2)
+    live = model.Batch(*(getattr(with_pad, f.name)[:W0 - q]
+                         for f in dataclasses.fields(bt)))
+    planes = [dataclasses.replace(pp, row=pp.row.clone(), col=pp.col.clone())
+              for _ in range(2)]
+    apply_culsh_sgd(planes[0], with_pad, hpv)
+    apply_culsh_sgd(planes[1], live, hpv)
+    if not (torch.equal(planes[0].row, planes[1].row)
+            and torch.equal(planes[0].col, planes[1].col)):
+        raise AssertionError("padding slots that repeat live ids changed "
+                             "the planes")
+    del planes
+    print(f"[9 check] culsh_sgd_step within rtol 1e-5 / atol 1e-6 (max abs "
+          f"err {culsh_err:.3g}) and mf_sgd_step (max abs err "
+          f"{mf_err:.3g}), BCE both ways, invalid rows bit for bit "
+          f"unchanged, on: " + ", ".join(culsh_cases) + f"; {q} padding "
+          f"slots repeating live i/j add nothing to the planes", flush=True)
+
+    # ---- 10. fit: the main path, counters zeroed just before each run ----
+    log = lambda tag: (lambda s: print(f"[10 fit {tag}] {s}", flush=True))
+    sgd_kernel.CULSH_LAUNCHES = 0
+    res = fit(tr, te, (M, N), cfg, log=log("kernels"), device=dev)
+    culsh_launches = sgd_kernel.CULSH_LAUNCHES
+    nb_cf = res.schedule_stats["nb_cf"]
+    rm = [h[2] for h in res.history]
+    ep_secs = np.diff([0.0] + [h[1] for h in res.history])
+    reg = res.registry
+    for (ep, _, r), s in zip(res.history, ep_secs):
+        print(f"[10 fit] epoch {ep}: {s:.3f} s, {sp.nnz / s:.0f} updates/s, "
+              f"rmse {r:.6f}", flush=True)
+    print(f"[10 fit] fit spans (s): " + ", ".join(
+        f"{n} {reg.span_durations(n)[-1]:.3f}" for n in (
+            "train.neighbours", "train.prep.schedule", "train.prep.pack",
+            "train.prep.eval_cache")) + f"; culsh_sgd_step launches "
+          f"{culsh_launches} = {nb_cf} conflict-free steps x {cfg.epochs} "
+          f"epochs", flush=True)
+    if not (np.isfinite(rm).all() and rm[-1] < rm[0]):
+        raise AssertionError(f"the fit did not train: rmse {rm}")
+    if on_card and culsh_launches != nb_cf * cfg.epochs:
+        raise AssertionError(f"culsh_sgd_step launched {culsh_launches} "
+                             f"times, expected {nb_cf * cfg.epochs}")
+    if on_card and not torch.equal(res.JK, JK):
+        print("[10 fit] J^K differs from phase 8's (signature bits flipped "
+              "between encodes)", flush=True)
+    plain = fit(tr, te, (M, N), dataclasses.replace(cfg, use_kernels=False),
+                log=log("plain"), device=dev)
+    rp = [h[2] for h in plain.history]
+    print(f"[10 fit] rmse with kernels {rm}; plain steps {rp}; final "
+          f"difference {abs(rm[-1] - rp[-1]):.3g} (limit 1e-3)", flush=True)
+    if not abs(rm[-1] - rp[-1]) <= 1e-3:
+        raise AssertionError("the kernel fit's RMSE is off the plain fit's")
+    sgd_kernel.MF_LAUNCHES = 0
+    mf = fit(tr, te, (M, N), dataclasses.replace(cfg, method="none",
+                                                  epochs=1),
+             log=log("mf"), device=dev)
+    mf_launches = sgd_kernel.MF_LAUNCHES
+    print(f"[10 fit] method='none': mf_sgd_step launches {mf_launches} = "
+          f"{mf.schedule_stats['nb_cf']} conflict-free steps", flush=True)
+    if not np.isfinite(mf.history[-1][2]):
+        raise AssertionError("the plain MF fit diverged")
+    if on_card and mf_launches != mf.schedule_stats["nb_cf"]:
+        raise AssertionError(f"mf_sgd_step launched {mf_launches} times")
+    in_loop = {}
+    if on_card:   # one more epoch of each engine under the profiler
+        sd_mf = model.build_scheduled_data(sp, JK, sched, mf_only=True)
+        for name, state, data_, mf_only in (
+                ("culsh_sgd", model.pack_params(res.params), sd, False),
+                ("mf_sgd", model.pack_params(mf.params), sd_mf, True)):
+            sync()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                sgd.train_epoch_scheduled(
+                    state, data_, sched, prng.fold_in(k_ep, cfg.epochs),
+                    cfg.epochs, cfg.hp, mf_only=mf_only, use_kernels=True)
+                sync()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            spans, busy, by_name = device_activity(prof)
+            mine = [us for n, us in by_name.items() if f"{name}_kernel" in n]
+            in_loop[name] = sum(mine) / 1e3 / max(nb_cf, 1)
+            print(f"[10 profile] one {name} epoch: host wall {wall_us:.0f} "
+                  f"us, device busy {busy:.0f} us ({busy / wall_us:.3f} of "
+                  f"the wall), {len(spans)} device activities, "
+                  f"{in_loop[name]:.5f} ms per kernel launch", flush=True)
+            for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+                print(f"[10 profile]   {us / 1e3:9.2f} ms  {n[:90]}",
+                      flush=True)
+        # the profiles hold ~10⁵ Python objects; free them so no collector
+        # pause lands in phase 11's timed host gaps
+        del prof, spans
+        gc.collect()
+
+    # ---- 11. time each fused step and its plain version at B = W0 ----
+    # `ms` and `plain_ms` are device times from CUDA graphs; the cold-L2
+    # event reading and the back-to-back rate are printed beside them
+    m = mfa(base)
+    steps = dict(culsh_sgd=(lambda: sgd_kernel.culsh_sgd_step(*base),
+                            lambda: culsh_sgd_step_ref(*base)),
+                 mf_sgd=(lambda: sgd_kernel.mf_sgd_step(*m),
+                         lambda: mf_sgd_step_ref(*m)))
+    timed = {name: dict(ms=graph_ms(kern, dev), plain=graph_ms(pl, dev),
+                        cold=median_ms(kern, dev),
+                        b2b=back_to_back_ms(kern, dev))
+             for name, (kern, pl) in steps.items()}
+    # bytes: every tile read once and both outputs written once;
+    # operations: the forward and the update of one sample (14 per factor,
+    # 30 per neighbour slot, ~30 scalar) for each of the B samples
+    culsh_bound, culsh_by = bound_ms(
+        4 * (2 * W0 * (F + 1) + 2 * W0 * (F + 2 * K + 1) + 3 * W0 * K
+             + 2 * W0 + 13), W0 * (14 * F + 30 * K + 30))
+    mf_bound, mf_by = bound_ms(4 * (4 * W0 * F + 3 * W0 + 4),
+                               W0 * (14 * F + 10))
+    bounds = dict(culsh_sgd=(culsh_bound, culsh_by),
+                  mf_sgd=(mf_bound, mf_by))
+    for name, t in timed.items():
+        bnd, by = bounds[name]
+        print(f"[11 time] {name}_step at B={W0} F={F} K={K}: kernel "
+              f"{t['ms']:.5f} ms (CUDA graph of 50 calls, median of 20 "
+              f"replays), {t['cold']:.4f} ms cold L2 behind the scrub, "
+              f"{t['b2b']:.4f} ms per call back to back (host-paced), "
+              f"{in_loop.get(name, float('nan')):.5f} ms per launch in the "
+              f"profiled epoch; plain version {t['plain']:.5f} ms (CUDA "
+              f"graph); bound {bnd:.5f} ms ({by}); no single PyTorch call "
+              f"computes the fused step (power limit {power})", flush=True)
+    return [
+        dict(name="culsh_sgd_step", route="cuda",
+             source="src/repro_torch/csrc/culsh_sgd.cu",
+             replaces="src/repro/kernels/mf_sgd/kernel.py:126",
+             launches=culsh_launches, max_abs_err=culsh_err,
+             ms=timed["culsh_sgd"]["ms"], plain_ms=timed["culsh_sgd"]["plain"],
+             bound_ms=culsh_bound, bound_by=culsh_by, library_ms=None),
+        dict(name="mf_sgd_step", route="cuda",
+             source="src/repro_torch/csrc/mf_sgd.cu",
+             replaces="src/repro/kernels/mf_sgd/kernel.py:160",
+             launches=mf_launches, max_abs_err=mf_err,
+             ms=timed["mf_sgd"]["ms"], plain_ms=timed["mf_sgd"]["plain"],
+             bound_ms=mf_bound, bound_by=mf_by, library_ms=None),
+    ]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
                     help="cuda (the smoke run) or cpu (rehearsal, no result)")
-    ap.add_argument("--n-items", type=int, default=1_000_000)
+    ap.add_argument("--n-items", type=int, default=N_ITEMS,
+                    help="serving catalog size (rehearsal only)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fit-scale", type=float, default=1.0,
+                    help="scale of the fit's M, N and nnz (rehearsal only)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     on_card = dev.type == "cuda"
     if on_card and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — nothing was run", file=sys.stderr)
         return 2
+    if on_card and (args.n_items != N_ITEMS or args.fit_scale != 1.0):
+        print("chip_smoke: --n-items and --fit-scale are for the CPU "
+              "rehearsal; the card runs the full configurations",
+              file=sys.stderr)
+        return 2
 
-    from repro_torch import convert
+    from repro_torch import convert, prng
     from repro_torch.core import simlsh
     from repro_torch.core.topk import SENTINEL
     from repro_torch.data.sparse import from_coo
@@ -220,14 +618,14 @@ def main(argv=None) -> int:
     sp = from_coo(rows, cols, vals, (M, N), device=dev)
     del rows, cols, vals
     lsh = simlsh.SimLSHConfig(G=9, p=2, q=10, band_cap=16)
-    sigs = simlsh.encode(sp, lsh, seed=args.seed)
+    sigs = simlsh.encode(sp, lsh, prng.PRNGKey(args.seed, device=dev))
     index = build_index(sigs, tail_cap=128, device=dev)
     cfg = ServeConfig(topn=10, micro_batch=256, C=768, n_seeds=16, cap=8,
                       n_popular=64, tile_b=16, band_budget=768)
     svc = RecsysService(params, index, sp, cfg, device=dev)
     if on_card:
         torch.cuda.synchronize()
-    mb = lambda *ts: sum(t.numel() * t.element_size() for t in ts) / 1e6
+    mb = megabytes
     idx_t = [getattr(index, f) for f in ("sorted_sigs", "sorted_ids",
                                          "bucket_lo", "bucket_hi", "slot_of")]
     print(f"[3 state] N={N} M={M} nnz={sp.nnz} F={svc.planes.F} in "
@@ -388,6 +786,7 @@ def main(argv=None) -> int:
              ms=sc_ms, plain_ms=sc_plain, bound_ms=sc_bound,
              bound_by=sc_by, library_ms=None),
     ]
+    kernels += fit_phases(args, dev, on_card, power)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

@@ -1,7 +1,8 @@
 """Carry trained state between the JAX package and the port as numpy.
 
-A state trained by the JAX package (its `Params` leaves, its
-`SparseMatrix` arrays, its `simlsh.encode` signatures) enters the port
+A state trained by the JAX package (its `Params` leaves or packed
+training planes, its `SparseMatrix` arrays, its `simlsh.encode`
+signatures, the `jax.random` key a fit goes on from) enters the port
 through these functions, so both packages compute from identical state;
 `to_numpy` goes the other way.  Only numpy and torch are imported here.
 """
@@ -12,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.model import Params
+from repro_torch.core.model import PackedParams, Params
 from repro_torch.data.sparse import SparseMatrix, from_coo
 from repro_torch.device import resolve_device
 from repro_torch.serve.index import LSHIndex, build_index
@@ -24,6 +25,32 @@ def params_from_numpy(U, V, b, bh, W, C, mu, device=None) -> Params:
     f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     return Params(U=f(U), V=f(V), b=f(b), bh=f(bh), W=f(W), C=f(C),
                   mu=f(mu).reshape(()))
+
+
+def packed_from_numpy(row, col, mu, F: int, K: int,
+                      device=None) -> PackedParams:
+    """The two training planes (the JAX package's `PackedParams.row` /
+    ``.col``, as numpy) → `PackedParams`.  `to_numpy` is the inverse."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    row, col = f(row), f(col)
+    if row.shape[1] != F + 1 or col.shape[1] != F + 2 * K + 1:
+        raise ValueError(f"planes {tuple(row.shape)}, {tuple(col.shape)} do "
+                         f"not fit F={F}, K={K}")
+    return PackedParams(row=row, col=col, mu=f(mu).reshape(()), F=int(F),
+                        K=int(K))
+
+
+def key_from_numpy(key, device="cpu") -> torch.Tensor:
+    """A JAX key's ``uint32[..., 2]`` words (``np.asarray`` of a legacy
+    `jax.random.PRNGKey`, or `jax.random.key_data` of a typed key) → the
+    port's `prng` key.  Keys stay on the CPU unless asked: the fit draws
+    its batch order on the host."""
+    a = np.asarray(key)
+    if a.shape[-1:] != (2,) or a.dtype != np.uint32:
+        raise ValueError(f"expected uint32[..., 2] key words, got "
+                         f"{a.dtype}{list(a.shape)}")
+    return torch.tensor(a.astype(np.int64), device=torch.device(device))
 
 
 def sparse_from_numpy(rows, cols, vals, shape, device=None) -> SparseMatrix:

@@ -5,13 +5,13 @@ where H_i is a random G-bit string per row i, Φ maps {0,1}→{−1,+1},
 Ψ is a rating weighting (r^ψ) and Υ = sign→bit.  A *coarse* group ANDs p
 hashes into one p·G-bit signature and q such bands are ORed.
 
-Φ rows are generated functionally from (seed, band, row id), so any row
+Φ rows are generated functionally from (key, band, row id), so any row
 id — including rows that arrive later — maps to a fixed hash row without
-storing H.  The port's generator is its own counter-based integer hash,
-not JAX's threefry: the same seed gives other bits than the JAX package
-(see `phi_rows`).  Every function that draws Φ therefore also takes a
-precomputed Φ, which is how the parity tests feed both packages the
-same rows.
+storing H.  The draws are `jax.random`'s threefry, reproduced bit for bit
+by `repro_torch.prng`, so the same key gives the JAX package's Φ and
+signatures (up to the summation order of the segment sum, see
+`band_accumulate`).  Every function that draws Φ also takes precomputed
+rows (``phi=``).
 """
 from __future__ import annotations
 
@@ -19,9 +19,8 @@ import dataclasses
 
 import torch
 
+from repro_torch import prng
 from repro_torch.data.sparse import SparseMatrix
-
-_M32 = 0xFFFFFFFF
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,37 +50,13 @@ def psi(vals: torch.Tensor, psi_pow: float, psi_mode: str = "pow",
     return torch.pow(vals, psi_pow)
 
 
-def _mul32(x, c: int):
-    """(x · c) mod 2³² for x in [0, 2³²) (int64 tensor or int) and a 32-bit
-    constant c, split so that no partial product reaches 2⁶³."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _fmix32(x):
-    """MurmurHash3's 32-bit finalizer (full avalanche)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
-
-
-def phi_rows(seed: int, band: int, ids: torch.Tensor,
+def phi_rows(key: torch.Tensor, band: int, ids: torch.Tensor,
              bits: int) -> torch.Tensor:
-    """±1 hash rows Φ(H_i) for arbitrary row ids → [len(ids), bits] f32.
-
-    Stateless and keyed by (seed, band, id) like the JAX package's
-    ``rademacher(fold_in(fold_in(key, band), id))``, so it stays
-    online-safe; but it is a counter-based integer hash (MurmurHash3's
-    finalizer over the key), NOT threefry, and does not reproduce the
-    JAX package's bits."""
-    k = _fmix32(_fmix32(int(seed) & _M32) ^ (int(band) & _M32))
-    h = _fmix32(_mul32(ids.to(torch.int64) & _M32, 0x9E3779B1) ^ k)
-    g = _mul32(torch.arange(1, bits + 1, dtype=torch.int64,
-                            device=ids.device), 0x85EBCA77)
-    h = _fmix32(h[:, None] ^ g[None, :])
-    return (1 - 2 * (h >> 31)).to(torch.float32)
+    """±1 hash rows Φ(H_i) for arbitrary row ids → [len(ids), bits] f32,
+    on ``ids``' device: ``rademacher(fold_in(fold_in(key, band), i))``
+    per id, equal to the JAX package's `phi_rows` bit for bit."""
+    kb = prng.fold_in(key.to(ids.device), band)
+    return prng.rademacher(prng.fold_in(kb, ids.to(torch.int64)), (bits,))
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -91,38 +66,42 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return (bits.to(torch.int32) * w).sum(-1, dtype=torch.int32)
 
 
-def band_accumulate(sp_rows, sp_cols, sp_vals, seed: int, band: int, *,
+def band_accumulate(sp_rows, sp_cols, sp_vals, key, band: int, *,
                     N: int, bits: int, psi_pow: float, psi_mode: str = "pow",
                     psi_center: float = 0.0,
                     phi: torch.Tensor | None = None) -> torch.Tensor:
     """Pre-sign accumulator S_j = Σ Ψ(r_ij) Φ(H_i) for one band → [N, bits].
 
-    ``phi`` [nnz, bits], when given, replaces the port's own Φ rows (one
-    per COO entry, e.g. the JAX package's `phi_rows(key, band, rows)`).
-    Otherwise Φ is drawn once per distinct row id and gathered per entry.
+    ``phi`` [nnz, bits], when given, replaces the drawn Φ rows (one per
+    COO entry).  Otherwise Φ is drawn from ``key`` once per row id and
+    gathered per entry — the same rows the JAX package draws per entry.
     The segment sum is an `index_add_`, whose summation order differs
     from JAX's `segment_sum`: accumulators near 0 may change sign."""
     if phi is None:
         n_rows = int(sp_rows.max()) + 1 if sp_rows.numel() else 0
-        table = phi_rows(seed, band, torch.arange(n_rows, device=sp_rows.device),
-                         bits)
+        table = phi_rows(key, band,
+                         torch.arange(n_rows, device=sp_rows.device), bits)
         phi = table[sp_rows.long()]
     contrib = psi(sp_vals, psi_pow, psi_mode, psi_center)[:, None] * phi
     S = torch.zeros((N, bits), dtype=torch.float32, device=sp_vals.device)
     return S.index_add_(0, sp_cols.long(), contrib)
 
 
-def encode(sp: SparseMatrix, cfg: SimLSHConfig, seed: int = 0, *,
+def encode(sp: SparseMatrix, cfg: SimLSHConfig,
+           key: torch.Tensor | None = None, *,
            phi: torch.Tensor | None = None,
            return_accumulators: bool = False):
     """All q band signatures → sigs [q, N] int32, on ``sp``'s device (and
     the accumulators [q, N, p·G] f32 when requested).  ``phi`` [q, nnz,
     p·G], when given, supplies each band's Φ rows (see
-    `band_accumulate`)."""
+    `band_accumulate`); otherwise they are drawn from the `prng` key
+    ``key``, as the JAX package's `encode(sp, cfg, key)` draws them."""
+    if key is None and phi is None:
+        raise ValueError("encode needs a prng key or precomputed phi rows")
     sigs, accs = [], []
     for band in range(cfg.q):
         S = band_accumulate(
-            sp.rows, sp.cols, sp.vals, seed, band, N=sp.N, bits=cfg.sig_bits,
+            sp.rows, sp.cols, sp.vals, key, band, N=sp.N, bits=cfg.sig_bits,
             psi_pow=cfg.psi_pow, psi_mode=cfg.psi_mode,
             psi_center=cfg.psi_center,
             phi=None if phi is None else phi[band])

@@ -40,6 +40,12 @@ SIGNATURES = {
     # urow, plane, cand, mask, scores, idx, B, C, Fp1, topn, N, stream
     "candidate_score_topn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                     _L, _P],
+    # row, col, rnb, bh_nb, expl, r, valid, hp, row_out, col_out, B, F, K,
+    # bce, stream
+    "culsh_sgd_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                              _I, _I, _P],
+    # u, v, r, valid, hp, u_out, v_out, e_out, B, F, bce, stream
+    "mf_sgd_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

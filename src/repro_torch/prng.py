@@ -1,0 +1,195 @@
+"""`jax.random`'s threefry2x32 draws, reproduced bit for bit in PyTorch.
+
+The fit draws every random choice from `jax.random` keys: the Φ hash rows
+of simLSH, the random fill of J^K, the initial factors and each epoch's
+batch order.  For the port to give the same signatures, neighbours and
+schedule as the JAX package from the same seed, it reproduces those
+draws here rather than taking a `torch.Generator`.  The algorithms are
+those of jax 0.9's `jax/_src/prng.py` (`threefry_2x32`,
+`_threefry_split_foldlike`, `threefry_fold_in`,
+`_threefry_random_bits_partitionable`) and `jax/_src/random.py`
+(`_uniform`, `_randint`, `_shuffle`, `_normal_real`, `_rademacher`), in
+the ``jax_threefry_partitionable = True`` mode that jax 0.9 defaults to.
+
+A key is an int64 tensor of shape ``[..., 2]`` holding two uint32 words,
+the layout of JAX's legacy ``uint32[2]`` keys.  Every uint32 operation is
+done on int64 tensors and masked to 32 bits, so nothing relies on
+unsigned tensor types.  Integer draws (keys, bits, `randint`,
+`permutation`, `rademacher`) equal JAX's exactly; `normal` goes through
+`torch.erfinv`, which may differ from XLA's by a few ulp.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+
+
+def _rotl(x, r: int):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The Threefry-2x32 block cipher (20 rounds) on uint32 words held in
+    int64 tensors or ints; all four operands broadcast."""
+    ks = (k1, k2, k1 ^ k2 ^ _KS_PARITY)
+    x1 = (x1 + ks[0]) & M32
+    x2 = (x2 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & M32
+    return x1, x2
+
+
+def _words(key: torch.Tensor, device):
+    """A key's two words as int64 tensors shaped ``[..., 1]`` on
+    ``device`` (a batch of keys broadcasts against a counter vector)."""
+    key = key.to(device=device, dtype=torch.int64)
+    return key[..., 0:1], key[..., 1:2]
+
+
+def _counter(n: int, device):
+    """`iota_2x32_shape`: the flat index 0..n-1 as (high, low) words."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & M32
+
+
+def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)`: ``[0, seed mod 2³²]`` for a seed that
+    fits in int32 (JAX's 32-bit mode)."""
+    seed = int(seed)
+    if not -2 ** 31 <= seed < 2 ** 31:
+        raise ValueError(f"seed must fit in int32, got {seed}")
+    return torch.tensor([0, seed & M32], dtype=torch.int64, device=device)
+
+
+def split(key: torch.Tensor, num=2) -> torch.Tensor:
+    """`jax.random.split(key, num)` → keys ``[*shape, 2]``."""
+    shape = (num,) if isinstance(num, int) else tuple(num)
+    k1, k2 = _words(key, key.device)
+    hi, lo = _counter(math.prod(shape), key.device)
+    b1, b2 = threefry2x32(k1[0], k2[0], hi, lo)
+    return torch.stack([b1, b2], dim=-1).reshape(*shape, 2)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """`jax.random.fold_in(key, data)`.  ``data`` may be a tensor of ids,
+    which folds each into the same key (→ ``[*data.shape, 2]``), as a
+    `vmap` of `fold_in` over the ids would."""
+    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & M32
+    k1, k2 = (w[..., 0] for w in _words(key, key.device))
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(d), d)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def random_bits(key: torch.Tensor, shape, device=None) -> torch.Tensor:
+    """32 random bits per element (`jax.random.bits(key, shape)`) as an
+    int64 tensor in [0, 2³²).  A batch of keys ``[..., 2]`` gives
+    ``[..., *shape]``, one draw per key."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    device = key.device if device is None else torch.device(device)
+    k1, k2 = _words(key, device)
+    hi, lo = _counter(math.prod(shape), device)
+    b1, b2 = threefry2x32(k1, k2, hi, lo)
+    return (b1 ^ b2).reshape(*key.shape[:-1], *shape)
+
+
+def _f32(x) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32)
+
+
+def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
+    """`jax.random.uniform` in float32: the top 23 bits become the
+    mantissa of a float in [1, 2), shifted and scaled to [minval, maxval)."""
+    bits = random_bits(key, shape, device)
+    one = 0x3F800000
+    f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = _f32(minval).to(f.device), _f32(maxval).to(f.device)
+    # XLA fuses f·(hi − lo) + lo into one FMA: one rounding, from float64
+    scaled = (f.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
+
+
+# XLA's single-precision erfinv (M. Giles' polynomials in w = −log(1−x²),
+# for w < 5 and w ≥ 5), highest-order coefficient first
+_ERFINV_LO = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_HI = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613,
+              0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv(x: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 erfinv.  Each Horner step is one rounding of
+    c + p·w (XLA fuses it into an FMA), taken here in float64."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    coef = lambda a, b: torch.where(lt, _f32(a).to(x.device),
+                                    _f32(b).to(x.device))
+    p = coef(_ERFINV_LO[0], _ERFINV_HI[0])
+    for a, b in zip(_ERFINV_LO[1:], _ERFINV_HI[1:]):
+        p = (coef(a, b).double() + p.double() * w).float()
+    return p * x
+
+
+def normal(key, shape, device=None) -> torch.Tensor:
+    """`jax.random.normal` in float32: √2·erfinv(u), u uniform in
+    (−1, 1).  `log1p` differs between libraries, so a draw may differ
+    from JAX's by a few ulp (at most 3 measured; 99 % are equal)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
+    u = uniform(key, shape, float(lo), 1.0, device)
+    return _f32(np.sqrt(2)).to(u.device) * _erfinv(u)
+
+
+def _mul32(x, c: int):
+    """(x · c) mod 2³² for x in [0, 2³²) and 0 ≤ c < 2³², without a
+    partial product reaching 2⁶³."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & M32
+
+
+def randint(key, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
+    """`jax.random.randint(key, shape, minval, maxval)` for int32: two
+    32-bit draws folded modulo the span (JAX's biased-but-cheap rule)."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
+        raise ValueError("randint: bounds must fit in int32")
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    span = 1 if maxval <= minval else (maxval - minval) & M32
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & M32) % span        # a uint32 product: it wraps
+    off = ((_mul32(higher % span, mult) + lower % span) & M32) % span
+    out = (minval + off) & M32
+    return torch.where(out >= 2 ** 31, out - 2 ** 32, out).to(torch.int32)
+
+
+def permutation(key: torch.Tensor, n: int) -> torch.Tensor:
+    """`jax.random.permutation(key, n)`: rounds of a stable sort of
+    0..n-1 by fresh 32-bit keys (JAX's `_shuffle`) → int64 [n]."""
+    n = int(n)
+    x = torch.arange(n, dtype=torch.int64, device=key.device)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(M32)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = torch.sort(random_bits(sub, n), stable=True).indices
+        x = x[order]
+    return x
+
+
+def rademacher(key, shape, device=None) -> torch.Tensor:
+    """`jax.random.rademacher` in float32: +1 where a uniform draw is
+    below ½ (JAX's `bernoulli(key, 0.5)`), −1 elsewhere."""
+    return torch.where(uniform(key, shape, device=device) < 0.5, 1.0,
+                       -1.0).to(torch.float32)

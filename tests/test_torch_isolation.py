@@ -32,6 +32,10 @@ def test_the_port_has_its_files():
     names = {p.relative_to(ROOT).as_posix() for p in FILES}
     assert "chip_smoke.py" in names
     assert "src/repro_torch/serve/service.py" in names
+    assert {"src/repro_torch/prng.py", "src/repro_torch/core/sgd.py",
+            "src/repro_torch/data/synthetic.py",
+            "src/repro_torch/kernels/mf_sgd/kernel.py",
+            "src/repro_torch/train/trainer.py"} <= names
     assert len(names) >= 20
 
 

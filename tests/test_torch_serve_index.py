@@ -30,7 +30,7 @@ from repro.serve import seed_items as jseed
 from repro.serve import tail_hits as jtail
 from repro.serve import window_slices as jwindows
 from repro.serve.index import _sig_of_items as jsig_of
-from repro_torch import convert
+from repro_torch import convert, prng
 from repro_torch.core import simlsh
 from repro_torch.core.model import pack_serve_planes, unpack_serve_planes
 from repro_torch.data.sparse import from_coo
@@ -161,7 +161,8 @@ def test_band_accumulate_matches_jax_given_its_phi(state, band):
         bits=cfg.sig_bits, psi_pow=cfg.psi_pow))
     tsp = ts["sp"]
     got = simlsh.band_accumulate(
-        tsp.rows, tsp.cols, tsp.vals, 0, band, N=tsp.N, bits=cfg.sig_bits,
+        tsp.rows, tsp.cols, tsp.vals, prng.PRNGKey(0), band, N=tsp.N,
+        bits=cfg.sig_bits,
         psi_pow=cfg.psi_pow, phi=torch.tensor(phi)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-3)
     flips = (got >= 0) != (want >= 0)
@@ -189,28 +190,39 @@ def test_encode_with_jax_phi_gives_jax_signatures(state):
 
 def test_phi_rows_is_stateless_signed_and_keyed_by_id():
     ids = torch.arange(5000)
-    a = simlsh.phi_rows(7, 2, ids, 18)
+    a = simlsh.phi_rows(prng.PRNGKey(7), 2, ids, 18)
     assert a.shape == (5000, 18) and a.dtype == torch.float32
     assert set(a.unique().tolist()) == {-1.0, 1.0}
-    # a row depends on (seed, band, id) only, not on the batch it is in
+    # a row depends on (key, band, id) only, not on the batch it is in
     sub = torch.tensor([4999, 3, 1234])
-    assert torch.equal(simlsh.phi_rows(7, 2, sub, 18), a[sub])
-    assert not torch.equal(simlsh.phi_rows(8, 2, ids, 18), a)
-    assert not torch.equal(simlsh.phi_rows(7, 3, ids, 18), a)
+    assert torch.equal(simlsh.phi_rows(prng.PRNGKey(7), 2, sub, 18), a[sub])
+    assert not torch.equal(simlsh.phi_rows(prng.PRNGKey(8), 2, ids, 18), a)
+    assert not torch.equal(simlsh.phi_rows(prng.PRNGKey(7), 3, ids, 18), a)
     assert abs(float(a.mean())) < 0.02            # balanced bits
     # distinct bits of one row are not copies of each other
     assert float((a[:, 0] == a[:, 1]).float().mean()) < 0.55
+    # and they are the JAX package's threefry rows, bit for bit
+    want = jsim.phi_rows(jax.random.PRNGKey(7), jnp.asarray(2),
+                         jnp.arange(5000), 18)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(want))
 
 
 def test_own_encode_is_deterministic_and_recalls_groups():
-    """Without Φ from JAX the port draws its own: signatures differ from
-    the JAX package's, but items of one planted group still collide."""
+    """Drawing its own threefry Φ from a key, the port gives the JAX
+    package's signatures (bits may differ only where an accumulator is
+    within 1e-5 of 0), and items of one planted group collide."""
     _, _, _, rows, cols, vals, M = planted_catalog(1000)
     sp = from_coo(rows, cols, vals, (M, 1000), device="cpu")
     cfg = simlsh.SimLSHConfig(**LSH)
-    s1 = simlsh.encode(sp, cfg, seed=3)
-    assert torch.equal(s1, simlsh.encode(sp, cfg, seed=3))
+    s1, S = simlsh.encode(sp, cfg, prng.PRNGKey(3), return_accumulators=True)
+    assert torch.equal(s1, simlsh.encode(sp, cfg, prng.PRNGKey(3)))
     assert s1.dtype == torch.int32 and s1.shape == (10, 1000)
+    jsp = jfrom_coo(rows, cols, vals, (M, 1000))
+    want = np.asarray(jsim.encode(jsp, jsim.SimLSHConfig(**LSH),
+                                  jax.random.PRNGKey(3)))
+    differ = s1.numpy() != want
+    assert not np.any(differ & ~(np.abs(S.numpy()) < 1e-5).any(axis=2))
+    assert differ.sum() <= 0.001 * differ.size
     same = (s1[:, :50, None] == s1[:, None, :50]).any(0).float().mean()
     other = (s1[:, :50, None] == s1[:, None, 50:100]).any(0).float().mean()
     # the JAX package's threefry Φ gives 0.216 / 0.0004 on this catalog

@@ -1,0 +1,264 @@
+"""Port vs JAX package: the fused SGD steps of `kernels/mf_sgd` and the
+packed/unpacked steps of `core/sgd.py`.
+
+* The plain versions (`mf_sgd_step_ref`, `culsh_sgd_step_ref`) against
+  the JAX package's refs and its Pallas kernels in interpret mode, within
+  rtol 1e-5 / atol 1e-6 (the tolerance of `tests/test_kernels.py`), at
+  batch widths 7, 24, 96 and 250, with the BCE loss both ways; invalid
+  rows come back unchanged.  On the CPU the kernel wrappers run the plain
+  versions.
+* `apply_*` (gather → step → delta scatter) against the port's packed
+  steps and the JAX package's `apply_*`.
+* The port's packed steps bit-identical to its unpacked steps, on
+  conflict-free, collision-scaled and precomputed-scale batches (the
+  invariant of `tests/test_schedule.py::test_packed_step_bit_identical`).
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import model as jmodel
+from repro.core import sgd as jsgd
+from repro.data import sparse as jsparse
+from repro.kernels.mf_sgd import ops as jops
+from repro.kernels.mf_sgd.kernel import culsh_sgd_step as jculsh_kernel
+from repro.kernels.mf_sgd.kernel import mf_sgd_step as jmf_kernel
+from repro.kernels.mf_sgd.ref import culsh_sgd_step_ref as jculsh_ref
+from repro.kernels.mf_sgd.ref import mf_sgd_step_ref as jmf_ref
+from repro_torch import prng
+from repro_torch.core import model, sgd
+from repro_torch.data import sparse, synthetic
+from repro_torch.kernels import pick
+from repro_torch.kernels.mf_sgd import kernel, ops
+from repro_torch.kernels.mf_sgd.ref import culsh_sgd_step_ref, mf_sgd_step_ref
+
+TOL = dict(rtol=1e-5, atol=1e-6)
+WIDTHS = [7, 24, 96, 250]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _np(x):
+    return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def culsh_numpy(B, F, K, rng):
+    """Packed-plane operands as numpy (`tests/test_kernels.py::
+    _culsh_args`): row, col, rnb, bh_nb, expl, r, valid, hp[13]."""
+    a = lambda *s: rng.normal(size=s).astype(np.float32)
+    expl = rng.integers(0, 2, (B, K)).astype(np.float32)
+    valid = rng.integers(0, 2, B).astype(np.float32)
+    hp = np.concatenate([np.abs(a(12)) * 0.05, a(1) * 0.1]).astype(
+        np.float32)
+    return [a(B, F + 1), a(B, F + 2 * K + 1), a(B, K), a(B, K), expl, a(B),
+            valid, hp]
+
+
+@pytest.mark.parametrize("bce", [False, True])
+@pytest.mark.parametrize("B", WIDTHS)
+def test_culsh_step_plain_matches_jax_ref_and_pallas(B, bce):
+    F, K = (128, 64) if B == 7 else (8, 4)
+    args = culsh_numpy(B, F, K, np.random.default_rng(B))
+    got = culsh_sgd_step_ref(*map(torch.tensor, args), bce=bce)
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (jculsh_ref(*jargs, bce=bce),
+                 jculsh_kernel(*jargs, tile_b=64, interpret=True, bce=bce)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+    # on CPU tensors the wrapper is the plain version, no launch
+    before = kernel.CULSH_LAUNCHES
+    again = kernel.culsh_sgd_step(*map(torch.tensor, args), bce=bce)
+    assert kernel.CULSH_LAUNCHES == before
+    for g, w in zip(again, got):
+        assert torch.equal(g, w)
+    off = args[6] == 0
+    np.testing.assert_array_equal(_np(got[0])[off], args[0][off])
+    np.testing.assert_array_equal(_np(got[1])[off], args[1][off])
+
+
+@pytest.mark.parametrize("bce", [False, True])
+@pytest.mark.parametrize("B", WIDTHS)
+def test_mf_step_plain_matches_jax_ref_and_pallas(B, bce):
+    rng = np.random.default_rng(B + 1)
+    F = 16
+    u, v = (rng.normal(size=(B, F)).astype(np.float32) for _ in range(2))
+    r = rng.normal(size=B).astype(np.float32)
+    valid = rng.integers(0, 2, B).astype(np.float32)
+    hp = np.array([0.02, 0.03, 0.01, 0.02], np.float32)
+    got = mf_sgd_step_ref(*map(torch.tensor, (u, v, r, valid, hp)), bce=bce)
+    jargs = [jnp.asarray(a) for a in (u, v, r, valid)]
+    for want in (jmf_ref(*jargs, *hp, bce=bce),
+                 jmf_kernel(*jargs, *map(jnp.float32, hp), tile_b=64,
+                            interpret=True, bce=bce)):
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
+    assert torch.equal(kernel.mf_sgd_step(*map(torch.tensor, (
+        u, v, r, valid, hp)), bce=bce)[0], got[0])
+    off = valid == 0
+    np.testing.assert_array_equal(_np(got[0])[off], u[off])
+    np.testing.assert_array_equal(_np(got[2])[off], 0.0)
+
+
+# ----------------------------------------------------------- on real batches
+
+@pytest.fixture(scope="module")
+def tiny():
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=300, N=100,
+                               nnz=4000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=0)
+    return (sparse.from_coo(rows, cols, vals, (spec.M, spec.N),
+                            device="cpu"),
+            jsparse.from_coo(rows, cols, vals, (spec.M, spec.N)))
+
+
+def _cf_batch(sp, K, B, seed):
+    """A batch with each row/col at most once (`tests/test_schedule.py::
+    _conflict_free_batch`) → (JK, idx) as numpy."""
+    rng = np.random.default_rng(seed)
+    rows, cols = _np(sp.rows), _np(sp.cols)
+    take, ri, ci = [], set(), set()
+    for t in rng.permutation(sp.nnz):
+        if rows[t] not in ri and cols[t] not in ci:
+            take.append(t)
+            ri.add(rows[t])
+            ci.add(cols[t])
+        if len(take) == B:
+            break
+    JK = rng.integers(0, sp.N, (sp.N, K)).astype(np.int32)
+    return JK, np.asarray(take, np.int32)
+
+
+def _both(tsp, jsp, JK, idx, valid, seed, F=8, K=4):
+    bt = model.assemble(tsp, torch.tensor(JK), torch.tensor(idx),
+                        torch.tensor(valid))
+    jbt = jmodel.assemble(jsp, jnp.asarray(JK), jnp.asarray(idx),
+                          jnp.asarray(valid))
+    p = model.init_from_data(prng.PRNGKey(seed), tsp, F, K)
+    p = dataclasses.replace(p, W=torch.randn(tsp.N, K) * 0.1,
+                            C=torch.randn(tsp.N, K) * 0.1)
+    jp = jmodel.Params(**{f.name: jnp.asarray(_np(getattr(p, f.name)))
+                          for f in dataclasses.fields(p)})
+    return bt, jbt, p, jp
+
+
+def _copy(pp):
+    return dataclasses.replace(pp, row=pp.row.clone(), col=pp.col.clone())
+
+
+@pytest.mark.parametrize("B", WIDTHS)
+def test_apply_matches_packed_step_and_jax(tiny, B):
+    tsp, jsp = tiny
+    JK, idx = _cf_batch(tsp, 4, B, seed=B)
+    valid = np.ones(len(idx), bool)
+    valid[-2:] = False
+    bt, jbt, p, jp = _both(tsp, jsp, JK, idx, valid, seed=B)
+    hp, d = sgd.Hyper(), sgd.lr_decay(sgd.Hyper(), 2)
+    pp = model.pack_params(p)
+    want = sgd.culsh_step_packed(_copy(pp), bt, hp, d, conflict_free=True)
+    got = ops.apply_culsh_sgd(_copy(pp), bt, ops.culsh_hyper(hp, d, pp.mu))
+    jgot = jops.apply_culsh_sgd(jmodel.pack_params(jp), jbt, jsgd.Hyper(),
+                                jnp.float32(d), impl="ref")
+    for a, b in ((got.row, want.row), (got.col, want.col)):
+        np.testing.assert_allclose(_np(a), _np(b), **TOL)
+    np.testing.assert_allclose(_np(got.row), np.asarray(jgot.row), **TOL)
+    np.testing.assert_allclose(_np(got.col), np.asarray(jgot.col), **TOL)
+    want_mf = sgd.mf_step_packed(_copy(pp), bt, hp, d, conflict_free=True)
+    got_mf = ops.apply_mf_sgd(_copy(pp), bt, ops.mf_hyper(hp, d, "cpu"))
+    jmf = jops.apply_mf_sgd(jmodel.pack_params(jp), jbt, jsgd.Hyper(),
+                            jnp.float32(d), impl="ref")
+    np.testing.assert_allclose(_np(got_mf.row), _np(want_mf.row), **TOL)
+    np.testing.assert_allclose(_np(got_mf.col), np.asarray(jmf.col), **TOL)
+
+
+def test_packed_steps_bit_identical_to_unpacked(tiny):
+    tsp, jsp = tiny
+    hp, d = sgd.Hyper(), torch.tensor(0.9)
+    JK, idx = _cf_batch(tsp, 4, 64, seed=11)
+    bt, _, p, _ = _both(tsp, jsp, JK, idx, np.ones(len(idx), bool), seed=3)
+    pp = model.pack_params(p)
+    for f in ("U", "V", "b", "bh", "W", "C"):
+        assert torch.equal(getattr(model.unpack_params(pp), f),
+                           getattr(p, f)), f
+    cases = [(sgd.culsh_step(p, bt, hp, d, conflict_free=True),
+              sgd.culsh_step_packed(_copy(pp), bt, hp, d,
+                                    conflict_free=True), "cf"),
+             (sgd.mf_step(p, bt, hp, d, conflict_free=True),
+              sgd.mf_step_packed(_copy(pp), bt, hp, d, conflict_free=True),
+              "mf")]
+    ridx = np.random.default_rng(5).integers(0, tsp.nnz, 96).astype(np.int32)
+    btc = model.assemble(tsp, torch.tensor(JK), torch.tensor(ridx),
+                         torch.ones(96))
+    cases.append((sgd.culsh_step(p, btc, hp, d),
+                  sgd.culsh_step_packed(_copy(pp), btc, hp, d), "scaled"))
+
+    def inv_count(ids):
+        _, inv, cnt = np.unique(_np(ids), return_inverse=True,
+                                return_counts=True)
+        return torch.tensor(np.float32(1.0) / cnt.astype(np.float32)[inv])
+
+    cases.append((sgd.culsh_step(p, btc, hp, d),
+                  sgd.culsh_step_packed(_copy(pp), btc, hp, d,
+                                        scales=(inv_count(btc.i),
+                                                inv_count(btc.j))),
+                  "precomputed-scales"))
+    cases.append((sgd.mf_step(p, btc, hp, d),
+                  sgd.mf_step_packed(_copy(pp), btc, hp, d), "mf-scaled"))
+    for want, got_pp, tag in cases:
+        got = model.unpack_params(got_pp)
+        for f in ("U", "V", "b", "bh", "W", "C"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), \
+                f"{tag}:{f}"
+
+
+def test_unpacked_steps_match_jax(tiny):
+    tsp, jsp = tiny
+    JK, idx = _cf_batch(tsp, 4, 96, seed=7)
+    ridx = np.random.default_rng(1).integers(0, tsp.nnz, 80).astype(np.int32)
+    for ids, cf in ((idx, True), (ridx, False)):
+        bt, jbt, p, jp = _both(tsp, jsp, JK, ids, np.ones(len(ids), bool),
+                               seed=2)
+        for step, jstep in ((sgd.culsh_step, jsgd.culsh_step),
+                            (sgd.mf_step, jsgd.mf_step)):
+            for bce in (False, True):
+                got = step(p, bt, sgd.Hyper(), torch.tensor(0.7), bce=bce,
+                           conflict_free=cf)
+                want = jstep(jp, jbt, jsgd.Hyper(), jnp.float32(0.7),
+                             bce=bce, conflict_free=cf)
+                for f in ("U", "V", "b", "bh", "W", "C"):
+                    np.testing.assert_allclose(
+                        _np(getattr(got, f)), np.asarray(getattr(want, f)),
+                        **TOL, err_msg=f"{step.__name__} cf={cf} {f}")
+
+
+def test_lr_decay_and_hyper_vectors():
+    hp = sgd.Hyper()
+    for t in range(4):
+        np.testing.assert_array_equal(
+            _np(sgd.lr_decay(hp, t)),
+            np.asarray(jsgd.lr_decay(jsgd.Hyper(), jnp.asarray(t))))
+    d = sgd.lr_decay(hp, 3)
+    v = ops.culsh_hyper(hp, d, torch.tensor(3.25))
+    assert v.shape == (13,) and float(v[12]) == 3.25
+    assert float(v[2]) == float(np.float32(0.02) * _np(d))
+    assert ops.mf_hyper(hp, d, "cpu").shape == (4,)
+
+
+def test_impl_rule():
+    ref = lambda: "ref"
+    kern = lambda: "kernel"
+    assert pick("auto", torch.device("cpu"), kern, ref) is kern
+    assert pick("ref", torch.device("cpu"), kern, ref) is ref
+    with pytest.raises(ValueError, match="CUDA"):
+        pick("cuda", torch.device("cpu"), kern, ref)
+    with pytest.raises(ValueError):
+        pick("pallas", torch.device("cpu"), kern, ref)
