@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's main paths, serving and the offline
-fit, on one CUDA card.
+"""Smoke run of the PyTorch port's main paths — serving, the offline
+fit, the simLSH encoder, the legacy fit with checkpoints and batch
+scoring — on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device — the card's name and power limit (nvidia-smi), CUDA version;
-2. build — both hand-written kernels from ``src/repro_torch/csrc``;
+2. build — the six hand-written kernels from ``src/repro_torch/csrc``;
 3. catalog and state — a planted catalog at the repo's million-item
    serving scale (N = 1,000,000 items, M = 640,000 users, F = 48,
    24,000,000 ratings; the recipe of `benchmarks/bench_serve.py::
@@ -48,12 +49,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     device time per call in a CUDA graph of 50 calls (median of 20
     replays, so the host's time per call does not enter it), beside
     phase 7's cold-L2 reading, the host-paced back-to-back rate and the
-    bound.
+    bound;
+12. encode — `encode_band` through the `simlsh_encode` kernel for each
+    of the q = 10 bands of the phase-3 catalog (deg = 24, every item's
+    exact degree, so nothing is truncated), the counter zeroed just
+    before; each band against its plain version (rtol/atol 1e-5) and
+    against `band_accumulate` (rtol 1e-4 / atol 1e-3), and the signature
+    bits that differ from phase 3's; one band timed in CUDA graphs (the
+    kernel, its plain version and `torch.bmm` as the library yardstick)
+    beside the bound;
+13. legacy fit + checkpoints — `fit(schedule="none")` for 3 epochs on
+    phase 8's data at full width, checkpointing every epoch (the RMSE
+    must fall every epoch); in a fresh directory a 2-epoch fit, then a
+    3-epoch fit that must resume at step 2 and end within 1e-3 of the
+    uninterrupted RMSE; the checkpoint's size and save seconds;
+14. scoring — `predict_batch` through the `neighbor_predict` kernel over
+    phase 10's 200,000 test ratings in `model.rmse`'s 8,192-wide batches,
+    the counter zeroed just before: within 1e-4 of `model.predict` and
+    of the plain version, and the kernel-scored RMSE within 1e-4 of the
+    fit's last `rmse_cached`; the kernel and its plain version timed at
+    B = 8,192 in CUDA graphs beside the bound.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–11 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–14 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -278,8 +298,8 @@ def check_sgd(got, want, valid, inputs) -> float:
 
 def fit_phases(args, dev, on_card: bool, power: str) -> list:
     """Phases 8–11: the offline CULSH-MF fit (`train.trainer.fit`) at the
-    width of the repo's ~100M-parameter model; → the two fused steps'
-    entries of the kernels line."""
+    width of the repo's ~100M-parameter model; → (the two fused steps'
+    entries of the kernels line, the state phases 13–14 go on from)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
@@ -538,7 +558,7 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
               f"profiled epoch; plain version {t['plain']:.5f} ms (CUDA "
               f"graph); bound {bnd:.5f} ms ({by}); no single PyTorch call "
               f"computes the fused step (power limit {power})", flush=True)
-    return [
+    entries = [
         dict(name="culsh_sgd_step", route="cuda",
              source="src/repro_torch/csrc/culsh_sgd.cu",
              replaces="src/repro/kernels/mf_sgd/kernel.py:126",
@@ -552,6 +572,222 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
              ms=timed["mf_sgd"]["ms"], plain_ms=timed["mf_sgd"]["plain"],
              bound_ms=mf_bound, bound_by=mf_by, library_ms=None),
     ]
+    return entries, dict(res=res, sp=sp, tr=tr, te=te, shape=(M, N), cfg=cfg)
+
+
+def encode_phase(sp, lsh, key, sigs, dev, on_card: bool, power: str) -> dict:
+    """Phase 12: `encode_band` through the `simlsh_encode` kernel for every
+    band of the serving catalog; → the kernel's entry of the kernels
+    line."""
+    from repro_torch.core import simlsh
+    from repro_torch.kernels.simlsh_encode import kernel as enc_kernel
+    from repro_torch.kernels.simlsh_encode.ops import (band_operands,
+                                                       encode_band)
+    from repro_torch.kernels.simlsh_encode.ref import simlsh_encode_ref
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    degree = torch.bincount(sp.cols.long(), minlength=sp.N)
+    deg = -(-int(degree.max()) // 8) * 8       # max degree, rounded up to 8
+    truncated = int((degree > deg).sum())
+    bits = lsh.sig_bits
+    enc_kernel.LAUNCHES = 0                    # the main path
+    t_enc = time.perf_counter()
+    accs = [encode_band(sp, lsh, key, band, deg=deg)
+            for band in range(lsh.q)]
+    sync()
+    t_enc = time.perf_counter() - t_enc
+    launches = enc_kernel.LAUNCHES
+    if on_card and launches != lsh.q:
+        raise AssertionError(f"simlsh_encode launched {launches} times for "
+                             f"{lsh.q} bands")
+    if truncated:
+        raise AssertionError(f"{truncated} items have more than {deg} raters")
+    err, ba_err, flipped = 0.0, 0.0, 0
+    for band, S in enumerate(accs):
+        w, phi = band_operands(sp, lsh, key, band, deg=deg)
+        plain = simlsh_encode_ref(w, phi)
+        torch.testing.assert_close(S, plain, rtol=1e-5, atol=1e-5)
+        err = max(err, float((S - plain).abs().max()))
+        del w, phi, plain
+        S_ba = simlsh.band_accumulate(
+            sp.rows, sp.cols, sp.vals, key, band, N=sp.N, bits=bits,
+            psi_pow=lsh.psi_pow, psi_mode=lsh.psi_mode,
+            psi_center=lsh.psi_center)
+        torch.testing.assert_close(S, S_ba, rtol=1e-4, atol=1e-3)
+        ba_err = max(ba_err, float((S - S_ba).abs().max()))
+        x = simlsh.pack_bits(S >= 0) ^ sigs[band]
+        flipped += sum(int(((x >> b) & 1).sum()) for b in range(bits))
+    print(f"[12 encode] N={sp.N} deg={deg} (max degree {int(degree.max())}, "
+          f"0 items truncated) bits={bits} q={lsh.q}: {launches} "
+          f"simlsh_encode launches, {t_enc:.3f} s for the {lsh.q} bands; "
+          f"kernel vs plain within rtol/atol 1e-5 (max abs err {err:.3g}), "
+          f"vs band_accumulate within rtol 1e-4 / atol 1e-3 (max abs err "
+          f"{ba_err:.3g}); {flipped} of {sp.N * bits * lsh.q} signature bits "
+          f"differ from phase 3's", flush=True)
+    del accs
+    # one band: the kernel, its plain version and one cuBLAS batched GEMV
+    w, phi = band_operands(sp, lsh, key, 0, deg=deg)
+    ms = graph_ms(lambda: enc_kernel.simlsh_encode(w, phi), dev, n=10,
+                  reps=10)
+    plain_ms = graph_ms(lambda: simlsh_encode_ref(w, phi), dev, n=10,
+                        reps=10)
+    lib_ms = graph_ms(lambda: torch.bmm(w[:, None, :], phi), dev, n=10,
+                      reps=10)
+    # bytes: ψ and Φ read once, S written once; operations: a multiply-add
+    # per (item, slot, bit)
+    N = sp.N
+    bnd, by = bound_ms(4 * (N * deg + N * deg * bits + N * bits),
+                       2 * N * deg * bits)
+    del w, phi
+    print(f"[12 time] simlsh_encode at N={N} deg={deg} bits={bits}: kernel "
+          f"{ms:.4f} ms (CUDA graph of 10 calls, median of 10 replays), "
+          f"plain version {plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms, "
+          f"bound {bnd:.4f} ms ({by}) (power limit {power})", flush=True)
+    print(f"[12 encode] phase seconds {time.perf_counter() - t0:.1f}",
+          flush=True)
+    return dict(name="simlsh_encode", route="cuda",
+                source="src/repro_torch/csrc/simlsh_encode.cu",
+                replaces="src/repro/kernels/simlsh_encode/kernel.py:47",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=lib_ms)
+
+
+def legacy_phase(ctx: dict, dev) -> None:
+    """Phase 13: the legacy fit path (``schedule="none"``) at full width,
+    with checkpoints every epoch and a resume from step 2.  The
+    checkpoints go to a temporary directory under ``build/``, removed at
+    the end."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.trainer import fit
+
+    t0 = time.perf_counter()
+    tr, te, shape = ctx["tr"], ctx["te"], ctx["shape"]
+    base = dataclasses.replace(ctx["cfg"], schedule="none", use_kernels=False)
+    log = lambda tag: (lambda s: print(f"[13 legacy {tag}] {s}", flush=True))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-ckpt-",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        d = os.path.join(tmp, "whole")
+        whole = fit(tr, te, shape, dataclasses.replace(
+            base, epochs=3, ckpt_dir=d, ckpt_every=1), log=log("3 epochs"),
+            device=dev)
+        rm = [h[2] for h in whole.history]
+        ep_secs = np.diff([0.0] + [h[1] for h in whole.history])
+        saves = whole.registry.span_durations("train.ckpt")
+        print(f"[13 legacy] schedule='none' at M={shape[0]} N={shape[1]} "
+              f"F={base.F} K={base.K}, batch {base.batch}: seconds per epoch "
+              + ", ".join(f"{x:.3f}" for x in ep_secs) + "; rmse "
+              + ", ".join(f"{r:.6f}" for r in rm) + "; train.ckpt spans "
+              "(host copy + writer start) " + ", ".join(
+                  f"{x:.3f}" for x in saves) + " s", flush=True)
+        if not (np.isfinite(rm).all() and (np.diff(rm) < 0).all()):
+            raise AssertionError(f"the legacy fit's RMSE did not fall every "
+                                 f"epoch: {rm}")
+        if ckpt.latest_step(d) != 3:
+            raise AssertionError(f"latest checkpoint {ckpt.latest_step(d)}")
+        shard = os.path.join(d, "step-00000003", ckpt.SHARD)
+        t_save = time.perf_counter()
+        ckpt.save(os.path.join(tmp, "timed"), whole.params, step=3,
+                  sync=True)
+        t_save = time.perf_counter() - t_save
+        print(f"[13 ckpt] {os.path.getsize(shard) / 1e6:.1f} MB per "
+              f"checkpoint; one synchronous save {t_save:.3f} s", flush=True)
+        d2 = os.path.join(tmp, "resume")
+        fit(tr, te, shape, dataclasses.replace(
+            base, epochs=2, ckpt_dir=d2, ckpt_every=1), log=log("2 epochs"),
+            device=dev)
+        resumed = fit(tr, te, shape, dataclasses.replace(
+            base, epochs=3, ckpt_dir=d2), log=log("resumed"), device=dev)
+        first = resumed.history[0][0]
+        gap = abs(resumed.history[-1][2] - rm[-1])
+        print(f"[13 ckpt] resumed fit restarted at step {first}, final rmse "
+              f"{resumed.history[-1][2]:.6f} vs {rm[-1]:.6f} uninterrupted: "
+              f"gap {gap:.3g} (limit 1e-3)", flush=True)
+        if first != 2 or len(resumed.history) != 1:
+            raise AssertionError(f"the resumed fit ran epochs "
+                                 f"{[h[0] for h in resumed.history]}")
+        if not gap <= 1e-3:
+            raise AssertionError("the resumed fit's RMSE is off the "
+                                 "uninterrupted one's")
+    finally:
+        ckpt.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[13 legacy] phase seconds {time.perf_counter() - t0:.1f}",
+          flush=True)
+
+
+def predict_phase(ctx: dict, dev, on_card: bool, power: str) -> dict:
+    """Phase 14: `predict_batch` through the `neighbor_predict` kernel on
+    the test ratings of phase 10's fit; → the kernel's entry of the
+    kernels line."""
+    from repro_torch.core import model
+    from repro_torch.kernels.neighbor_predict import kernel as pred_kernel
+    from repro_torch.kernels.neighbor_predict.ops import (predict_batch,
+                                                          predict_operands)
+    from repro_torch.kernels.neighbor_predict.ref import neighbor_predict_ref
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t0 = time.perf_counter()
+    res, sp = ctx["res"], ctx["sp"]
+    p = res.params
+    te_r, te_c, te_v = (torch.as_tensor(a, device=dev) for a in ctx["te"])
+    batches = list(model.eval_batches(sp, res.JK, te_r, te_c, te_v))
+    pred_kernel.LAUNCHES = 0                   # the main path
+    preds = [predict_batch(p, bt) for bt in batches]
+    sync()
+    launches = pred_kernel.LAUNCHES
+    if on_card and launches != len(batches):
+        raise AssertionError(f"neighbor_predict launched {launches} times "
+                             f"for {len(batches)} batches")
+    err, model_err = 0.0, 0.0
+    sse = torch.zeros((), dtype=torch.float64, device=dev)
+    for bt, pr in zip(batches, preds):
+        want = model.predict(p, bt)[0]
+        torch.testing.assert_close(pr, want, rtol=1e-4, atol=1e-4)
+        model_err = max(model_err, float((pr - want).abs().max()))
+        plain = neighbor_predict_ref(*predict_operands(p, bt))
+        torch.testing.assert_close(pr, plain, rtol=1e-4, atol=1e-4)
+        err = max(err, float((pr - plain).abs().max()))
+        sse += ((bt.r - pr).double() ** 2 * bt.valid).sum()
+    n = int(te_v.numel())
+    rmse_k = float(torch.sqrt(sse / n))
+    gap = abs(rmse_k - res.history[-1][2])
+    B = batches[0].i.shape[0]
+    print(f"[14 score] {n} test ratings in {len(batches)} batches of {B}: "
+          f"{launches} neighbor_predict launches; within 1e-4 of "
+          f"model.predict (max abs err {model_err:.3g}) and of the plain "
+          f"version ({err:.3g}); kernel-scored rmse {rmse_k:.6f} vs the "
+          f"fit's last rmse_cached {res.history[-1][2]:.6f}: gap {gap:.3g} "
+          f"(limit 1e-4)", flush=True)
+    if not gap <= 1e-4:
+        raise AssertionError("the kernel-scored RMSE is off the fit's")
+    ops = predict_operands(p, batches[0])
+    F, K = ops[0].shape[1], ops[2].shape[1]
+    ms = graph_ms(lambda: pred_kernel.neighbor_predict(*ops), dev)
+    plain_ms = graph_ms(lambda: neighbor_predict_ref(*ops), dev)
+    # bytes: the nine operands read once, the predictions written once;
+    # operations: two per factor and four per neighbour slot, four scalar
+    bnd, by = bound_ms(4 * (2 * B * F + 4 * B * K + 4 * B),
+                       B * (2 * F + 4 * K + 4))
+    print(f"[14 time] neighbor_predict at B={B} F={F} K={K}: kernel "
+          f"{ms:.5f} ms (CUDA graph of 50 calls, median of 20 replays), "
+          f"plain version {plain_ms:.5f} ms, bound {bnd:.5f} ms ({by}); no "
+          f"single PyTorch call computes three row-wise dots and their "
+          f"affine sum, so no library yardstick (power limit {power})",
+          flush=True)
+    print(f"[14 score] phase seconds {time.perf_counter() - t0:.1f}",
+          flush=True)
+    return dict(name="neighbor_predict", route="cuda",
+                source="src/repro_torch/csrc/neighbor_predict.cu",
+                replaces="src/repro/kernels/neighbor_predict/kernel.py:52",
+                launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None)
 
 
 def main(argv=None) -> int:
@@ -786,7 +1022,12 @@ def main(argv=None) -> int:
              ms=sc_ms, plain_ms=sc_plain, bound_ms=sc_bound,
              bound_by=sc_by, library_ms=None),
     ]
-    kernels += fit_phases(args, dev, on_card, power)
+    entries, ctx = fit_phases(args, dev, on_card, power)
+    kernels += entries
+    kernels.append(encode_phase(sp, lsh, prng.PRNGKey(args.seed, device=dev),
+                                sigs, dev, on_card, power))
+    legacy_phase(ctx, dev)
+    kernels.append(predict_phase(ctx, dev, on_card, power))
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

@@ -13,7 +13,8 @@ Three layouts of the parameters: the public `Params`; the training
 planes `PackedParams` (U‖b and V‖W‖C‖b̂, two gather/scatter pairs per SGD
 step); and the serving planes `ServePlanes` (U‖b and V‖b̂).  The fit's
 data layout is `ScheduledData` (triples in schedule order, so a batch is
-a contiguous view) and its eval cache `EvalCache`.
+a contiguous view) and its eval cache `EvalCache`; the legacy path
+evaluates with a lookup per batch instead (`eval_batches`, `rmse`).
 """
 from __future__ import annotations
 
@@ -319,6 +320,38 @@ def rmse_cached(p: Params, ec: EvalCache, rows, cols, vals, *,
         pred = predict_mf(p, bt) if mf_only else predict(p, bt)[0]
         sse = sse + ((r - pred) ** 2).sum()
     return torch.sqrt(sse / n)
+
+
+def eval_batches(sp_train: SparseMatrix, JK: torch.Tensor, rows, cols, vals,
+                 *, batch: int = 8192):
+    """The uncached eval's batches of the test triples: ``batch``-wide
+    `Batch`es whose neighbour ratings are looked up in the *train*
+    matrix, the last one padded by repeating triple 0 with ``valid`` 0."""
+    n = int(rows.shape[0])
+    nb_batches = -(-n // batch)
+    pad = nb_batches * batch - n
+    padded = lambda a: torch.cat([a, a[:1].repeat(pad)])
+    rows_p, cols_p, vals_p = padded(rows), padded(cols), padded(vals)
+    valid = (torch.arange(nb_batches * batch, device=vals.device)
+             < n).to(torch.float32)
+    for s in range(0, nb_batches * batch, batch):
+        i, j = rows_p[s:s + batch], cols_p[s:s + batch]
+        nb = JK[j.long()]
+        rnb, hit = lookup(sp_train, i[:, None].expand(nb.shape), nb)
+        expl = hit.to(torch.float32)
+        yield Batch(i, j, vals_p[s:s + batch], nb, rnb, expl, 1.0 - expl,
+                    valid[s:s + batch])
+
+
+def rmse(p: Params, sp_train: SparseMatrix, JK, rows, cols, vals, *,
+         batch: int = 8192, mf_only: bool = False) -> torch.Tensor:
+    """Test RMSE (Eq. 6) with a `lookup` per batch (`eval_batches`), the
+    legacy path's eval, as a 0-dim device tensor."""
+    sse = torch.zeros((), dtype=torch.float32, device=vals.device)
+    for bt in eval_batches(sp_train, JK, rows, cols, vals, batch=batch):
+        pred = predict_mf(p, bt) if mf_only else predict(p, bt)[0]
+        sse = sse + ((bt.r - pred) ** 2 * bt.valid).sum()
+    return torch.sqrt(sse / int(rows.shape[0]))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,11 +14,14 @@ on a conflict-free batch (each i and each j at most once) this is Eq. (5)
 applied in parallel, exactly; with collisions it is the batch-SGD step
 scaled by 1/count.
 
-`train_epoch_scheduled` is the offline hot path: contiguous-view batches
-of the schedule-ordered `ScheduledData`, conflict-free width tiers on the
-packed planes — through the fused CUDA steps of `kernels/mf_sgd` with
-``use_kernels`` — and the leftover batches on the scaled step with their
-precomputed collision normalizers.
+`train_epoch` is the legacy path (``schedule="none"``): shuffled
+mini-batches assembled by lookup, on the unpacked steps with per-batch
+collision scaling.  `train_epoch_scheduled` is the offline hot path:
+contiguous-view batches of the schedule-ordered `ScheduledData`,
+conflict-free width tiers on the packed planes — through the fused CUDA
+steps of `kernels/mf_sgd` with ``use_kernels`` — and the leftover
+batches on the scaled step with their precomputed collision
+normalizers.
 """
 from __future__ import annotations
 
@@ -29,10 +32,10 @@ import torch
 
 from repro_torch import prng
 from repro_torch.core.model import (Batch, PackedParams, Params,
-                                    ScheduledData, predict,
+                                    ScheduledData, assemble, predict,
                                     predict_gathered, predict_mf,
                                     slice_batch)
-from repro_torch.data.sparse import EpochSchedule
+from repro_torch.data.sparse import EpochSchedule, SparseMatrix, epoch_batches
 from repro_torch.kernels.mf_sgd.ops import (apply_culsh_sgd, apply_mf_sgd,
                                             culsh_hyper, mf_hyper)
 
@@ -192,6 +195,27 @@ def culsh_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
     pp.row.index_add_(0, i, torch.cat([du, db[:, None]], dim=1))
     pp.col.index_add_(0, j, torch.cat([dv, dw, dc, dbh[:, None]], dim=1))
     return pp
+
+
+def train_epoch(p: Params, sp: SparseMatrix, JK: torch.Tensor,
+                key: torch.Tensor, epoch: int, hp: Hyper, *,
+                batch: int = 4096, mf_only: bool = False,
+                bce: bool = False) -> Params:
+    """One epoch of shuffled mini-batches on the unpacked step → new
+    Params (the legacy ``schedule="none"`` path).
+
+    The general-case engine: per-batch `assemble` (a `lookup` per
+    neighbour slot) and collision rescaling, correct for any batching;
+    the batch order is `epoch_batches(key)`, the JAX package's.  Its
+    scatters collide, so on CUDA, where `index_add_` adds in atomic
+    order, an epoch is not bit-reproducible; on the CPU it is."""
+    dev = sp.vals.device
+    idx, valid = epoch_batches(key.to(dev), sp.nnz, batch)
+    decay = lr_decay(hp, epoch, dev)
+    step = mf_step if mf_only else culsh_step
+    for bidx, bvalid in zip(idx, valid):
+        p = step(p, assemble(sp, JK, bidx, bvalid), hp, decay, bce)
+    return p
 
 
 def _cf_scan(pp: PackedParams, sd: ScheduledData, starts: np.ndarray,

@@ -3,7 +3,8 @@
 The COO triples of the rating matrix ``R ∈ R^{M×N}``, kept
 (row, col)-lexicographically sorted so a user's ratings are one
 contiguous run addressed with `torch.searchsorted`; rating lookup,
-degrees and baselines over them; and the host-side tiered conflict-free
+degrees and baselines over them; the legacy path's shuffled batches
+(`epoch_batches`); and the host-side tiered conflict-free
 epoch scheduler of the offline fit (`conflict_free_schedule`), a numpy
 copy of the JAX package's that yields the same arrays from the same
 seed.  The schedule stays on the host: its batch starts are Python ints,
@@ -17,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch.device import resolve_device
 
 
@@ -112,6 +114,19 @@ def train_test_split(rng: np.random.Generator, rows, cols, vals,
     ntest = int(nnz * test_frac)
     te, tr = perm[:ntest], perm[ntest:]
     return (rows[tr], cols[tr], vals[tr]), (rows[te], cols[te], vals[te])
+
+
+def epoch_batches(key: torch.Tensor, nnz: int, batch: int):
+    """Shuffled sample indices padded to a whole number of batches, drawn
+    on ``key``'s device as the JAX package draws them → ``idx [nb,
+    batch]`` int32 and ``valid [nb, batch]`` bool; padding repeats
+    samples but is masked out of the update."""
+    perm = prng.permutation(key, nnz)
+    nb = -(-nnz // batch)
+    pad = nb * batch - nnz
+    idx = torch.cat([perm, perm[:pad]]).to(torch.int32)
+    valid = torch.arange(nb * batch, device=perm.device) < nnz
+    return idx.reshape(nb, batch), valid.reshape(nb, batch)
 
 
 @dataclasses.dataclass(frozen=True)

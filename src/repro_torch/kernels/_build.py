@@ -46,6 +46,11 @@ SIGNATURES = {
                               _I, _I, _P],
     # u, v, r, valid, hp, u_out, v_out, e_out, B, F, bce, stream
     "mf_sgd_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # psi, phi, out, N, deg, bits, stream
+    "simlsh_encode_launch": [_P, _P, _P, _L, _I, _I, _P],
+    # u, v, w, c, resid, impl, bbar, sR, sN, out, B, F, K, stream
+    "neighbor_predict_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _P],
 }
 
 _lock = threading.Lock()

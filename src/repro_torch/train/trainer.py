@@ -7,10 +7,12 @@ Wires the pipeline of paper Fig. 2:
 
 Every random draw comes from `repro_torch.prng` keys split exactly as the
 JAX package splits them, so the same seed gives the same signatures,
-J^K, schedule and batch order.  Paths of the JAX trainer that the port
-does not have yet raise `NotImplementedError`: checkpoints
-(``ckpt_dir``), ``schedule="none"``, the comparator neighbour methods
-and more than one shard.
+J^K, schedule and batch order.  ``schedule="none"`` is the legacy
+per-batch-search path (`sgd.train_epoch`, `model.rmse`); ``ckpt_dir``
+resumes from the newest complete checkpoint and, with ``ckpt_every``,
+saves one every that many epochs (`train/checkpoint.py`).  The
+comparator neighbour methods and more than one shard raise
+`NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from repro_torch.core import model, sgd, simlsh, topk
 from repro_torch.data.sparse import (SparseMatrix, conflict_free_schedule,
                                      from_coo)
 from repro_torch.device import resolve_device
+from repro_torch.train import checkpoint as ckpt
 
 UNPORTED_METHODS = ("gsm", "rand", "rp_cos", "minhash")
 
@@ -41,11 +44,12 @@ class FitConfig:
         default_factory=simlsh.SimLSHConfig)
     hp: sgd.Hyper = dataclasses.field(default_factory=sgd.Hyper)
     seed: int = 0
-    ckpt_dir: str | None = None  # not ported: must stay None
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0          # epochs; 0 = off
     eval_every: int = 1
     loss: str = "l2"             # l2 | bce (implicit feedback, paper §5.4)
-    schedule: str = "auto"       # auto | conflict_free; 'none' (the
-                                 # per-batch search path) is not ported
+    schedule: str = "auto"       # auto | conflict_free | none — 'none' is
+                                 # the legacy per-batch-search path
     cf_batch: int = 512          # conflict-free batch width
     tiers: int = 4               # schedule width tiers
     tier_shrink: float = 0.5     # tier width ratio
@@ -96,12 +100,6 @@ def build_neighbours(sp: SparseMatrix, cfg: FitConfig, key):
 def _check_ported(cfg: FitConfig) -> None:
     if cfg.schedule not in ("auto", "conflict_free", "none"):
         raise ValueError(f"unknown schedule {cfg.schedule}")
-    if cfg.schedule == "none":
-        raise NotImplementedError("schedule='none' (train_epoch, rmse) is "
-                                  "not ported; use 'conflict_free'")
-    if cfg.ckpt_dir:
-        raise NotImplementedError("checkpoints (train/checkpoint.py) are "
-                                  "not ported; leave ckpt_dir=None")
     if cfg.shards != "auto" and int(cfg.shards) > 1:
         raise NotImplementedError("more than one shard (the block-rotation "
                                   "tier) is not ported")
@@ -134,54 +132,84 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
         JK = torch.zeros((sp.N, cfg.K), dtype=torch.int32, device=dev)
 
     params = model.init_from_data(k_init, sp, cfg.F, cfg.K)
+    start_epoch = 0
+    if cfg.ckpt_dir:
+        restored = ckpt.try_restore(cfg.ckpt_dir, params)
+        if restored is not None:
+            params, start_epoch = restored
+    scheduled = cfg.schedule != "none"
     bce = cfg.loss == "bce"
 
-    with reg.span("train.prep"):
-        with reg.span("train.prep.schedule"):
-            sched = conflict_free_schedule(
-                sp.rows.cpu().numpy(), sp.cols.cpu().numpy(),
-                batch=min(cfg.cf_batch, cfg.batch), tiers=cfg.tiers,
-                tier_shrink=cfg.tier_shrink,
-                min_fill_frac=cfg.min_fill_frac, shards=1, M=sp.M, N=sp.N,
-                seed=cfg.seed)
-        with reg.span("train.prep.pack"):
-            sd = model.build_scheduled_data(sp, JK, sched, mf_only=mf_only)
-            _sync(dev)
-        ec = None
-        if cfg.eval_every:
-            with reg.span("train.prep.eval_cache"):
-                ec = model.build_eval_cache(sp, JK, te_r, te_c,
-                                            mf_only=mf_only)
+    # once-per-fit precomputation of the scheduled path: the tiered
+    # conflict-free schedule, the schedule-ordered data and the eval cache
+    prep_secs = 0.0
+    sched_stats = None
+    ec = None
+    if scheduled:
+        with reg.span("train.prep"):
+            with reg.span("train.prep.schedule"):
+                sched = conflict_free_schedule(
+                    sp.rows.cpu().numpy(), sp.cols.cpu().numpy(),
+                    batch=min(cfg.cf_batch, cfg.batch), tiers=cfg.tiers,
+                    tier_shrink=cfg.tier_shrink,
+                    min_fill_frac=cfg.min_fill_frac, shards=1, M=sp.M,
+                    N=sp.N, seed=cfg.seed)
+            with reg.span("train.prep.pack"):
+                sd = model.build_scheduled_data(sp, JK, sched,
+                                                mf_only=mf_only)
                 _sync(dev)
-    prep_secs = reg.span_durations("train.prep")[-1]
-    sched_stats = dict(sched.stats(), prep_sec=prep_secs,
-                       prep_per_epoch=prep_secs / max(cfg.epochs, 1))
-    if log:
-        log(f"schedule: {sched_stats['nb_cf']} cf + {sched_stats['nb_lo']} "
-            f"leftover batches (cf_frac={sched_stats['cf_frac']:.2f}, "
-            f"fill={sched_stats['fill']:.2f}, prep={prep_secs:.2f}s)")
+            if cfg.eval_every:
+                with reg.span("train.prep.eval_cache"):
+                    ec = model.build_eval_cache(sp, JK, te_r, te_c,
+                                                mf_only=mf_only)
+                    _sync(dev)
+        prep_secs = reg.span_durations("train.prep")[-1]
+        sched_stats = dict(
+            sched.stats(), prep_sec=prep_secs,
+            prep_per_epoch=prep_secs / max(cfg.epochs - start_epoch, 1))
+        if log:
+            log(f"schedule: {sched_stats['nb_cf']} cf + "
+                f"{sched_stats['nb_lo']} leftover batches "
+                f"(cf_frac={sched_stats['cf_frac']:.2f}, "
+                f"fill={sched_stats['fill']:.2f}, prep={prep_secs:.2f}s)")
+        state = model.pack_params(params)
+        to_public = model.unpack_params
+        run = lambda q, ep: sgd.train_epoch_scheduled(
+            q, sd, sched, prng.fold_in(k_ep, ep), ep, cfg.hp,
+            mf_only=mf_only, bce=bce, use_kernels=cfg.use_kernels)
+    else:
+        state = params
+        to_public = lambda q: q
+        run = lambda q, ep: sgd.train_epoch(
+            q, sp, JK, prng.fold_in(k_ep, ep), ep, cfg.hp, batch=cfg.batch,
+            mf_only=mf_only, bce=bce)
 
-    state = model.pack_params(params)
     history = []
     t_train = 0.0
-    for ep in range(cfg.epochs):
+    for ep in range(start_epoch, cfg.epochs):
         with reg.span("train.epoch"):
-            sgd.train_epoch_scheduled(
-                state, sd, sched, prng.fold_in(k_ep, ep), ep, cfg.hp,
-                mf_only=mf_only, bce=bce, use_kernels=cfg.use_kernels)
+            state = run(state, ep)
             _sync(dev)
         t_train += reg.span_durations("train.epoch")[-1]
         reg.counter_add("train.epochs")
         if cfg.eval_every and (ep + 1) % cfg.eval_every == 0:
             with reg.span("train.epoch.eval"):
-                r = float(model.rmse_cached(model.unpack_params(state), ec,
-                                            te_r, te_c, te_v,
-                                            mf_only=mf_only))
+                p_eval = to_public(state)
+                if ec is not None:  # per-epoch eval from the cached gathers
+                    r = float(model.rmse_cached(p_eval, ec, te_r, te_c, te_v,
+                                                mf_only=mf_only))
+                else:
+                    r = float(model.rmse(p_eval, sp, JK, te_r, te_c, te_v,
+                                         mf_only=mf_only))
             history.append((ep, t_train, r))
             reg.event("train.eval", epoch=ep, t_train=t_train, rmse=r)
             if log:
                 log(f"epoch {ep:3d}  t={t_train:7.2f}s  rmse={r:.4f}")
+        if cfg.ckpt_dir and cfg.ckpt_every and (ep + 1) % cfg.ckpt_every == 0:
+            with reg.span("train.ckpt"):
+                ckpt.save(cfg.ckpt_dir, to_public(state), step=ep + 1)
+    ckpt.wait()
 
-    return FitResult(model.unpack_params(state), JK, history, nb_secs, S,
+    return FitResult(to_public(state), JK, history, nb_secs, S,
                      hash_key=k_sig, prep_seconds=prep_secs,
                      schedule_stats=sched_stats, registry=reg)

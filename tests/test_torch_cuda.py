@@ -11,7 +11,10 @@ it runs where only the port is installed:
 neighbouring top-N scores differ by more than 1e-5 (summation order);
 `culsh_sgd_step` and `mf_sgd_step` within rtol 1e-5 / atol 1e-6 (the JAX
 package's kernel tolerance, `tests/test_kernels.py`), with invalid rows
-bit for bit unchanged.
+bit for bit unchanged; `simlsh_encode` within rtol/atol 1e-5, and bit
+for bit with Φ = ±1 (the kernel and its plain version both sum over d in
+order, and every product is exact); `neighbor_predict` within rtol/atol
+1e-4.
 """
 import dataclasses
 import pathlib
@@ -33,6 +36,12 @@ from repro_torch.kernels.lsh_retrieve.ref import lsh_retrieve_topc_ref
 from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
 from repro_torch.kernels.mf_sgd.ops import apply_culsh_sgd, culsh_hyper
 from repro_torch.kernels.mf_sgd.ref import culsh_sgd_step_ref, mf_sgd_step_ref
+from repro_torch.kernels.neighbor_predict import kernel as np_kernel
+from repro_torch.kernels.neighbor_predict.ops import predict_batch
+from repro_torch.kernels.neighbor_predict.ref import neighbor_predict_ref
+from repro_torch.kernels.simlsh_encode import kernel as se_kernel
+from repro_torch.kernels.simlsh_encode.ops import encode_band
+from repro_torch.kernels.simlsh_encode.ref import simlsh_encode_ref
 from repro_torch.serve import (RecsysService, ServeConfig, build_index,
                                insert, padded_flat_ids, seed_items,
                                tail_hits, window_slices)
@@ -296,3 +305,113 @@ def test_sgd_wrappers_refuse_what_the_kernels_do_not_take(cuda):
                                args[7][:4])
     with pytest.raises(ValueError, match="hp"):
         sgd_kernel.mf_sgd_step(args[0], args[0], args[5], args[6], args[7])
+
+
+# ------------------------------------------- simLSH encode, fused prediction
+
+def _encode_args(N, deg, bits, rng, device, signs=True):
+    psi = torch.tensor(rng.normal(size=(N, deg)), dtype=torch.float32,
+                       device=device)
+    draw = (rng.choice([-1.0, 1.0], size=(N, deg, bits)) if signs
+            else rng.normal(size=(N, deg, bits)))
+    return psi, torch.tensor(draw, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("N,deg,bits", [(8, 16, 16), (37, 64, 24),
+                                        (128, 32, 30), (5, 8, 8), (1, 8, 30),
+                                        (1000, 24, 18), (33, 130, 18)])
+def test_simlsh_encode_kernel_equals_plain(cuda, N, deg, bits):
+    psi, phi = _encode_args(N, deg, bits, np.random.default_rng(N + deg),
+                            cuda)
+    before = se_kernel.LAUNCHES
+    got = se_kernel.simlsh_encode(psi, phi)
+    torch.cuda.synchronize()
+    assert se_kernel.LAUNCHES == before + 1
+    want = simlsh_encode_ref(psi, phi)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-5, atol=1e-5)
+    # Φ = ±1: every product is exact and both sum over d in order
+    assert torch.equal(got, want)
+    psi, phi = _encode_args(N, deg, bits, np.random.default_rng(N), cuda,
+                            signs=False)
+    np.testing.assert_allclose(se_kernel.simlsh_encode(psi, phi).cpu(),
+                               simlsh_encode_ref(psi, phi).cpu(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_encode_band_on_card_launches_the_kernel_and_matches_cpu(cuda):
+    _, sp, _, _ = _state()
+    cfg = simlsh.SimLSHConfig(G=9, p=2, q=3)
+    key = prng.PRNGKey(0)
+    for band in range(cfg.q):
+        before = se_kernel.LAUNCHES
+        got = encode_band(sp.to(cuda), cfg, key, band, deg=24)
+        assert se_kernel.LAUNCHES == before + 1
+        want = encode_band(sp, cfg, key, band, deg=24)
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        S = simlsh.band_accumulate(sp.rows, sp.cols, sp.vals, key, band,
+                                   N=sp.N, bits=cfg.sig_bits,
+                                   psi_pow=cfg.psi_pow)
+        np.testing.assert_allclose(got.cpu().numpy(), S.numpy(), rtol=1e-4,
+                                   atol=1e-3)
+
+
+@pytest.mark.parametrize("B,F,K", [(64, 16, 8), (100, 32, 16), (3, 8, 4),
+                                   (256, 128, 32), (1, 128, 64),
+                                   (33, 40, 5), (8192, 128, 64)])
+def test_neighbor_predict_kernel_equals_plain(cuda, B, F, K):
+    rng = np.random.default_rng(B + F + K)
+    a = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32,
+                                device=cuda)
+    args = (a(B, F), a(B, F), a(B, K), a(B, K), a(B, K), a(B, K), a(B),
+            a(B), a(B))
+    before = np_kernel.LAUNCHES
+    got = np_kernel.neighbor_predict(*args)
+    torch.cuda.synchronize()
+    assert np_kernel.LAUNCHES == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               neighbor_predict_ref(*args).cpu().numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_predict_batch_on_card_matches_model_predict(cuda):
+    params, sp, _, _ = _state()
+    rng = np.random.default_rng(2)
+    N, K = sp.N, 6
+    params = dataclasses.replace(
+        params, W=torch.tensor(0.1 * rng.normal(size=(N, K)),
+                               dtype=torch.float32),
+        C=torch.tensor(0.1 * rng.normal(size=(N, K)), dtype=torch.float32))
+    JK = torch.tensor(rng.integers(0, N, (N, K)), dtype=torch.int32)
+    bt = model.assemble(sp, JK, torch.arange(0, sp.nnz, 7), torch.ones(
+        len(range(0, sp.nnz, 7))))
+    to = lambda x: type(x)(*(getattr(x, f.name).to(cuda)
+                             for f in dataclasses.fields(x)))
+    before = np_kernel.LAUNCHES
+    got = predict_batch(to(params), to(bt))
+    assert np_kernel.LAUNCHES == before + 1
+    want = model.predict(params, bt)[0]
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_encode_predict_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    psi, phi = _encode_args(4, 8, 18, np.random.default_rng(0), cuda)
+    with pytest.raises(ValueError, match="disagree"):
+        se_kernel.simlsh_encode(psi, phi[:, :4].contiguous())
+    with pytest.raises(ValueError, match="bits"):
+        se_kernel.simlsh_encode(psi, torch.ones((4, 8, 33), device=cuda))
+    with pytest.raises(TypeError):
+        se_kernel.simlsh_encode(psi.double(), phi)
+    with pytest.raises(ValueError, match="contiguous"):
+        se_kernel.simlsh_encode(psi.t().contiguous().t(), phi)
+    a = torch.zeros((5, 8), device=cuda)
+    k = torch.zeros((5, 3), device=cuda)
+    v = torch.zeros((5,), device=cuda)
+    with pytest.raises(ValueError, match="expected"):
+        np_kernel.neighbor_predict(a, a[:4], k, k, k, k, v, v, v)
+    with pytest.raises(ValueError, match="sN"):
+        np_kernel.neighbor_predict(a, a, k, k, k, k, v, v, v[:3])
+    with pytest.raises(TypeError):
+        np_kernel.neighbor_predict(a, a, k, k, k.double(), k, v, v, v)

@@ -35,7 +35,13 @@ def test_the_port_has_its_files():
     assert {"src/repro_torch/prng.py", "src/repro_torch/core/sgd.py",
             "src/repro_torch/data/synthetic.py",
             "src/repro_torch/kernels/mf_sgd/kernel.py",
-            "src/repro_torch/train/trainer.py"} <= names
+            "src/repro_torch/train/trainer.py",
+            "src/repro_torch/train/checkpoint.py",
+            "src/repro_torch/resil/faults.py",
+            "src/repro_torch/kernels/simlsh_encode/kernel.py",
+            "src/repro_torch/kernels/simlsh_encode/ops.py",
+            "src/repro_torch/kernels/neighbor_predict/kernel.py",
+            "src/repro_torch/kernels/neighbor_predict/ops.py"} <= names
     assert len(names) >= 20
 
 

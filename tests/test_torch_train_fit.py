@@ -10,8 +10,10 @@ CPU at a small size (M = 200, N = 80, 2,700 training triples).
   statistics equal, and the test RMSE after each of 3 epochs within
   1e-4 of the JAX package's (2.4e-7 measured: the Φ, J^K, schedule and
   batch order are bit-equal, the initial factors agree to a few ulp).
-* The paths `fit` does not port yet raise `NotImplementedError`, and
-  with no device given it runs on ``cuda``.
+* The paths `fit` does not port yet (the comparator neighbour methods,
+  more than one shard) raise `NotImplementedError`, and with no device
+  given it runs on ``cuda``.  ``schedule="none"`` and checkpoints run:
+  `tests/test_torch_legacy_ckpt.py`.
 * `convert` carries keys and packed planes between the packages.
 """
 import dataclasses
@@ -146,8 +148,6 @@ def test_fit_matches_jax(data, method, use_kernels):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(ckpt_dir="ckpt"), "checkpoint"),
-    (dict(schedule="none"), "schedule='none'"),
     (dict(method="gsm"), "gsm"),
     (dict(method="rand"), "rand"),
     (dict(method="rp_cos"), "rp_cos"),
