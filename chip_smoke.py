@@ -16,8 +16,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    (G=9, p=2, q=10) and the bucketed LSH index, all on the card;
 4. kernel vs plain — each kernel against its plain PyTorch version on the
    card, at the shapes of a real 256-user flush, plus edge cases (all
-   masked rows, a batch that is not a multiple of ``tile_b``, a non-empty
-   index tail);
+   SENTINEL rows, a batch that is not a multiple of ``tile_b``, a
+   non-empty index tail); the scorer is the fused `score_topn` (user-row
+   gather, μ, id clip and mask, score, top-N, items), held with
+   `assert_topn_close` at 1e-5, also at topn = 50;
 5. serve — `RecsysService` warmup + 64 micro-batches of 256 users, with
    the kernels' launch counters zeroed just before and read just after;
    then 16 more flushes under `torch.profiler` for the device's busy
@@ -26,8 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. recall@10 against exact scoring (`full_topn`) on 1,024 probe users;
 7. timing — each kernel and its plain version at the phase-5 shapes
    (median of 30 CUDA-event-timed calls, each after an L2-evicting
-   scrub), beside the least time the card could take (bytes over
-   3.35 TB/s, operations over 67 TFLOP/s);
+   scrub; the scorer also in a CUDA graph), beside the least time the
+   card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
 8. fit set-up — the repo's ~100M-parameter LSH-MF model
    (`examples/train_lshmf_100m.py`: M = 700,000 users, N = 30,000 items,
    F = 128, K = 64) on `synthetic.MOVIELENS_LIKE` data reshaped to those
@@ -36,16 +38,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    schedule-ordered data, the eval cache), its resident MB, the
    schedule's statistics, and the signature bits that differ between two
    encodes;
-9. kernel vs plain — both fused SGD steps against their plain versions
-   on tiles gathered from that state (B = 512, 7, 250, a tier's last
-   partial batch, all rows invalid, BCE both ways), and padding slots that
-   repeat live ids adding nothing to the planes;
-10. fit — `fit(use_kernels=True)` for 3 epochs with the `culsh_sgd_step`
+9. kernel vs plain — the fused in-place CULSH-MF step against the plain
+   gather → step → delta scatter on copies of that state's planes
+   (schedule windows of B = 512, 7, 250, a tier's last partial batch,
+   all slots invalid, BCE both ways), the stale-b̂ hazard batch (every
+   neighbour another live slot's col) launched 20 times, padding slots
+   that repeat live ids adding nothing to the planes; `mf_sgd_step` on
+   tiles gathered from the same windows;
+10. fit — `fit(use_kernels=True)` for 3 epochs with the `culsh_sgd`
     counter zeroed just before (it must equal the conflict-free steps x
     epochs), the same fit on the plain steps (final RMSE within 1e-3),
     one epoch of plain MF (``method="none"``) through `mf_sgd_step`, then
-    one more epoch of each under `torch.profiler`;
-11. timing — both fused steps and their plain versions at B = 512: the
+    one more epoch of each under `torch.profiler`, the conflict-free
+    tiers alone under it (device activities per step, at most 2), and one
+    epoch's two parts — tiers and leftover batches — timed alone;
+11. timing — both SGD kernels and their plain versions at B = 512: the
     device time per call in a CUDA graph of 50 calls (median of 20
     replays, so the host's time per call does not enter it), beside
     phase 7's cold-L2 reading, the host-paced back-to-back rate and the
@@ -84,6 +91,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -310,9 +318,8 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     from repro_torch.data.sparse import (conflict_free_schedule, from_coo,
                                          train_test_split)
     from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
-    from repro_torch.kernels.mf_sgd.ops import (apply_culsh_sgd, culsh_hyper,
-                                                mf_hyper)
-    from repro_torch.kernels.mf_sgd.ref import (culsh_sgd_step_ref,
+    from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
+    from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
                                                 mf_sgd_step_ref)
     from repro_torch.train.trainer import FitConfig, fit
 
@@ -384,53 +391,84 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
           f"{sigs.numel() * cfg.lsh.sig_bits} signature bits differ",
           flush=True)
 
-    # ---- 9. kernel vs plain, on tiles gathered from the fit's state ----
+    # ---- 9. kernel vs plain, on batches of the fit's state ----
     decay = sgd.lr_decay(cfg.hp, 0, dev)
     hpv = culsh_hyper(cfg.hp, decay, pp.mu)
     hmf = mf_hyper(cfg.hp, decay, dev)
+    copy = lambda q: dataclasses.replace(q, row=q.row.clone(),
+                                         col=q.col.clone())
 
-    def window(t, k):
-        return model.slice_batch(sd, int(sched.tier_starts[t][k]),
-                                 sched.widths[t], torch.as_tensor(
-                                     sched.tier_valid[t][k], device=dev).float())
+    def window(t, k, width=None):
+        width = width or sched.widths[t]
+        return model.slice_batch(sd, int(sched.tier_starts[t][k]), width,
+                                 torch.as_tensor(sched.tier_valid[t][k][:width],
+                                                 device=dev).float())
 
-    def tiles(bt):
-        return [pp.row[bt.i.long()], pp.col[bt.j.long()], bt.rnb,
-                pp.bh[bt.nb.long()], bt.expl, bt.r, bt.valid, hpv]
+    def fused_vs_plain(state, b, hp, bce=False):
+        """The fused step on a copy of ``state`` against the plain gather →
+        step → delta scatter on another → (kernel planes, plain planes,
+        max abs err)."""
+        got = sgd_kernel.culsh_sgd_batch(copy(state), b, hp, bce=bce)
+        want = apply_culsh_sgd_ref(copy(state), b, hp, bce=bce)
+        err = 0.0
+        for g, w in ((got.row, want.row), (got.col, want.col)):
+            torch.testing.assert_close(g, w, **SGD_TOL)
+            err = max(err, float((g - w).abs().max()))
+        return got, want, err
 
     bt = window(0, 0)
     W0 = sched.widths[0]
-    base = tiles(bt)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    wc = list(base)                     # W and C as a trained state has them
-    wc[1] = base[1].clone()
-    wc[1][:, F:F + 2 * K] = 0.1 * torch.randn((W0, 2 * K), generator=gen,
-                                              device=dev)
-    cut = lambda a, n: [t[:n].contiguous() for t in a[:7]] + [a[7]]
-    off = list(base)
-    off[6] = torch.zeros_like(base[6])
+    wc = copy(pp)                       # W and C as a trained state has them
+    wc.col[:, F:F + 2 * K] = 0.1 * torch.randn((N, 2 * K), generator=gen,
+                                               device=dev)
+    off = dataclasses.replace(bt, valid=torch.zeros_like(bt.valid))
     last_t = max(t for t, s in enumerate(sched.tier_starts) if len(s))
-    padded_real = tiles(window(last_t, -1))   # a tier's last, partial batch
-    culsh_cases = {f"B={W0}": base, f"B={W0} random W,C": wc,
-                   "B=7": cut(wc, 7), "B=250": cut(wc, 250),
-                   "all invalid": off,
+    last = window(last_t, -1)           # a tier's last, partial batch
+    culsh_cases = {f"B={W0}": (pp, bt), f"B={W0} random W,C": (wc, bt),
+                   "B=7": (wc, window(0, 0, 7)),
+                   "B=250": (wc, window(0, 0, 250)), "all invalid": (wc, off),
                    f"last batch of width {sched.widths[last_t]} "
-                   f"({int(padded_real[6].sum())} valid)": padded_real}
+                   f"({int(last.valid.sum())} valid)": (wc, last)}
     culsh_err = 0.0
-    for a in culsh_cases.values():
+    for state, b in culsh_cases.values():
         for bce in (False, True):
-            culsh_err = max(culsh_err, check_sgd(
-                sgd_kernel.culsh_sgd_step(*a, bce=bce),
-                culsh_sgd_step_ref(*a, bce=bce), a[6], a[:2]))
-    mfa = lambda a: [a[0][:, :F].contiguous(), a[1][:, :F].contiguous(),
-                     a[5], a[6], hmf]
+            got, _, err = fused_vs_plain(state, b, hpv, bce)
+            culsh_err = max(culsh_err, err)
+    got, _, _ = fused_vs_plain(wc, off, hpv)
+    if not (torch.equal(got.row, wc.row) and torch.equal(got.col, wc.col)):
+        raise AssertionError("an all-invalid batch changed the planes")
     mf_err = 0.0
-    for a in culsh_cases.values():
+    for state, b in culsh_cases.values():
+        m = [state.row[b.i.long(), :F].contiguous(),
+             state.col[b.j.long(), :F].contiguous(), b.r, b.valid, hmf]
         for bce in (False, True):
-            m = mfa(a)
             mf_err = max(mf_err, check_sgd(
                 sgd_kernel.mf_sgd_step(*m, bce=bce),
                 mf_sgd_step_ref(*m, bce=bce), m[3], m[:2]))
+    # the stale-b̂ hazard: every explicit neighbour of every slot is another
+    # live slot's col; b̂ and W at larger rates so a stale read would show
+    live_j = bt.j[bt.valid > 0]
+    nxt = (torch.arange(W0, device=dev)[:, None] + 1
+           + torch.arange(K, device=dev)[None, :]) % live_j.shape[0]
+    hz = dataclasses.replace(bt, nb=live_j[nxt].contiguous(),
+                             expl=torch.ones_like(bt.expl),
+                             impl=torch.zeros_like(bt.impl))
+    hp_hz = hpv.clone()
+    hp_hz[1], hp_hz[4] = 0.3, 0.05                  # γ of b̂ and of W
+    hz_err = 0.0
+    for _ in range(20):
+        _, want, err = fused_vs_plain(wc, hz, hp_hz)
+        hz_err = max(hz_err, err)
+    stale = copy(wc)                    # slot by slot: reads updated b̂
+    for s_ in torch.nonzero(bt.valid > 0).flatten().tolist():
+        apply_culsh_sgd_ref(stale, model.Batch(*(
+            getattr(hz, f.name)[s_:s_ + 1] for f in dataclasses.fields(hz))),
+            hp_hz)
+    stale_gap = float((stale.col - want.col).abs().max())
+    if torch.allclose(stale.col, want.col, **SGD_TOL):
+        raise AssertionError("the hazard batch cannot tell a stale b̂")
+    del stale, want
     # padding slots that repeat live ids add exactly nothing to the planes
     q = W0 // 4
     i2, j2, v2 = bt.i.clone(), bt.j.clone(), bt.valid.clone()
@@ -438,20 +476,25 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     with_pad = dataclasses.replace(bt, i=i2, j=j2, valid=v2)
     live = model.Batch(*(getattr(with_pad, f.name)[:W0 - q]
                          for f in dataclasses.fields(bt)))
-    planes = [dataclasses.replace(pp, row=pp.row.clone(), col=pp.col.clone())
-              for _ in range(2)]
-    apply_culsh_sgd(planes[0], with_pad, hpv)
-    apply_culsh_sgd(planes[1], live, hpv)
+    planes = [copy(wc) for _ in range(2)]
+    sgd_kernel.culsh_sgd_batch(planes[0], with_pad, hpv)
+    sgd_kernel.culsh_sgd_batch(planes[1], live, hpv)
     if not (torch.equal(planes[0].row, planes[1].row)
             and torch.equal(planes[0].col, planes[1].col)):
         raise AssertionError("padding slots that repeat live ids changed "
                              "the planes")
-    del planes
-    print(f"[9 check] culsh_sgd_step within rtol 1e-5 / atol 1e-6 (max abs "
-          f"err {culsh_err:.3g}) and mf_sgd_step (max abs err "
-          f"{mf_err:.3g}), BCE both ways, invalid rows bit for bit "
-          f"unchanged, on: " + ", ".join(culsh_cases) + f"; {q} padding "
-          f"slots repeating live i/j add nothing to the planes", flush=True)
+    del planes, got
+    culsh_err = max(culsh_err, hz_err)
+    print(f"[9 check] culsh_sgd (fused, in place) within rtol 1e-5 / atol "
+          f"1e-6 of the plain gather -> step -> scatter (max abs err "
+          f"{culsh_err:.3g}), BCE both ways, on: " + ", ".join(culsh_cases)
+          + f"; an all-invalid batch leaves the planes bit for bit; the "
+          f"stale-b^ hazard batch ({int(bt.valid.sum())} live slots, every "
+          f"neighbour another live slot's col) 20 launches within tolerance "
+          f"(max abs err {hz_err:.3g}; read slot by slot it is off by "
+          f"{stale_gap:.3g}); {q} padding slots repeating live i/j add "
+          f"nothing to the planes; mf_sgd_step within tolerance (max abs "
+          f"err {mf_err:.3g}), invalid rows bit for bit", flush=True)
 
     # ---- 10. fit: the main path, counters zeroed just before each run ----
     log = lambda tag: (lambda s: print(f"[10 fit {tag}] {s}", flush=True))
@@ -500,19 +543,52 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     in_loop = {}
     if on_card:   # one more epoch of each engine under the profiler
         sd_mf = model.build_scheduled_data(sp, JK, sched, mf_only=True)
-        for name, state, data_, mf_only in (
-                ("culsh_sgd", model.pack_params(res.params), sd, False),
-                ("mf_sgd", model.pack_params(mf.params), sd_mf, True)):
+        key_ep = prng.fold_in(k_ep, cfg.epochs)
+        kernel_of = dict(culsh_sgd="culsh_sgd_kernel",
+                         mf_sgd="mf_sgd_kernel")
+
+        def epoch(state, data_, mf_only):
+            sgd.train_epoch_scheduled(state, data_, sched, key_ep,
+                                      cfg.epochs, cfg.hp, mf_only=mf_only,
+                                      use_kernels=True)
+
+        def part(state, name):
+            """One part of a kernel epoch alone, each batch through
+            `sgd._cf_scan` as the epoch runs it (in the schedule's order):
+            the conflict-free tiers, or the leftover batches."""
+            on_dev = lambda a: torch.as_tensor(a, device=dev)
+            decay_ = sgd.lr_decay(cfg.hp, cfg.epochs, dev)
+            scan = lambda starts, valid, **kw: sgd._cf_scan(
+                state, sd, starts, on_dev(valid).float(), cfg.hp, decay_,
+                culsh_hyper(cfg.hp, decay_, state.mu), mf_only=False,
+                bce=False, **kw)
+            if name == "tiers":
+                for t, (starts, valid) in enumerate(zip(sched.tier_starts,
+                                                        sched.tier_valid)):
+                    if len(starts):
+                        scan(starts, valid, width=sched.widths[t],
+                             conflict_free=True, use_kernels=True)
+            elif len(sched.lo_starts):
+                scan(sched.lo_starts, sched.lo_valid, width=sched.widths[0],
+                     conflict_free=False, use_kernels=False,
+                     scales=(on_dev(sched.lo_scale_i),
+                             on_dev(sched.lo_scale_j)))
+
+        def profiled(run, *a):
             sync()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                sgd.train_epoch_scheduled(
-                    state, data_, sched, prng.fold_in(k_ep, cfg.epochs),
-                    cfg.epochs, cfg.hp, mf_only=mf_only, use_kernels=True)
+                run(*a)
                 sync()
                 wall_us = (time.perf_counter() - t0) * 1e6
-            spans, busy, by_name = device_activity(prof)
-            mine = [us for n, us in by_name.items() if f"{name}_kernel" in n]
+            return wall_us, device_activity(prof)
+
+        for name, state, data_, mf_only in (
+                ("culsh_sgd", model.pack_params(res.params), sd, False),
+                ("mf_sgd", model.pack_params(mf.params), sd_mf, True)):
+            wall_us, (spans, busy, by_name) = profiled(epoch, state, data_,
+                                                       mf_only)
+            mine = [us for n, us in by_name.items() if kernel_of[name] in n]
             in_loop[name] = sum(mine) / 1e3 / max(nb_cf, 1)
             print(f"[10 profile] one {name} epoch: host wall {wall_us:.0f} "
                   f"us, device busy {busy:.0f} us ({busy / wall_us:.3f} of "
@@ -521,43 +597,83 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
             for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
                 print(f"[10 profile]   {us / 1e3:9.2f} ms  {n[:90]}",
                       flush=True)
+        # the conflict-free tiers alone: device activities per step
+        wall_us, (spans, busy, _) = profiled(
+            part, model.pack_params(res.params), "tiers")
+        per_step = len(spans) / max(nb_cf, 1)
+        print(f"[10 profile] the conflict-free tiers alone: {len(spans)} "
+              f"device activities in {nb_cf} steps = {per_step:.3f} per step "
+              f"(limit 2); host wall {wall_us:.0f} us, device busy "
+              f"{busy:.0f} us ({busy / wall_us:.3f} of the wall)", flush=True)
+        if per_step > 2:
+            raise AssertionError(f"{per_step:.3f} device activities per "
+                                 f"conflict-free step")
         # the profiles hold ~10⁵ Python objects; free them so no collector
-        # pause lands in phase 11's timed host gaps
-        del prof, spans
+        # pause lands in the timed host gaps below and in phase 11
+        del spans, by_name
+        gc.collect()
+        # one epoch in its two parts, unprofiled: the leftover share
+        secs_of = {}
+        for name in ("tiers", "leftovers"):
+            state = model.pack_params(res.params)
+            sync()
+            t0 = time.perf_counter()
+            part(state, name)
+            sync()
+            secs_of[name] = time.perf_counter() - t0
+        t_cf, t_lo = secs_of["tiers"], secs_of["leftovers"]
+        nb_lo = res.schedule_stats["nb_lo"]
+        print(f"[10 time] one kernel epoch in its two parts: {nb_cf} "
+              f"conflict-free steps {t_cf:.3f} s ({t_cf / nb_cf * 1e6:.1f} us "
+              f"per step, host-paced), {nb_lo} leftover batches {t_lo:.3f} s "
+              f"({t_lo / max(nb_lo, 1) * 1e6:.0f} us per batch); leftover "
+              f"share {t_lo / (t_cf + t_lo):.3f}", flush=True)
+        del state
         gc.collect()
 
     # ---- 11. time each fused step and its plain version at B = W0 ----
     # `ms` and `plain_ms` are device times from CUDA graphs; the cold-L2
-    # event reading and the back-to-back rate are printed beside them
-    m = mfa(base)
-    steps = dict(culsh_sgd=(lambda: sgd_kernel.culsh_sgd_step(*base),
-                            lambda: culsh_sgd_step_ref(*base)),
+    # event reading and the back-to-back rate are printed beside them.
+    # The CULSH-MF step updates copies of the planes in place.
+    st_k, st_p = copy(wc), copy(wc)
+    m = [wc.row[bt.i.long(), :F].contiguous(),
+         wc.col[bt.j.long(), :F].contiguous(), bt.r, bt.valid, hmf]
+    steps = dict(culsh_sgd=(lambda: sgd_kernel.culsh_sgd_batch(st_k, bt, hpv),
+                            lambda: apply_culsh_sgd_ref(st_p, bt, hpv)),
                  mf_sgd=(lambda: sgd_kernel.mf_sgd_step(*m),
                          lambda: mf_sgd_step_ref(*m)))
     timed = {name: dict(ms=graph_ms(kern, dev), plain=graph_ms(pl, dev),
                         cold=median_ms(kern, dev),
                         b2b=back_to_back_ms(kern, dev))
              for name, (kern, pl) in steps.items()}
-    # bytes: every tile read once and both outputs written once;
-    # operations: the forward and the update of one sample (14 per factor,
-    # 30 per neighbour slot, ~30 scalar) for each of the B samples
+    del st_k, st_p
+    # CULSH-MF bytes, per live slot (an invalid one reads nothing but its
+    # mask): both plane rows read and written back, the [K] rows nb, rnb,
+    # expl and the K neighbour baselines b̂[nb], and i, j, r; the masks and
+    # hp.  mf_sgd_step: every tile read once and the outputs written once.
+    # Operations: the forward and the update of one sample (14 per factor,
+    # 30 per neighbour slot, ~30 scalar) per live slot
+    n_live = int(bt.valid.sum())
     culsh_bound, culsh_by = bound_ms(
-        4 * (2 * W0 * (F + 1) + 2 * W0 * (F + 2 * K + 1) + 3 * W0 * K
-             + 2 * W0 + 13), W0 * (14 * F + 30 * K + 30))
+        4 * (n_live * (2 * (F + 1) + 2 * (F + 2 * K + 1) + 4 * K + 3) + W0
+             + 13), n_live * (14 * F + 30 * K + 30))
     mf_bound, mf_by = bound_ms(4 * (4 * W0 * F + 3 * W0 + 4),
                                W0 * (14 * F + 10))
     bounds = dict(culsh_sgd=(culsh_bound, culsh_by),
                   mf_sgd=(mf_bound, mf_by))
+    what = dict(culsh_sgd="the fused in-place step (gathers, step, writes)",
+                mf_sgd="the tile step")
     for name, t in timed.items():
         bnd, by = bounds[name]
-        print(f"[11 time] {name}_step at B={W0} F={F} K={K}: kernel "
-              f"{t['ms']:.5f} ms (CUDA graph of 50 calls, median of 20 "
-              f"replays), {t['cold']:.4f} ms cold L2 behind the scrub, "
-              f"{t['b2b']:.4f} ms per call back to back (host-paced), "
-              f"{in_loop.get(name, float('nan')):.5f} ms per launch in the "
-              f"profiled epoch; plain version {t['plain']:.5f} ms (CUDA "
-              f"graph); bound {bnd:.5f} ms ({by}); no single PyTorch call "
-              f"computes the fused step (power limit {power})", flush=True)
+        print(f"[11 time] {name} at B={W0} ({n_live} live) F={F} K={K}, "
+              f"{what[name]}: kernel {t['ms']:.5f} ms (CUDA graph of 50 "
+              f"calls, median of 20 replays), {t['cold']:.4f} ms cold L2 "
+              f"behind the scrub, {t['b2b']:.4f} ms per call back to back "
+              f"(host-paced), {in_loop.get(name, float('nan')):.5f} ms per "
+              f"launch in the profiled epoch; plain version "
+              f"{t['plain']:.5f} ms (CUDA graph); bound {bnd:.5f} ms ({by}); "
+              f"no single PyTorch call computes the fused step (power limit "
+              f"{power})", flush=True)
     entries = [
         dict(name="culsh_sgd_step", route="cuda",
              source="src/repro_torch/csrc/culsh_sgd.cu",
@@ -817,8 +933,8 @@ def main(argv=None) -> int:
     from repro_torch.data.sparse import from_coo
     from repro_torch.kernels import _build
     from repro_torch.kernels.candidate_score import kernel as score_kernel
-    from repro_torch.kernels.candidate_score.ref import (
-        assert_topn_close, candidate_score_topn_ref)
+    from repro_torch.kernels.candidate_score.ref import (assert_topn_close,
+                                                        score_topn_ref)
     from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
     from repro_torch.kernels.lsh_retrieve.ref import lsh_retrieve_topc_ref
     from repro_torch.serve import (RecsysService, ServeConfig, build_index,
@@ -840,9 +956,13 @@ def main(argv=None) -> int:
         _build.library()
         print(f"[2 build] kernels built and loaded in "
               f"{time.perf_counter() - t0:.2f} s", flush=True)
+        entry = ""                       # ptxas: registers and spills
         for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[2 build] {line.strip()}", flush=True)
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = m.group(1)
+            elif "registers" in line or "spill" in line:
+                print(f"[2 build] {entry}: {line.strip()}", flush=True)
 
     # ---- 3. catalog and state ----
     t0 = time.perf_counter()
@@ -904,25 +1024,23 @@ def main(argv=None) -> int:
 
     cand = torch.cat([got, popular[None, :].expand(B, -1)], dim=1)
     F = svc.planes.F
-    urow = svc.planes.row[users.long()]
-    urow[:, F] += svc.planes.mu
-    safe = cand.clamp(0, N - 1).contiguous()
-    mask = (cand != SENTINEL).to(torch.float32)
-    masked = mask.clone()
-    masked[:8] = 0                      # all-masked rows
+    masked = cand.clone()
+    masked[:8] = SENTINEL               # all-SENTINEL rows
     b_odd = B - 6                       # not a multiple of tile_b
-    sc_args = (urow, svc.planes.col, safe, mask)
+    planes = (svc.planes.row, svc.planes.mu, svc.planes.col)
+    sc_args = (*planes, users, cand)
     score_err = 0.0
-    for args_ in (sc_args, (urow, svc.planes.col, safe, masked),
-                  (urow[:b_odd], svc.planes.col, safe[:b_odd],
-                   mask[:b_odd])):
+    for args_, topn in ((sc_args, cfg.topn), ((*planes, users, masked),
+                                               cfg.topn),
+                        ((*planes, users[:b_odd], cand[:b_odd]), cfg.topn),
+                        (sc_args, 50)):
         score_err = max(score_err, assert_topn_close(
-            *score_kernel.candidate_score_topn(*args_, topn=cfg.topn),
-            *candidate_score_topn_ref(*args_, topn=cfg.topn,
-                                      tile_b=cfg.tile_b)))
-    print(f"[4 check] candidate_score within 1e-5 (max abs err "
-          f"{score_err:.3g}) at B={B} C={cfg.C} F={F} topn={cfg.topn}, with "
-          f"8 all-masked rows and B={b_odd}", flush=True)
+            *score_kernel.score_topn(*args_, topn=topn),
+            *score_topn_ref(*args_, topn=topn, tile_b=cfg.tile_b)))
+    print(f"[4 check] candidate_score (score_topn: user rows, mu, ids, "
+          f"top-N, items) within 1e-5 (max abs err {score_err:.3g}) at "
+          f"B={B} C={cfg.C} F={F} topn={cfg.topn}, with 8 all-SENTINEL rows, "
+          f"B={b_odd}, and topn=50 (two selection passes)", flush=True)
 
     # ---- 5. serve: the main path, counters zeroed just before ----
     lsh_kernel.LAUNCHES = 0
@@ -988,15 +1106,16 @@ def main(argv=None) -> int:
     # n·log2(n) comparisons of two sorts of the Wp-wide pool
     lsh_bytes = 4 * (2 * B * I + B * X + E + int(lens.sum()) + B * core_C)
     lsh_bound, lsh_by = bound_ms(lsh_bytes, 2 * B * Wp * np.log2(Wp))
-    sc_ms = median_ms(lambda: score_kernel.candidate_score_topn(
-        *sc_args, topn=cfg.topn), dev)
-    sc_plain = median_ms(lambda: candidate_score_topn_ref(
+    score = lambda: score_kernel.score_topn(*sc_args, topn=cfg.topn)
+    sc_ms = median_ms(score, dev)
+    sc_graph = graph_ms(score, dev, n=20, reps=10)
+    sc_plain = median_ms(lambda: score_topn_ref(
         *sc_args, topn=cfg.topn, tile_b=cfg.tile_b), dev)
-    # bytes: user rows, ids and mask read once, one plane row per valid
-    # slot, the outputs written once; operations: a multiply-add per
-    # factor plus two bias adds per valid slot
-    n_valid = int((mask > 0).sum())
-    sc_bytes = 4 * (B * (F + 1) + 2 * B * cfg.C + n_valid * (F + 1)
+    # bytes: the user ids and rows, μ and the candidate ids read once, one
+    # plane row per non-SENTINEL slot, the outputs written once;
+    # operations: a multiply-add per factor plus two bias adds per slot
+    n_valid = int((cand != SENTINEL).sum())
+    sc_bytes = 4 * (B + B * (F + 1) + 1 + B * cfg.C + n_valid * (F + 1)
                     + 2 * B * cfg.topn)
     sc_bound, sc_by = bound_ms(sc_bytes, n_valid * (2 * F + 2))
     power = smi.split(",")[-1].strip() if on_card else "cpu rehearsal"
@@ -1007,6 +1126,9 @@ def main(argv=None) -> int:
               f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}); no single PyTorch "
               f"call computes this function, so no library yardstick "
               f"(power limit {power})", flush=True)
+    print(f"[7 time] candidate_score: {sc_graph:.4f} ms per call in a CUDA "
+          f"graph of 20 calls (warm L2, median of 10 replays) beside the "
+          f"{sc_ms:.4f} ms cold-L2 reading", flush=True)
 
     kernels = [
         dict(name="lsh_retrieve", route="cuda",

@@ -37,13 +37,14 @@ SIGNATURES = {
     # n_flat, stream
     "lsh_retrieve_topc_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                  _I, _I, _L, _P],
-    # urow, plane, cand, mask, scores, idx, B, C, Fp1, topn, N, stream
-    "candidate_score_topn_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                    _L, _P],
-    # row, col, rnb, bh_nb, expl, r, valid, hp, row_out, col_out, B, F, K,
-    # bce, stream
-    "culsh_sgd_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                              _I, _I, _P],
+    # row, mu, col, users, cand, scores, items, B, C, Fp1, topn, M, N,
+    # stream
+    "candidate_score_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _L, _L, _P],
+    # &CulshArgs, start, k (the batch's row of the valid masks)
+    "culsh_sgd_launch": [_P, _L, _L],
+    # F, K, bce → blocks the card holds at once (< 0: an error)
+    "culsh_sgd_capacity": [_I, _I, _I],
     # u, v, r, valid, hp, u_out, v_out, e_out, B, F, bce, stream
     "mf_sgd_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # psi, phi, out, N, deg, bits, stream

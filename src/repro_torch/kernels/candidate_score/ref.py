@@ -1,20 +1,21 @@
-"""Plain PyTorch version of the fused candidate-score + top-N kernel
-(`repro/kernels/candidate_score/ref.py`).
+"""Plain PyTorch versions of the candidate scorer: the tile-level
+gather + score + top-N (`repro/kernels/candidate_score/ref.py`) and the
+flush-level `score_topn_ref` around it (`repro/kernels/candidate_score/
+ops.py::score_candidates`), which the CUDA kernel computes in one launch.
 
 Plane rows are gathered per tile of ``tile_b`` users, so the gather
 intermediate is ``[tile_b, C, F+1]`` and the full ``[B, C, F]`` cube never
 exists.  Top-N is a *stable* descending sort: equal scores keep the lower
-slot first, the tie rule of `lax.top_k` and of the kernel's argmax.
+slot first, the tie rule of `lax.top_k` and of the kernel's merge.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-# effective -inf that survives f32 arithmetic (masked slots), and the
-# kernel's knock-out value, strictly below it
-NEG = -3e38
-NEG2 = -3.4e38
+from repro_torch.core.topk import SENTINEL
+
+NEG = -3e38     # effective -inf that survives f32 arithmetic (masked slots)
 
 
 def candidate_score_topn_ref(urow, plane, cand, mask, *, topn: int,
@@ -41,6 +42,26 @@ def candidate_score_topn_ref(urow, plane, cand, mask, *, topn: int,
                             device=urow.device),
                 torch.empty((0, topn), dtype=torch.int32, device=urow.device))
     return torch.cat(scores), torch.cat(idx)
+
+
+def score_topn_ref(row, mu, col, user_ids, cand, *, topn: int,
+                   tile_b: int = 8):
+    """row [M, F+1] (U‖b), mu [] (μ), col [N, F+1] (V‖b̂), user_ids [B],
+    cand [B, C] SENTINEL-padded ids → (scores [B, topn] f32, items
+    [B, topn] int32, SENTINEL where a slot was padding): the user rows
+    gathered with μ folded into their bias column, ids clipped to [0, N),
+    SENTINEL slots masked, `candidate_score_topn_ref`, and the slots
+    translated back to item ids."""
+    F = row.shape[1] - 1
+    safe = cand.clamp(0, col.shape[0] - 1).contiguous()
+    mask = (cand != SENTINEL).to(torch.float32)
+    urow = row[user_ids.long()]                    # ONE row-side gather
+    urow[:, F] += mu                               # bias col := μ + b_i
+    scores, idx = candidate_score_topn_ref(urow, col, safe, mask, topn=topn,
+                                           tile_b=tile_b)
+    items = torch.gather(cand, 1, idx.long())
+    items = torch.where(scores > NEG, items, torch.full_like(items, SENTINEL))
+    return scores, items
 
 
 def assert_topn_close(s, i, s_want, i_want, tol: float = 1e-5) -> float:

@@ -1,12 +1,16 @@
-"""Gather plane rows → fused kernel step → scatter the deltas
+"""The SGD steps of a conflict-free batch on the packed planes
 (`repro/kernels/mf_sgd/ops.py`).
 
 The packed layout (`core.model.PackedParams`) makes a step two
 gather/scatter pairs: one [B, F+1] row-plane pair (U and b) and one
-[B, F+2K+1] col-plane pair (V, W, C and b̂).  The conflict-free batch
-makes the scatter race-free, so adding the per-row *delta* is exactly
-Eq. (5); a padding slot, whose tile the kernel leaves unchanged, adds 0
-even where it repeats a live i or j.  The planes are updated in place.
+[B, F+2K+1] col-plane pair (V, W, C and b̂).  For CULSH-MF the CUDA
+kernel does all of it in one launch, in place (`kernel.culsh_sgd_batch`;
+`ref.apply_culsh_sgd_ref` is the plain gather → step → delta scatter).
+CUSGD++ gathers here, runs the tile kernel and scatters the deltas.  The
+conflict-free batch makes the scatter race-free, so adding the per-row
+*delta* is exactly Eq. (5); a padding slot, whose tile the step leaves
+unchanged, adds 0 even where it repeats a live i or j.  The planes are
+updated in place.
 
 The hyper-parameter vectors (`culsh_hyper`, `mf_hyper`) depend only on
 the epoch's decay, so the epoch loop builds them once per epoch as device
@@ -19,7 +23,7 @@ import torch
 from repro_torch.core.model import Batch, PackedParams
 from repro_torch.kernels import pick
 from repro_torch.kernels.mf_sgd import kernel
-from repro_torch.kernels.mf_sgd.ref import culsh_sgd_step_ref, mf_sgd_step_ref
+from repro_torch.kernels.mf_sgd.ref import mf_sgd_step_ref
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -27,7 +31,7 @@ def _f32(x, device) -> torch.Tensor:
 
 
 def culsh_hyper(hp, decay, mu) -> torch.Tensor:
-    """The [13] vector of `culsh_sgd_step`: the six learning rates times
+    """The [13] vector of the CULSH-MF step: the six learning rates times
     ``decay``, the six regularizers and μ, on μ's device."""
     d = _f32(decay, mu.device)
     rates = [hp.a_b, hp.a_bh, hp.a_u, hp.a_v, hp.a_w, hp.a_c]
@@ -58,21 +62,3 @@ def apply_mf_sgd(pp: PackedParams, bt: Batch, hpv: torch.Tensor, *,
     pp.col[:, :F].index_add_(0, j, v2 - v)
     return pp
 
-
-def apply_culsh_sgd(pp: PackedParams, bt: Batch, hpv: torch.Tensor, *,
-                    impl: str = "auto", bce: bool = False) -> PackedParams:
-    """Fused six-parameter CULSH-MF step of a conflict-free batch on the
-    packed planes; ``hpv`` from `culsh_hyper`.  The neighbour baselines
-    b̂[J^K[j]] are gathered before the step: a neighbour col of one slot
-    may be another slot's j in the same batch."""
-    F, K = pp.F, pp.K
-    i, j = bt.i.long(), bt.j.long()
-    row = pp.row[i]                                  # [B, F+1]
-    col = pp.col[j]                                  # [B, F+2K+1]
-    bh_nb = pp.bh[bt.nb.long()]                      # [B, K]
-    fn = pick(impl, row.device, kernel.culsh_sgd_step, culsh_sgd_step_ref)
-    row2, col2 = fn(row, col, bt.rnb, bh_nb, bt.expl, bt.r, bt.valid, hpv,
-                    bce=bce)
-    pp.row.index_add_(0, i, row2 - row)
-    pp.col.index_add_(0, j, col2 - col)
-    return pp

@@ -1,11 +1,12 @@
 """Plain PyTorch versions of the fused SGD steps, CUSGD++ and CULSH-MF
-(`repro/kernels/mf_sgd/ref.py`).  The kernel wrappers run these on CPU
-tensors, and the card's kernels are compared with them."""
+(`repro/kernels/mf_sgd/ref.py`), and of the fused CULSH-MF step over the
+packed planes (`apply_culsh_sgd_ref`).  The kernel wrappers run these on
+CPU tensors, and the card's kernels are compared with them."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.model import predict_gathered
+from repro_torch.core.model import Batch, PackedParams, predict_gathered
 
 
 def mf_sgd_step_ref(u, v, r, valid, hp, *, bce: bool = False):
@@ -56,3 +57,23 @@ def culsh_sgd_step_ref(row, col, rnb, bh_nb, expl, r, valid, hp, *,
     row2 = torch.cat([u2, b2[:, None]], dim=1)
     col2 = torch.cat([v2, w2, c2, bh2[:, None]], dim=1)
     return row2, col2
+
+
+def apply_culsh_sgd_ref(pp: PackedParams, bt: Batch, hp, *,
+                        bce: bool = False) -> PackedParams:
+    """The fused CULSH-MF step of a conflict-free batch on the packed
+    planes, in place (`repro/kernels/mf_sgd/ops.py::apply_culsh_sgd`):
+    gather both plane rows and the neighbour baselines b̂[J^K[j]] before
+    the step (a neighbour col of one slot may be another slot's j), run
+    `culsh_sgd_step_ref`, scatter the deltas.  A padding slot, whose tile
+    comes back unchanged, adds exactly 0 even where it repeats a live i or
+    j.  ``hp`` is the [13] vector of `ops.culsh_hyper`."""
+    i, j = bt.i.long(), bt.j.long()
+    row = pp.row[i]                                  # [B, F+1]
+    col = pp.col[j]                                  # [B, F+2K+1]
+    bh_nb = pp.bh[bt.nb.long()]                      # [B, K]
+    row2, col2 = culsh_sgd_step_ref(row, col, bt.rnb, bh_nb, bt.expl, bt.r,
+                                    bt.valid, hp, bce=bce)
+    pp.row.index_add_(0, i, row2 - row)
+    pp.col.index_add_(0, j, col2 - col)
+    return pp

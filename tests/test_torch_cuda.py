@@ -6,12 +6,14 @@ it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-`lsh_retrieve` must equal its plain version bit for bit;
-`candidate_score` within rtol/atol 1e-5 with equal indices wherever
+`lsh_retrieve` must equal its plain version bit for bit; the fused
+scorer `score_topn` within rtol/atol 1e-5 with equal items wherever
 neighbouring top-N scores differ by more than 1e-5 (summation order);
-`culsh_sgd_step` and `mf_sgd_step` within rtol 1e-5 / atol 1e-6 (the JAX
-package's kernel tolerance, `tests/test_kernels.py`), with invalid rows
-bit for bit unchanged; `simlsh_encode` within rtol/atol 1e-5, and bit
+the fused in-place CULSH-MF step (`culsh_sgd_batch`, `culsh_sgd_tier`)
+against the plain gather → step → delta scatter on copies of the planes,
+and `mf_sgd_step` against its plain tile version, within rtol 1e-5 /
+atol 1e-6 (the JAX package's kernel tolerance, `tests/test_kernels.py`),
+with the rows of invalid slots bit for bit unchanged; `simlsh_encode` within rtol/atol 1e-5, and bit
 for bit with Φ = ±1 (the kernel and its plain version both sum over d in
 order, and every product is exact); `neighbor_predict` within rtol/atol
 1e-4.
@@ -26,16 +28,16 @@ import torch
 
 from repro_torch import convert, prng
 from repro_torch.core import model, sgd, simlsh
-from repro_torch.data import synthetic
+from repro_torch.data import sparse, synthetic
 from repro_torch.data.sparse import from_coo, train_test_split
 from repro_torch.kernels.candidate_score import kernel as score_kernel
-from repro_torch.kernels.candidate_score.ref import (assert_topn_close,
-                                                    candidate_score_topn_ref)
+from repro_torch.kernels.candidate_score.ref import (NEG, assert_topn_close,
+                                                    score_topn_ref)
 from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
 from repro_torch.kernels.lsh_retrieve.ref import lsh_retrieve_topc_ref
 from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
-from repro_torch.kernels.mf_sgd.ops import apply_culsh_sgd, culsh_hyper
-from repro_torch.kernels.mf_sgd.ref import culsh_sgd_step_ref, mf_sgd_step_ref
+from repro_torch.kernels.mf_sgd.ops import culsh_hyper
+from repro_torch.kernels.mf_sgd.ref import apply_culsh_sgd_ref, mf_sgd_step_ref
 from repro_torch.kernels.neighbor_predict import kernel as np_kernel
 from repro_torch.kernels.neighbor_predict.ops import predict_batch
 from repro_torch.kernels.neighbor_predict.ref import neighbor_predict_ref
@@ -74,11 +76,16 @@ def _state(N=1500, seed=0):
     return params, sp, sigs, build_index(sigs, tail_cap=32, device="cpu")
 
 
-def _plane_args(B, C, F, N, rng, mask_p=0.7):
-    return (torch.tensor(rng.normal(size=(B, F + 1)), dtype=torch.float32),
+def _flush_args(B, C, F, N, rng, pad_p=0.3, M=50):
+    """Operands of the fused scorer: row [M, F+1], mu, col [N, F+1],
+    user_ids [B] and cand [B, C] with about ``pad_p`` SENTINEL slots."""
+    cand = rng.integers(0, N, (B, C))
+    cand[rng.random((B, C)) < pad_p] = SENTINEL
+    return (torch.tensor(rng.normal(size=(M, F + 1)), dtype=torch.float32),
+            torch.tensor(2.75),
             torch.tensor(rng.normal(size=(N, F + 1)), dtype=torch.float32),
-            torch.tensor(rng.integers(0, N, (B, C)), dtype=torch.int32),
-            torch.tensor(rng.random((B, C)) < mask_p, dtype=torch.float32))
+            torch.tensor(rng.integers(0, M, B), dtype=torch.int32),
+            torch.tensor(cand, dtype=torch.int32))
 
 
 @pytest.mark.parametrize("tail", [False, True])
@@ -107,27 +114,34 @@ def test_lsh_retrieve_kernel_equals_plain(cuda, tail, n_seeds, cap, C, excl):
         *(x.cpu() for x in ops), C=C, cap=cap))
 
 
-@pytest.mark.parametrize("B,C,F,topn", [(32, 64, 16, 10), (7, 33, 8, 5),
-                                        (250, 768, 48, 10), (9, 16, 8, 16)])
+@pytest.mark.parametrize("B,C,F,topn", [
+    (32, 64, 16, 10), (7, 33, 8, 5), (250, 768, 48, 10), (9, 16, 8, 16),
+    (5, 10, 48, 10), (256, 700, 48, 10), (13, 2048, 48, 32),
+    (3, 768, 128, 10), (6, 40, 250, 3), (10, 768, 48, 50),
+    (5, 300, 300, 10), (4, 130, 300, 100), (3, 64, 8, 64)])
 def test_candidate_score_kernel_equals_plain(cuda, B, C, F, topn):
-    ops = [x.to(cuda) for x in _plane_args(B, C, F, 300,
+    ops = [x.to(cuda) for x in _flush_args(B, C, F, 300,
                                            np.random.default_rng(B + C))]
     before = score_kernel.LAUNCHES
-    s, i = score_kernel.candidate_score_topn(*ops, topn=topn)
+    s, items = score_kernel.score_topn(*ops, topn=topn)
     torch.cuda.synchronize()
     assert score_kernel.LAUNCHES == before + 1
-    assert_topn_close(s, i, *candidate_score_topn_ref(*ops, topn=topn))
+    assert_topn_close(s, items, *score_topn_ref(*ops, topn=topn))
 
 
 def test_candidate_score_kernel_all_masked_and_tied(cuda):
-    urow, plane, cand, mask = _plane_args(12, 40, 8, 6,
-                                          np.random.default_rng(3))
-    mask[:4] = 0                                  # all-masked rows
-    ops = [x.to(cuda) for x in (urow, plane, cand, mask)]
-    s, i = score_kernel.candidate_score_topn(*ops, topn=12)
-    s_w, i_w = candidate_score_topn_ref(*ops, topn=12)
-    assert torch.equal(i[:4], i_w[:4]) and torch.equal(s[:4], s_w[:4])
-    assert_topn_close(s, i, s_w, i_w)
+    row, mu, col, users, cand = _flush_args(12, 40, 8, 6,
+                                            np.random.default_rng(3),
+                                            pad_p=0.0)
+    cand[:4] = SENTINEL                           # all-SENTINEL rows
+    cand[4] = torch.tensor([2, 5] * 20)           # exact ties: repeated ids
+    ops = [x.to(cuda) for x in (row, mu, col, users, cand)]
+    s, items = score_kernel.score_topn(*ops, topn=12)
+    s_w, i_w = score_topn_ref(*ops, topn=12)
+    assert torch.equal(items[:4], i_w[:4]) and torch.equal(s[:4], s_w[:4])
+    assert bool((s[:4] == NEG).all() and (items[:4] == SENTINEL).all())
+    assert torch.equal(s[4], s_w[4]) and torch.equal(items[4], i_w[4])
+    assert_topn_close(s, items, s_w, i_w)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -135,14 +149,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         lsh_kernel.lsh_retrieve_topc(x, x, x, x[0], x[0], C=2, cap=1)
     f = torch.zeros((4, 5), device=cuda)
-    i = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError):
-        score_kernel.candidate_score_topn(f, f.t(), i, i.float(), topn=2)
-    narrow = i[:, :4].float().contiguous()
+    mu = torch.tensor(1.0, device=cuda)
+    u = torch.zeros(4, dtype=torch.int32, device=cuda)
+    c = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        score_kernel.score_topn(f, mu, f.t().contiguous().t(), u, c, topn=2)
+    with pytest.raises(TypeError):
+        score_kernel.score_topn(f, mu, f, u.long(), c, topn=2)
     with pytest.raises(ValueError, match="disagree"):
-        score_kernel.candidate_score_topn(f, f, i, narrow, topn=2)
+        score_kernel.score_topn(f, mu, f[:, :4].contiguous(), u, c, topn=2)
+    with pytest.raises(ValueError, match="disagree"):
+        score_kernel.score_topn(f, mu, f, u[:3], c, topn=2)
+    with pytest.raises(ValueError, match="mu"):
+        score_kernel.score_topn(f, mu.double(), f, u, c, topn=2)
     with pytest.raises(ValueError, match="topn"):
-        score_kernel.candidate_score_topn(f, f, i, i.float(), topn=9)
+        score_kernel.score_topn(f, mu, f, u, c, topn=9)
+    wide = torch.zeros((4, 60000), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        score_kernel.score_topn(f, mu, f, u, wide, topn=33)
 
 
 def test_service_on_card_launches_both_kernels_and_matches_cpu(cuda):
@@ -170,16 +194,33 @@ def test_service_on_card_launches_both_kernels_and_matches_cpu(cuda):
 
 # ------------------------------------------------------------ fused SGD steps
 
-def culsh_args(B, F, K, rng):
-    """Packed-plane operands of `culsh_sgd_step` (`tests/test_kernels.py::
-    _culsh_args`): row, col, rnb, bh_nb, expl, r, valid (about half the
-    rows invalid), hp[13]."""
+def fused_case(B, F, K, rng, *, valid_p=0.5, device="cpu"):
+    """Packed planes, a conflict-free `Batch` of ``B`` slots (distinct i
+    and j, any neighbour cols, about ``valid_p`` of the slots valid, W and
+    C non-zero) and a hyper vector [13] for the fused CULSH-MF step."""
+    M, N = 2 * B + 3, 2 * B + 5
     a = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32)
+    pp = model.PackedParams(row=a(M, F + 1), col=a(N, F + 2 * K + 1),
+                            mu=torch.tensor(3.25), F=F, K=K)
+    ids = lambda n: torch.tensor(rng.permutation(n)[:B], dtype=torch.int32)
     expl = torch.tensor(rng.integers(0, 2, (B, K)), dtype=torch.float32)
-    valid = torch.tensor(rng.integers(0, 2, B), dtype=torch.float32)
-    hp = torch.cat([a(12).abs() * 0.05, a(1) * 0.1])
-    return [a(B, F + 1), a(B, F + 2 * K + 1), a(B, K), a(B, K), expl, a(B),
-            valid, hp]
+    valid = torch.tensor(rng.random(B) < valid_p, dtype=torch.float32)
+    bt = model.Batch(ids(M), ids(N), a(B),
+                     torch.tensor(rng.integers(0, N, (B, K)),
+                                  dtype=torch.int32),
+                     a(B, K), expl, 1.0 - expl, valid)
+    hp = torch.cat([a(12).abs() * 0.05, pp.mu[None]])
+    return _to(pp, device), _to(bt, device), hp.to(device)
+
+
+def _to(x, device):
+    return dataclasses.replace(x, **{
+        f.name: getattr(x, f.name).to(device) for f in dataclasses.fields(x)
+        if isinstance(getattr(x, f.name), torch.Tensor)})
+
+
+def _copy(pp):
+    return dataclasses.replace(pp, row=pp.row.clone(), col=pp.col.clone())
 
 
 def _close(got, want):
@@ -188,20 +229,31 @@ def _close(got, want):
                                    rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("bce", [False, True])
-@pytest.mark.parametrize("B,F,K", [(512, 128, 64), (7, 128, 64),
-                                   (250, 128, 64), (24, 8, 4), (33, 40, 5)])
-def test_culsh_sgd_kernel_equals_plain(cuda, B, F, K, bce):
-    args = [x.to(cuda) for x in culsh_args(B, F, K,
-                                          np.random.default_rng(B + F))]
+def _fused_equals_plain(pp, bt, hp, bce=False):
+    """One launch of the fused step on a copy of the planes against the
+    plain gather → step → delta scatter on another → the kernel's
+    planes."""
     before = sgd_kernel.CULSH_LAUNCHES
-    got = sgd_kernel.culsh_sgd_step(*args, bce=bce)
+    got = sgd_kernel.culsh_sgd_batch(_copy(pp), bt, hp, bce=bce)
     torch.cuda.synchronize()
     assert sgd_kernel.CULSH_LAUNCHES == before + 1
-    _close(got, culsh_sgd_step_ref(*args, bce=bce))
-    off = args[6] == 0                       # invalid rows: bit for bit
-    assert torch.equal(got[0][off], args[0][off])
-    assert torch.equal(got[1][off], args[1][off])
+    want = apply_culsh_sgd_ref(_copy(pp), bt, hp, bce=bce)
+    _close((got.row, got.col), (want.row, want.col))
+    return got
+
+
+@pytest.mark.parametrize("bce", [False, True])
+@pytest.mark.parametrize("B,F,K", [(512, 128, 64), (7, 128, 64),
+                                   (250, 128, 64), (24, 8, 4), (33, 40, 5),
+                                   (40, 200, 100), (40, 300, 150),
+                                   (12, 520, 260)])
+def test_culsh_sgd_kernel_equals_plain(cuda, B, F, K, bce):
+    pp, bt, hp = fused_case(B, F, K, np.random.default_rng(B + F),
+                            device=cuda)
+    got = _fused_equals_plain(pp, bt, hp, bce)
+    off = bt.valid == 0                      # invalid slots: bit for bit
+    assert torch.equal(got.row[bt.i[off].long()], pp.row[bt.i[off].long()])
+    assert torch.equal(got.col[bt.j[off].long()], pp.col[bt.j[off].long()])
 
 
 @pytest.mark.parametrize("bce", [False, True])
@@ -226,13 +278,12 @@ def test_mf_sgd_kernel_equals_plain(cuda, B, F, bce):
 
 
 def test_sgd_kernels_all_invalid_rows_are_copies(cuda):
-    args = [x.to(cuda) for x in culsh_args(64, 128, 64,
-                                          np.random.default_rng(1))]
-    args[6] = torch.zeros_like(args[6])
-    row2, col2 = sgd_kernel.culsh_sgd_step(*args)
-    assert torch.equal(row2, args[0]) and torch.equal(col2, args[1])
-    u = args[0][:, :128].contiguous()
-    u2, v2, e = sgd_kernel.mf_sgd_step(u, u, args[5], args[6],
+    pp, bt, hp = fused_case(64, 128, 64, np.random.default_rng(1),
+                            valid_p=0.0, device=cuda)
+    got = sgd_kernel.culsh_sgd_batch(_copy(pp), bt, hp)
+    assert torch.equal(got.row, pp.row) and torch.equal(got.col, pp.col)
+    u = pp.row[:64, :128].contiguous()
+    u2, v2, e = sgd_kernel.mf_sgd_step(u, u, bt.r, bt.valid,
                                        torch.full((4,), 0.1, device=cuda))
     assert torch.equal(u2, u) and torch.equal(v2, u)
     assert bool((e == 0).all())
@@ -240,8 +291,9 @@ def test_sgd_kernels_all_invalid_rows_are_copies(cuda):
 
 def test_culsh_step_padding_slots_repeating_live_ids_add_nothing(cuda):
     """A schedule window reads past its batch's fill: an invalid slot may
-    carry the i and j of a valid one.  Its delta must be exactly 0, so
-    the planes equal those of the batch without the padding slots."""
+    carry the i and j of a valid one.  It must write nothing, so the
+    planes equal those of the batch without the padding slots, bit for
+    bit."""
     rng = np.random.default_rng(4)
     M, N, F, K, B = 40, 30, 128, 64, 12
     a = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32)
@@ -261,17 +313,107 @@ def test_culsh_step_padding_slots_repeating_live_ids_add_nothing(cuda):
     live = model.Batch(*(getattr(bt, f.name)[:8]
                          for f in dataclasses.fields(bt)))
     hpv = culsh_hyper(sgd.Hyper(), 0.9, pp0.mu)
-    to = lambda x, d: dataclasses.replace(x, **{
-        f.name: getattr(x, f.name).to(d) for f in dataclasses.fields(x)
-        if isinstance(getattr(x, f.name), torch.Tensor)})
-    got = apply_culsh_sgd(to(pp0, cuda), to(bt, cuda), hpv.to(cuda),
-                          impl="cuda")
-    want = apply_culsh_sgd(to(pp0, cuda), to(live, cuda), hpv.to(cuda),
-                           impl="cuda")
+    got = sgd_kernel.culsh_sgd_batch(_to(pp0, cuda), _to(bt, cuda),
+                                     hpv.to(cuda))
+    want = sgd_kernel.culsh_sgd_batch(_to(pp0, cuda), _to(live, cuda),
+                                      hpv.to(cuda))
     assert torch.equal(got.row, want.row) and torch.equal(got.col, want.col)
-    plain = apply_culsh_sgd(to(pp0, "cpu"), bt, hpv, impl="ref")
+    plain = apply_culsh_sgd_ref(_to(pp0, "cpu"), bt, hpv)
     np.testing.assert_allclose(got.col.cpu().numpy(), plain.col.numpy(),
                                rtol=1e-5, atol=1e-6)
+
+
+def hazard_case(B, F, K, rng, device):
+    """`fused_case` with every slot valid and every explicit neighbour of
+    every slot another live slot's j: the batch in which a step that read
+    a b̂ after another slot had written it would be off."""
+    pp, bt, hp = fused_case(B, F, K, rng, valid_p=1.0)
+    nxt = (torch.arange(B)[:, None] + 1 + torch.arange(K)[None, :]) % B
+    bt = dataclasses.replace(bt, nb=bt.j[nxt], expl=torch.ones((B, K)),
+                             impl=torch.zeros((B, K)))
+    hp[1], hp[4] = 0.3, 0.05         # b̂ and W move enough to show
+    return _to(pp, device), _to(bt, device), hp.to(device)
+
+
+def test_culsh_step_reads_neighbour_baselines_before_any_write(cuda):
+    """The hazard batch, launched 20 times from the same planes: every
+    launch within tolerance of the plain version, which gathers every
+    b̂[nb] before any write; applying the slots one at a time (reading
+    updated b̂) falls outside it."""
+    pp, bt, hp = hazard_case(512, 128, 64, np.random.default_rng(9), cuda)
+    for _ in range(20):
+        got = _fused_equals_plain(pp, bt, hp)
+    stale = _copy(pp)
+    for s in range(bt.i.shape[0]):
+        apply_culsh_sgd_ref(stale, model.Batch(*(
+            getattr(bt, f.name)[s:s + 1] for f in dataclasses.fields(bt))),
+            hp)
+    with pytest.raises(AssertionError):
+        _close((stale.col,), (got.col,))
+
+
+def test_culsh_step_replays_in_a_cuda_graph(cuda):
+    """The cooperative launch captured in a CUDA graph (as `chip_smoke.py`
+    times it) replays the same launches made eagerly, bit for bit."""
+    pp, bt, _ = fused_case(512, 128, 64, np.random.default_rng(7),
+                           valid_p=0.9, device=cuda)
+    pp.row.mul_(0.1)                 # five steps stay finite
+    pp.col.mul_(0.1)
+    hp = culsh_hyper(sgd.Hyper(), 1.0, pp.mu)
+    eager, graphed = _copy(pp), _copy(pp)
+    for _ in range(5):
+        sgd_kernel.culsh_sgd_batch(eager, bt, hp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):    # warm up off the capture stream
+        sgd_kernel.culsh_sgd_batch(_copy(pp), bt, hp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(5):
+            sgd_kernel.culsh_sgd_batch(graphed, bt, hp)
+    torch.cuda.synchronize()
+    assert torch.equal(graphed.col, pp.col)     # capture ran nothing
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(eager.col).all())
+    assert torch.equal(graphed.row, eager.row)
+    assert torch.equal(graphed.col, eager.col)
+
+
+def test_culsh_tier_on_card_equals_plain_epoch(cuda):
+    """One scheduled epoch on the card through `culsh_sgd_tier` (every
+    tier, their partial last batches included) against the same epoch on
+    the CPU's plain steps; one launch per conflict-free batch."""
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=300, N=90,
+                               nnz=4000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=0)
+    sp = from_coo(rows, cols, vals, (spec.M, spec.N), device="cpu")
+    K, F = 8, 16
+    rng = np.random.default_rng(0)
+    JK = torch.tensor(rng.integers(0, spec.N, (spec.N, K)), dtype=torch.int32)
+    sched = sparse.conflict_free_schedule(
+        sp.rows.numpy(), sp.cols.numpy(), batch=64, tiers=3, M=spec.M,
+        N=spec.N, seed=0)
+    assert any((~v).any() for v in sched.tier_valid)   # partial batches
+    sd = model.build_scheduled_data(sp, JK, sched)
+    p = model.init_from_data(prng.PRNGKey(1), sp, F, K)
+    p = dataclasses.replace(p, W=torch.randn(spec.N, K) * 0.1,
+                            C=torch.randn(spec.N, K) * 0.1)
+    pp = model.pack_params(p)
+    key = prng.PRNGKey(2)
+    before = sgd_kernel.CULSH_LAUNCHES
+    got = sgd.train_epoch_scheduled(_copy(_to(pp, cuda)), _to(sd, cuda),
+                                    sched, key, 1, sgd.Hyper(),
+                                    use_kernels=True)
+    torch.cuda.synchronize()
+    assert sgd_kernel.CULSH_LAUNCHES - before == sched.stats()["nb_cf"]
+    want = sgd.train_epoch_scheduled(_copy(pp), sd, sched, key, 1,
+                                     sgd.Hyper(), use_kernels=False)
+    np.testing.assert_allclose(got.row.cpu().numpy(), want.row.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.col.cpu().numpy(), want.col.numpy(),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_fit_on_card_launches_the_culsh_kernel_per_cf_step(cuda):
@@ -293,18 +435,39 @@ def test_fit_on_card_launches_the_culsh_kernel_per_cf_step(cuda):
 
 
 def test_sgd_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    args = [x.to(cuda) for x in culsh_args(8, 8, 4,
-                                          np.random.default_rng(0))]
+    pp, bt, hp = fused_case(8, 8, 4, np.random.default_rng(0), device=cuda)
     with pytest.raises(ValueError, match="disagree"):
-        sgd_kernel.culsh_sgd_step(args[0], args[1][:, :-1].contiguous(),
-                                  *args[2:])
+        sgd_kernel.culsh_sgd_batch(dataclasses.replace(
+            pp, col=pp.col[:, :-1].contiguous()), bt, hp)
     with pytest.raises(TypeError):
-        sgd_kernel.culsh_sgd_step(args[0].double(), *args[1:])
-    with pytest.raises(ValueError):
-        sgd_kernel.mf_sgd_step(args[0], args[0].t(), args[5], args[6],
-                               args[7][:4])
+        sgd_kernel.culsh_sgd_batch(pp, dataclasses.replace(
+            bt, i=bt.i.long()), hp)
+    with pytest.raises(ValueError, match="disagrees"):
+        sgd_kernel.culsh_sgd_batch(pp, dataclasses.replace(
+            bt, nb=bt.nb[:, :2].contiguous()), hp)
     with pytest.raises(ValueError, match="hp"):
-        sgd_kernel.mf_sgd_step(args[0], args[0], args[5], args[6], args[7])
+        sgd_kernel.culsh_sgd_batch(pp, bt, hp[:4])
+    with pytest.raises(ValueError, match="F=0"):
+        sgd_kernel.culsh_sgd_batch(dataclasses.replace(pp, F=0), bt, hp)
+    valid = torch.ones((2, 8), device=cuda)
+    with pytest.raises(ValueError, match="past"):
+        sgd_kernel.culsh_sgd_tier(pp, bt, valid, hp, width=8,
+                                  starts=np.array([0, 4]))
+    with pytest.raises(ValueError, match="slot masks"):
+        sgd_kernel.culsh_sgd_tier(pp, bt, valid, hp, width=8,
+                                  starts=np.array([0]))
+    big = 1 << 22                   # more slots than one grid can hold
+    z = torch.zeros(big, dtype=torch.int32, device=cuda)
+    zk = torch.zeros((big, 4), device=cuda)
+    wide = model.Batch(z, z, zk[:, 0].contiguous(), z[:, None].expand(
+        big, 4).contiguous(), zk, zk, zk, torch.zeros(big, device=cuda))
+    with pytest.raises(ValueError, match="co-resident"):
+        sgd_kernel.culsh_sgd_batch(pp, wide, hp)
+    args = [pp.row[:8, :8].contiguous(), bt.r, bt.valid]
+    with pytest.raises(ValueError):
+        sgd_kernel.mf_sgd_step(args[0], args[0].t(), *args[1:], hp[:4])
+    with pytest.raises(ValueError, match="hp"):
+        sgd_kernel.mf_sgd_step(args[0], args[0], *args[1:], hp)
 
 
 # ------------------------------------------- simLSH encode, fused prediction

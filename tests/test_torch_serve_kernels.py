@@ -36,7 +36,7 @@ from repro_torch import convert
 from repro_torch.core.model import ServePlanes
 from repro_torch.kernels.candidate_score import kernel as score_kernel
 from repro_torch.kernels.candidate_score.ops import score_candidates
-from repro_torch.kernels.candidate_score.ref import (assert_topn_close,
+from repro_torch.kernels.candidate_score.ref import (NEG, assert_topn_close,
                                                     candidate_score_topn_ref)
 from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
 from repro_torch.kernels.lsh_retrieve.ref import lsh_retrieve_topc_ref
@@ -160,6 +160,16 @@ def _plane_args(B, C, F, N, rng, mask_p=0.7):
     return urow, plane, cand, mask
 
 
+def _flush_args(urow, plane, cand, mask):
+    """The fused scorer's operands that reproduce a tile case: the user
+    rows as the row plane (μ = 0, so μ + b is the bias column as is),
+    users 0..B-1, and masked slots padded with SENTINEL."""
+    users = np.arange(urow.shape[0], dtype=np.int32)
+    padded = np.where(mask > 0, cand, SENTINEL).astype(np.int32)
+    return (torch.tensor(urow), torch.tensor(0.0), torch.tensor(plane),
+            torch.tensor(users), torch.tensor(padded))
+
+
 @pytest.mark.parametrize("B,C,F,topn,tile", [
     (32, 64, 16, 10, 8), (7, 33, 8, 5, 16), (64, 128, 32, 1, 32)])
 def test_candidate_score_matches_jax_ref_and_interpret(B, C, F, topn, tile):
@@ -167,13 +177,21 @@ def test_candidate_score_matches_jax_ref_and_interpret(B, C, F, topn, tile):
     s_ref, i_ref = jscore_ref(*map(jnp.asarray, ops), topn=topn, tile_b=tile)
     s_pl, i_pl = jscore_kernel(*map(jnp.asarray, ops), topn=topn,
                                tile_b=tile, interpret=True)
-    before = score_kernel.LAUNCHES
-    s, i = score_kernel.candidate_score_topn(*map(torch.tensor, ops),
-                                             topn=topn, tile_b=tile)
-    assert score_kernel.LAUNCHES == before, "a CPU tensor launched a kernel"
+    s, i = candidate_score_topn_ref(*map(torch.tensor, ops), topn=topn,
+                                    tile_b=tile)
     assert s.dtype == torch.float32 and i.dtype == torch.int32
     assert_topn_close(s.numpy(), i.numpy(), s_ref, i_ref)
     assert_topn_close(s.numpy(), i.numpy(), s_pl, i_pl)
+    # the fused entry on the same case: no launch on CPU tensors, the same
+    # scores, and the winning slots translated to their item ids
+    before = score_kernel.LAUNCHES
+    s2, items = score_kernel.score_topn(*_flush_args(*ops), topn=topn,
+                                        tile_b=tile)
+    assert score_kernel.LAUNCHES == before, "a CPU tensor launched a kernel"
+    assert items.dtype == torch.int32
+    want = np.take_along_axis(ops[2], np.asarray(i_pl), axis=1)
+    want = np.where(np.asarray(s_pl) > NEG, want, SENTINEL)
+    assert_topn_close(s2.numpy(), items.numpy(), s_pl, want)
 
 
 def test_candidate_score_all_masked_rows():
@@ -208,7 +226,9 @@ def test_candidate_score_exact_ties_keep_the_lower_slot():
 @pytest.mark.parametrize("impl", ["auto", "ref"])
 def test_score_candidates_matches_jax_ops(impl):
     """μ folded into the bias column, ids clipped before the gather,
-    SENTINEL slots masked and deficient rows mapped back to SENTINEL."""
+    SENTINEL slots masked and deficient rows mapped back to SENTINEL; an
+    all-SENTINEL row and exact ties (repeated ids) against the JAX
+    package's ref and Pallas (interpret) paths."""
     rng = np.random.default_rng(11)
     M, N, F, B, C = 40, 90, 12, 10, 24
     row = rng.normal(size=(M, F + 1)).astype(np.float32)
@@ -217,14 +237,24 @@ def test_score_candidates_matches_jax_ops(impl):
     cand = rng.integers(0, N, (B, C)).astype(np.int32)
     cand[rng.random((B, C)) < 0.3] = SENTINEL
     cand[0, 3:] = SENTINEL                    # a deficient row
+    cand[1] = SENTINEL                        # an all-SENTINEL row
+    cand[2] = np.tile([7, 3, 7, 5], C // 4)   # exact ties: repeated ids
     from repro.core.model import ServePlanes as JPlanes
     jp = JPlanes(row=jnp.asarray(row), col=jnp.asarray(col),
                  mu=jnp.asarray(2.5, jnp.float32), F=F)
     tp = ServePlanes(row=torch.tensor(row), col=torch.tensor(col),
                      mu=torch.tensor(2.5), F=F)
-    s_w, i_w = jscore_ops(jp, jnp.asarray(users), jnp.asarray(cand), topn=6,
-                          tile_b=4, impl="ref")
+    before = score_kernel.LAUNCHES
     s, i = score_candidates(tp, torch.tensor(users), torch.tensor(cand),
                             topn=6, tile_b=4, impl=impl)
-    assert_topn_close(s.numpy(), i.numpy(), s_w, i_w)
+    assert score_kernel.LAUNCHES == before
+    for jimpl in ("ref", "pallas"):
+        s_w, i_w = jscore_ops(jp, jnp.asarray(users), jnp.asarray(cand),
+                              topn=6, tile_b=4, impl=jimpl, interpret=True)
+        assert_topn_close(s.numpy(), i.numpy(), s_w, i_w)
+        np.testing.assert_array_equal(i.numpy()[:3], np.asarray(i_w)[:3])
     assert (i.numpy()[0, 3:] == SENTINEL).all()
+    assert (i.numpy()[1] == SENTINEL).all() and (s.numpy()[1] == NEG).all()
+    best = max((3, 5, 7), key=lambda c: row[users[2], :F] @ col[c, :F]
+               + col[c, F])
+    np.testing.assert_array_equal(i.numpy()[2], [best] * 6)

@@ -1,14 +1,24 @@
 """Port vs JAX package: the fused SGD steps of `kernels/mf_sgd` and the
 packed/unpacked steps of `core/sgd.py`.
 
-* The plain versions (`mf_sgd_step_ref`, `culsh_sgd_step_ref`) against
-  the JAX package's refs and its Pallas kernels in interpret mode, within
-  rtol 1e-5 / atol 1e-6 (the tolerance of `tests/test_kernels.py`), at
-  batch widths 7, 24, 96 and 250, with the BCE loss both ways; invalid
-  rows come back unchanged.  On the CPU the kernel wrappers run the plain
-  versions.
-* `apply_*` (gather → step → delta scatter) against the port's packed
-  steps and the JAX package's `apply_*`.
+* The plain tile versions (`mf_sgd_step_ref`, `culsh_sgd_step_ref`)
+  against the JAX package's refs and its Pallas kernels in interpret
+  mode, within rtol 1e-5 / atol 1e-6 (the tolerance of
+  `tests/test_kernels.py`), at batch widths 7, 24, 96 and 250, with the
+  BCE loss both ways; invalid rows come back unchanged.  The fused
+  CULSH-MF entry (`kernel.culsh_sgd_batch`, which on the card gathers,
+  steps and writes the planes in one launch) runs its plain version on
+  CPU tensors: planes built around the same tiles come back with the
+  same rows, and no kernel launches.
+* The fused entry, `ref.apply_culsh_sgd_ref` and `ops.apply_mf_sgd`
+  (gather → step → delta scatter) against
+  the port's packed steps and the JAX package's `apply_*` (ref and
+  Pallas interpret), including a batch whose slots' neighbours are the
+  other live slots' columns (the stale-b̂ hazard) with non-zero W.
+* One epoch's conflict-free tiers through the fused entry
+  (`use_kernels`) against the packed steps, and the tiers and the
+  leftover batches run as separate `sgd._cf_scan` calls against the
+  whole epoch.
 * The port's packed steps bit-identical to its unpacked steps, on
   conflict-free, collision-scaled and precomputed-scale batches (the
   invariant of `tests/test_schedule.py::test_packed_step_bit_identical`).
@@ -34,7 +44,9 @@ from repro_torch.core import model, sgd
 from repro_torch.data import sparse, synthetic
 from repro_torch.kernels import pick
 from repro_torch.kernels.mf_sgd import kernel, ops
-from repro_torch.kernels.mf_sgd.ref import culsh_sgd_step_ref, mf_sgd_step_ref
+from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
+                                            culsh_sgd_step_ref,
+                                            mf_sgd_step_ref)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 WIDTHS = [7, 24, 96, 250]
@@ -75,15 +87,28 @@ def test_culsh_step_plain_matches_jax_ref_and_pallas(B, bce):
                  jculsh_kernel(*jargs, tile_b=64, interpret=True, bce=bce)):
         for g, w in zip(got, want):
             np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
-    # on CPU tensors the wrapper is the plain version, no launch
+    # the fused entry on planes built around the tiles: row s of each
+    # plane is tile row s, and slot s's neighbours are extra col rows that
+    # hold bh_nb; on CPU tensors it is the plain version, no launch
+    row, col, rnb, bh_nb, expl, r, valid, hp = map(torch.tensor, args)
+    extra = torch.zeros((B * K, col.shape[1]))
+    extra[:, -1] = bh_nb.reshape(-1)
+    pp = model.PackedParams(row=row.clone(), col=torch.cat([col, extra]),
+                            mu=hp[12], F=F, K=K)
+    ids = torch.arange(B, dtype=torch.int32)
+    nb = (B + torch.arange(B * K, dtype=torch.int32)).reshape(B, K)
+    bt = model.Batch(ids, ids, r, nb, rnb, expl, 1.0 - expl, valid)
     before = kernel.CULSH_LAUNCHES
-    again = kernel.culsh_sgd_step(*map(torch.tensor, args), bce=bce)
+    kernel.culsh_sgd_batch(pp, bt, hp, bce=bce)
     assert kernel.CULSH_LAUNCHES == before
-    for g, w in zip(again, got):
-        assert torch.equal(g, w)
+    np.testing.assert_allclose(_np(pp.row), _np(got[0]), **TOL)
+    np.testing.assert_allclose(_np(pp.col[:B]), _np(got[1]), **TOL)
+    assert torch.equal(pp.col[B:], extra)
     off = args[6] == 0
     np.testing.assert_array_equal(_np(got[0])[off], args[0][off])
     np.testing.assert_array_equal(_np(got[1])[off], args[1][off])
+    np.testing.assert_array_equal(_np(pp.row)[off], args[0][off])
+    np.testing.assert_array_equal(_np(pp.col[:B])[off], args[1][off])
 
 
 @pytest.mark.parametrize("bce", [False, True])
@@ -165,7 +190,7 @@ def test_apply_matches_packed_step_and_jax(tiny, B):
     hp, d = sgd.Hyper(), sgd.lr_decay(sgd.Hyper(), 2)
     pp = model.pack_params(p)
     want = sgd.culsh_step_packed(_copy(pp), bt, hp, d, conflict_free=True)
-    got = ops.apply_culsh_sgd(_copy(pp), bt, ops.culsh_hyper(hp, d, pp.mu))
+    got = apply_culsh_sgd_ref(_copy(pp), bt, ops.culsh_hyper(hp, d, pp.mu))
     jgot = jops.apply_culsh_sgd(jmodel.pack_params(jp), jbt, jsgd.Hyper(),
                                 jnp.float32(d), impl="ref")
     for a, b in ((got.row, want.row), (got.col, want.col)):
@@ -178,6 +203,129 @@ def test_apply_matches_packed_step_and_jax(tiny, B):
                             jnp.float32(d), impl="ref")
     np.testing.assert_allclose(_np(got_mf.row), _np(want_mf.row), **TOL)
     np.testing.assert_allclose(_np(got_mf.col), np.asarray(jmf.col), **TOL)
+
+
+def _jax_batch(bt):
+    return jmodel.Batch(*(jnp.asarray(_np(getattr(bt, f.name)))
+                          for f in dataclasses.fields(bt)))
+
+
+def _fused_vs_references(pp, bt, jp, bce, **rates):
+    """The fused entry's CPU path against `culsh_step_packed` and the JAX
+    package's `apply_culsh_sgd` (ref and Pallas interpret), with the
+    learning ``rates`` of `Hyper` changed → its planes."""
+    hp, d = sgd.Hyper(**rates), sgd.lr_decay(sgd.Hyper(), 2)
+    before = kernel.CULSH_LAUNCHES
+    got = kernel.culsh_sgd_batch(_copy(pp), bt, ops.culsh_hyper(hp, d, pp.mu),
+                                 bce=bce)
+    assert kernel.CULSH_LAUNCHES == before, "a CPU tensor launched a kernel"
+    want = sgd.culsh_step_packed(_copy(pp), bt, hp, d, bce=bce,
+                                 conflict_free=True)
+    np.testing.assert_allclose(_np(got.row), _np(want.row), **TOL)
+    np.testing.assert_allclose(_np(got.col), _np(want.col), **TOL)
+    for impl in ("ref", "pallas"):
+        jgot = jops.apply_culsh_sgd(jmodel.pack_params(jp), _jax_batch(bt),
+                                    jsgd.Hyper(**rates), jnp.float32(d),
+                                    impl=impl,
+                                    tile_b=64, interpret=True, bce=bce)
+        np.testing.assert_allclose(_np(got.row), np.asarray(jgot.row), **TOL)
+        np.testing.assert_allclose(_np(got.col), np.asarray(jgot.col), **TOL)
+    return got
+
+
+@pytest.mark.parametrize("bce", [False, True])
+@pytest.mark.parametrize("B", WIDTHS)
+def test_fused_entry_matches_jax_apply_and_packed_step(tiny, B, bce):
+    tsp, jsp = tiny
+    JK, idx = _cf_batch(tsp, 4, B, seed=B + 1)
+    valid = np.ones(len(idx), bool)
+    valid[::5] = False
+    bt, _, p, jp = _both(tsp, jsp, JK, idx, valid, seed=B)
+    _fused_vs_references(model.pack_params(p), bt, jp, bce)
+
+
+def test_fused_entry_reads_neighbour_baselines_before_any_write(tiny):
+    """Every slot's explicit neighbours are other live slots' columns, and
+    W is non-zero: a step that read a b̂ another slot had already updated
+    would move W, C and the prediction.  Applying the slots one at a time
+    — the stale reading — falls outside the tolerance (b̂ and W at larger
+    learning rates make the gap wide), so the comparison can tell."""
+    tsp, jsp = tiny
+    B, K = 24, 4
+    JK, idx = _cf_batch(tsp, K, B, seed=5)
+    js = _np(tsp.cols)[idx]
+    for s in range(B):                        # J^K[j_s] = the next slots' j
+        JK[js[s]] = js[(s + 1 + np.arange(K)) % B]
+    bt, _, p, jp = _both(tsp, jsp, JK, idx, np.ones(B, bool), seed=6)
+    rng = np.random.default_rng(5)
+    bt = dataclasses.replace(
+        bt, expl=torch.ones((B, K)), impl=torch.zeros((B, K)),
+        rnb=torch.tensor(rng.integers(1, 6, (B, K)), dtype=torch.float32))
+    p = dataclasses.replace(
+        p, bh=torch.tensor(rng.normal(size=tsp.N), dtype=torch.float32))
+    jp = jmodel.Params(**{f.name: jnp.asarray(_np(getattr(p, f.name)))
+                          for f in dataclasses.fields(p)})
+    pp = model.pack_params(p)
+    assert float(pp.col[:, 8:12].abs().min()) > 0     # W (F = 8, K = 4)
+    rates = dict(a_bh=0.3, a_w=0.05)
+    got = _fused_vs_references(pp, bt, jp, False, **rates)
+    hpv = ops.culsh_hyper(sgd.Hyper(**rates), sgd.lr_decay(sgd.Hyper(), 2),
+                          pp.mu)
+    stale = _copy(pp)
+    for s in range(B):
+        one = model.Batch(*(getattr(bt, f.name)[s:s + 1]
+                            for f in dataclasses.fields(bt)))
+        kernel.culsh_sgd_batch(stale, one, hpv)
+    assert np.abs(_np(stale.col) - _np(got.col)).max() > 1e-3
+
+
+def test_epoch_kernel_path_equals_packed_steps_and_parts_make_the_epoch(tiny):
+    """One scheduled epoch: the conflict-free tiers through the fused
+    entry (``use_kernels``) against the packed steps; and the tiers and
+    the leftover batches, each run by its own `sgd._cf_scan` call in the
+    epoch's order, equal the whole epoch."""
+    tsp, _ = tiny
+    K, F = 4, 8
+    rng = np.random.default_rng(3)
+    JK = torch.tensor(rng.integers(0, tsp.N, (tsp.N, K)), dtype=torch.int32)
+    sched = sparse.conflict_free_schedule(
+        _np(tsp.rows), _np(tsp.cols), batch=64, tiers=3, tier_shrink=0.5,
+        M=tsp.M, N=tsp.N, seed=0)
+    assert sched.stats()["nb_cf"] and sched.lo_starts.shape[0]
+    sd = model.build_scheduled_data(tsp, JK, sched)
+    p = model.init_from_data(prng.PRNGKey(1), tsp, F, K)
+    p = dataclasses.replace(p, W=torch.randn(tsp.N, K) * 0.1,
+                            C=torch.randn(tsp.N, K) * 0.1)
+    pp = model.pack_params(p)
+    key, hp = prng.PRNGKey(7), sgd.Hyper()
+    run = lambda q, **kw: sgd.train_epoch_scheduled(q, sd, sched, key, 1, hp,
+                                                    **kw)
+    before = kernel.CULSH_LAUNCHES
+    fused = run(_copy(pp), use_kernels=True)
+    assert kernel.CULSH_LAUNCHES == before
+    packed = run(_copy(pp), use_kernels=False)
+    np.testing.assert_allclose(_np(fused.row), _np(packed.row), **TOL)
+    np.testing.assert_allclose(_np(fused.col), _np(packed.col), **TOL)
+    assert np.abs(_np(fused.col) - _np(pp.col)).max() > 1e-3
+    halves, decay = _copy(pp), sgd.lr_decay(hp, 1)
+    hpv = ops.culsh_hyper(hp, decay, pp.mu)
+    keys = prng.split(key, 2 + len(sched.tier_starts))
+    scan = lambda starts, valid, order, **kw: sgd._cf_scan(
+        halves, sd, starts[order], torch.as_tensor(valid[order]).float(), hp,
+        decay, hpv, mf_only=False, bce=False, **kw)
+    for t, (starts, valid) in enumerate(zip(sched.tier_starts,
+                                            sched.tier_valid)):
+        if len(starts):
+            scan(starts, valid,
+                 prng.permutation(keys[2 + t], len(starts)).numpy(),
+                 width=sched.widths[t], conflict_free=True, use_kernels=True)
+    order = prng.permutation(keys[1], len(sched.lo_starts)).numpy()
+    scan(sched.lo_starts, sched.lo_valid, order, width=sched.widths[0],
+         conflict_free=False, use_kernels=False,
+         scales=(torch.as_tensor(sched.lo_scale_i[order]),
+                 torch.as_tensor(sched.lo_scale_j[order])))
+    assert torch.equal(halves.row, fused.row)
+    assert torch.equal(halves.col, fused.col)
 
 
 def test_packed_steps_bit_identical_to_unpacked(tiny):
