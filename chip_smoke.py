@@ -28,7 +28,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. recall@10 against exact scoring (`full_topn`) on 1,024 probe users;
 7. timing — each kernel and its plain version at the phase-5 shapes
    (median of 30 CUDA-event-timed calls, each after an L2-evicting
-   scrub; the scorer also in a CUDA graph), beside the least time the
+   scrub; both kernels also in a CUDA graph), beside the least time the
    card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
 8. fit set-up — the repo's ~100M-parameter LSH-MF model
    (`examples/train_lshmf_100m.py`: M = 700,000 users, N = 30,000 items,
@@ -43,16 +43,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    (schedule windows of B = 512, 7, 250, a tier's last partial batch,
    all slots invalid, BCE both ways), the stale-b̂ hazard batch (every
    neighbour another live slot's col) launched 20 times, padding slots
-   that repeat live ids adding nothing to the planes; `mf_sgd_step` on
-   tiles gathered from the same windows;
+   that repeat live ids adding nothing to the planes; the fused in-place
+   CUSGD++ step (`mf_sgd_batch`) the same way against
+   `apply_mf_sgd_ref` on the same windows, with its own padding check;
+   in every case the rows no live slot owns stay bit for bit;
 10. fit — `fit(use_kernels=True)` for 3 epochs with the `culsh_sgd`
     counter zeroed just before (it must equal the conflict-free steps x
     epochs), the same fit on the plain steps (final RMSE within 1e-3),
-    one epoch of plain MF (``method="none"``) through `mf_sgd_step`, then
-    one more epoch of each under `torch.profiler`, the conflict-free
-    tiers alone under it (device activities per step, at most 2), and one
-    epoch's two parts — tiers and leftover batches — timed alone;
-11. timing — both SGD kernels and their plain versions at B = 512: the
+    one epoch of plain MF (``method="none"``) through the fused CUSGD++
+    step (its counter must equal the conflict-free steps), then one more
+    epoch of each under `torch.profiler`, the conflict-free tiers of
+    each alone under it (device activities per step, at most 2), and one
+    epoch of each in its two parts — tiers and leftover batches — timed
+    alone;
+11. timing — both fused SGD steps and their plain versions at B = 512: the
     device time per call in a CUDA graph of 50 calls (median of 20
     replays, so the host's time per call does not enter it), beside
     phase 7's cold-L2 reading, the host-paced back-to-back rate and the
@@ -289,21 +293,6 @@ def megabytes(*ts) -> float:
     return sum(t.numel() * t.element_size() for t in ts) / 1e6
 
 
-def check_sgd(got, want, valid, inputs) -> float:
-    """Hold a fused step's outputs against its plain version's (rtol 1e-5,
-    atol 1e-6) and its invalid rows against ``inputs`` (bit for bit);
-    → the largest absolute error."""
-    err = 0.0
-    for g, w in zip(got, want):
-        torch.testing.assert_close(g, w, **SGD_TOL)
-        err = max(err, float((g - w).abs().max()))
-    off = valid == 0
-    for g, x in zip(got, inputs):
-        if not torch.equal(g[off], x[off]):
-            raise AssertionError("an invalid row of a fused step changed")
-    return err
-
-
 def fit_phases(args, dev, on_card: bool, power: str) -> list:
     """Phases 8–11: the offline CULSH-MF fit (`train.trainer.fit`) at the
     width of the repo's ~100M-parameter model; → (the two fused steps'
@@ -320,7 +309,7 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
     from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
     from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
-                                                mf_sgd_step_ref)
+                                                apply_mf_sgd_ref)
     from repro_torch.train.trainer import FitConfig, fit
 
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -404,16 +393,30 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
                                  torch.as_tensor(sched.tier_valid[t][k][:width],
                                                  device=dev).float())
 
-    def fused_vs_plain(state, b, hp, bce=False):
-        """The fused step on a copy of ``state`` against the plain gather →
-        step → delta scatter on another → (kernel planes, plain planes,
-        max abs err)."""
-        got = sgd_kernel.culsh_sgd_batch(copy(state), b, hp, bce=bce)
-        want = apply_culsh_sgd_ref(copy(state), b, hp, bce=bce)
+    def fused_vs_plain(state, b, hp, bce=False, mf=False):
+        """The fused step (CUSGD++ with ``mf``, else CULSH-MF) on a copy of
+        ``state`` against the plain gather → step → delta scatter on
+        another; every row no live slot owns (and, for CUSGD++, every
+        column past F) must stay bit for bit → (kernel planes, plain
+        planes, max abs err)."""
+        kern, plain = ((sgd_kernel.mf_sgd_batch, apply_mf_sgd_ref) if mf
+                       else (sgd_kernel.culsh_sgd_batch, apply_culsh_sgd_ref))
+        got = kern(copy(state), b, hp, bce=bce)
+        want = plain(copy(state), b, hp, bce=bce)
         err = 0.0
         for g, w in ((got.row, want.row), (got.col, want.col)):
             torch.testing.assert_close(g, w, **SGD_TOL)
             err = max(err, float((g - w).abs().max()))
+        live = b.valid > 0
+        for g, x, ids in ((got.row, state.row, b.i), (got.col, state.col,
+                                                       b.j)):
+            rest = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+            rest[ids[live].long()] = False
+            if not torch.equal(g[rest], x[rest]):
+                raise AssertionError("a row no live slot owns changed")
+            if mf and not torch.equal(g[:, F:], x[:, F:]):
+                raise AssertionError("the CUSGD++ step changed a column "
+                                     "past F")
         return got, want, err
 
     bt = window(0, 0)
@@ -440,12 +443,13 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
         raise AssertionError("an all-invalid batch changed the planes")
     mf_err = 0.0
     for state, b in culsh_cases.values():
-        m = [state.row[b.i.long(), :F].contiguous(),
-             state.col[b.j.long(), :F].contiguous(), b.r, b.valid, hmf]
         for bce in (False, True):
-            mf_err = max(mf_err, check_sgd(
-                sgd_kernel.mf_sgd_step(*m, bce=bce),
-                mf_sgd_step_ref(*m, bce=bce), m[3], m[:2]))
+            mf_err = max(mf_err, fused_vs_plain(state, b, hmf, bce,
+                                                mf=True)[2])
+    got, _, _ = fused_vs_plain(wc, off, hmf, mf=True)
+    if not (torch.equal(got.row, wc.row) and torch.equal(got.col, wc.col)):
+        raise AssertionError("an all-invalid batch changed the planes "
+                             "(CUSGD++)")
     # the stale-b̂ hazard: every explicit neighbour of every slot is another
     # live slot's col; b̂ and W at larger rates so a stale read would show
     live_j = bt.j[bt.valid > 0]
@@ -476,13 +480,15 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     with_pad = dataclasses.replace(bt, i=i2, j=j2, valid=v2)
     live = model.Batch(*(getattr(with_pad, f.name)[:W0 - q]
                          for f in dataclasses.fields(bt)))
-    planes = [copy(wc) for _ in range(2)]
-    sgd_kernel.culsh_sgd_batch(planes[0], with_pad, hpv)
-    sgd_kernel.culsh_sgd_batch(planes[1], live, hpv)
-    if not (torch.equal(planes[0].row, planes[1].row)
-            and torch.equal(planes[0].col, planes[1].col)):
-        raise AssertionError("padding slots that repeat live ids changed "
-                             "the planes")
+    for step, hp_ in ((sgd_kernel.culsh_sgd_batch, hpv),
+                      (sgd_kernel.mf_sgd_batch, hmf)):
+        planes = [copy(wc) for _ in range(2)]
+        step(planes[0], with_pad, hp_)
+        step(planes[1], live, hp_)
+        if not (torch.equal(planes[0].row, planes[1].row)
+                and torch.equal(planes[0].col, planes[1].col)):
+            raise AssertionError("padding slots that repeat live ids "
+                                 "changed the planes")
     del planes, got
     culsh_err = max(culsh_err, hz_err)
     print(f"[9 check] culsh_sgd (fused, in place) within rtol 1e-5 / atol "
@@ -493,8 +499,10 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
           f"neighbour another live slot's col) 20 launches within tolerance "
           f"(max abs err {hz_err:.3g}; read slot by slot it is off by "
           f"{stale_gap:.3g}); {q} padding slots repeating live i/j add "
-          f"nothing to the planes; mf_sgd_step within tolerance (max abs "
-          f"err {mf_err:.3g}), invalid rows bit for bit", flush=True)
+          f"nothing to the planes; mf_sgd (fused, in place) within tolerance "
+          f"of apply_mf_sgd_ref on the same cases (max abs err "
+          f"{mf_err:.3g}), the same padding check; rows no live slot owns "
+          f"bit for bit", flush=True)
 
     # ---- 10. fit: the main path, counters zeroed just before each run ----
     log = lambda tag: (lambda s: print(f"[10 fit {tag}] {s}", flush=True))
@@ -534,12 +542,14 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
                                                   epochs=1),
              log=log("mf"), device=dev)
     mf_launches = sgd_kernel.MF_LAUNCHES
-    print(f"[10 fit] method='none': mf_sgd_step launches {mf_launches} = "
-          f"{mf.schedule_stats['nb_cf']} conflict-free steps", flush=True)
+    mf_secs = mf.history[-1][1]
+    print(f"[10 fit] method='none': mf_sgd launches {mf_launches} = "
+          f"{mf.schedule_stats['nb_cf']} conflict-free steps; epoch "
+          f"{mf_secs:.3f} s, rmse {mf.history[-1][2]:.6f}", flush=True)
     if not np.isfinite(mf.history[-1][2]):
         raise AssertionError("the plain MF fit diverged")
     if on_card and mf_launches != mf.schedule_stats["nb_cf"]:
-        raise AssertionError(f"mf_sgd_step launched {mf_launches} times")
+        raise AssertionError(f"mf_sgd launched {mf_launches} times")
     in_loop = {}
     if on_card:   # one more epoch of each engine under the profiler
         sd_mf = model.build_scheduled_data(sp, JK, sched, mf_only=True)
@@ -552,15 +562,18 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
                                       cfg.epochs, cfg.hp, mf_only=mf_only,
                                       use_kernels=True)
 
-        def part(state, name):
-            """One part of a kernel epoch alone, each batch through
-            `sgd._cf_scan` as the epoch runs it (in the schedule's order):
-            the conflict-free tiers, or the leftover batches."""
+        def part(state, name, mf_only=False):
+            """One part of a kernel epoch alone (plain MF with
+            ``mf_only``), each batch through `sgd._cf_scan` as the epoch
+            runs it (in the schedule's order): the conflict-free tiers, or
+            the leftover batches."""
             on_dev = lambda a: torch.as_tensor(a, device=dev)
             decay_ = sgd.lr_decay(cfg.hp, cfg.epochs, dev)
+            hv = (mf_hyper(cfg.hp, decay_, dev) if mf_only
+                  else culsh_hyper(cfg.hp, decay_, state.mu))
             scan = lambda starts, valid, **kw: sgd._cf_scan(
-                state, sd, starts, on_dev(valid).float(), cfg.hp, decay_,
-                culsh_hyper(cfg.hp, decay_, state.mu), mf_only=False,
+                state, sd_mf if mf_only else sd, starts,
+                on_dev(valid).float(), cfg.hp, decay_, hv, mf_only=mf_only,
                 bce=False, **kw)
             if name == "tiers":
                 for t, (starts, valid) in enumerate(zip(sched.tier_starts,
@@ -598,71 +611,78 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
                 print(f"[10 profile]   {us / 1e3:9.2f} ms  {n[:90]}",
                       flush=True)
         # the conflict-free tiers alone: device activities per step
-        wall_us, (spans, busy, _) = profiled(
-            part, model.pack_params(res.params), "tiers")
-        per_step = len(spans) / max(nb_cf, 1)
-        print(f"[10 profile] the conflict-free tiers alone: {len(spans)} "
-              f"device activities in {nb_cf} steps = {per_step:.3f} per step "
-              f"(limit 2); host wall {wall_us:.0f} us, device busy "
-              f"{busy:.0f} us ({busy / wall_us:.3f} of the wall)", flush=True)
-        if per_step > 2:
-            raise AssertionError(f"{per_step:.3f} device activities per "
-                                 f"conflict-free step")
+        for name, params_, mf_only in (("culsh_sgd", res.params, False),
+                                       ("mf_sgd", mf.params, True)):
+            wall_us, (spans, busy, _) = profiled(
+                part, model.pack_params(params_), "tiers", mf_only)
+            per_step = len(spans) / max(nb_cf, 1)
+            print(f"[10 profile] the {name} conflict-free tiers alone: "
+                  f"{len(spans)} device activities in {nb_cf} steps = "
+                  f"{per_step:.3f} per step (limit 2); host wall "
+                  f"{wall_us:.0f} us, device busy {busy:.0f} us "
+                  f"({busy / wall_us:.3f} of the wall)", flush=True)
+            if per_step > 2:
+                raise AssertionError(f"{per_step:.3f} device activities per "
+                                     f"conflict-free {name} step")
         # the profiles hold ~10⁵ Python objects; free them so no collector
         # pause lands in the timed host gaps below and in phase 11
         del spans, by_name
         gc.collect()
-        # one epoch in its two parts, unprofiled: the leftover share
-        secs_of = {}
-        for name in ("tiers", "leftovers"):
-            state = model.pack_params(res.params)
-            sync()
-            t0 = time.perf_counter()
-            part(state, name)
-            sync()
-            secs_of[name] = time.perf_counter() - t0
-        t_cf, t_lo = secs_of["tiers"], secs_of["leftovers"]
+        # one epoch of each in its two parts, unprofiled: the leftover share
         nb_lo = res.schedule_stats["nb_lo"]
-        print(f"[10 time] one kernel epoch in its two parts: {nb_cf} "
-              f"conflict-free steps {t_cf:.3f} s ({t_cf / nb_cf * 1e6:.1f} us "
-              f"per step, host-paced), {nb_lo} leftover batches {t_lo:.3f} s "
-              f"({t_lo / max(nb_lo, 1) * 1e6:.0f} us per batch); leftover "
-              f"share {t_lo / (t_cf + t_lo):.3f}", flush=True)
+        for name, params_, mf_only in (("kernel", res.params, False),
+                                       ("plain-MF", mf.params, True)):
+            secs_of = {}
+            for part_name in ("tiers", "leftovers"):
+                state = model.pack_params(params_)
+                sync()
+                t0 = time.perf_counter()
+                part(state, part_name, mf_only)
+                sync()
+                secs_of[part_name] = time.perf_counter() - t0
+            t_cf, t_lo = secs_of["tiers"], secs_of["leftovers"]
+            print(f"[10 time] one {name} epoch in its two parts: {nb_cf} "
+                  f"conflict-free steps {t_cf:.3f} s "
+                  f"({t_cf / nb_cf * 1e6:.1f} us per step, host-paced), "
+                  f"{nb_lo} leftover batches {t_lo:.3f} s "
+                  f"({t_lo / max(nb_lo, 1) * 1e6:.0f} us per batch); "
+                  f"leftover share {t_lo / (t_cf + t_lo):.3f}", flush=True)
         del state
         gc.collect()
 
     # ---- 11. time each fused step and its plain version at B = W0 ----
     # `ms` and `plain_ms` are device times from CUDA graphs; the cold-L2
     # event reading and the back-to-back rate are printed beside them.
-    # The CULSH-MF step updates copies of the planes in place.
-    st_k, st_p = copy(wc), copy(wc)
-    m = [wc.row[bt.i.long(), :F].contiguous(),
-         wc.col[bt.j.long(), :F].contiguous(), bt.r, bt.valid, hmf]
-    steps = dict(culsh_sgd=(lambda: sgd_kernel.culsh_sgd_batch(st_k, bt, hpv),
-                            lambda: apply_culsh_sgd_ref(st_p, bt, hpv)),
-                 mf_sgd=(lambda: sgd_kernel.mf_sgd_step(*m),
-                         lambda: mf_sgd_step_ref(*m)))
+    # Both fused steps update copies of the planes in place.
+    st = [copy(wc) for _ in range(4)]
+    steps = dict(
+        culsh_sgd=(lambda: sgd_kernel.culsh_sgd_batch(st[0], bt, hpv),
+                   lambda: apply_culsh_sgd_ref(st[1], bt, hpv)),
+        mf_sgd=(lambda: sgd_kernel.mf_sgd_batch(st[2], bt, hmf),
+                lambda: apply_mf_sgd_ref(st[3], bt, hmf)))
     timed = {name: dict(ms=graph_ms(kern, dev), plain=graph_ms(pl, dev),
                         cold=median_ms(kern, dev),
                         b2b=back_to_back_ms(kern, dev))
              for name, (kern, pl) in steps.items()}
-    del st_k, st_p
+    del st
     # CULSH-MF bytes, per live slot (an invalid one reads nothing but its
     # mask): both plane rows read and written back, the [K] rows nb, rnb,
     # expl and the K neighbour baselines b̂[nb], and i, j, r; the masks and
-    # hp.  mf_sgd_step: every tile read once and the outputs written once.
-    # Operations: the forward and the update of one sample (14 per factor,
-    # 30 per neighbour slot, ~30 scalar) per live slot
+    # hp.  CUSGD++, per live slot: u and v read and written back in place,
+    # and i, j, r; the masks and hp.  Operations: the forward and the update
+    # of one sample (14 per factor, 30 per neighbour slot, ~30 scalar for
+    # CULSH-MF; ~10 for CUSGD++) per live slot
     n_live = int(bt.valid.sum())
     culsh_bound, culsh_by = bound_ms(
         4 * (n_live * (2 * (F + 1) + 2 * (F + 2 * K + 1) + 4 * K + 3) + W0
              + 13), n_live * (14 * F + 30 * K + 30))
-    mf_bound, mf_by = bound_ms(4 * (4 * W0 * F + 3 * W0 + 4),
-                               W0 * (14 * F + 10))
+    mf_bound, mf_by = bound_ms(4 * (n_live * (4 * F + 3) + W0 + 4),
+                               n_live * (14 * F + 10))
     bounds = dict(culsh_sgd=(culsh_bound, culsh_by),
                   mf_sgd=(mf_bound, mf_by))
     what = dict(culsh_sgd="the fused in-place step (gathers, step, writes)",
-                mf_sgd="the tile step")
+                mf_sgd="the fused in-place CUSGD++ step (gathers, step, "
+                       "writes)")
     for name, t in timed.items():
         bnd, by = bounds[name]
         print(f"[11 time] {name} at B={W0} ({n_live} live) F={F} K={K}, "
@@ -1099,13 +1119,15 @@ def main(argv=None) -> int:
     Wp = lsh_kernel.pool_width(I, cfg.cap, X)
     lsh_ms = median_ms(lambda: lsh_kernel.lsh_retrieve_topc(
         *lsh_args, C=core_C, cap=cfg.cap), dev)
+    lsh_graph = graph_ms(lambda: lsh_kernel.lsh_retrieve_topc(
+        *lsh_args, C=core_C, cap=cfg.cap), dev, n=20, reps=10)
     lsh_plain = median_ms(lambda: lsh_retrieve_topc_ref(
         *lsh_args, C=core_C, cap=cfg.cap), dev)
     # bytes: descriptors + extras + exclude read once, the valid window
     # slots read once, the [B, C] output written once; operations: the
-    # n·log2(n) comparisons of two sorts of the Wp-wide pool
+    # n·log2(n) comparisons of one sort of the Wp-wide pool
     lsh_bytes = 4 * (2 * B * I + B * X + E + int(lens.sum()) + B * core_C)
-    lsh_bound, lsh_by = bound_ms(lsh_bytes, 2 * B * Wp * np.log2(Wp))
+    lsh_bound, lsh_by = bound_ms(lsh_bytes, B * Wp * np.log2(Wp))
     score = lambda: score_kernel.score_topn(*sc_args, topn=cfg.topn)
     sc_ms = median_ms(score, dev)
     sc_graph = graph_ms(score, dev, n=20, reps=10)
@@ -1126,9 +1148,11 @@ def main(argv=None) -> int:
               f"{plain:.4f} ms, bound {bnd:.5f} ms ({by}); no single PyTorch "
               f"call computes this function, so no library yardstick "
               f"(power limit {power})", flush=True)
-    print(f"[7 time] candidate_score: {sc_graph:.4f} ms per call in a CUDA "
-          f"graph of 20 calls (warm L2, median of 10 replays) beside the "
-          f"{sc_ms:.4f} ms cold-L2 reading", flush=True)
+    for name, graph, cold in (("lsh_retrieve", lsh_graph, lsh_ms),
+                              ("candidate_score", sc_graph, sc_ms)):
+        print(f"[7 time] {name}: {graph:.4f} ms per call in a CUDA graph of "
+              f"20 calls (warm L2, median of 10 replays) beside the "
+              f"{cold:.4f} ms cold-L2 reading", flush=True)
 
     kernels = [
         dict(name="lsh_retrieve", route="cuda",

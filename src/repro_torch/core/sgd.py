@@ -36,8 +36,8 @@ from repro_torch.core.model import (Batch, PackedParams, Params,
                                     predict_gathered, predict_mf,
                                     slice_batch)
 from repro_torch.data.sparse import EpochSchedule, SparseMatrix, epoch_batches
-from repro_torch.kernels.mf_sgd.kernel import culsh_sgd_tier
-from repro_torch.kernels.mf_sgd.ops import apply_mf_sgd, culsh_hyper, mf_hyper
+from repro_torch.kernels.mf_sgd.kernel import culsh_sgd_tier, mf_sgd_tier
+from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,25 +223,21 @@ def _cf_scan(pp: PackedParams, sd: ScheduledData, starts: np.ndarray,
              mf_only: bool, bce: bool, conflict_free: bool,
              use_kernels: bool, scales=None) -> PackedParams:
     """Run one schedule tier: batch k is the window at host offset
-    ``starts[k]`` with mask ``valid[k]``.  A conflict-free CULSH-MF tier
-    with ``use_kernels`` goes through the fused step, validated once per
-    tier (on the card one launch per batch, no `Batch` built); CUSGD++
-    through `apply_mf_sgd`; everything else through the packed step."""
-    if use_kernels and conflict_free and not mf_only:
-        step = culsh_sgd_tier(pp, sd, valid, hpv, width=width, starts=starts,
-                              bce=bce)
+    ``starts[k]`` with mask ``valid[k]``.  A conflict-free tier with
+    ``use_kernels`` goes through the fused step (CUSGD++ for ``mf_only``,
+    else CULSH-MF), validated once per tier (on the card one launch per
+    batch, no `Batch` built); everything else through the packed step."""
+    if use_kernels and conflict_free:
+        tier = mf_sgd_tier if mf_only else culsh_sgd_tier
+        step = tier(pp, sd, valid, hpv, width=width, starts=starts, bce=bce)
         for k, s in enumerate(starts.tolist()):
             step(s, k)
         return pp
+    packed = mf_step_packed if mf_only else culsh_step_packed
     for k, s in enumerate(starts.tolist()):
-        bt = slice_batch(sd, s, width, valid[k])
-        if use_kernels and conflict_free:
-            apply_mf_sgd(pp, bt, hpv, bce=bce)
-        else:
-            sc = None if scales is None else (scales[0][k], scales[1][k])
-            step = mf_step_packed if mf_only else culsh_step_packed
-            step(pp, bt, hp, decay, bce, conflict_free=conflict_free,
-                 scales=sc)
+        sc = None if scales is None else (scales[0][k], scales[1][k])
+        packed(pp, slice_batch(sd, s, width, valid[k]), hp, decay, bce,
+               conflict_free=conflict_free, scales=sc)
     return pp
 
 

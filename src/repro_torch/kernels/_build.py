@@ -45,8 +45,8 @@ SIGNATURES = {
     "culsh_sgd_launch": [_P, _L, _L],
     # F, K, bce → blocks the card holds at once (< 0: an error)
     "culsh_sgd_capacity": [_I, _I, _I],
-    # u, v, r, valid, hp, u_out, v_out, e_out, B, F, bce, stream
-    "mf_sgd_step_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # &MfArgs, start, k (the batch's row of the valid masks)
+    "mf_sgd_launch": [_P, _L, _L],
     # psi, phi, out, N, deg, bits, stream
     "simlsh_encode_launch": [_P, _P, _P, _L, _I, _I, _P],
     # u, v, w, c, resid, impl, bbar, sR, sN, out, B, F, K, stream

@@ -2,15 +2,17 @@
 `csrc/mf_sgd.cu`), the Hopper counterparts of the TPU kernels
 `repro/kernels/mf_sgd/kernel.py::culsh_sgd_step` and `::mf_sgd_step`.
 
-The CULSH-MF kernel does the whole step of a conflict-free batch in one
-cooperative launch: it reads the plane rows and the neighbour baselines
-b̂[J^K[j]] by id, meets the whole grid at a barrier, and writes the new
-rows back into the planes (the gather → step → delta scatter of
-`ref.apply_culsh_sgd_ref`).  `culsh_sgd_tier` validates a schedule tier's
-operands once and returns a step function that is one ctypes call per
-batch (the epoch loop); `culsh_sgd_batch` runs one `Batch`.
-`mf_sgd_step` stays a tile kernel: tiles in, updated tiles out, the
-gathers and the scatter in `ops.py`.
+Each kernel does the whole step of a conflict-free batch in one launch:
+it reads the plane rows by id and writes the new rows back into the
+planes (the gather → step → delta scatter of `ref.apply_culsh_sgd_ref`
+and `ref.apply_mf_sgd_ref`).  The CULSH-MF launch is cooperative: it
+also reads the neighbour baselines b̂[J^K[j]], which other slots may
+rewrite, so the whole grid meets at a barrier between the reads and the
+writes.  A CUSGD++ slot reads only its own u and v, so its launch is a
+plain one.  `culsh_sgd_tier` and `mf_sgd_tier` validate a schedule
+tier's operands once and return a step function that is one ctypes call
+per batch (the epoch loop); `culsh_sgd_batch` and `mf_sgd_batch` run one
+`Batch`.
 
 On CUDA tensors a wrapper launches its kernel or raises — it never falls
 back; on CPU tensors it runs the plain version in `ref.py`.
@@ -27,10 +29,11 @@ import torch
 
 from repro_torch.core.model import Batch, PackedParams, slice_batch
 from repro_torch.kernels import _build, check_operand
-from repro_torch.kernels.mf_sgd.ref import apply_culsh_sgd_ref, mf_sgd_step_ref
+from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
+                                            apply_mf_sgd_ref)
 
 __all__ = ["CULSH_LAUNCHES", "MF_LAUNCHES", "culsh_sgd_batch",
-           "culsh_sgd_tier", "mf_sgd_step"]
+           "culsh_sgd_tier", "mf_sgd_batch", "mf_sgd_tier"]
 
 CULSH_LAUNCHES = 0
 MF_LAUNCHES = 0
@@ -44,6 +47,14 @@ class _CulshArgs(ctypes.Structure):
         "stream")] + [(n, ctypes.c_int) for n in ("width", "F", "K", "bce")])
 
 
+class _MfArgs(ctypes.Structure):
+    """`MfArgs` of `csrc/mf_sgd.cu`."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "row", "col", "i", "j", "r", "valid", "hp", "stream")]
+        + [(n, ctypes.c_int) for n in ("width", "F", "row_w", "col_w",
+                                       "bce")])
+
+
 def _check_vectors(dev, B, **vecs):
     for name, t in vecs.items():
         check_operand(t, name, torch.float32, 1, dev)
@@ -51,28 +62,46 @@ def _check_vectors(dev, B, **vecs):
             raise ValueError(f"{name}: expected [{B}], got {tuple(t.shape)}")
 
 
-def _culsh_args(pp: PackedParams, i, j, r, nb, rnb, expl, valid, hp, *,
-                width: int, end: int, bce: bool) -> _CulshArgs:
-    """Validate the operands of the fused step on the card and pack them:
-    the planes, the triples' [P] and [P, K] arrays (a window of ``width``
-    slots must fit below ``end`` ≤ P), the [n, width] slot masks and the
-    [13] hyper vector.  Raises on anything the kernel does not take,
-    including a batch the card cannot hold as one cooperative grid."""
+def _check_tier(what: str, pp: PackedParams, i, j, r, valid, *, width: int,
+                end: int) -> None:
+    """The operands both fused steps share: the planes on the card, the
+    triples' [P] arrays (a window of ``width`` slots must fit below
+    ``end`` ≤ P) and the [n, width] slot masks."""
     dev = pp.row.device
     if dev.type != "cuda":
-        raise ValueError(f"culsh_sgd: unsupported device {dev}")
+        raise ValueError(f"{what}: unsupported device {dev}")
     F, K = pp.F, pp.K
     if F < 1 or K < 0:
-        raise ValueError(f"culsh_sgd: F={F}, K={K}")
+        raise ValueError(f"{what}: F={F}, K={K}")
     check_operand(pp.row, "row", torch.float32, 2, dev)
     check_operand(pp.col, "col", torch.float32, 2, dev)
     if pp.row.shape[1] != F + 1 or pp.col.shape[1] != F + 2 * K + 1:
-        raise ValueError(f"culsh_sgd: planes {tuple(pp.row.shape)}, "
+        raise ValueError(f"{what}: planes {tuple(pp.row.shape)}, "
                          f"{tuple(pp.col.shape)} disagree with F={F}, K={K}")
     for name, t, dtype in (("i", i, torch.int32), ("j", j, torch.int32),
                            ("r", r, torch.float32)):
         check_operand(t, name, dtype, 1, dev)
     P = i.shape[0]
+    if j.shape[0] != P or r.shape[0] != P:
+        raise ValueError(f"{what}: i, j, r of lengths {P}, {j.shape[0]}, "
+                         f"{r.shape[0]} disagree")
+    if end > P:
+        raise ValueError(f"{what}: a window ends at {end}, past the {P} "
+                         f"triples")
+    check_operand(valid, "valid", torch.float32, 2, dev)
+    if valid.shape[1] != width:
+        raise ValueError(f"{what}: valid {tuple(valid.shape)} disagrees "
+                         f"with width {width}")
+
+
+def _culsh_args(pp: PackedParams, i, j, r, nb, rnb, expl, valid, hp, *,
+                width: int, end: int, bce: bool) -> _CulshArgs:
+    """Validate the operands of the fused CULSH-MF step on the card and
+    pack them: `_check_tier`'s, the [P, K] neighbour arrays and the [13]
+    hyper vector.  Raises on anything the kernel does not take, including
+    a batch the card cannot hold as one cooperative grid."""
+    _check_tier("culsh_sgd", pp, i, j, r, valid, width=width, end=end)
+    dev, F, K, P = pp.row.device, pp.F, pp.K, i.shape[0]
     for name, t, dtype in (("nb", nb, torch.int32), ("rnb", rnb,
                                                      torch.float32),
                            ("expl", expl, torch.float32)):
@@ -80,16 +109,6 @@ def _culsh_args(pp: PackedParams, i, j, r, nb, rnb, expl, valid, hp, *,
         if t.shape != (P, K):
             raise ValueError(f"culsh_sgd: {name} {tuple(t.shape)} disagrees "
                              f"with [{P}, {K}]")
-    if j.shape[0] != P or r.shape[0] != P:
-        raise ValueError(f"culsh_sgd: i, j, r of lengths {P}, {j.shape[0]}, "
-                         f"{r.shape[0]} disagree")
-    if end > P:
-        raise ValueError(f"culsh_sgd: a window ends at {end}, past the "
-                         f"{P} triples")
-    check_operand(valid, "valid", torch.float32, 2, dev)
-    if valid.shape[1] != width:
-        raise ValueError(f"culsh_sgd: valid {tuple(valid.shape)} disagrees "
-                         f"with width {width}")
     _check_vectors(dev, 13, hp=hp)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -107,21 +126,49 @@ def _culsh_args(pp: PackedParams, i, j, r, nb, rnb, expl, valid, hp, *,
         torch.cuda.current_stream(dev).cuda_stream, width, F, K, int(bce))
 
 
-class _CulshTier:
-    """The step function of `culsh_sgd_tier` on the card: the validated
-    operands in a `_CulshArgs`, one ctypes call per batch."""
+def _mf_args(pp: PackedParams, i, j, r, valid, hp, *, width: int, end: int,
+             bce: bool) -> _MfArgs:
+    """Validate the operands of the fused CUSGD++ step on the card and
+    pack them: `_check_tier`'s and the [4] hyper vector.  The kernel
+    reads U and V as the first F columns of the planes, with the planes'
+    own row widths."""
+    _check_tier("mf_sgd", pp, i, j, r, valid, width=width, end=end)
+    dev = pp.row.device
+    _check_vectors(dev, 4, hp=hp)
+    return _MfArgs(
+        pp.row.data_ptr(), pp.col.data_ptr(), i.data_ptr(), j.data_ptr(),
+        r.data_ptr(), valid.data_ptr(), hp.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream, width, pp.F,
+        pp.row.shape[1], pp.col.shape[1], int(bce))
 
-    def __init__(self, args: _CulshArgs):
+
+class _Tier:
+    """The step function of a tier on the card: the validated operands in
+    a ctypes structure, one ctypes call per batch."""
+
+    def __init__(self, args, launch, mf: bool):
         self.args = args
         self._ptr = ctypes.addressof(args)
-        self._launch = _build.library().culsh_sgd_launch
+        self._launch = launch
+        self._mf = mf
 
     def __call__(self, start: int, k: int) -> None:
-        global CULSH_LAUNCHES
+        global CULSH_LAUNCHES, MF_LAUNCHES
         err = self._launch(self._ptr, start, k)
         if err:
-            _build.check(err, "culsh_sgd")
-        CULSH_LAUNCHES += 1
+            _build.check(err, "mf_sgd" if self._mf else "culsh_sgd")
+        if self._mf:
+            MF_LAUNCHES += 1
+        else:
+            CULSH_LAUNCHES += 1
+
+
+def _tier_end(valid: torch.Tensor, starts: np.ndarray, width: int) -> int:
+    """Where the tier's last window ends (0 for an empty tier)."""
+    if valid.shape[0] != len(starts):
+        raise ValueError(f"{valid.shape[0]} slot masks for {len(starts)} "
+                         f"batches")
+    return int(np.max(starts)) + width if len(starts) else 0
 
 
 def culsh_sgd_tier(pp: PackedParams, sd, valid: torch.Tensor,
@@ -144,50 +191,56 @@ def culsh_sgd_tier(pp: PackedParams, sd, valid: torch.Tensor,
             apply_culsh_sgd_ref(pp, slice_batch(sd, start, width, valid[k]),
                                 hp, bce=bce)
         return step
-    if valid.shape[0] != len(starts):
-        raise ValueError(f"culsh_sgd: {valid.shape[0]} slot masks for "
-                         f"{len(starts)} batches")
-    end = int(np.max(starts)) + width if len(starts) else 0
-    return _CulshTier(_culsh_args(pp, sd.i, sd.j, sd.r, sd.nb, sd.rnb,
-                                  sd.expl, valid, hp, width=width, end=end,
-                                  bce=bce))
+    end = _tier_end(valid, starts, width)
+    args = _culsh_args(pp, sd.i, sd.j, sd.r, sd.nb, sd.rnb, sd.expl, valid,
+                       hp, width=width, end=end, bce=bce)
+    return _Tier(args, _build.library().culsh_sgd_launch, mf=False)
+
+
+def mf_sgd_tier(pp: PackedParams, sd, valid: torch.Tensor, hp: torch.Tensor,
+                *, width: int, starts: np.ndarray, bce: bool = False):
+    """A step function for one conflict-free tier of a plain-MF
+    (``method="none"``) schedule: ``step(start, k)`` runs the fused
+    CUSGD++ step (paper Alg. 2) of the batch of ``width`` slots at offset
+    ``start`` of ``sd``, whose slot mask is ``valid[k]``, updating the U
+    and V columns of the planes of ``pp`` in place.  ``hp`` is the [4]
+    vector of `ops.mf_hyper`.
+
+    On the card every operand is validated here, once, and a step is one
+    launch; on CPU tensors a step is `apply_mf_sgd_ref` of the window.
+    The batches must be conflict-free, as for `culsh_sgd_tier`."""
+    if pp.row.device.type == "cpu":
+        def step(start: int, k: int) -> None:
+            apply_mf_sgd_ref(pp, slice_batch(sd, start, width, valid[k]), hp,
+                             bce=bce)
+        return step
+    end = _tier_end(valid, starts, width)
+    args = _mf_args(pp, sd.i, sd.j, sd.r, valid, hp, width=width, end=end,
+                    bce=bce)
+    return _Tier(args, _build.library().mf_sgd_launch, mf=True)
+
+
+def _batch(tier, pp: PackedParams, bt: Batch, hp: torch.Tensor,
+           bce: bool) -> PackedParams:
+    """Run one conflict-free `Batch` as a tier of one batch (a `Batch`
+    carries the arrays of a `ScheduledData`)."""
+    width = bt.i.shape[0]
+    if width:
+        tier(pp, bt, bt.valid[None], hp, width=width,
+             starts=np.zeros(1, np.int64), bce=bce)(0, 0)
+    return pp
 
 
 def culsh_sgd_batch(pp: PackedParams, bt: Batch, hp: torch.Tensor, *,
                     bce: bool = False) -> PackedParams:
     """The fused CULSH-MF step of one conflict-free `Batch` on the packed
-    planes, in place: a tier of one batch (a `Batch` carries the arrays
-    of a `ScheduledData`); ``hp`` from `ops.culsh_hyper`."""
-    width = bt.i.shape[0]
-    if width:
-        culsh_sgd_tier(pp, bt, bt.valid[None], hp, width=width,
-                       starts=np.zeros(1, np.int64), bce=bce)(0, 0)
-    return pp
+    planes, in place; ``hp`` from `ops.culsh_hyper`."""
+    return _batch(culsh_sgd_tier, pp, bt, hp, bce)
 
 
-def mf_sgd_step(u, v, r, valid, hp, *, bce: bool = False):
-    """CUSGD++ step on a conflict-free tile: u, v [B, F]; r, valid [B];
-    hp [4] = (γu, γv, λu, λv) → (u′, v′, e)."""
-    global MF_LAUNCHES
-    dev = u.device
-    if dev.type == "cpu":
-        return mf_sgd_step_ref(u, v, r, valid, hp, bce=bce)
-    if dev.type != "cuda":
-        raise ValueError(f"mf_sgd_step: unsupported device {dev}")
-    check_operand(u, "u", torch.float32, 2, dev)
-    check_operand(v, "v", torch.float32, 2, dev)
-    if v.shape != u.shape:
-        raise ValueError(f"mf_sgd_step: u {tuple(u.shape)} and v "
-                         f"{tuple(v.shape)} disagree")
-    B, F = u.shape
-    _check_vectors(dev, B, r=r, valid=valid)
-    _check_vectors(dev, 4, hp=hp)
-    u_out, v_out = torch.empty_like(u), torch.empty_like(v)
-    e = torch.empty((B,), dtype=torch.float32, device=dev)
-    err = _build.library().mf_sgd_step_launch(
-        u.data_ptr(), v.data_ptr(), r.data_ptr(), valid.data_ptr(),
-        hp.data_ptr(), u_out.data_ptr(), v_out.data_ptr(), e.data_ptr(),
-        B, F, int(bce), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "mf_sgd_step")
-    MF_LAUNCHES += 1
-    return u_out, v_out, e
+def mf_sgd_batch(pp: PackedParams, bt: Batch, hp: torch.Tensor, *,
+                 bce: bool = False) -> PackedParams:
+    """The fused CUSGD++ step of one conflict-free `Batch` on the packed
+    planes, in place (only the U and V columns change); ``hp`` from
+    `ops.mf_hyper`."""
+    return _batch(mf_sgd_tier, pp, bt, hp, bce)

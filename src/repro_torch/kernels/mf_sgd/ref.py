@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the fused SGD steps, CUSGD++ and CULSH-MF
-(`repro/kernels/mf_sgd/ref.py`), and of the fused CULSH-MF step over the
-packed planes (`apply_culsh_sgd_ref`).  The kernel wrappers run these on
-CPU tensors, and the card's kernels are compared with them."""
+(`repro/kernels/mf_sgd/ref.py`), and of the fused steps over the packed
+planes (`apply_mf_sgd_ref`, `apply_culsh_sgd_ref`).  The kernel wrappers
+run these on CPU tensors, and the card's kernels are compared with
+them."""
 from __future__ import annotations
 
 import torch
@@ -21,6 +22,24 @@ def mf_sgd_step_ref(u, v, r, valid, hp, *, bce: bool = False):
     u2 = u + gamma_u * (eb * v - lam_u * u) * vm
     v2 = v + gamma_v * (eb * u - lam_v * v) * vm
     return u2, v2, e
+
+
+def apply_mf_sgd_ref(pp: PackedParams, bt: Batch, hp, *,
+                     bce: bool = False) -> PackedParams:
+    """The fused CUSGD++ step of a conflict-free batch on the packed
+    planes, in place (`repro/kernels/mf_sgd/ops.py::apply_mf_sgd`): gather
+    u = U[i] and v = V[j], run `mf_sgd_step_ref`, scatter the deltas into
+    the first F columns.  A padding slot, whose u and v come back
+    unchanged, adds exactly 0 even where it repeats a live i or j.
+    ``hp`` is the [4] vector of `ops.mf_hyper`."""
+    F = pp.F
+    i, j = bt.i.long(), bt.j.long()
+    u = pp.row[i, :F]
+    v = pp.col[j, :F]
+    u2, v2, _ = mf_sgd_step_ref(u, v, bt.r, bt.valid, hp, bce=bce)
+    pp.row[:, :F].index_add_(0, i, u2 - u)
+    pp.col[:, :F].index_add_(0, j, v2 - v)
+    return pp
 
 
 def culsh_sgd_step_ref(row, col, rnb, bh_nb, expl, r, valid, hp, *,

@@ -6,12 +6,13 @@ it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-`lsh_retrieve` must equal its plain version bit for bit; the fused
+`lsh_retrieve` must equal its plain version bit for bit, at every pool
+width the wrapper takes; the fused
 scorer `score_topn` within rtol/atol 1e-5 with equal items wherever
 neighbouring top-N scores differ by more than 1e-5 (summation order);
-the fused in-place CULSH-MF step (`culsh_sgd_batch`, `culsh_sgd_tier`)
-against the plain gather → step → delta scatter on copies of the planes,
-and `mf_sgd_step` against its plain tile version, within rtol 1e-5 /
+the fused in-place steps, CULSH-MF (`culsh_sgd_batch`, `culsh_sgd_tier`)
+and CUSGD++ (`mf_sgd_batch`, `mf_sgd_tier`), against the plain gather →
+step → delta scatter on copies of the planes, within rtol 1e-5 /
 atol 1e-6 (the JAX package's kernel tolerance, `tests/test_kernels.py`),
 with the rows of invalid slots bit for bit unchanged; `simlsh_encode` within rtol/atol 1e-5, and bit
 for bit with Φ = ±1 (the kernel and its plain version both sum over d in
@@ -36,8 +37,9 @@ from repro_torch.kernels.candidate_score.ref import (NEG, assert_topn_close,
 from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
 from repro_torch.kernels.lsh_retrieve.ref import lsh_retrieve_topc_ref
 from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
-from repro_torch.kernels.mf_sgd.ops import culsh_hyper
-from repro_torch.kernels.mf_sgd.ref import apply_culsh_sgd_ref, mf_sgd_step_ref
+from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
+from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
+                                            apply_mf_sgd_ref)
 from repro_torch.kernels.neighbor_predict import kernel as np_kernel
 from repro_torch.kernels.neighbor_predict.ops import predict_batch
 from repro_torch.kernels.neighbor_predict.ref import neighbor_predict_ref
@@ -113,6 +115,71 @@ def test_lsh_retrieve_kernel_equals_plain(cuda, tail, n_seeds, cap, C, excl):
     assert torch.equal(got.cpu(), lsh_retrieve_topc_ref(
         *(x.cpu() for x in ops), C=C, cap=cap))
 
+
+
+def _pool_case(B, I, cap, X, E, rng):
+    """Synthetic operands of `lsh_retrieve_topc`: windows over a flat id
+    plane of few distinct ids (duplicates within and across windows,
+    SENTINEL holes), random lengths, tail extras, and an exclude set
+    drawn from the same ids (so excluded ids sit in the windows).  The
+    first user has empty windows and no extras: an all-SENTINEL row."""
+    n_ids = max(16, (I * cap + X) // 3)
+    flat = rng.integers(0, n_ids, 4 * I * cap + 64).astype(np.int32)
+    flat[rng.random(flat.shape[0]) < 0.05] = SENTINEL
+    flat = np.concatenate([flat, np.full(cap, SENTINEL, np.int32)])
+    starts = rng.integers(0, flat.shape[0] - cap + 1, (B, I))
+    lens = rng.integers(0, cap + 1, (B, I))
+    extra = rng.integers(0, n_ids + 50, (B, X))
+    extra[rng.random((B, X)) < 0.3] = SENTINEL
+    lens[0], extra[0] = 0, SENTINEL
+    exclude = rng.integers(0, n_ids, E)
+    exclude[:: 7] = SENTINEL
+    return [torch.tensor(a, dtype=torch.int32)
+            for a in (starts, lens, extra, flat, exclude)]
+
+
+@pytest.mark.parametrize("I,cap,X,E", [
+    (1, 4, 1, 1),         # Wp = 8: one warp, padded to 32 keys
+    (3, 8, 2, 3),         # Wp = 32
+    (7, 8, 1, 5),         # 64
+    (15, 8, 3, 64),       # 128
+    (30, 8, 4, 64),       # 256
+    (60, 8, 1, 64),       # 512
+    (100, 8, 7, 200),     # 1024
+    (160, 8, 1, 64),      # 2048: the serving flush's I, cap, X, E
+    (500, 8, 9, 64),      # 4096
+    (1000, 8, 1, 300),    # 8192
+    (2000, 8, 5, 64),     # 16384
+    (2000, 8, 5, 25344)])  # 16384 with the most exclude ids that fit
+def test_lsh_retrieve_kernel_every_pool_width(cuda, I, cap, X, E):
+    """Bit-exact against the plain version at every pool width the
+    wrapper takes, with C = I·cap + X (every survivor) and a small C."""
+    B = 2 if E > 1000 else 6
+    ops = [x.to(cuda) for x in _pool_case(B, I, cap, X, E,
+                                          np.random.default_rng(I + E))]
+    W = I * cap + X
+    for C in (W, min(W, 33)):
+        before = lsh_kernel.LAUNCHES
+        got = lsh_kernel.lsh_retrieve_topc(*ops, C=C, cap=cap)
+        torch.cuda.synchronize()
+        assert lsh_kernel.LAUNCHES == before + 1
+        want = lsh_retrieve_topc_ref(*ops, C=C, cap=cap)
+        assert torch.equal(got, want)
+        assert bool((got[0] == SENTINEL).all())
+        assert bool((got[1:] != SENTINEL).any())
+    ex = ops[4][ops[4] != SENTINEL]
+    assert not bool(torch.isin(got, ex).any())
+
+
+def test_lsh_retrieve_refuses_a_pool_past_shared_memory(cuda):
+    ops = [x.to(cuda) for x in _pool_case(2, 2000, 8, 5, 25345,
+                                          np.random.default_rng(0))]
+    with pytest.raises(ValueError, match="shared memory"):
+        lsh_kernel.lsh_retrieve_topc(*ops, C=10, cap=8)
+    ops = [x.to(cuda) for x in _pool_case(2, 4096, 8, 1, 1,
+                                          np.random.default_rng(0))]
+    with pytest.raises(ValueError, match="shared memory"):
+        lsh_kernel.lsh_retrieve_topc(*ops, C=10, cap=8)
 
 @pytest.mark.parametrize("B,C,F,topn", [
     (32, 64, 16, 10), (7, 33, 8, 5), (250, 768, 48, 10), (9, 16, 8, 16),
@@ -256,25 +323,38 @@ def test_culsh_sgd_kernel_equals_plain(cuda, B, F, K, bce):
     assert torch.equal(got.col[bt.j[off].long()], pp.col[bt.j[off].long()])
 
 
-@pytest.mark.parametrize("bce", [False, True])
-@pytest.mark.parametrize("B,F", [(512, 128), (7, 128), (250, 128), (9, 40)])
-def test_mf_sgd_kernel_equals_plain(cuda, B, F, bce):
-    rng = np.random.default_rng(B * 3 + F)
-    a = lambda *s: torch.tensor(rng.normal(size=s), dtype=torch.float32,
-                                device=cuda)
-    valid = torch.tensor(rng.integers(0, 2, B), dtype=torch.float32,
-                         device=cuda)
-    hp = torch.tensor([0.02, 0.03, 0.01, 0.02], device=cuda)
-    args = (a(B, F), a(B, F), a(B), valid, hp)
+MF_HP = (0.02, 0.03, 0.01, 0.02)        # (γu, γv, λu, λv)
+
+
+def _mf_equals_plain(pp, bt, hp, bce=False):
+    """One launch of the fused CUSGD++ step on a copy of the planes
+    against `apply_mf_sgd_ref` on another → the kernel's planes."""
     before = sgd_kernel.MF_LAUNCHES
-    got = sgd_kernel.mf_sgd_step(*args, bce=bce)
+    got = sgd_kernel.mf_sgd_batch(_copy(pp), bt, hp, bce=bce)
     torch.cuda.synchronize()
     assert sgd_kernel.MF_LAUNCHES == before + 1
-    _close(got, mf_sgd_step_ref(*args, bce=bce))
-    off = valid == 0
-    assert torch.equal(got[0][off], args[0][off])
-    assert torch.equal(got[1][off], args[1][off])
-    assert bool((got[2][off] == 0).all())
+    want = apply_mf_sgd_ref(_copy(pp), bt, hp, bce=bce)
+    _close((got.row, got.col), (want.row, want.col))
+    return got
+
+
+@pytest.mark.parametrize("bce", [False, True])
+@pytest.mark.parametrize("B,F", [(512, 128), (7, 128), (250, 128), (9, 40),
+                                 (33, 300), (12, 520)])
+def test_mf_sgd_kernel_equals_plain(cuda, B, F, bce):
+    """The fused step reads U[i] and V[j] by id with the planes' own row
+    widths (the col plane carries K = 3 neighbour columns), writes only
+    the first F columns of live slots' rows, and leaves invalid slots'
+    rows bit for bit."""
+    pp, bt, _ = fused_case(B, F, 3, np.random.default_rng(B * 3 + F),
+                           device=cuda)
+    hp = torch.tensor(MF_HP, device=cuda)
+    got = _mf_equals_plain(pp, bt, hp, bce)
+    assert torch.equal(got.row[:, F:], pp.row[:, F:])
+    assert torch.equal(got.col[:, F:], pp.col[:, F:])
+    off = bt.valid == 0
+    assert torch.equal(got.row[bt.i[off].long()], pp.row[bt.i[off].long()])
+    assert torch.equal(got.col[bt.j[off].long()], pp.col[bt.j[off].long()])
 
 
 def test_sgd_kernels_all_invalid_rows_are_copies(cuda):
@@ -282,11 +362,11 @@ def test_sgd_kernels_all_invalid_rows_are_copies(cuda):
                             valid_p=0.0, device=cuda)
     got = sgd_kernel.culsh_sgd_batch(_copy(pp), bt, hp)
     assert torch.equal(got.row, pp.row) and torch.equal(got.col, pp.col)
-    u = pp.row[:64, :128].contiguous()
-    u2, v2, e = sgd_kernel.mf_sgd_step(u, u, bt.r, bt.valid,
-                                       torch.full((4,), 0.1, device=cuda))
-    assert torch.equal(u2, u) and torch.equal(v2, u)
-    assert bool((e == 0).all())
+    for bce in (False, True):
+        got = sgd_kernel.mf_sgd_batch(_copy(pp), bt,
+                                      torch.full((4,), 0.1, device=cuda),
+                                      bce=bce)
+        assert torch.equal(got.row, pp.row) and torch.equal(got.col, pp.col)
 
 
 def test_culsh_step_padding_slots_repeating_live_ids_add_nothing(cuda):
@@ -322,6 +402,55 @@ def test_culsh_step_padding_slots_repeating_live_ids_add_nothing(cuda):
     np.testing.assert_allclose(got.col.cpu().numpy(), plain.col.numpy(),
                                rtol=1e-5, atol=1e-6)
 
+
+
+def test_mf_step_padding_slots_repeating_live_ids_add_nothing(cuda):
+    """As for the CULSH-MF step: invalid slots that carry the i and j of
+    valid ones write nothing, so the planes equal those of the batch
+    without them, bit for bit."""
+    pp, bt, _ = fused_case(16, 128, 4, np.random.default_rng(5),
+                           valid_p=1.0)
+    pad = [12, 13, 14, 15]
+    bt.i[pad], bt.j[pad] = bt.i[:4].clone(), bt.j[:4].clone()
+    bt.valid[pad] = 0.0
+    live = model.Batch(*(getattr(bt, f.name)[:12]
+                         for f in dataclasses.fields(bt)))
+    hp = torch.tensor(MF_HP)
+    got = sgd_kernel.mf_sgd_batch(_to(pp, cuda), _to(bt, cuda), hp.to(cuda))
+    want = sgd_kernel.mf_sgd_batch(_to(pp, cuda), _to(live, cuda),
+                                   hp.to(cuda))
+    assert torch.equal(got.row, want.row) and torch.equal(got.col, want.col)
+    plain = apply_mf_sgd_ref(_copy(pp), bt, hp)
+    _close((got.row, got.col), (plain.row, plain.col))
+
+
+def test_mf_step_replays_in_a_cuda_graph(cuda):
+    """The fused CUSGD++ launch captured in a CUDA graph (as
+    `chip_smoke.py` times it) replays the eager launches bit for bit."""
+    pp, bt, _ = fused_case(512, 128, 2, np.random.default_rng(8),
+                           valid_p=0.9, device=cuda)
+    pp.row.mul_(0.1)
+    pp.col.mul_(0.1)
+    hp = mf_hyper(sgd.Hyper(), 1.0, cuda)
+    eager, graphed = _copy(pp), _copy(pp)
+    for _ in range(5):
+        sgd_kernel.mf_sgd_batch(eager, bt, hp)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sgd_kernel.mf_sgd_batch(_copy(pp), bt, hp)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(5):
+            sgd_kernel.mf_sgd_batch(graphed, bt, hp)
+    torch.cuda.synchronize()
+    assert torch.equal(graphed.row, pp.row)     # capture ran nothing
+    graph.replay()
+    torch.cuda.synchronize()
+    assert not torch.equal(eager.row, pp.row)
+    assert torch.equal(graphed.row, eager.row)
+    assert torch.equal(graphed.col, eager.col)
 
 def hazard_case(B, F, K, rng, device):
     """`fused_case` with every slot valid and every explicit neighbour of
@@ -416,6 +545,36 @@ def test_culsh_tier_on_card_equals_plain_epoch(cuda):
                                rtol=1e-5, atol=1e-5)
 
 
+
+def test_mf_tier_on_card_equals_plain_epoch(cuda):
+    """One plain-MF (``mf_only``) scheduled epoch on the card through
+    `mf_sgd_tier` against the same epoch on the CPU's packed steps; one
+    launch per conflict-free batch."""
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=300, N=90,
+                               nnz=4000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=0)
+    sp = from_coo(rows, cols, vals, (spec.M, spec.N), device="cpu")
+    sched = sparse.conflict_free_schedule(
+        sp.rows.numpy(), sp.cols.numpy(), batch=64, tiers=3, M=spec.M,
+        N=spec.N, seed=0)
+    JK = torch.zeros((spec.N, 8), dtype=torch.int32)
+    sd = model.build_scheduled_data(sp, JK, sched, mf_only=True)
+    pp = model.pack_params(model.init_from_data(prng.PRNGKey(1), sp, 16, 8))
+    key = prng.PRNGKey(2)
+    before = sgd_kernel.MF_LAUNCHES
+    got = sgd.train_epoch_scheduled(_copy(_to(pp, cuda)), _to(sd, cuda),
+                                    sched, key, 1, sgd.Hyper(), mf_only=True,
+                                    use_kernels=True)
+    torch.cuda.synchronize()
+    assert sgd_kernel.MF_LAUNCHES - before == sched.stats()["nb_cf"]
+    want = sgd.train_epoch_scheduled(_copy(pp), sd, sched, key, 1,
+                                     sgd.Hyper(), mf_only=True,
+                                     use_kernels=False)
+    np.testing.assert_allclose(got.row.cpu().numpy(), want.row.numpy(),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.col.cpu().numpy(), want.col.numpy(),
+                               rtol=1e-5, atol=1e-5)
+
 def test_fit_on_card_launches_the_culsh_kernel_per_cf_step(cuda):
     from repro_torch.train.trainer import FitConfig, fit
     spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=300, N=90,
@@ -463,11 +622,23 @@ def test_sgd_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         big, 4).contiguous(), zk, zk, zk, torch.zeros(big, device=cuda))
     with pytest.raises(ValueError, match="co-resident"):
         sgd_kernel.culsh_sgd_batch(pp, wide, hp)
-    args = [pp.row[:8, :8].contiguous(), bt.r, bt.valid]
-    with pytest.raises(ValueError):
-        sgd_kernel.mf_sgd_step(args[0], args[0].t(), *args[1:], hp[:4])
+    hmf = hp[:4].contiguous()
     with pytest.raises(ValueError, match="hp"):
-        sgd_kernel.mf_sgd_step(args[0], args[0], *args[1:], hp)
+        sgd_kernel.mf_sgd_batch(pp, bt, hp)
+    with pytest.raises(ValueError, match="F=0"):
+        sgd_kernel.mf_sgd_batch(dataclasses.replace(pp, F=0), bt, hmf)
+    with pytest.raises(ValueError, match="disagree"):
+        sgd_kernel.mf_sgd_batch(dataclasses.replace(
+            pp, row=pp.row[:, :-1].contiguous()), bt, hmf)
+    with pytest.raises(TypeError):
+        sgd_kernel.mf_sgd_batch(pp, dataclasses.replace(bt, j=bt.j.long()),
+                                hmf)
+    with pytest.raises(ValueError, match="past"):
+        sgd_kernel.mf_sgd_tier(pp, bt, valid, hmf, width=8,
+                               starts=np.array([0, 4]))
+    with pytest.raises(ValueError, match="slot masks"):
+        sgd_kernel.mf_sgd_tier(pp, bt, valid, hmf, width=8,
+                               starts=np.array([0]))
 
 
 # ------------------------------------------- simLSH encode, fused prediction

@@ -6,19 +6,21 @@ packed/unpacked steps of `core/sgd.py`.
   mode, within rtol 1e-5 / atol 1e-6 (the tolerance of
   `tests/test_kernels.py`), at batch widths 7, 24, 96 and 250, with the
   BCE loss both ways; invalid rows come back unchanged.  The fused
-  CULSH-MF entry (`kernel.culsh_sgd_batch`, which on the card gathers,
-  steps and writes the planes in one launch) runs its plain version on
-  CPU tensors: planes built around the same tiles come back with the
-  same rows, and no kernel launches.
-* The fused entry, `ref.apply_culsh_sgd_ref` and `ops.apply_mf_sgd`
-  (gather → step → delta scatter) against
-  the port's packed steps and the JAX package's `apply_*` (ref and
-  Pallas interpret), including a batch whose slots' neighbours are the
-  other live slots' columns (the stale-b̂ hazard) with non-zero W.
+  entries (`kernel.culsh_sgd_batch`, `kernel.mf_sgd_batch`, which on the
+  card gather, step and write the planes in one launch) run their plain
+  versions on CPU tensors: planes built around the same tiles come back
+  with the same rows, and no kernel launches.
+* The fused entries (`kernel.culsh_sgd_batch`, `kernel.mf_sgd_batch`)
+  and their plain versions (`ref.apply_culsh_sgd_ref`,
+  `ref.apply_mf_sgd_ref`: gather → step → delta scatter) against the
+  port's packed steps and the JAX package's `apply_*` (ref and Pallas
+  interpret), including a batch whose slots' neighbours are the other
+  live slots' columns (the stale-b̂ hazard) with non-zero W.
 * One epoch's conflict-free tiers through the fused entry
   (`use_kernels`) against the packed steps, and the tiers and the
   leftover batches run as separate `sgd._cf_scan` calls against the
-  whole epoch.
+  whole epoch; a plain-MF epoch's tiers through `kernel.mf_sgd_tier`
+  against `mf_step_packed`, batch by batch and as a whole epoch.
 * The port's packed steps bit-identical to its unpacked steps, on
   conflict-free, collision-scaled and precomputed-scale batches (the
   invariant of `tests/test_schedule.py::test_packed_step_bit_identical`).
@@ -45,6 +47,7 @@ from repro_torch.data import sparse, synthetic
 from repro_torch.kernels import pick
 from repro_torch.kernels.mf_sgd import kernel, ops
 from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
+                                            apply_mf_sgd_ref,
                                             culsh_sgd_step_ref,
                                             mf_sgd_step_ref)
 
@@ -127,11 +130,32 @@ def test_mf_step_plain_matches_jax_ref_and_pallas(B, bce):
                             interpret=True, bce=bce)):
         for g, w in zip(got, want):
             np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
-    assert torch.equal(kernel.mf_sgd_step(*map(torch.tensor, (
-        u, v, r, valid, hp)), bce=bce)[0], got[0])
     off = valid == 0
     np.testing.assert_array_equal(_np(got[0])[off], u[off])
     np.testing.assert_array_equal(_np(got[2])[off], 0.0)
+    # the fused entry on planes built around the tiles (row s of each plane
+    # is tile row s; the col plane carries K = 2 neighbour columns, so its
+    # rows are wider than F + 1): on CPU tensors it is the plain version,
+    # no launch, and only the first F columns change
+    K = 2
+    row = torch.cat([torch.tensor(u), torch.tensor(r)[:, None]], dim=1)
+    col = torch.cat([torch.tensor(v), torch.tensor(
+        rng.normal(size=(B, 2 * K + 1)).astype(np.float32))], dim=1)
+    pp = model.PackedParams(row=row.clone(), col=col.clone(),
+                            mu=torch.tensor(0.0), F=F, K=K)
+    ids = torch.arange(B, dtype=torch.int32)
+    zk = torch.zeros((B, K))
+    bt = model.Batch(ids, ids, torch.tensor(r), torch.zeros(
+        (B, K), dtype=torch.int32), zk, zk, 1.0 - zk, torch.tensor(valid))
+    before = kernel.MF_LAUNCHES
+    kernel.mf_sgd_batch(pp, bt, torch.tensor(hp), bce=bce)
+    assert kernel.MF_LAUNCHES == before
+    np.testing.assert_allclose(_np(pp.row[:, :F]), _np(got[0]), **TOL)
+    np.testing.assert_allclose(_np(pp.col[:, :F]), _np(got[1]), **TOL)
+    assert torch.equal(pp.row[:, F:], row[:, F:])
+    assert torch.equal(pp.col[:, F:], col[:, F:])
+    np.testing.assert_array_equal(_np(pp.row)[off], _np(row)[off])
+    np.testing.assert_array_equal(_np(pp.col)[off], _np(col)[off])
 
 
 # ----------------------------------------------------------- on real batches
@@ -198,11 +222,23 @@ def test_apply_matches_packed_step_and_jax(tiny, B):
     np.testing.assert_allclose(_np(got.row), np.asarray(jgot.row), **TOL)
     np.testing.assert_allclose(_np(got.col), np.asarray(jgot.col), **TOL)
     want_mf = sgd.mf_step_packed(_copy(pp), bt, hp, d, conflict_free=True)
-    got_mf = ops.apply_mf_sgd(_copy(pp), bt, ops.mf_hyper(hp, d, "cpu"))
-    jmf = jops.apply_mf_sgd(jmodel.pack_params(jp), jbt, jsgd.Hyper(),
-                            jnp.float32(d), impl="ref")
+    hmf = ops.mf_hyper(hp, d, "cpu")
+    before = kernel.MF_LAUNCHES
+    got_mf = kernel.mf_sgd_batch(_copy(pp), bt, hmf)
+    assert kernel.MF_LAUNCHES == before
+    plain_mf = apply_mf_sgd_ref(_copy(pp), bt, hmf)
+    assert torch.equal(got_mf.row, plain_mf.row)
+    assert torch.equal(got_mf.col, plain_mf.col)
     np.testing.assert_allclose(_np(got_mf.row), _np(want_mf.row), **TOL)
-    np.testing.assert_allclose(_np(got_mf.col), np.asarray(jmf.col), **TOL)
+    np.testing.assert_allclose(_np(got_mf.col), _np(want_mf.col), **TOL)
+    for impl in ("ref", "pallas"):
+        jmf = jops.apply_mf_sgd(jmodel.pack_params(jp), jbt, jsgd.Hyper(),
+                                jnp.float32(d), impl=impl, tile_b=64,
+                                interpret=True)
+        np.testing.assert_allclose(_np(got_mf.row), np.asarray(jmf.row),
+                                   **TOL)
+        np.testing.assert_allclose(_np(got_mf.col), np.asarray(jmf.col),
+                                   **TOL)
 
 
 def _jax_batch(bt):
@@ -327,6 +363,53 @@ def test_epoch_kernel_path_equals_packed_steps_and_parts_make_the_epoch(tiny):
     assert torch.equal(halves.row, fused.row)
     assert torch.equal(halves.col, fused.col)
 
+
+
+def test_mf_epoch_tiers_through_mf_sgd_tier_equal_packed_steps(tiny):
+    """A plain-MF (``mf_only``) epoch's conflict-free tiers: each tier's
+    step function from `kernel.mf_sgd_tier` (the CPU path, no launch)
+    against `mf_step_packed` on the same windows, batch by batch; and the
+    whole epoch with ``use_kernels`` against the packed steps."""
+    tsp, _ = tiny
+    K, F = 4, 8
+    JK = torch.zeros((tsp.N, K), dtype=torch.int32)
+    sched = sparse.conflict_free_schedule(
+        _np(tsp.rows), _np(tsp.cols), batch=64, tiers=3, tier_shrink=0.5,
+        M=tsp.M, N=tsp.N, seed=1)
+    assert sched.stats()["nb_cf"] and any((~v).any() for v in
+                                          sched.tier_valid)
+    sd = model.build_scheduled_data(tsp, JK, sched, mf_only=True)
+    pp = model.pack_params(model.init_from_data(prng.PRNGKey(4), tsp, F, K))
+    hp, decay = sgd.Hyper(), sgd.lr_decay(sgd.Hyper(), 1)
+    hmf = ops.mf_hyper(hp, decay, "cpu")
+    fused, packed = _copy(pp), _copy(pp)
+    before = kernel.MF_LAUNCHES
+    for t, (starts, valid) in enumerate(zip(sched.tier_starts,
+                                            sched.tier_valid)):
+        width = sched.widths[t]
+        masks = torch.as_tensor(valid).float()
+        step = kernel.mf_sgd_tier(fused, sd, masks, hmf, width=width,
+                                  starts=starts)
+        for k, s in enumerate(starts.tolist()):
+            step(s, k)
+            sgd.mf_step_packed(packed, model.slice_batch(sd, s, width,
+                                                         masks[k]),
+                               hp, decay, conflict_free=True)
+            np.testing.assert_allclose(_np(fused.row), _np(packed.row),
+                                       **TOL)
+            np.testing.assert_allclose(_np(fused.col), _np(packed.col),
+                                       **TOL)
+    assert kernel.MF_LAUNCHES == before
+    assert np.abs(_np(fused.row) - _np(pp.row)).max() > 1e-3
+    assert torch.equal(fused.col[:, F:], pp.col[:, F:])
+    key = prng.PRNGKey(8)
+    run = lambda q, **kw: sgd.train_epoch_scheduled(
+        q, sd, sched, key, 1, hp, mf_only=True, **kw)
+    whole = run(_copy(pp), use_kernels=True)
+    want = run(_copy(pp), use_kernels=False)
+    assert kernel.MF_LAUNCHES == before
+    np.testing.assert_allclose(_np(whole.row), _np(want.row), **TOL)
+    np.testing.assert_allclose(_np(whole.col), _np(want.col), **TOL)
 
 def test_packed_steps_bit_identical_to_unpacked(tiny):
     tsp, jsp = tiny
