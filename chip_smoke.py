@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths — serving, the offline
-fit, the simLSH encoder, the legacy fit with checkpoints and batch
-scoring — on one CUDA card.
+fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring
+and online learning — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -79,12 +79,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     the counter zeroed just before: within 1e-4 of `model.predict` and
     of the plain version, and the kernel-scored RMSE within 1e-4 of the
     fit's last `rmse_cached`; the kernel and its plain version timed at
-    B = 8,192 in CUDA graphs beside the bound.
+    B = 8,192 in CUDA graphs beside the bound;
+15. online (paper Alg. 4) — phase 8's data relabelled (numpy seed 0) so
+    a random 1 % of users and 4 % of items hold the top ids, cut at
+    M0 < M1 < M and N0 < N1 < N (99 / 99.5 % and 96 / 98 %): the old
+    world is fitted (phase 10's `FitConfig`, the `culsh_sgd` counter
+    zeroed just before), indexed (tail_cap 1,024) and served with phase
+    3's `ServeConfig`; `online_update` takes ΔΩ₁ to (M1, N1) — old
+    slices and J^K bit for bit, signatures against a fresh encode by the
+    near-zero rule, the new ids' test RMSE below the untrained one —
+    and `ingest_online_update` puts its 600 items in the tail; 64
+    flushes (half new users, counters zeroed just before: one launch
+    of each serving kernel a flush) each against the plain versions,
+    recall@10 against `full_topn`; ΔΩ₂ takes the catalog to N and
+    overflows the tail, so the index is rebuilt synchronously (equal to
+    `build_index`, `validate_index` clean, 16 more flushes checked);
+    a NaN rating, learning rates ×10⁴ and a NaN accumulator are each
+    refused while the service serves on; one `micro_epoch` over the
+    merged ratings; update 1 run twice (is it bit-identical?).
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–14 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–15 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -266,7 +283,7 @@ def device_activity(prof):
     return spans, busy, by_name
 
 
-def profile_flushes(svc, batches) -> None:
+def profile_flushes(svc, batches, tag: str = "5 profile") -> None:
     """Serve ``batches`` under `torch.profiler`; print the device's busy
     share of the window and its time by kernel name."""
     from torch.profiler import ProfilerActivity, profile
@@ -281,11 +298,11 @@ def profile_flushes(svc, batches) -> None:
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, busy, by_name = device_activity(prof)
     svc.take_results()
-    print(f"[5 profile] {len(batches)} flushes: host wall {wall_us:.0f} us, "
+    print(f"[{tag}] {len(batches)} flushes: host wall {wall_us:.0f} us, "
           f"device busy {busy:.0f} us ({busy / wall_us:.3f} of the wall), "
           f"{len(spans)} device activities", flush=True)
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[5 profile]   {us / len(batches):9.2f} us/flush  "
+        print(f"[{tag}]   {us / len(batches):9.2f} us/flush  "
               f"{name[:90]}", flush=True)
 
 
@@ -926,6 +943,376 @@ def predict_phase(ctx: dict, dev, on_card: bool, power: str) -> dict:
                 bound_ms=bnd, bound_by=by, library_ms=None)
 
 
+def online_phase(args, ctx: dict, scfg, dev, on_card: bool,
+                 power: str) -> None:
+    """Phase 15: online learning (paper Alg. 4) on phase 8's data.
+
+    A seeded relabelling gives a random 1 % of users and 4 % of items the
+    top ids; the old world (ids below M0, N0) is fitted, indexed and
+    served; ΔΩ₁ (ids below M1, N1) and then ΔΩ₂ (the rest) arrive through
+    `online_update` and `RecsysService.ingest_online_update` — the first
+    into the index tail, the second by a synchronous rebuild — with
+    every flush after them held against the plain versions."""
+    import dataclasses
+
+    from repro_torch import obs, prng
+    from repro_torch.core import model, online, simlsh
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.data.sparse import from_coo
+    from repro_torch.kernels.candidate_score import kernel as score_kernel
+    from repro_torch.kernels.candidate_score.ref import assert_topn_close
+    from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
+    from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
+    from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
+    from repro_torch.resil import (DivergenceError, PoisonBatchError,
+                                   validate_index)
+    from repro_torch.serve import (RecsysService, build_index, full_topn,
+                                   recommend_walked_kernel)
+    from repro_torch.serve.index import _sig_of_items
+    from repro_torch.train.trainer import fit
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    M, N = ctx["shape"]
+    cfg = ctx["cfg"]
+    lsh, K, B = cfg.lsh, cfg.K, scfg.micro_batch
+    # the world split: a seeded relabelling, then cuts at 99 / 99.5 % of
+    # the users and 96 / 98 % of the items
+    rng = np.random.default_rng(0)
+    perm_u = rng.permutation(M).astype(np.int32)
+    perm_i = rng.permutation(N).astype(np.int32)
+    relabel = lambda t: (perm_u[t[0]], perm_i[t[1]], t[2])
+    tr, te = relabel(ctx["tr"]), relabel(ctx["te"])
+    M0, M1 = int(M * 0.99), int(M * 0.995)
+    N0, N1 = int(N * 0.96), int(N * 0.98)
+    tail_cap = max(1, round(1024 * args.fit_scale))
+    box = lambda t, m, n: (t[0] < m) & (t[1] < n)
+    old, in1 = box(tr, M0, N0), box(tr, M1, N1)
+    sel = lambda t, mask: tuple(a[mask] for a in t)
+    d1, d2 = sel(tr, in1 & ~old), sel(tr, ~in1)
+    print(f"[15 online] M0={M0} M1={M1} M2={M} N0={N0} N1={N1} N2={N}: old "
+          f"world {int(old.sum())} ratings, dOmega1 {d1[0].size}, dOmega2 "
+          f"{d2[0].size} ({(d1[0].size + d2[0].size) / tr[0].size:.4f} of "
+          f"{tr[0].size}); tail_cap {tail_cap}", flush=True)
+
+    # ---- the old world: fit (culsh_sgd counted), index, service ----
+    t0 = time.perf_counter()
+    sgd_kernel.CULSH_LAUNCHES = 0
+    res = fit(sel(tr, old), sel(te, box(te, M0, N0)), (M0, N0), cfg,
+              device=dev)
+    culsh_launches = sgd_kernel.CULSH_LAUNCHES
+    nb_cf = res.schedule_stats["nb_cf"]
+    print(f"[15 online] old-world fit {time.perf_counter() - t0:.2f} s: "
+          f"rmse {[round(h[2], 6) for h in res.history]}, culsh_sgd_step "
+          f"launches {culsh_launches} = {nb_cf} conflict-free steps x "
+          f"{cfg.epochs} epochs, compile_seconds {res.compile_seconds:.3f}",
+          flush=True)
+    if on_card and culsh_launches != nb_cf * cfg.epochs:
+        raise AssertionError(f"culsh_sgd_step launched {culsh_launches} "
+                             f"times in the old-world fit")
+    sp0 = from_coo(*sel(tr, old), (M0, N0), device=dev)
+    st0 = online.OnlineState(params=res.params, S=res.S, JK=res.JK, sp=sp0,
+                             M=M0, N=N0, hash_key=res.hash_key)
+    svc = RecsysService(st0.params, build_index(
+        simlsh.pack_bits(st0.S >= 0), tail_cap=tail_cap, device=dev), sp0,
+        scfg, device=dev)
+    svc.warmup()
+
+    def update(st, d, M_new, N_new, key, hp=cfg.hp, reg=None):
+        return online.online_update(st, *d, lsh, hp, key, M_new=M_new,
+                                    N_new=N_new, K=K, epochs=3, batch=4096,
+                                    registry=reg)
+
+    def frozen(p_new, p_old, m, n):
+        return all(torch.equal(getattr(p_new, f)[:m if f in ("U", "b") else n],
+                               getattr(p_old, f))
+                   for f in ("U", "b", "V", "bh", "W", "C"))
+
+    def signature_rule(st):
+        """Incremental S and signatures against a fresh encode of the
+        merged Ω̂, by the JAX package's rule (`tests/test_online.py`: S
+        within rtol 1e-4 / atol 1e-3, bits equal wherever |S_fresh| ≥
+        1e-3) with its atol widened by each column's float32 summation
+        noise, 8·2⁻²⁴·√(n·Σψ²) for n ratings of weights ψ: a sum in
+        another order differs by about 2⁻²⁴·√n times its partial sums'
+        size, √(Σψ²) for ±ψ terms, which the rule's 1e-3 covers only at
+        its test's size.  → (max |S − S_fresh|, elements outside the
+        unwidened rule, largest widening, flipped bits)."""
+        fresh_sigs, S_fresh = simlsh.encode(st.sp, lsh, st.hash_key,
+                                            return_accumulators=True)
+        w = simlsh.psi(st.sp.vals, lsh.psi_pow, lsh.psi_mode,
+                       lsh.psi_center).double()
+        cols = st.sp.cols.long()
+        n = torch.zeros(st.N, dtype=torch.float64, device=dev).index_add_(
+            0, cols, torch.ones_like(w))
+        w2 = torch.zeros(st.N, dtype=torch.float64, device=dev).index_add_(
+            0, cols, w * w)
+        noise = (8 * 2.0 ** -24 * torch.sqrt(n * w2)).float()[None, :, None]
+        err = (st.S - S_fresh).abs()
+        limit = 1e-3 + 1e-4 * S_fresh.abs()
+        outside = int((err > limit).sum())
+        if bool((err > limit + noise).any()):
+            raise AssertionError(f"S is off a fresh encode beyond the "
+                                 f"summation noise: max abs err "
+                                 f"{float(err.max()):.3g}")
+        sigs = simlsh.pack_bits(st.S >= 0)
+        near0 = S_fresh.abs() < 1e-3 + noise
+        flips = 0
+        for b in range(lsh.sig_bits):
+            diff = ((sigs >> b) & 1) != ((fresh_sigs >> b) & 1)
+            if bool((diff & ~near0[..., b]).any()):
+                raise AssertionError(f"signature bit {b} differs where the "
+                                     f"fresh accumulator is not near 0")
+            flips += int(diff.sum())
+        return float(err.max()), outside, float(noise.max()), flips
+
+    def rmse_new(p, st, m_lo, n_lo, m_hi, n_hi):
+        """Test RMSE over the ratings that touch an id ≥ (m_lo, n_lo) inside
+        the (m_hi, n_hi) box."""
+        mask = (box(te, m_hi, n_hi) & ((te[0] >= m_lo) | (te[1] >= n_lo)))
+        r, c, v = (torch.as_tensor(a[mask], device=dev) for a in te)
+        return float(model.rmse(p, st.sp, st.JK, r, c, v)), int(mask.sum())
+
+    # ---- update 1: ΔΩ₁ → (M1, N1) ----
+    key1 = prng.PRNGKey(args.seed + 15)
+    reg = obs.Registry(enabled=True)
+    st1 = update(st0, d1, M1, N1, key1, reg=reg)
+    if not frozen(st1.params, st0.params, M0, N0):
+        raise AssertionError("update 1 changed an old parameter")
+    if not torch.equal(st1.JK[:N0], st0.JK):
+        raise AssertionError("update 1 changed an old column's J^K")
+    s_err, outside, widest, flips = signature_rule(st1)
+    untrained = online.grow_params(st0.params, M1, N1, prng.split(key1, 3)[0])
+    r_tr, n_te = rmse_new(st1.params, st1, M0, N0, M1, N1)
+    r_un, _ = rmse_new(untrained, st1, M0, N0, M1, N1)
+    del untrained
+    print(f"[15 update 1] stats {st1.stats}; old slices and J^K[:N0] bit "
+          f"for bit; S vs a fresh encode max abs err {s_err:.3g} ("
+          f"{outside} of {st1.S.numel()} outside rtol 1e-4 / atol 1e-3, "
+          f"all within it plus the column's summation noise, at most "
+          f"{widest:.3g}), {flips} signature bits differ (all near 0); "
+          f"rmse on the {n_te} test "
+          f"ratings touching new ids: trained {r_tr:.6f}, untrained "
+          f"{r_un:.6f}; guard trips {reg.counter('online.guard_trips'):.0f}",
+          flush=True)
+    if not r_tr < r_un:
+        raise AssertionError("update 1 did not lower the new ids' RMSE")
+
+    # ---- adopt 1: the new items go to the index tail ----
+    svc.ingest_online_update(st1, N_old=N0)
+    if (svc.index.tail_fill, svc.index.n_base) != (N1 - N0, N0):
+        raise AssertionError(f"after adopt 1 the index holds n_base "
+                             f"{svc.index.n_base}, tail {svc.index.tail_fill}")
+    if svc.obs.span_durations("serve.ingest.rebuild"):
+        raise AssertionError("adopt 1 rebuilt the index")
+    new_ids = torch.arange(N0, N1, dtype=torch.int32, device=dev)
+    if not torch.equal(_sig_of_items(svc.index, new_ids),
+                       simlsh.pack_bits(st1.S[:, N0:N1] >= 0)):
+        raise AssertionError("the tail's signatures are not the re-signed "
+                             "columns")
+    adopt1_s = svc.stats()["ingest_to_servable_s"]
+    kw = dict(n_seeds=scfg.n_seeds, cap=scfg.cap, C=scfg.C,
+              window=scfg.seed_window, topn=scfg.topn, tile_b=scfg.tile_b)
+
+    def serve_and_check(n_flushes, M_old, M_new, tag):
+        """``n_flushes`` flushes of B users, half of them new (ids in
+        [M_old, M_new)), counters zeroed just before and read just after;
+        then each flush against the plain versions on the same users:
+        candidates bit for bit, top-N by `assert_topn_close` (1e-5).
+        → (launches, max abs score err, items, candidate slots holding an
+        id ≥ N0)."""
+        batches = [np.concatenate([rng.integers(0, M_old, B - B // 2),
+                                   rng.integers(M_old, M_new, B // 2)])
+                   .astype(np.int32) for _ in range(n_flushes)]
+        lsh_kernel.LAUNCHES = 0
+        score_kernel.LAUNCHES = 0
+        for users in batches:
+            svc.submit(users)
+        svc.flush()
+        launches = dict(lsh_retrieve=lsh_kernel.LAUNCHES,
+                        candidate_score=score_kernel.LAUNCHES)
+        results = svc.take_results()
+        if on_card and any(n != n_flushes for n in launches.values()):
+            raise AssertionError(f"{tag}: launches {launches} in "
+                                 f"{n_flushes} flushes")
+        err, cand_new = 0.0, 0
+        tail_on = svc.index.tail_fill > 0
+        for users, (u, s, i) in zip(batches, results):
+            ids = torch.from_numpy(users).to(dev)
+            args_ = (svc.index, svc.sp, ids)
+            ckw = dict(n_seeds=kw["n_seeds"], cap=kw["cap"], C=kw["C"],
+                       popular=svc.popular, window=kw["window"],
+                       tail_scan=tail_on, ids_flat=svc._flat_ids())
+            cand = retrieve_candidates(*args_, **ckw)
+            if not torch.equal(cand, retrieve_candidates(*args_, impl="ref",
+                                                         **ckw)):
+                raise AssertionError(f"{tag}: lsh_retrieve differs from its "
+                                     f"plain version")
+            cand_new += int(((cand >= N0) & (cand < N)).sum())
+            s_ref, i_ref = recommend_walked_kernel(
+                svc.planes, svc.index, svc.sp, ids, svc.popular,
+                svc._flat_ids(), tail_scan=tail_on, impl="ref", **kw)
+            err = max(err, assert_topn_close(s, i, s_ref, i_ref))
+        items = np.concatenate([r[2] for r in results])
+        return launches, err, items, cand_new
+
+    launches1, err1, items1, cand1 = serve_and_check(BATCHES, M0, M1,
+                                                     "adopt 1")
+    st = svc.stats()
+    served_new = int(((items1 >= N0) & (items1 < N1)).sum())
+    probe = rng.integers(0, M1, PROBE).astype(np.int32)
+    svc.submit(probe)
+    svc.flush()
+    got_p = np.concatenate([r[2] for r in svc.take_results()])
+    exact = np.concatenate([
+        full_topn(svc.params, torch.from_numpy(probe[i:i + B]).to(dev),
+                  topn=scfg.topn)[1].cpu().numpy()
+        for i in range(0, PROBE, B)])
+    recall = sum(len(set(g) & set(e))
+                 for g, e in zip(got_p, exact)) / exact.size
+    is_new = lambda a: int(((a >= N0) & (a < N1)).sum())
+    print(f"[15 adopt 1] {N1 - N0} items into the tail in {adopt1_s:.4f} s "
+          f"(ingest_to_servable_s); {BATCHES} flushes of {B} users (half "
+          f"new): {st['qps']:.0f} users/s, p50 {st['p50_ms']:.3f} ms, p99 "
+          f"{st['p99_ms']:.3f} ms; launches {launches1}; every flush within "
+          f"1e-5 of the plain versions (max abs err {err1:.3g}), candidates "
+          f"bit for bit; new items fill {cand1} candidate slots and "
+          f"{served_new} served slots; recall@{scfg.topn} {recall:.4f} vs "
+          f"full_topn on {PROBE} probe users, whose exact top-{scfg.topn} "
+          f"holds {is_new(exact)} new items and served {is_new(got_p)} "
+          f"(power limit {power})", flush=True)
+    # the walk must reach the tail; whether a new item ranks in a top-N
+    # is the model's answer, which full_topn holds the service to
+    if not cand1:
+        raise AssertionError("no new item reached the candidates")
+    if not recall >= 0.5:
+        raise AssertionError(f"recall@10 {recall:.4f} below 0.5")
+    if on_card:          # where a flush with a 600-item tail spends its time
+        profile_flushes(svc, [np.concatenate([
+            rng.integers(0, M0, B - B // 2), rng.integers(M0, M1, B // 2)])
+            .astype(np.int32) for _ in range(PROFILED)], tag="15 profile")
+
+    # ---- update 2 and adopt 2: the tail overflows → synchronous rebuild ----
+    st2 = update(st1, d2, M, N, prng.PRNGKey(args.seed + 16), reg=reg)
+    if not frozen(st2.params, st1.params, M1, N1):
+        raise AssertionError("update 2 changed an old parameter")
+    svc.ingest_online_update(st2, N_old=N1)
+    full = simlsh.pack_bits(st2.S >= 0)
+    want = build_index(full, tail_cap=tail_cap, device=dev)
+    if (svc.index.tail_fill, svc.index.n_base) != (0, N):
+        raise AssertionError("adopt 2 did not rebuild the index")
+    for f in ("sorted_sigs", "sorted_ids", "bucket_lo", "bucket_hi",
+              "slot_of"):
+        if not torch.equal(getattr(svc.index, f), getattr(want, f)):
+            raise AssertionError(f"the rebuilt index's {f} differs from "
+                                 f"build_index(full_sigs)")
+    # the structural invariants must hold; the recall smoke (every probe
+    # item among the first 4 slots of its own bucket) is exact only while
+    # buckets hold at most 4 items, which the fit's 8-bit bands exceed,
+    # so it must merely say of the rebuilt index what it says of a fresh
+    # build_index of the same signatures
+    probs = validate_index(svc.index, probe=0)
+    if probs:
+        raise AssertionError(f"validate_index: {probs}")
+    smoke = validate_index(svc.index)
+    if smoke != validate_index(want):
+        raise AssertionError(f"validate_index's recall smoke differs from a "
+                             f"fresh build's: {smoke}")
+    biggest = int((svc.index.bucket_hi - svc.index.bucket_lo).max())
+    rebuild_s = svc.obs.span_durations("serve.ingest.rebuild")[-1]
+    adopt2_s = svc.stats()["ingest_to_servable_s"]
+    launches2, err2, _, _ = serve_and_check(16, M1, M, "adopt 2")
+    print(f"[15 adopt 2] update 2 stats {st2.stats}; {N - N1} more items "
+          f"overflow the tail: synchronous rebuild {rebuild_s:.4f} s, "
+          f"ingest_to_servable_s {adopt2_s:.4f}; the index equals "
+          f"build_index(full_sigs) and passes validate_index's structural "
+          f"checks; its recall smoke (cap 4; largest bucket {biggest} "
+          f"items) says {smoke or 'nothing'}, as of a fresh build; "
+          f"16 flushes: "
+          f"launches {launches2}, within 1e-5 of the plain versions (max "
+          f"abs err {err2:.3g})", flush=True)
+
+    # ---- poison and rollback: each refused, the service serves on ----
+    probe_users = np.arange(0, M, max(1, M // B), dtype=np.int32)[:B]
+
+    def answers():
+        svc.submit(probe_users)
+        svc.flush()
+        (_, s, i), = svc.take_results()
+        return s, i
+
+    s_before, i_before = answers()
+    bad = tuple(a[:64].copy() for a in d2)
+    bad[2][7] = np.nan
+    refusals = []
+    try:
+        update(st2, bad, M, N, prng.PRNGKey(1))
+    except PoisonBatchError as e:
+        refusals.append(f"NaN rating: {e}"[:90])
+    g = np.random.default_rng(1)
+    grow = (np.repeat(np.arange(M, M + 100), 20).astype(np.int32),
+            g.integers(0, N + 10, 2000).astype(np.int32),
+            g.uniform(1, 5, 2000).astype(np.float32))
+    hot = Hyper(**{f.name: getattr(cfg.hp, f.name) * (1e4 if f.name[:2] ==
+                                                      "a_" else 1)
+                   for f in dataclasses.fields(Hyper)})
+    try:
+        update(st2, grow, M + 100, N + 10, prng.PRNGKey(2), hp=hot)
+    except DivergenceError as e:
+        refusals.append(f"learning rates x1e4: {e}"[:90])
+    S_bad = st2.S.clone()
+    S_bad[3, N1 + 5, 2] = float("nan")
+    q0 = svc.stats()["quarantined"]
+    try:
+        svc.ingest_online_update(dataclasses.replace(st2, S=S_bad), N_old=N1)
+    except PoisonBatchError as e:
+        refusals.append(f"NaN accumulator: {e}"[:90])
+    del S_bad
+    s_after, i_after = answers()
+    print(f"[15 poison] {len(refusals)} of 3 refused: "
+          + " | ".join(refusals) + f"; quarantined {q0} -> "
+          f"{svc.stats()['quarantined']}; the probe flush after them equals "
+          f"the one before: {np.array_equal(i_after, i_before)}", flush=True)
+    if len(refusals) != 3 or svc.stats()["quarantined"] != q0 + 1:
+        raise AssertionError("a poison or divergence case was not refused")
+    if not (np.array_equal(i_after, i_before)
+            and np.array_equal(s_after, s_before)):
+        raise AssertionError("the service does not serve its prior state")
+
+    # ---- micro_epoch over the merged Ω̂ (the plain packed steps) ----
+    te_r, te_c, te_v = (torch.as_tensor(a, device=dev) for a in te)
+    before = float(model.rmse(st2.params, st2.sp, st2.JK, te_r, te_c, te_v))
+    mreg = obs.Registry(enabled=True)
+    st3 = online.micro_epoch(st2, cfg.hp, prng.PRNGKey(args.seed + 17),
+                             epoch=cfg.epochs, registry=mreg)
+    after = float(model.rmse(st3.params, st3.sp, st3.JK, te_r, te_c, te_v))
+    if not (st3.S is st2.S and st3.JK is st2.JK and st3.sp is st2.sp):
+        raise AssertionError("micro_epoch did not share S, J^K and Omega")
+    print(f"[15 micro] schedule build "
+          f"{mreg.span_durations('online.micro.schedule')[-1]:.3f} s, one "
+          f"micro-epoch over {st2.sp.nnz} ratings "
+          f"{mreg.span_durations('online.micro')[-1]:.3f} s; test rmse "
+          f"{before:.6f} -> {after:.6f} ({te_v.numel()} ratings)", flush=True)
+    if not np.isfinite(after):
+        raise AssertionError("the micro-epoch diverged")
+    del st3
+
+    # ---- determinism probe: update 1 again from the same inputs ----
+    again = update(st0, d1, M1, N1, key1)
+    diffs = [float((getattr(again.params, f) - getattr(st1.params, f))
+                   .abs().max()) for f in ("U", "b", "V", "bh", "W", "C")]
+    same = all(torch.equal(getattr(again.params, f), getattr(st1.params, f))
+               for f in ("U", "b", "V", "bh", "W", "C"))
+    print(f"[15 determinism] update 1 run twice: bit-identical {same}, max "
+          f"abs diff {max(diffs):.3g} (S equal: "
+          f"{torch.equal(again.S, st1.S)})", flush=True)
+    del again, st0, st1, st2, res, svc
+    gc.collect()
+    sync()
+    print(f"[15 online] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -1174,6 +1561,7 @@ def main(argv=None) -> int:
                                 sigs, dev, on_card, power))
     legacy_phase(ctx, dev)
     kernels.append(predict_phase(ctx, dev, on_card, power))
+    online_phase(args, ctx, cfg, dev, on_card, power)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

@@ -2,7 +2,8 @@
 
 A state trained by the JAX package (its `Params` leaves or packed
 training planes, its `SparseMatrix` arrays, its `simlsh.encode`
-signatures, the `jax.random` key a fit goes on from) enters the port
+signatures, the `jax.random` key a fit goes on from, an Alg. 4
+`OnlineState`) enters the port
 through these functions, so both packages compute from identical state;
 `to_numpy` goes the other way.  Only numpy and torch are imported here.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.model import PackedParams, Params
+from repro_torch.core.online import OnlineState
 from repro_torch.data.sparse import SparseMatrix, from_coo
 from repro_torch.device import resolve_device
 from repro_torch.serve.index import LSHIndex, build_index
@@ -65,6 +67,24 @@ def index_from_numpy(sigs, tail_cap: int = 1024, device=None) -> LSHIndex:
     the port's `LSHIndex`."""
     return build_index(torch.tensor(np.asarray(sigs)),
                        tail_cap=tail_cap, device=device)
+
+
+def online_state_from_numpy(params, S, JK, sp, hash_key, M: int, N: int,
+                            device=None):
+    """A JAX `OnlineState`'s arrays → the port's `OnlineState`.
+    ``params`` maps the `Params` field names (U, V, b, bh, W, C, mu) to
+    arrays; ``sp`` is a (rows, cols, vals) triple of the already sorted
+    merged matrix; ``hash_key`` the key words (see `key_from_numpy`)."""
+    dev = resolve_device(device)
+    rows, cols, vals = sp
+    return OnlineState(
+        params=params_from_numpy(**{k: params[k] for k in (
+            "U", "V", "b", "bh", "W", "C", "mu")}, device=dev),
+        S=torch.tensor(np.asarray(S, np.float32), device=dev),
+        JK=torch.tensor(np.asarray(JK, np.int32), device=dev),
+        sp=sparse_from_numpy(rows, cols, vals, (M, N), device=dev),
+        M=int(M), N=int(N),
+        hash_key=None if hash_key is None else key_from_numpy(hash_key))
 
 
 def to_numpy(x):

@@ -157,13 +157,16 @@ def init_from_data(key, sp: SparseMatrix, F, K) -> Params:
 
 
 def assemble(sp: SparseMatrix, JK: torch.Tensor, idx: torch.Tensor,
-             valid: torch.Tensor) -> Batch:
-    """Gather everything a training batch of triples ``idx`` needs (the
-    neighbour ratings by `lookup`)."""
+             valid: torch.Tensor,
+             lookup_sp: SparseMatrix | None = None) -> Batch:
+    """Gather everything a training batch of triples ``idx`` of ``sp``
+    needs (the neighbour ratings by `lookup`, in ``lookup_sp`` when given:
+    Alg. 4 samples ΔΩ but looks neighbour ratings up in Ω̂)."""
     idx = idx.long()
     i, j, r = sp.rows[idx], sp.cols[idx], sp.vals[idx]
     nb = JK[j.long()]
-    rnb, hit = lookup(sp, i[:, None].expand(nb.shape), nb)
+    src = sp if lookup_sp is None else lookup_sp
+    rnb, hit = lookup(src, i[:, None].expand(nb.shape), nb)
     expl = hit.to(torch.float32)
     return Batch(i, j, r, nb, rnb, expl, 1.0 - expl,
                  valid.to(torch.float32))

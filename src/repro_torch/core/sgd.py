@@ -36,7 +36,10 @@ from repro_torch.core.model import (Batch, PackedParams, Params,
                                     predict_gathered, predict_mf,
                                     slice_batch)
 from repro_torch.data.sparse import EpochSchedule, SparseMatrix, epoch_batches
-from repro_torch.kernels.mf_sgd.kernel import culsh_sgd_tier, mf_sgd_tier
+from repro_torch.kernels import pick
+from repro_torch.kernels.mf_sgd.kernel import (culsh_sgd_tier,
+                                               culsh_sgd_tier_ref,
+                                               mf_sgd_tier, mf_sgd_tier_ref)
 from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
 
 
@@ -150,20 +153,31 @@ def mf_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
     return pp
 
 
+def culsh_batch_deltas(p: Params, bt: Batch, hp: Hyper, decay,
+                       bce: bool = False, conflict_free: bool = False,
+                       bh_nb: torch.Tensor | None = None):
+    """The Eq. (5) step's scatter operands on the unpacked layout → (i, j,
+    (db, dbh, du, dv, dw, dc)): the row deltas go to ids ``i``, the
+    column deltas to ``j`` (`culsh_step` adds them; the online update
+    masks them first)."""
+    i, j = bt.i.long(), bt.j.long()
+    pred, aux = predict(p, bt, bh_nb=bh_nb)
+    e = _error(bt.r, pred, bce) * bt.valid
+    si, sj, si_c, sj_c = _batch_scales(p.U.shape[0], p.V.shape[0], bt,
+                                       conflict_free, None)
+    return i, j, _culsh_deltas(
+        bt, e, aux, p.b[i], p.bh[j], p.U[i], p.V[j], p.W[j], p.C[j], hp,
+        decay, si, sj, si_c, sj_c)
+
+
 def culsh_step(p: Params, bt: Batch, hp: Hyper, decay, bce: bool = False,
                conflict_free: bool = False,
                bh_nb: torch.Tensor | None = None) -> Params:
     """CULSH-MF: the fused Eq. (5) update of {b, b̂, U, V, W, C} (new
     Params, six scatters).  ``conflict_free`` promises each i and j at
     most once, making the summed scatter exactly the parallel Eq. (5)."""
-    i, j = bt.i.long(), bt.j.long()
-    pred, aux = predict(p, bt, bh_nb=bh_nb)
-    e = _error(bt.r, pred, bce) * bt.valid
-    si, sj, si_c, sj_c = _batch_scales(p.U.shape[0], p.V.shape[0], bt,
-                                       conflict_free, None)
-    db, dbh, du, dv, dw, dc = _culsh_deltas(
-        bt, e, aux, p.b[i], p.bh[j], p.U[i], p.V[j], p.W[j], p.C[j], hp,
-        decay, si, sj, si_c, sj_c)
+    i, j, (db, dbh, du, dv, dw, dc) = culsh_batch_deltas(
+        p, bt, hp, decay, bce, conflict_free, bh_nb)
     return dataclasses.replace(
         p, b=p.b.index_add(0, i, db), bh=p.bh.index_add(0, j, dbh),
         U=p.U.index_add(0, i, du), V=p.V.index_add(0, j, dv),
@@ -221,14 +235,19 @@ def train_epoch(p: Params, sp: SparseMatrix, JK: torch.Tensor,
 def _cf_scan(pp: PackedParams, sd: ScheduledData, starts: np.ndarray,
              valid: torch.Tensor, hp: Hyper, decay, hpv, *, width: int,
              mf_only: bool, bce: bool, conflict_free: bool,
-             use_kernels: bool, scales=None) -> PackedParams:
+             use_kernels: bool, scales=None,
+             impl: str = "auto") -> PackedParams:
     """Run one schedule tier: batch k is the window at host offset
     ``starts[k]`` with mask ``valid[k]``.  A conflict-free tier with
     ``use_kernels`` goes through the fused step (CUSGD++ for ``mf_only``,
-    else CULSH-MF), validated once per tier (on the card one launch per
-    batch, no `Batch` built); everything else through the packed step."""
+    else CULSH-MF) that ``impl`` picks (`kernels.pick`: the kernel
+    wrapper, or its plain version with ``"ref"``), validated once per
+    tier (on the card one launch per batch, no `Batch` built); everything
+    else through the packed step."""
     if use_kernels and conflict_free:
-        tier = mf_sgd_tier if mf_only else culsh_sgd_tier
+        tier = pick(impl, pp.row.device,
+                    *((mf_sgd_tier, mf_sgd_tier_ref) if mf_only
+                      else (culsh_sgd_tier, culsh_sgd_tier_ref)))
         step = tier(pp, sd, valid, hpv, width=width, starts=starts, bce=bce)
         for k, s in enumerate(starts.tolist()):
             step(s, k)
@@ -244,8 +263,8 @@ def _cf_scan(pp: PackedParams, sd: ScheduledData, starts: np.ndarray,
 def train_epoch_scheduled(pp: PackedParams, sd: ScheduledData,
                           sched: EpochSchedule, key: torch.Tensor,
                           epoch: int, hp: Hyper, *, mf_only: bool = False,
-                          bce: bool = False, use_kernels: bool = False
-                          ) -> PackedParams:
+                          bce: bool = False, use_kernels: bool = False,
+                          impl: str = "auto") -> PackedParams:
     """One epoch over a tiered conflict-free schedule, updating ``pp`` in
     place (the offline hot path).
 
@@ -256,7 +275,8 @@ def train_epoch_scheduled(pp: PackedParams, sd: ScheduledData,
     and permuted on the host once per epoch, so no step reads the device;
     the kernel hyper vector is built once per epoch on the device.  The
     block-aligned shard tier (``sched.shards > 1``) is not ported and
-    raises."""
+    raises.  ``impl`` picks the fused step of ``use_kernels`` (see
+    `_cf_scan`)."""
     if sched.shard_span:
         raise NotImplementedError("the block-aligned shard tier is not "
                                   "ported; schedule with shards=1")
@@ -276,7 +296,7 @@ def train_epoch_scheduled(pp: PackedParams, sd: ScheduledData,
         order = prng.permutation(keys[2 + t], starts.shape[0]).numpy()
         _cf_scan(pp, sd, starts[order], on_dev(valid[order]).float(), hp,
                  decay, hpv, width=sched.widths[t], conflict_free=True,
-                 use_kernels=use_kernels, **kw)
+                 use_kernels=use_kernels, impl=impl, **kw)
     if sched.lo_starts.shape[0]:
         order = prng.permutation(keys[1], sched.lo_starts.shape[0]).numpy()
         _cf_scan(pp, sd, sched.lo_starts[order],

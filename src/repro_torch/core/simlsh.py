@@ -112,3 +112,29 @@ def encode(sp: SparseMatrix, cfg: SimLSHConfig,
     if return_accumulators:
         return sigs, torch.stack(accs)
     return sigs
+
+
+def update_accumulators(S: torch.Tensor, new_rows, new_cols, new_vals,
+                        cfg: SimLSHConfig, key: torch.Tensor, N_total: int):
+    """Alg. 4 lines 1–6: fold ΔΩ into the cached accumulators and re-sign.
+
+    ``S`` is [q, N_old, bits]; columns ≥ N_old are new items (appended as
+    zeros before ΔΩ is added).  Each band's ΔΩ contribution is
+    `band_accumulate` with Φ drawn from ``key`` — the key ``S`` was encoded
+    with, else new items land in random buckets.  → (S' [q, N_total,
+    bits], sigs' [q, N_total] int32), on ``S``'s device."""
+    q, N_old, bits = S.shape
+    if N_total > N_old:
+        S = torch.cat([S, torch.zeros((q, N_total - N_old, bits),
+                                      dtype=S.dtype, device=S.device)], dim=1)
+    dev = S.device
+    rows = torch.as_tensor(new_rows, dtype=torch.int32).to(dev)
+    cols = torch.as_tensor(new_cols, dtype=torch.int32).to(dev)
+    vals = torch.as_tensor(new_vals, dtype=torch.float32).to(dev)
+    S2 = torch.stack([
+        S[band] + band_accumulate(rows, cols, vals, key, band, N=N_total,
+                                  bits=bits, psi_pow=cfg.psi_pow,
+                                  psi_mode=cfg.psi_mode,
+                                  psi_center=cfg.psi_center)
+        for band in range(q)])
+    return S2, pack_bits(S2 >= 0)

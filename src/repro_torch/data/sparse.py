@@ -72,6 +72,48 @@ def from_coo(rows, cols, vals, shape, *, device=None) -> SparseMatrix:
                         (int(M), int(N)))
 
 
+def _host(x, dtype) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype)
+
+
+def merge_coo(sp: SparseMatrix, rows, cols, vals,
+              shape: tuple[int, int]) -> SparseMatrix:
+    """Sorted-array union of Ω̂ and ΔΩ (host numpy) → a `SparseMatrix` of
+    ``shape`` on ``sp``'s device.
+
+    ``sp`` is already (row, col)-lexsorted, so merging d new triples needs
+    only the delta sorted plus two `searchsorted` passes and one linear
+    scatter.  ``shape`` may be larger than ``sp.shape`` (a grown id
+    space); keys use the new N, which keeps the old entries' order.  ΔΩ
+    is assumed not to repeat observed entries; equal keys land old-first.
+    """
+    M, N = shape
+    r0 = _host(sp.rows, np.int64)
+    c0 = _host(sp.cols, np.int64)
+    v0 = _host(sp.vals, np.float32)
+    rd = _host(rows, np.int64)
+    cd = _host(cols, np.int64)
+    vd = _host(vals, np.float32)
+    k0 = r0 * N + c0
+    kd = rd * N + cd
+    o = np.argsort(kd, kind="stable")
+    rd, cd, vd, kd = rd[o], cd[o], vd[o], kd[o]
+    n, d = len(k0), len(kd)
+    out_r = np.empty(n + d, np.int32)
+    out_c = np.empty(n + d, np.int32)
+    out_v = np.empty(n + d, np.float32)
+    pos0 = np.arange(n) + np.searchsorted(kd, k0, side="left")
+    posd = np.arange(d) + np.searchsorted(k0, kd, side="right")
+    out_r[pos0], out_c[pos0], out_v[pos0] = r0, c0, v0
+    out_r[posd], out_c[posd], out_v[posd] = rd, cd, vd
+    dev = sp.vals.device
+    return SparseMatrix(torch.from_numpy(out_r).to(dev),
+                        torch.from_numpy(out_c).to(dev),
+                        torch.from_numpy(out_v).to(dev), (int(M), int(N)))
+
+
 def lookup(sp: SparseMatrix, qi: torch.Tensor, qj: torch.Tensor):
     """Rating lookup r_{i,j} for query id tensors of any shape →
     ``(vals, hit)``, 0 where (i, j) is unobserved.  A `searchsorted` over

@@ -138,6 +138,11 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
+def loaded() -> bool:
+    """Whether this process has loaded the kernel library already."""
+    return _lib is not None
+
+
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error (its `cudaGetLastError`)."""
     if err != 0:

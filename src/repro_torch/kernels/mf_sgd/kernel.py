@@ -171,6 +171,22 @@ def _tier_end(valid: torch.Tensor, starts: np.ndarray, width: int) -> int:
     return int(np.max(starts)) + width if len(starts) else 0
 
 
+def _ref_tier(apply):
+    """The tier function of a plain step ``apply``: ``step(start, k)``
+    applies it to the window at ``start`` with mask ``valid[k]``."""
+    def tier(pp: PackedParams, sd, valid: torch.Tensor, hp: torch.Tensor, *,
+             width: int, starts: np.ndarray, bce: bool = False):
+        def step(start: int, k: int) -> None:
+            apply(pp, slice_batch(sd, start, width, valid[k]), hp, bce=bce)
+        return step
+    return tier
+
+
+# the plain versions of the two tier functions below, on any device
+culsh_sgd_tier_ref = _ref_tier(apply_culsh_sgd_ref)
+mf_sgd_tier_ref = _ref_tier(apply_mf_sgd_ref)
+
+
 def culsh_sgd_tier(pp: PackedParams, sd, valid: torch.Tensor,
                    hp: torch.Tensor, *, width: int, starts: np.ndarray,
                    bce: bool = False):
@@ -187,10 +203,8 @@ def culsh_sgd_tier(pp: PackedParams, sd, valid: torch.Tensor,
     conflict-free: the kernel writes the planes in place without atomics
     and does not check."""
     if pp.row.device.type == "cpu":
-        def step(start: int, k: int) -> None:
-            apply_culsh_sgd_ref(pp, slice_batch(sd, start, width, valid[k]),
-                                hp, bce=bce)
-        return step
+        return culsh_sgd_tier_ref(pp, sd, valid, hp, width=width,
+                                  starts=starts, bce=bce)
     end = _tier_end(valid, starts, width)
     args = _culsh_args(pp, sd.i, sd.j, sd.r, sd.nb, sd.rnb, sd.expl, valid,
                        hp, width=width, end=end, bce=bce)
@@ -210,10 +224,8 @@ def mf_sgd_tier(pp: PackedParams, sd, valid: torch.Tensor, hp: torch.Tensor,
     launch; on CPU tensors a step is `apply_mf_sgd_ref` of the window.
     The batches must be conflict-free, as for `culsh_sgd_tier`."""
     if pp.row.device.type == "cpu":
-        def step(start: int, k: int) -> None:
-            apply_mf_sgd_ref(pp, slice_batch(sd, start, width, valid[k]), hp,
-                             bce=bce)
-        return step
+        return mf_sgd_tier_ref(pp, sd, valid, hp, width=width, starts=starts,
+                               bce=bce)
     end = _tier_end(valid, starts, width)
     args = _mf_args(pp, sd.i, sd.j, sd.r, valid, hp, width=width, end=end,
                     bce=bce)

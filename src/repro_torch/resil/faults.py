@@ -22,11 +22,13 @@ wall-clock or global RNG state — whether call *n* at a site
 Determinism is the point: a chaos test that fails replays exactly, and
 the bench fault arm measures the *same* fault sequence every run.
 
-Sites (grep for ``faults.fire`` to audit): the port fires only
+Sites (grep for ``faults.fire`` to audit): the port fires
 ``ckpt.save``, inside the checkpoint writer between the shard and the
-manifest (a "crash" there leaves a torn staging dir).  The JAX package's
-other sites (``serve.*``, ``online.update``, ``loop.*``) come with the
-modules that hold them.
+manifest (a "crash" there leaves a torn staging dir), and
+``serve.ingest``, in `RecsysService.ingest` after the batch passed
+validation and before the index changes.  The JAX package's other sites
+(``serve.rebuild``, ``online.update``, ``loop.*``) come with the modules
+that hold them.
 
 Use as a context manager so a failing test can never leak a plan into
 the next one:

@@ -12,8 +12,10 @@ holds.  Layout per band b (all int32):
   slot_of[b]      [N]  item id → its slot (inverse permutation)
 
 Online inserts go to a small *tail* buffer that probes scan linearly
-(main+delta).  `insert` is functional: it returns a new index and leaves
-the old one untouched, as the JAX package's immutable arrays do.
+(main+delta); when the tail would overflow, the index is rebuilt from the
+full signature set (`needs_rebuild`, `rebuild`).  `insert` is functional:
+it returns a new index and leaves the old one untouched, as the JAX
+package's immutable arrays do.
 """
 from __future__ import annotations
 
@@ -24,11 +26,11 @@ import torch
 
 from repro_torch.core.topk import SENTINEL
 from repro_torch.device import resolve_device
+from repro_torch.resil.validate import _MAX_ID, check_ids
 
 # tail slots that hold no item: signatures pack into ≤ 30 bits, so int32
 # min never matches a real signature
 _EMPTY_SIG = -(2 ** 31)
-_MAX_ID = 1 << 30     # ids at or above this alias in the dedup hash
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,7 +117,8 @@ def insert(index: LSHIndex, new_sigs, new_ids) -> LSHIndex:
     """Append new items (Alg. 4 online ingestion) to the tail buffer.
 
     ``new_sigs`` [q, n] int32, ``new_ids`` [n] non-negative ids below
-    2³⁰.  Raises if the tail would overflow — the caller rebuilds."""
+    2³⁰ (`PoisonBatchError` otherwise).  Raises if the tail would
+    overflow — the caller then `rebuild`s (see `needs_rebuild`)."""
     new_ids = torch.as_tensor(new_ids)
     new_sigs = torch.as_tensor(new_sigs)
     n = int(new_ids.shape[0])
@@ -123,13 +126,12 @@ def insert(index: LSHIndex, new_sigs, new_ids) -> LSHIndex:
     if tl + n > index.tail_cap:
         raise ValueError(
             f"tail overflow ({tl}+{n} > {index.tail_cap}): rebuild the index")
-    if new_ids.dtype.is_floating_point or new_sigs.dtype.is_floating_point:
+    if new_sigs.dtype.is_floating_point:
         raise TypeError(
-            f"insert: ids and signatures must be integers, got "
-            f"{new_ids.dtype} / {new_sigs.dtype} — float signatures usually "
-            f"mean a NaN-poisoned pipeline")
-    if n and (int(new_ids.min()) < 0 or int(new_ids.max()) >= _MAX_ID):
-        raise ValueError("insert: new ids must lie in [0, 2^30)")
+            f"insert: signatures must be int32, got {new_sigs.dtype} — "
+            f"float signatures usually mean a NaN-poisoned pipeline")
+    if n:            # integer ids in [0, 2^30), else PoisonBatchError
+        check_ids(new_ids, what="insert new_ids")
     tail_sigs = index.tail_sigs.clone()
     tail_ids = index.tail_ids.clone()
     tail_sigs[:, tl:tl + n] = new_sigs.to(tail_sigs)
@@ -199,3 +201,120 @@ def padded_flat_ids(index: LSHIndex, *, cap: int) -> torch.Tensor:
     return torch.cat([
         index.sorted_ids.reshape(-1),
         torch.full((cap,), SENTINEL, dtype=torch.int32, device=index.device)])
+
+
+def needs_rebuild(index: LSHIndex, incoming: int = 0) -> bool:
+    return index.tail_fill + incoming > index.tail_cap
+
+
+def rebuild(index: LSHIndex, sigs) -> LSHIndex:
+    """Fold the tail back into the sorted core from the full [q, N']
+    signatures, on the index's device."""
+    return build_index(sigs, tail_cap=index.tail_cap, device=index.device)
+
+
+def signatures_of(index: LSHIndex) -> torch.Tensor:
+    """The full [q, n_base] signature matrix of a built index
+    (``sigs[b, g] = sorted_sigs[b, slot_of[b, g]]``)."""
+    return torch.gather(index.sorted_sigs, 1, index.slot_of.long())
+
+
+def _tail_matches(index: LSHIndex, tsig: torch.Tensor, qsig: torch.Tensor,
+                  *, width: int) -> torch.Tensor:
+    """Up to ``width`` tail ids whose band signature equals the query's,
+    in tail order.  tsig [..., T], qsig [..., B] → [..., B, min(width, T)]
+    (any leading band axes broadcast), SENTINEL-padded."""
+    T = tsig.shape[-1]
+    match = tsig[..., None, :] == qsig[..., :, None]               # [.., B, T]
+    slots = torch.arange(T, dtype=torch.int32, device=tsig.device)
+    key = torch.where(match, slots, T)
+    key = torch.sort(key, dim=-1).values[..., :min(width, T)]
+    ids = index.tail_ids[key.clamp(0, max(T - 1, 0)).long()]
+    return torch.where(key < T, ids, torch.full_like(ids, SENTINEL))
+
+
+def _bands_to_rows(x: torch.Tensor) -> torch.Tensor:
+    """[q, B, w] per-band candidates → [B, q·w], band-major per row."""
+    q, B, w = x.shape
+    return x.permute(1, 0, 2).reshape(B, q * w)
+
+
+def _probe_core(index: LSHIndex, qsig: torch.Tensor, cap: int):
+    """For each band b and query signature qsig[b, k]: the first ``cap``
+    slots of the bucket whose signature equals it (binary search).
+    qsig [q, Q] → [q, Q, cap] ids, SENTINEL where the bucket ends."""
+    ssig = index.sorted_sigs
+    N = ssig.shape[1]
+    lo = torch.searchsorted(ssig, qsig.contiguous(), out_int32=True)
+    pos = lo[..., None] + torch.arange(cap, dtype=torch.int32,
+                                       device=ssig.device)        # [q, Q, cap]
+    ok = pos < N
+    pos = pos.clamp(0, N - 1).long()
+    flat = pos.reshape(index.q, -1)
+    ok &= torch.gather(ssig, 1, flat).reshape(pos.shape) == qsig[..., None]
+    ids = torch.gather(index.sorted_ids, 1, flat).reshape(pos.shape)
+    return torch.where(ok, ids, torch.full_like(ids, SENTINEL))
+
+
+def lookup_signatures(index: LSHIndex, qsigs: torch.Tensor, *, cap: int,
+                      n_probe: int = 1) -> torch.Tensor:
+    """Probe with explicit band signatures.  qsigs [B, q] → cand [B, L]
+    int32 with L = q·n_probe·cap + q·cap (tail), SENTINEL-padded.
+
+    Multi-probe: probe t ∈ [0, n_probe) XORs bit (t−1) into the query
+    signature (probe 0 is the exact bucket)."""
+    B, q = qsigs.shape
+    masks = torch.tensor([0] + [1 << t for t in range(n_probe - 1)],
+                         dtype=torch.int32, device=qsigs.device)
+    probed = qsigs.T[:, :, None] ^ masks                     # [q, B, P]
+    core = _probe_core(index, probed.reshape(q, -1), cap)    # [q, B·P, cap]
+    core = _bands_to_rows(core.reshape(q, B, n_probe * cap))
+    tail = _tail_matches(index, index.tail_sigs, qsigs.T.contiguous(),
+                         width=cap)                          # [q, B, cap]
+    return torch.cat([core, _bands_to_rows(tail)], dim=1)
+
+
+def lookup_items(index: LSHIndex, item_ids: torch.Tensor, *, cap: int,
+                 include_tail: bool = True,
+                 assume_base: bool = False) -> torch.Tensor:
+    """Bucket-mates of items already in the index.  item_ids [B] → cand
+    [B, q·cap (+ q·cap tail)] int32, SENTINEL-padded (includes the item
+    itself).  ``include_tail=False`` skips the tail scan;
+    ``assume_base=True`` promises every valid query id lives in the
+    sorted core (true whenever the tail is empty), which skips the
+    signature-probe fallback for tail-resident query items.
+
+    A base item's bucket is addressed by its slot, and the window is
+    centred on that slot and clipped to the bucket, so huge buckets
+    spread their mates instead of always returning the bucket head."""
+    q, N = index.q, index.n_base
+    B = item_ids.shape[0]
+    dev = item_ids.device
+    in_base = (item_ids != SENTINEL) & (item_ids >= 0) & (item_ids < N)
+    safe = item_ids.clamp(0, N - 1).long().expand(q, B)
+    slot = torch.gather(index.slot_of, 1, safe)                    # [q, B]
+    lo = torch.gather(index.bucket_lo, 1, slot.long())
+    hi = torch.gather(index.bucket_hi, 1, slot.long())
+    start = torch.minimum(torch.maximum(slot - cap // 2, lo),
+                          torch.maximum(hi - cap, lo))
+    pos = start[..., None] + torch.arange(cap, dtype=torch.int32,
+                                          device=dev)              # [q, B, cap]
+    ok = in_base[None, :, None] & (pos < hi[..., None])
+    pos = pos.clamp(0, N - 1).long()
+    core = torch.gather(index.sorted_ids, 1, pos.reshape(q, -1)).reshape(
+        pos.shape)
+    core = torch.where(ok, core, torch.full_like(core, SENTINEL))
+    qsigs = None
+    if not assume_base:
+        # tail-resident query items have no slot — find their base bucket
+        # by binary search on the signature instead
+        qsigs = _sig_of_items(index, item_ids)                     # [q, B]
+        core = torch.where(in_base[None, :, None], core,
+                           _probe_core(index, qsigs, cap))
+    core = _bands_to_rows(core)
+    if not include_tail:
+        return core
+    if qsigs is None:
+        qsigs = _sig_of_items(index, item_ids)
+    tail = _tail_matches(index, index.tail_sigs, qsigs, width=cap)
+    return torch.cat([core, _bands_to_rows(tail)], dim=1)

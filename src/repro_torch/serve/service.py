@@ -21,6 +21,11 @@ out of one flush overlap the device work of the next.  Latency is
 measured per flush from dispatch to result readiness, and QPS divides by
 non-overlapping busy time.  Every metric lives in the service's private
 `obs.Registry`, which `stats()` reads.
+
+The ingestion plane (paper Alg. 4): `ingest` puts new items into the
+index tail, or rebuilds the index synchronously when the tail would
+overflow; `ingest_online_update` adopts a `core.online.online_update`
+result (grown parameters, merged interactions, new columns' signatures).
 """
 from __future__ import annotations
 
@@ -32,12 +37,20 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core import simlsh
 from repro_torch.core.model import Params, ServePlanes, pack_serve_planes
 from repro_torch.data.sparse import SparseMatrix
 from repro_torch.device import resolve_device
 from repro_torch.kernels import IMPLS
 from repro_torch.kernels.candidate_score.ops import score_candidates
-from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
+# a module import: `lsh_retrieve.ops` imports this package's index, so it
+# may be mid-import when this module loads
+from repro_torch.kernels.lsh_retrieve import ops as lsh_ops
+from repro_torch.resil import faults
+from repro_torch.resil.validate import (_MAX_ID, PoisonBatchError,
+                                        check_accumulators,
+                                        check_ingest_batch)
+from repro_torch.serve import index as lsh_index
 from repro_torch.serve.index import LSHIndex, padded_flat_ids
 
 _LATER = "is not ported yet: it belongs to a later slice of the port ({})"
@@ -88,12 +101,22 @@ class ServeConfig:
 
 
 def full_topn(params: Params, user_ids: torch.Tensor, *, topn: int):
-    """Exact dense scoring — every item, every user.  The O(N) baseline."""
+    """Exact dense scoring — every item, every user.  The O(N) baseline.
+
+    Equal scores keep the lower item id first, as `lax.top_k` orders
+    them: the selection is a `topk` over int64 keys that pack the score's
+    order-preserving int32 image above the complement of the item id, so
+    every key is distinct and its order is (score desc, id asc)."""
     u = user_ids.long()
     scores = (params.mu + params.b[u][:, None] + params.bh[None, :]
-              + params.U[u] @ params.V.T)
-    s, i = torch.topk(scores, topn, dim=1)
-    return s, i.to(torch.int32)
+              + params.U[u] @ params.V.T) + 0.0       # −0 → +0: equal keys
+    bits = scores.view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    N = scores.shape[1]
+    rank = torch.arange(N - 1, -1, -1, dtype=torch.int64,
+                        device=scores.device)                  # N−1−id
+    item = torch.topk((ordered << 32) | rank, topn, dim=1).indices
+    return torch.gather(scores, 1, item), item.to(torch.int32)
 
 
 def popular_shortlist(params: Params, n: int) -> torch.Tensor:
@@ -114,10 +137,9 @@ def recommend_walked_kernel(planes: ServePlanes, index: LSHIndex,
     windows and hands its [B, C] ids straight to the `candidate_score`
     kernel.  ``ids_flat`` is the service-cached `padded_flat_ids` plane.
     → (scores [B, topn], items [B, topn])."""
-    cand = retrieve_candidates(index, sp, user_ids, n_seeds=n_seeds, cap=cap,
-                               C=C, popular=popular, window=window,
-                               tail_scan=tail_scan, impl=impl,
-                               ids_flat=ids_flat)
+    cand = lsh_ops.retrieve_candidates(
+        index, sp, user_ids, n_seeds=n_seeds, cap=cap, C=C, popular=popular,
+        window=window, tail_scan=tail_scan, impl=impl, ids_flat=ids_flat)
     return score_candidates(planes, user_ids, cand, topn=topn,
                             tile_b=tile_b, impl=impl)
 
@@ -293,19 +315,98 @@ class RecsysService:
             p95_ms=float(np.percentile(secs, 95) * 1e3),
             p99_ms=float(np.percentile(secs, 99) * 1e3),
             queue=self._n_pending,
+            ingest_to_servable_s=reg.gauge("serve.ingest_to_servable_s",
+                                           0.0),
+            quarantined=int(reg.counter("serve.quarantined")),
             model_age_s=time.perf_counter() - self._params_adopted,
             device=str(self.device),
         )
 
-    # ---- ingestion plane: later slices ----
+    # ---- ingestion plane (paper Alg. 4) ----
 
-    def ingest(self, *args, **kwargs):
-        raise NotImplementedError("RecsysService.ingest "
-                                  + _LATER.format("online ingest"))
+    def ingest(self, new_sigs, new_ids, full_sigs=None) -> None:
+        """Insert new items into the index tail; rebuild on overflow
+        (which needs ``full_sigs`` [q, N_total], the new items included).
 
-    def ingest_online_update(self, *args, **kwargs):
-        raise NotImplementedError("RecsysService.ingest_online_update "
-                                  + _LATER.format("online ingest"))
+        The rebuild is synchronous: the service serves the rebuilt index
+        when this returns.  (The JAX package's default hands it to a
+        background rebuilder; the port behaves as the JAX package does
+        with ``background_rebuild=False`` until its resilience slice.)
+        Poison batches (wrong dtype, NaN rows, negative or duplicate ids)
+        raise `PoisonBatchError` before any state is touched and count
+        ``serve.quarantined``.  Crossing the empty-tail boundary, or a
+        rebuild, changes the flush's shapes, so the service re-warms here
+        — in ingestion time, not in the next request's latency."""
+        t0_ns = time.perf_counter_ns()
+        try:
+            check_ingest_batch(new_sigs, new_ids, q=self.index.q)
+        except PoisonBatchError:
+            self.obs.counter_add("serve.quarantined")
+            raise
+        faults.fire("serve.ingest")
+        n = int(new_ids.shape[0])
+        with self.obs.span("serve.ingest"):
+            had_tail = self.index.tail_fill > 0
+            rebuilt = lsh_index.needs_rebuild(self.index, n)
+            if rebuilt:
+                if full_sigs is None:
+                    raise ValueError(
+                        "tail overflow and no full_sigs to rebuild")
+                with self.obs.span("serve.ingest.rebuild"):
+                    self.index = lsh_index.rebuild(self.index, full_sigs)
+            else:
+                with self.obs.span("serve.ingest.insert"):
+                    self.index = lsh_index.insert(self.index, new_sigs,
+                                                  new_ids)
+            if rebuilt or (self.index.tail_fill > 0) != had_tail:
+                with self.obs.span("serve.ingest.warmup"):
+                    self.warmup()
+        self.obs.counter_add("serve.ingests")
+        self.obs.counter_add("serve.ingested_items", n)
+        self.obs.gauge_set("serve.ingest_to_servable_s",
+                           (time.perf_counter_ns() - t0_ns) * 1e-9)
+
+    def ingest_online_update(self, state, N_old: int) -> None:
+        """Adopt a `core.online.online_update` result: swap in the grown
+        parameters and interactions, and add only the *new* columns to
+        the index, re-signed from the updated accumulators (Alg. 4 lines
+        1–6).  Old columns keep their buckets (the paper's "remains
+        unchanged").  NaN-poisoned new accumulator columns raise
+        `PoisonBatchError` (counted in ``serve.quarantined``) before
+        anything is touched; the handoff's seconds, drain to re-warm, are
+        ``serve.ingest_to_servable_s``."""
+        t0_ns = time.perf_counter_ns()
+        try:
+            check_accumulators(state.S, N_old)
+        except PoisonBatchError:
+            self.obs.counter_add("serve.quarantined")
+            raise
+        if state.N > _MAX_ID:
+            raise ValueError("item ids must stay below 2^30 (the dedup hash "
+                             "of the lsh_retrieve kernel)")
+        with self.obs.span("serve.ingest_online"):
+            self.flush()    # drain in-flight work against the old planes
+            with self.obs.span("serve.ingest_online.resign"):
+                sigs = simlsh.pack_bits(state.S.to(self.device) >= 0)
+            # swap the grown state in before the index ingest, so its
+            # warmup runs on the new planes
+            with self.obs.span("serve.ingest_online.swap"):
+                self.params = state.params.to(self.device)
+                self._params_adopted = time.perf_counter()
+                self.planes = pack_serve_planes(self.params)
+                self.sp = state.sp.to(self.device)
+                if self.cfg.n_popular:
+                    self.popular = popular_shortlist(self.params,
+                                                     self.cfg.n_popular)
+            if state.N > N_old:
+                self.ingest(sigs[:, N_old:].contiguous(),
+                            torch.arange(N_old, state.N, dtype=torch.int32,
+                                         device=self.device),
+                            full_sigs=sigs)
+            with self.obs.span("serve.ingest_online.warmup"):
+                self.warmup()
+        self.obs.gauge_set("serve.ingest_to_servable_s",
+                           (time.perf_counter_ns() - t0_ns) * 1e-9)
 
     def request_rebuild(self, *args, **kwargs):
         raise NotImplementedError("RecsysService.request_rebuild "

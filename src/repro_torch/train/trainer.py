@@ -26,6 +26,7 @@ from repro_torch.core import model, sgd, simlsh, topk
 from repro_torch.data.sparse import (SparseMatrix, conflict_free_schedule,
                                      from_coo)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import IMPLS, _build
 from repro_torch.train import checkpoint as ckpt
 
 UNPORTED_METHODS = ("gsm", "rand", "rp_cos", "minhash")
@@ -58,6 +59,14 @@ class FitConfig:
     use_kernels: bool = False    # conflict-free batches through the fused
                                  # kernels/mf_sgd step (its plain version
                                  # on CPU tensors)
+    kernel_impl: str = "auto"    # auto | cuda | ref (`kernels.pick`):
+                                 # auto launches the kernel on the card,
+                                 # ref runs its plain version anywhere
+
+    def __post_init__(self):
+        if self.kernel_impl not in IMPLS:
+            raise ValueError(f"kernel_impl must be one of {IMPLS} (the "
+                             f"kernels are CUDA), got {self.kernel_impl!r}")
 
 
 @dataclasses.dataclass
@@ -71,6 +80,9 @@ class FitResult:
     hash_key: torch.Tensor | None = None  # the key S was encoded with
     prep_seconds: float = 0.0       # schedule + schedule-ordered data +
                                     # eval cache
+    compile_seconds: float = 0.0    # building/loading the kernel library
+                                    # inside this fit (0.0 when already
+                                    # loaded, or on the CPU)
     schedule_stats: dict | None = None
     registry: obs.Registry | None = None  # every timing above is read
                                           # from its spans
@@ -176,13 +188,23 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
         to_public = model.unpack_params
         run = lambda q, ep: sgd.train_epoch_scheduled(
             q, sd, sched, prng.fold_in(k_ep, ep), ep, cfg.hp,
-            mf_only=mf_only, bce=bce, use_kernels=cfg.use_kernels)
+            mf_only=mf_only, bce=bce, use_kernels=cfg.use_kernels,
+            impl=cfg.kernel_impl)
     else:
         state = params
         to_public = lambda q: q
         run = lambda q, ep: sgd.train_epoch(
             q, sp, JK, prng.fold_in(k_ep, ep), ep, cfg.hp, batch=cfg.batch,
             mf_only=mf_only, bce=bce)
+
+    # the kernel library is built and loaded on first use; do it here, so
+    # its seconds land in compile_seconds and not in the first epoch
+    compile_secs = 0.0
+    if (scheduled and cfg.use_kernels and cfg.kernel_impl != "ref"
+            and dev.type == "cuda" and not _build.loaded()):
+        with reg.span("train.compile"):
+            _build.library()
+        compile_secs = reg.span_durations("train.compile")[-1]
 
     history = []
     t_train = 0.0
@@ -212,4 +234,5 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
 
     return FitResult(to_public(state), JK, history, nb_secs, S,
                      hash_key=k_sig, prep_seconds=prep_secs,
+                     compile_seconds=compile_secs,
                      schedule_stats=sched_stats, registry=reg)

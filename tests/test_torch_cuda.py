@@ -46,8 +46,10 @@ from repro_torch.kernels.neighbor_predict.ref import neighbor_predict_ref
 from repro_torch.kernels.simlsh_encode import kernel as se_kernel
 from repro_torch.kernels.simlsh_encode.ops import encode_band
 from repro_torch.kernels.simlsh_encode.ref import simlsh_encode_ref
+from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
 from repro_torch.serve import (RecsysService, ServeConfig, build_index,
-                               insert, padded_flat_ids, seed_items,
+                               full_topn, insert, padded_flat_ids,
+                               recommend_walked_kernel, seed_items,
                                tail_hits, window_slices)
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
@@ -749,3 +751,149 @@ def test_encode_predict_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         np_kernel.neighbor_predict(a, a, k, k, k, k, v, v, v[:3])
     with pytest.raises(TypeError):
         np_kernel.neighbor_predict(a, a, k, k, k.double(), k, v, v, v)
+
+
+# ------------------------------------------------ online learning (Alg. 4)
+
+def _online_state(M=300, N=80, seed=0):
+    """`tests/test_online.py::small_state`'s recipe in the port alone (on
+    the CPU): ratings, accumulators, J^K and initial parameters."""
+    from repro_torch.core import online, topk
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=M, N=N, nnz=6000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=seed)
+    sp = from_coo(rows, cols, vals, (M, N), device="cpu")
+    lsh = simlsh.SimLSHConfig(G=8, p=1, q=6)
+    key = prng.PRNGKey(0)
+    sigs, S = simlsh.encode(sp, lsh, key, return_accumulators=True)
+    JK = topk.topk_from_signatures(sigs, prng.PRNGKey(1), K=8,
+                                   band_cap=lsh.band_cap)
+    params = model.init_from_data(prng.PRNGKey(2), sp, 16, 8)
+    return online.OnlineState(params=params, S=S, JK=JK, sp=sp, M=M, N=N,
+                              hash_key=key), lsh
+
+
+def _online_delta(st, M2, N2, n=800, seed=3):
+    rng = np.random.default_rng(seed)
+    key = (rng.integers(0, M2, n).astype(np.int64) * N2
+           + rng.integers(0, N2, n))
+    old = st.sp.rows.numpy().astype(np.int64) * N2 + st.sp.cols.numpy()
+    key = np.setdiff1d(np.unique(key), old)
+    return ((key // N2).astype(np.int32), (key % N2).astype(np.int32),
+            rng.uniform(1, 5, key.shape[0]).astype(np.float32))
+
+
+def _state_to(st, device):
+    return dataclasses.replace(st, params=st.params.to(device),
+                               S=st.S.to(device), JK=st.JK.to(device),
+                               sp=st.sp.to(device))
+
+
+def test_online_update_on_card_matches_cpu(cuda):
+    """Old slices bit for bit on the card; new ones within 1e-4 of the
+    port's CPU run (collisions add in atomic order on the card)."""
+    from repro_torch.core import online
+    from repro_torch.core.sgd import Hyper
+    st, lsh = _online_state()
+    M2, N2 = st.M + 40, st.N + 12
+    d = _online_delta(st, M2, N2)
+    kw = dict(M_new=M2, N_new=N2, K=8, epochs=2)
+    cpu = online.online_update(st, *d, lsh, Hyper(), prng.PRNGKey(9), **kw)
+    gpu_st = _state_to(st, cuda)
+    gpu = online.online_update(gpu_st, *d, lsh, Hyper(), prng.PRNGKey(9),
+                               **kw)
+    for f in ("U", "b", "V", "bh", "W", "C"):
+        n = st.M if f in ("U", "b") else st.N
+        g = getattr(gpu.params, f)
+        assert g.device.type == "cuda"
+        assert torch.equal(g[:n], getattr(gpu_st.params, f)), f
+        np.testing.assert_allclose(g.cpu().numpy(),
+                                   getattr(cpu.params, f).numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=f)
+    assert torch.equal(gpu.JK.cpu(), cpu.JK)
+    assert torch.equal(gpu.sp.rows.cpu(), cpu.sp.rows)
+    np.testing.assert_allclose(gpu.S.cpu().numpy(), cpu.S.numpy(),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_flush_after_ingest_walks_the_tail_on_card(cuda):
+    """After `ingest` puts items in the tail, a flush's kernel path equals
+    the plain versions (`impl="ref"`): ids bit for bit."""
+    params, sp, sigs, index = _state()
+    cfg = ServeConfig(topn=10, micro_batch=64, C=128, n_seeds=8, cap=8,
+                      n_popular=16, tile_b=8, band_budget=256)
+    svc = RecsysService(params, index, sp, cfg, device=cuda)
+    svc.ingest(sigs[:, 5:25].to(cuda),
+               torch.arange(1500, 1520, dtype=torch.int32, device=cuda))
+    assert svc.index.tail_fill == 20
+    users = torch.arange(0, 960, 15, dtype=torch.int32, device=cuda)
+    kw = dict(n_seeds=8, cap=8, C=128, window=64, tail_scan=True, topn=10,
+              tile_b=8)
+    before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+    got = recommend_walked_kernel(svc.planes, svc.index, svc.sp, users,
+                                  svc.popular, svc._flat_ids(), **kw)
+    torch.cuda.synchronize()
+    assert (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES) == (before[0] + 1,
+                                                            before[1] + 1)
+    want = recommend_walked_kernel(svc.planes, svc.index, svc.sp, users,
+                                   svc.popular, svc._flat_ids(), impl="ref",
+                                   **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    assert torch.equal(got[1], want[1])
+    cand = retrieve_candidates(svc.index, svc.sp, users, n_seeds=8, cap=8,
+                               C=128, popular=svc.popular)
+    assert bool(((cand >= 1500) & (cand < 1520)).any())
+
+
+def test_check_divergence_on_card_tensors(cuda):
+    from repro_torch.core import online
+    from repro_torch.resil import check_divergence
+    st, _ = _online_state()
+    p0 = st.params
+    p = online.grow_params(p0, st.M + 10, st.N + 4, prng.PRNGKey(3))
+    on = lambda q: q.to(cuda)
+    assert check_divergence(on(p), on(p0), M_old=st.M, N_old=st.N) == \
+        check_divergence(p, p0, M_old=st.M, N_old=st.N) == []
+    bad = dataclasses.replace(p, V=p.V.clone(), b=p.b.clone())
+    bad.V[st.N + 1, 3] = float("nan")
+    bad.b[st.M:] = 1e6
+    got = check_divergence(on(bad), on(p0), M_old=st.M, N_old=st.N)
+    assert got == check_divergence(bad, p0, M_old=st.M, N_old=st.N)
+    assert [g.split(":")[0] for g in got] == ["b", "V"]
+
+
+def test_full_topn_breaks_ties_like_top_k_on_card(cuda):
+    """Items 500–999 with zero V rows and equal b̂ tie for every user; the
+    lower id comes first, as `lax.top_k` orders them."""
+    rng = np.random.default_rng(0)
+    V = rng.normal(size=(1500, 16)).astype(np.float32) * 0.1
+    bh = rng.normal(size=1500).astype(np.float32) * 0.1
+    V[500:1000], bh[500:1000] = 0.0, 50.0
+    z = np.zeros((1500, 1), np.float32)
+    p = convert.params_from_numpy(rng.normal(size=(64, 16)), V,
+                                  np.zeros(64), bh, z, z, 3.0, device=cuda)
+    s, i = full_topn(p, torch.arange(64, dtype=torch.int32, device=cuda),
+                     topn=20)
+    assert torch.equal(i.cpu(), torch.arange(500, 520, dtype=torch.int32)
+                       .expand(64, 20))
+    s_cpu, i_cpu = full_topn(p.to("cpu"), torch.arange(64), topn=20)
+    assert torch.equal(i.cpu(), i_cpu)
+
+
+def test_fit_kernel_impl_ref_launches_nothing_and_compile_seconds(cuda):
+    from repro_torch.kernels import _build
+    from repro_torch.train.trainer import FitConfig, fit
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=200, N=60,
+                               nnz=2000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=0)
+    tr, te = train_test_split(np.random.default_rng(0), rows, cols, vals)
+    cfg = FitConfig(F=8, K=4, epochs=1, cf_batch=32, use_kernels=True,
+                    kernel_impl="ref",
+                    lsh=simlsh.SimLSHConfig(G=8, p=1, q=4))
+    before = sgd_kernel.CULSH_LAUNCHES
+    ref = fit(tr, te, (spec.M, spec.N), cfg)
+    assert sgd_kernel.CULSH_LAUNCHES == before and ref.compile_seconds == 0.0
+    _build.library()                                  # loaded: nothing to do
+    auto = fit(tr, te, (spec.M, spec.N),
+               dataclasses.replace(cfg, kernel_impl="auto"))
+    assert sgd_kernel.CULSH_LAUNCHES > before and auto.compile_seconds == 0.0
+    assert abs(auto.history[-1][2] - ref.history[-1][2]) < 1e-4

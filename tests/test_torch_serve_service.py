@@ -4,9 +4,11 @@ From one planted catalog (N = 2,000) both services serve the same users
 from identical state: the JAX package's `RecsysService` with the Pallas
 kernels in interpret mode, the port's on the CPU (its kernels' plain
 versions).  Top-10 ids must be equal and scores within 1e-5.  The rest
-pins the service's request plane and the knobs left to later slices.
+pins the service's request plane, the exact `full_topn` (tie order
+included) and the knobs left to later slices.
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +23,7 @@ from repro.serve import popular_shortlist as jpopular
 from repro_torch.kernels.candidate_score import kernel as score_kernel
 from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
 from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
+from repro_torch.resil import PoisonBatchError
 from repro_torch.serve import (RecsysService, ServeConfig, full_topn, insert,
                                popular_shortlist, recommend_walked_kernel)
 from test_torch_serve_index import planted_state
@@ -180,11 +183,50 @@ def test_later_slice_knobs_raise(knob):
 @pytest.mark.parametrize("method", ["ingest", "ingest_online_update",
                                     "request_rebuild"])
 def test_ingest_and_rebuild_raise(state, method):
+    """The background rebuild is a later slice; the two ingest entry
+    points exist and refuse a poisoned input before touching anything
+    (`tests/test_torch_ingest.py` holds them against the JAX package)."""
     _, ts = state
     svc = RecsysService(ts["params"], ts["index"], ts["sp"],
                         ServeConfig(**KW), device="cpu")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        getattr(svc, method)(None)
+    if method == "request_rebuild":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            svc.request_rebuild(None)
+        return
+    poison = dict(
+        ingest=(None, None),
+        ingest_online_update=(SimpleNamespace(
+            S=np.full((10, 2001, 16), np.nan, np.float32), N=2001), 2000))
+    before = svc.index
+    with pytest.raises(PoisonBatchError):
+        getattr(svc, method)(*poison[method])
+    assert svc.index is before and svc.stats()["quarantined"] == 1
+
+
+def test_full_topn_breaks_ties_like_top_k(state):
+    """Equal scores keep the lower item id first, as `lax.top_k`: items
+    500–999 get zero V rows and equal b̂, so every user scores them alike
+    (ROADMAP's repro of the tie fault, where `torch.topk` returned
+    505, 503, 504, …)."""
+    js, ts = state
+    V = np.asarray(js["params"].V).copy()
+    bh = np.asarray(js["params"].bh).copy()
+    V[500:1000] = 0.0
+    bh[500:1000] = 50.0
+    jp = dataclasses.replace(js["params"], V=jnp.asarray(V),
+                             bh=jnp.asarray(bh))
+    tp = dataclasses.replace(ts["params"], V=torch.tensor(V),
+                             bh=torch.tensor(bh))
+    users = np.arange(0, 1280, 61, dtype=np.int32)
+    for topn in (10, 37):
+        s_w, i_w = jfull_topn(jp, jnp.asarray(users), topn=topn)
+        s, i = full_topn(tp, torch.tensor(users), topn=topn)
+        np.testing.assert_array_equal(i.numpy(), np.asarray(i_w))
+        np.testing.assert_allclose(s.numpy(), np.asarray(s_w), rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_array_equal(i.numpy()[:, :10],
+                                      np.broadcast_to(np.arange(500, 510),
+                                                      (len(users), 10)))
 
 
 def test_config_validates_mode_and_impl():
