@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths — serving, the offline
-fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring
-and online learning — on one CUDA card.
+fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
+online learning and its resilience layer — on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. device — the card's name and power limit (nvidia-smi), CUDA version;
-2. build — the six hand-written kernels from ``src/repro_torch/csrc``;
+2. build — the seven hand-written kernels from ``src/repro_torch/csrc``
+   (the six TPU kernels' counterparts and the deterministic
+   `segment_add` scatter);
 3. catalog and state — a planted catalog at the repo's million-item
    serving scale (N = 1,000,000 items, M = 640,000 users, F = 48,
    24,000,000 ratings; the recipe of `benchmarks/bench_serve.py::
@@ -37,7 +39,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    timed on the card (encode, Top-K, the host scheduler, the
    schedule-ordered data, the eval cache), its resident MB, the
    schedule's statistics, and the signature bits that differ between two
-   encodes;
+   encodes (must be 0: the segment sum adds in COO order);
 9. kernel vs plain — the fused in-place CULSH-MF step against the plain
    gather → step → delta scatter on copies of that state's planes
    (schedule windows of B = 512, 7, 250, a tier's last partial batch,
@@ -96,12 +98,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     `build_index`, `validate_index` clean, 16 more flushes checked);
     a NaN rating, learning rates ×10⁴ and a NaN accumulator are each
     refused while the service serves on; one `micro_epoch` over the
-    merged ratings; update 1 run twice (is it bit-identical?).
+    merged ratings; update 1 run twice must be bit-identical, S too;
+16. resilience — on phase 15's state an `OnlineUpdater` (ckpt_every 2)
+    logs and applies three ΔΩ (a third of the test ratings each, plus new
+    users and items), crashes on the third after logging it, and
+    `recover` must equal an uninterrupted updater leaf for leaf (the
+    `segment_add` counter zeroed just before); the WAL, checkpoint and
+    replay costs; `segment_add` against the CPU's `index_add_` (bit for
+    bit) and timed at the online step's shape.  On phase 3's N = 10⁶
+    catalog with a 1,024-item tail: a 16-micro-batch burst against
+    ``max_pending`` of 4 (shed into degraded popularity answers, in
+    submission order); deadline shedding under an injected stall; an
+    injected flush exception answered by `full_topn`; 1,100 new items
+    overflowing the tail into a background rebuild while 32 flushes go
+    on against index v, then the validated swap; a corrupt build refused
+    by the validation gate and never served; and the gate's verdict and
+    outcome on the fit's 8-bit catalog.  Every phase that injects no
+    ``serve.flush`` fault must show 0 fallbacks.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–15 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–16 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -115,6 +133,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -394,8 +413,11 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
           + "; ".join(f"width {t['width']}: {t['rounds']} steps, fill "
                       f"{t['fill']:.3f}" for t in st["tiers"]), flush=True)
     print(f"[8 setup] encode run twice: {flipped} of "
-          f"{sigs.numel() * cfg.lsh.sig_bits} signature bits differ",
-          flush=True)
+          f"{sigs.numel() * cfg.lsh.sig_bits} signature bits differ "
+          f"(limit 0: the segment sum adds in COO order)", flush=True)
+    if flipped:
+        raise AssertionError(f"two encodes differ in {flipped} signature "
+                             f"bits")
 
     # ---- 9. kernel vs plain, on batches of the fit's state ----
     decay = sgd.lr_decay(cfg.hp, 0, dev)
@@ -944,7 +966,7 @@ def predict_phase(ctx: dict, dev, on_card: bool, power: str) -> dict:
 
 
 def online_phase(args, ctx: dict, scfg, dev, on_card: bool,
-                 power: str) -> None:
+                 power: str) -> dict:
     """Phase 15: online learning (paper Alg. 4) on phase 8's data.
 
     A seeded relabelling gives a random 1 % of users and 4 % of items the
@@ -952,7 +974,8 @@ def online_phase(args, ctx: dict, scfg, dev, on_card: bool,
     served; ΔΩ₁ (ids below M1, N1) and then ΔΩ₂ (the rest) arrive through
     `online_update` and `RecsysService.ingest_online_update` — the first
     into the index tail, the second by a synchronous rebuild — with
-    every flush after them held against the plain versions."""
+    every flush after them held against the plain versions.  → the
+    state phase 16 goes on from."""
     import dataclasses
 
     from repro_torch import obs, prng
@@ -1013,9 +1036,11 @@ def online_phase(args, ctx: dict, scfg, dev, on_card: bool,
     sp0 = from_coo(*sel(tr, old), (M0, N0), device=dev)
     st0 = online.OnlineState(params=res.params, S=res.S, JK=res.JK, sp=sp0,
                              M=M0, N=N0, hash_key=res.hash_key)
+    # adopt 2 measures the synchronous rebuild (phase 16 the background
+    # one)
     svc = RecsysService(st0.params, build_index(
         simlsh.pack_bits(st0.S >= 0), tail_cap=tail_cap, device=dev), sp0,
-        scfg, device=dev)
+        dataclasses.replace(scfg, background_rebuild=False), device=dev)
     svc.warmup()
 
     def update(st, d, M_new, N_new, key, hp=cfg.hp, reg=None):
@@ -1135,6 +1160,8 @@ def online_phase(args, ctx: dict, scfg, dev, on_card: bool,
         if on_card and any(n != n_flushes for n in launches.values()):
             raise AssertionError(f"{tag}: launches {launches} in "
                                  f"{n_flushes} flushes")
+        if svc.stats()["fallbacks"]:
+            raise AssertionError(f"{tag}: a flush fell back to full_topn")
         err, cand_new = 0.0, 0
         tail_on = svc.index.tail_fill > 0
         for users, (u, s, i) in zip(batches, results):
@@ -1297,20 +1324,454 @@ def online_phase(args, ctx: dict, scfg, dev, on_card: bool,
         raise AssertionError("the micro-epoch diverged")
     del st3
 
-    # ---- determinism probe: update 1 again from the same inputs ----
+    # ---- determinism: update 1 again from the same inputs ----
     again = update(st0, d1, M1, N1, key1)
     diffs = [float((getattr(again.params, f) - getattr(st1.params, f))
                    .abs().max()) for f in ("U", "b", "V", "bh", "W", "C")]
     same = all(torch.equal(getattr(again.params, f), getattr(st1.params, f))
                for f in ("U", "b", "V", "bh", "W", "C"))
+    same_S = torch.equal(again.S, st1.S)
     print(f"[15 determinism] update 1 run twice: bit-identical {same}, max "
-          f"abs diff {max(diffs):.3g} (S equal: "
-          f"{torch.equal(again.S, st1.S)})", flush=True)
-    del again, st0, st1, st2, res, svc
+          f"abs diff {max(diffs):.3g} (S equal: {same_S})", flush=True)
+    if not (same and same_S and torch.equal(again.JK, st1.JK)):
+        raise AssertionError("update 1 run twice is not bit-identical")
+    if svc.stats()["fallbacks"]:
+        raise AssertionError("a phase-15 flush fell back to full_topn")
+    del again, st0, st1, res
     gc.collect()
     sync()
     print(f"[15 online] phase seconds {time.perf_counter() - t_phase:.1f}",
           flush=True)
+    return dict(st=st2, te=te, hp=cfg.hp, lsh=lsh, K=K, svc=svc)
+
+
+def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
+                power: str) -> dict:
+    """Phase 16: resilience on the card.  On phase 15's online state (the
+    fit's model at full width) an `OnlineUpdater` logs and applies three
+    ΔΩ, crashes on the third after logging it, and `recover` must equal
+    an uninterrupted updater leaf for leaf.  On phase 3's N = 10⁶ catalog
+    with a 1,024-item tail: overload shedding, deadline shedding under a
+    stall, the ``fallback_full`` path, a background rebuild behind the
+    validation gate while flushes go on, and a corrupt build that is
+    refused.  → the `segment_add` entry of the kernels line."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch import obs, prng
+    from repro_torch.core import scatter
+    from repro_torch.core.model import Params
+    from repro_torch.kernels.candidate_score import kernel as score_kernel
+    from repro_torch.kernels.candidate_score.ref import assert_topn_close
+    from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
+    from repro_torch.resil import OnlineUpdater, faults, validate_index, wal
+    from repro_torch.resil.faults import FaultSpec, InjectedFault
+    from repro_torch.serve import (RecsysService, build_index, full_topn,
+                                   recommend_walked_kernel)
+    from repro_torch.serve.index import signatures_of
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    st, te = octx["st"], octx["te"]
+    lsh, hp, K = octx["lsh"], octx["hp"], octx["K"]
+    rng = np.random.default_rng(args.seed + 16)
+
+    # ---- the write-ahead log: three deltas, a crash, recovery ----
+    def deltas():
+        """Three ΔΩ: a third of the test ratings each, plus new users
+        rating 20 items each and new items rated by 20 old users each."""
+        out, M_, N_ = [], st.M, st.N
+        n_u = max(1, round(100 * args.fit_scale))
+        n_i = max(1, round(50 * args.fit_scale))
+        for k, part in enumerate(np.array_split(np.arange(te[0].size), 3)):
+            M2, N2 = M_ + n_u, N_ + n_i
+            r = np.concatenate([np.repeat(np.arange(M_, M2), 20),
+                                rng.integers(0, M_, 20 * n_i)])
+            c = np.concatenate([rng.integers(0, N2, 20 * n_u),
+                                np.repeat(np.arange(N_, N2), 20)])
+            key = np.unique(r.astype(np.int64) * N2 + c)
+            r, c = key // N2, key % N2
+            d = (np.concatenate([te[0][part], r]).astype(np.int32),
+                 np.concatenate([te[1][part], c]).astype(np.int32),
+                 np.concatenate([te[2][part], rng.integers(1, 6, r.size)])
+                 .astype(np.float32))
+            out.append((d, M2, N2, prng.PRNGKey(args.seed + 160 + k)))
+            M_, N_ = M2, N2
+        return out
+
+    ds = deltas()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke-wal-",
+                            dir=os.path.join(ROOT, "build"))
+    kw = dict(K=K, epochs=3, batch=4096, ckpt_every=2)
+    host = lambda x: (x.cpu() if isinstance(x, torch.Tensor)
+                      else torch.from_numpy(np.asarray(x)))
+    try:
+        reg = obs.Registry(enabled=True)
+        crash_dir = os.path.join(root, "crash")
+        scatter.LAUNCHES = 0       # the main path: updates, crash, recovery
+        up = OnlineUpdater(st, lsh, hp, root=crash_dir, registry=reg, **kw)
+        crashed = False
+        for k, (d, M2, N2, key) in enumerate(ds):
+            if k < 2:
+                up.update(*d, key, M_new=M2, N_new=N2)
+                continue
+            with faults.injected({"online.update":
+                                  FaultSpec(at_calls=(0,))}):
+                try:
+                    up.update(*d, key, M_new=M2, N_new=N2)
+                except InjectedFault:
+                    crashed = True
+        sync()
+        wal_bytes = [os.path.getsize(up.wal._path(q)) for q in up.wal.seqs()]
+        shard = os.path.join(crash_dir, "ckpt", "step-00000002", "shard-0.npz")
+        ckpt_mb = os.path.getsize(shard) / 1e6
+        t0 = time.perf_counter()
+        rec = OnlineUpdater.recover(crash_dir, lsh, hp, device=dev,
+                                    registry=reg, **kw)
+        sync()
+        recover_s = time.perf_counter() - t0
+        seg_launches = scatter.LAUNCHES
+        whole = OnlineUpdater(st, lsh, hp, root=os.path.join(root, "whole"),
+                              **kw)
+        for d, M2, N2, key in ds:
+            whole.update(*d, key, M_new=M2, N_new=N2)
+        ta, tb = wal.state_tree(rec.state), wal.state_tree(whole.state)
+        unequal = [k for k in ta if not torch.equal(host(ta[k]),
+                                                    host(tb[k]))]
+        spans = {n: reg.span_durations(n) for n in (
+            "resil.wal.append", "resil.ckpt", "resil.wal.replay")}
+        print(f"[16 wal] M={st.M} N={st.N} F={st.params.U.shape[1]} K={K}: "
+              f"3 deltas of " + "/".join(str(d[0].size) for d, *_ in ds)
+              + f" ratings (to M={ds[-1][1]} N={ds[-1][2]}), ckpt_every=2, "
+              f"a crash at online.update on the 3rd: WAL appends "
+              + ", ".join(f"{x:.4f}" for x in spans["resil.wal.append"])
+              + f" s, the unpruned entry {wal_bytes} bytes; checkpoint "
+              f"{ckpt_mb:.1f} MB in "
+              + ", ".join(f"{x:.3f}" for x in spans["resil.ckpt"])
+              + f" s; recover {recover_s:.3f} s (replay "
+              + ", ".join(f"{x:.3f}" for x in spans["resil.wal.replay"])
+              + f" s) to seq {rec.seq}; {len(ta) - len(unequal)} of "
+              f"{len(ta)} leaves equal the uninterrupted updater's "
+              f"(torch.equal); segment_add launches {seg_launches}",
+              flush=True)
+        if not crashed or rec.seq != 3 or wal_bytes == [] or unequal:
+            raise AssertionError(f"WAL recovery: crashed {crashed}, seq "
+                                 f"{rec.seq}, unequal leaves {unequal}")
+        if on_card and not seg_launches:
+            raise AssertionError("segment_add never launched on the main "
+                                 "path")
+
+        # the kernel against its plain version at the online step's shape:
+        # one batch of 4,096 ΔΩ columns scattered into V
+        jv = torch.as_tensor(ds[0][0][1][:4096], device=dev).long()
+        V = whole.state.params.V
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        src = 1e-3 * torch.randn((jv.numel(), V.shape[1]), generator=gen,
+                                 device=dev)
+        want = V.to("cpu", copy=True).index_add_(0, jv.cpu(), src.cpu())
+        got = scatter.index_add_det_(V.clone(), jv, src)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError("segment_add differs from the CPU's "
+                                 "index_add_")
+        seg_err = float((got.cpu() - want).abs().max())
+        atomic_err = float((V.clone().index_add_(0, jv, src) - got).abs()
+                           .max())
+        Vk, Vp = V.clone(), V.clone()
+        seg_ms = graph_ms(lambda: scatter.index_add_det_(Vk, jv, src), dev)
+        seg_cold = median_ms(lambda: scatter.index_add_det_(Vk, jv, src),
+                             dev)
+        plan = scatter.segment_plan(jv)
+        kern_ms = graph_ms(lambda: scatter.index_add_det_(Vk, jv, src,
+                                                          plan=plan), dev)
+        plain_ms = graph_ms(lambda: Vp.index_add_(0, jv, src), dev)
+        uniq = int(torch.unique(jv).numel())
+        n, w = jv.numel(), V.shape[1]
+        # bytes: the ids and src read once, each touched dst row read and
+        # written once; operations: one add per src element
+        seg_bound, seg_by = bound_ms(8 * n + 4 * n * w + 2 * 4 * uniq * w,
+                                     n * w)
+        print(f"[16 time] segment_add at n={n} ({uniq} distinct ids) "
+              f"width={w} into V [{V.shape[0]}, {w}]: equal to the CPU's "
+              f"index_add_ bit for bit (the card's atomic index_add_ is off "
+              f"by up to {atomic_err:.3g}); with its sort {seg_ms:.5f} ms "
+              f"(CUDA graph of 50 calls, median of 20 replays), "
+              f"{seg_cold:.4f} ms cold L2; the kernel alone (sort reused) "
+              f"{kern_ms:.5f} ms; index_add_ (the plain version and the "
+              f"library call) {plain_ms:.5f} ms; bound {seg_bound:.5f} ms "
+              f"({seg_by}) (power limit {power})", flush=True)
+        del up, rec, whole, ta, tb, V, Vk, Vp, got, want
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+
+    # ---- serving: the N = 10⁶ catalog with a 1,024-item tail ----
+    params, sp, sigs, scfg = (serve[k] for k in ("params", "sp", "sigs",
+                                                 "cfg"))
+    B, M, N = scfg.micro_batch, sp.M, sp.N
+    index_v = build_index(sigs, tail_cap=1024, device=dev)
+    smoke = validate_index(index_v)
+    biggest = int((index_v.bucket_hi - index_v.bucket_lo).max())
+    print(f"[16 gate] validate_index on a fresh build_index of the N={N} "
+          f"catalog (largest bucket {biggest} items): "
+          f"{smoke or 'passes'}", flush=True)
+    users_of = lambda n: rng.integers(0, M, n).astype(np.int32)
+    pkw = dict(n_seeds=scfg.n_seeds, cap=scfg.cap, C=scfg.C,
+               window=scfg.seed_window, topn=scfg.topn, tile_b=scfg.tile_b)
+
+    def check_plain(svc, users, s, i):
+        """A flush's answers against the plain versions on the same
+        users and index → max abs score error."""
+        s_ref, i_ref = recommend_walked_kernel(
+            svc.planes, svc.index, svc.sp, torch.from_numpy(users).to(dev),
+            svc.popular, svc._flat_ids(), tail_scan=svc.index.tail_fill > 0,
+            impl="ref", **pkw)
+        return assert_topn_close(s, i, s_ref, i_ref)
+
+    def service(p=params, **kw):
+        return RecsysService(p, index_v, sp, dataclasses.replace(scfg, **kw),
+                             device=dev).warmup()
+
+    def zero():
+        lsh_kernel.LAUNCHES = score_kernel.LAUNCHES = 0
+
+    def launches():
+        return (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+
+    # overload: a burst of 16 micro-batches against a bound of 4
+    svc = service(max_pending=4 * B)
+    burst = users_of(16 * B)
+    zero()
+    svc.submit(burst)
+    svc.flush()
+    so, n_o = svc.stats(), launches()
+    res = svc.take_results()
+    busy = svc.obs.counter("serve.busy_seconds")
+    pop = svc.popular[:scfg.topn].cpu().numpy()
+    degraded_ok = (len(res) == 5 and res[0][0].size == 12 * B
+                   and (res[0][2] == pop).all())
+    err_o = max(check_plain(svc, *r) for r in res[-4:])
+    print(f"[16 overload] {16 * B} users against max_pending {4 * B}: shed "
+          f"{so['shed']}, degraded {so['degraded']}, dropped {so['dropped']}, "
+          f"fallbacks {so['fallbacks']}; {so['qps']:.0f} users/s answered "
+          f"(degraded included), {4 * B / busy:.0f} users/s scored; p50 "
+          f"{so['p50_ms']:.3f} ms, p99 {so['p99_ms']:.3f} ms over "
+          f"{so['batches']} flushes; launches {n_o}; answers in submission "
+          f"order; the 4 scored flushes within 1e-5 of the plain versions "
+          f"(max abs err {err_o:.3g})", flush=True)
+    if (so["shed"], so["degraded"], so["dropped"], so["fallbacks"]) != (
+            12 * B, 12 * B, 0, 0):
+        raise AssertionError(f"overload: {so}")
+    if not np.array_equal(np.concatenate([r[0] for r in res]), burst):
+        raise AssertionError("overload: answers out of submission order")
+    if not degraded_ok:
+        raise AssertionError("overload: the shed users did not get the "
+                             "popularity answer")
+    if on_card and n_o != (4, 4):
+        raise AssertionError(f"overload: launches {n_o}")
+    del svc, res
+
+    # deadline: the first flush stalls 0.2 s; the rest wait past 0.05 s
+    svc = service(deadline_s=0.05)
+    users = users_of(4 * B)
+    with faults.injected({"serve.flush": FaultSpec(kind="stall", stall_s=0.2,
+                                                   at_calls=(0,))}):
+        svc.submit(users)
+        svc.flush()
+    sd_ = svc.stats()
+    res = svc.take_results()
+    print(f"[16 deadline] {4 * B} users, deadline 0.05 s, a 0.2 s stall "
+          f"injected at serve.flush: shed {sd_['shed']}, degraded "
+          f"{sd_['degraded']}, fallbacks {sd_['fallbacks']}; p50 "
+          f"{sd_['p50_ms']:.3f} ms over {sd_['batches']} scored flush(es)",
+          flush=True)
+    if (sd_["shed"], sd_["degraded"], sd_["fallbacks"]) != (3 * B, 3 * B, 0):
+        raise AssertionError(f"deadline: {sd_}")
+    if not np.array_equal(np.concatenate([r[0] for r in res]), users):
+        raise AssertionError("deadline: answers out of submission order")
+    del svc, res
+
+    # fallback: flushes 1 and 3 raise at dispatch → exact full_topn
+    svc = service()
+    users = users_of(4 * B)
+    zero()
+    with faults.injected({"serve.flush": FaultSpec(at_calls=(1, 3))}):
+        svc.submit(users)
+        svc.flush()
+    sf, n_f = svc.stats(), launches()
+    res = svc.take_results()
+    err_f = err_k = 0.0
+    for k, (u, s, i) in enumerate(res):
+        if k in (1, 3):
+            s_x, i_x = full_topn(svc.params, torch.from_numpy(u).to(dev),
+                                 topn=scfg.topn)
+            err_f = max(err_f, assert_topn_close(s, i, s_x, i_x))
+        else:
+            err_k = max(err_k, check_plain(svc, u, s, i))
+    print(f"[16 fallback] serve.flush raised at flushes 1 and 3 of 4: "
+          f"fallbacks {sf['fallbacks']}, launches {n_f}; those rows equal "
+          f"full_topn (max abs err {err_f:.3g}), the others the plain "
+          f"versions ({err_k:.3g})", flush=True)
+    if sf["fallbacks"] != 2 or (on_card and n_f != (2, 2)):
+        raise AssertionError(f"fallback: {sf['fallbacks']} fallbacks, "
+                             f"launches {n_f}")
+    del svc, res
+
+    # background rebuild: 1,100 new items (clones of items 0–1,099)
+    # overflow the 1,024-slot tail.  The worker builds v+1 on its stream
+    # while the first flushes run, then waits at serve.rebuild.index (a
+    # hook that hands the index on unchanged) until the 32nd flush has
+    # been dispatched, so all 32 run on index v with a rebuild in flight
+    n_new = 1100
+    src_items = torch.arange(n_new, device=dev)
+    grow = lambda t: torch.cat([t, t[src_items]])
+    params_g = Params(U=params.U, V=grow(params.V), b=params.b,
+                      bh=grow(params.bh), W=grow(params.W), C=grow(params.C),
+                      mu=params.mu)
+    new_sigs = sigs[:, src_items].contiguous()
+    full = torch.cat([sigs, new_sigs], dim=1)
+    new_ids = torch.arange(N, N + n_new, dtype=torch.int32, device=dev)
+    svc = service(params_g)
+    v = svc.index
+    go, held = threading.Event(), []
+
+    def hold(idx):
+        t_h = time.perf_counter()
+        go.wait(600)
+        held.append(time.perf_counter() - t_h)
+        return idx
+
+    with faults.injected({"serve.rebuild.index": FaultSpec(
+            kind="corrupt", mutate=hold, at_calls=(0,))}):
+        try:
+            t0 = time.perf_counter()
+            svc.ingest(new_sigs, new_ids, full_sigs=full)
+            ingest_call_s = time.perf_counter() - t0
+            if not (svc.stats()["index_stale"] and svc.index is v):
+                raise AssertionError("the overflow did not go to the "
+                                     "background")
+            zero()
+            on_v = 0
+            for _ in range(32):
+                svc.submit(users_of(B))
+                on_v += svc.index is v
+            svc.flush()
+        finally:
+            go.set()
+        sb, n_b = svc.stats(), launches()
+        lat = svc.obs.span_durations("serve.flush")[-32:]
+        slow = int(np.argmax(lat))
+        svc.take_results()
+        svc._rebuilder.join(600)
+    svc.submit(users_of(B))            # the swap lands at a loop edge
+    svc.flush()
+    swapped = svc.index is not v
+    after = svc.stats()
+    built = svc.obs.span_durations("serve.rebuild.bg")
+    valid_s = svc.obs.span_durations("serve.rebuild.bg.validate")
+    if swapped:
+        want_ids = build_index(full, tail_cap=1024, device=dev).sorted_ids
+        if not torch.equal(svc.index.sorted_ids, want_ids):
+            raise AssertionError("the swapped index is not build_index(full)")
+        (u, s, i), = svc.take_results()
+        err_b = check_plain(svc, u, s, i)
+        print(f"[16 rebuild] {n_new} new items overflow the 1,024-slot "
+              f"tail: ingest returned in {ingest_call_s:.4f} s; {on_v} of 32 "
+              f"flushes ran on index v while the worker built v+1 and then "
+              f"held it before validation: p50 {sb['p50_ms']:.3f} ms, p99 "
+              f"{sb['p99_ms']:.3f} ms (phase 5: {serve['p5'][0]:.3f} / "
+              f"{serve['p5'][1]:.3f} ms; the slowest is flush {slow} at "
+              f"{lat[slow] * 1e3:.3f} ms), launches {n_b}; on the worker's "
+              f"stream: build + validate {built[-1] - held[0]:.4f} s "
+              f"(validate {valid_s[-1]:.4f} s) besides the {held[0]:.4f} s "
+              f"hold; swapped: ingest_to_servable_s "
+              f"{after['ingest_to_servable_s']:.4f} (the hold included; "
+              f"{after['ingest_to_servable_s'] - held[0]:.4f} without it), "
+              f"n_items {svc.index.n_items}, the index equals "
+              f"build_index(full), the next flush within 1e-5 of the plain "
+              f"versions ({err_b:.3g}) (power limit {power})", flush=True)
+        if svc.index.n_items != N + n_new or after["index_stale"]:
+            raise AssertionError("the swap did not land")
+    else:
+        print(f"[16 rebuild] {n_new} new items overflow the tail; the "
+              f"validation gate refused every build ({smoke}): rolled back, "
+              f"index v serves on (gave_up "
+              f"{svc.obs.counter('serve.rebuild.gave_up'):.0f})", flush=True)
+    if bool(smoke) == swapped:
+        raise AssertionError("the rebuild's outcome disagrees with the "
+                             "gate's verdict on a fresh build")
+    if on_v != 32:
+        raise AssertionError(f"only {on_v} of 32 flushes ran on index v")
+    if after["fallbacks"] or (on_card and n_b != (32, 32)):
+        raise AssertionError(f"rebuild: fallbacks {after['fallbacks']}, "
+                             f"launches {n_b}")
+    del svc
+
+    # a corrupt build is refused by the gate, retried, given up on
+    svc = service(params_g)
+    v = svc.index
+    bad = []
+
+    def corrupt(idx):
+        ids = idx.sorted_ids.clone()
+        ids[0, 0] = ids[0, 1]
+        bad.append(dataclasses.replace(idx, sorted_ids=ids))
+        return bad[-1]
+
+    with faults.injected({"serve.rebuild.index": FaultSpec(
+            kind="corrupt", mutate=corrupt, at_calls=(0, 1, 2))}):
+        svc.ingest(new_sigs, new_ids, full_sigs=full)
+        served = []
+        for _ in range(6):
+            svc._rebuilder.join(600)
+            users = users_of(B)
+            svc.submit(users)
+            svc.flush()
+            served += [svc.index is b for b in bad]
+    (u, s, i), = svc.take_results()[-1:]
+    err_c = check_plain(svc, u, s, i)
+    sc = svc.stats()
+    print(f"[16 corrupt] serve.rebuild.index corrupted 3 builds: "
+          f"failures {svc._rebuilder.failures}, gave_up "
+          f"{svc.obs.counter('serve.rebuild.gave_up'):.0f}; index v served "
+          f"throughout (a corrupt index never served), index_stale "
+          f"{sc['index_stale']}, fallbacks {sc['fallbacks']}; the last flush "
+          f"within 1e-5 of the plain versions on v ({err_c:.3g})", flush=True)
+    if (svc._rebuilder.failures != 3 or any(served) or svc.index is not v
+            or sc["fallbacks"]):
+        raise AssertionError("a corrupt build reached the service")
+    del svc, bad, params_g, full, index_v
+
+    # the fit's catalog (8-bit bands): the gate's verdict, and its outcome
+    svc15 = octx["svc"]
+    v15 = svc15.index
+    verdict = validate_index(build_index(signatures_of(v15),
+                                         tail_cap=v15.tail_cap, device=dev))
+    svc15.request_rebuild(signatures_of(v15))
+    for _ in range(4):
+        svc15._rebuilder.join(600)
+        svc15.flush()
+    kept = svc15.index is v15
+    print(f"[16 gate] the fit's catalog (N={v15.n_base}, 8-bit bands): "
+          f"validate_index on a fresh build says {verdict or 'passes'}; a "
+          f"background rebuild of it was "
+          + ("refused and rolled back (gave_up "
+             f"{svc15.obs.counter('serve.rebuild.gave_up'):.0f})" if kept
+             else "swapped in"), flush=True)
+    if bool(verdict) != kept:
+        raise AssertionError("the fit catalog's rebuild disagrees with the "
+                             "gate's verdict")
+    sync()
+    print(f"[16 resil] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return dict(name="segment_add", route="cuda",
+                source="src/repro_torch/csrc/segment_add.cu",
+                replaces="none: no TPU kernel (the card's deterministic "
+                         "index_add_, src/repro_torch/core/scatter.py)",
+                launches=seg_launches, max_abs_err=seg_err, ms=seg_ms,
+                plain_ms=plain_ms, bound_ms=seg_bound, bound_by=seg_by,
+                library_ms=plain_ms)
 
 
 def main(argv=None) -> int:
@@ -1468,6 +1929,8 @@ def main(argv=None) -> int:
           f"warmup; launches {launches}", flush=True)
     if items.shape != (BATCHES * B, cfg.topn):
         raise AssertionError(f"served {items.shape} answers")
+    if st["fallbacks"]:
+        raise AssertionError("a flush fell back to full_topn")
     if not ((items >= 0) & (items < N)).all():
         raise AssertionError("served ids outside the catalog")
     if on_card:
@@ -1561,7 +2024,11 @@ def main(argv=None) -> int:
                                 sigs, dev, on_card, power))
     legacy_phase(ctx, dev)
     kernels.append(predict_phase(ctx, dev, on_card, power))
-    online_phase(args, ctx, cfg, dev, on_card, power)
+    octx = online_phase(args, ctx, cfg, dev, on_card, power)
+    kernels.append(resil_phase(
+        args, octx, dict(params=params, sp=sp, sigs=sigs, cfg=cfg,
+                         p5=(st["p50_ms"], st["p99_ms"])),
+        dev, on_card, power))
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

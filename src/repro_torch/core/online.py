@@ -21,9 +21,10 @@ batches are plain shuffles, not scheduler output).  The merged matrix is
 maintained incrementally (`sparse.merge_coo`).
 
 Every key is split as the JAX package splits it, so the same inputs give
-the same batches, J^K and initial draws.  The scatters are `index_add_`,
-which adds colliding rows in atomic order on CUDA: on the card an update
-need not be bit-reproducible; on the CPU it is.
+the same batches, J^K and initial draws.  The colliding scatters go
+through `scatter.index_add_det_`, which adds in index order on both
+devices, so an update is bit-reproducible on the card as on the CPU (the
+write-ahead log's replay, `resil.wal`, relies on it).
 
 `micro_epoch` is the always-on loop's training unit: one scheduled epoch
 over the merged Ω̂ that trains *all* parameters (`sgd.
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs, prng
-from repro_torch.core import simlsh, topk
+from repro_torch.core import scatter, simlsh, topk
 from repro_torch.core.model import (Batch, Params, assemble,
                                     build_scheduled_data, pack_params,
                                     unpack_params)
@@ -107,12 +108,14 @@ def masked_culsh_step(p: Params, bt: Batch, hp: Hyper, decay, M_old: int,
     new_i = (i >= M_old)[:, None]
     new_j = (j >= N_old)[:, None]
     keep = lambda d, m: torch.where(m, d, torch.zeros((), device=d.device))
-    p.U.index_add_(0, i, keep(du, new_i))
-    p.b.index_add_(0, i, keep(db, new_i[:, 0]))
-    p.V.index_add_(0, j, keep(dv, new_j))
-    p.bh.index_add_(0, j, keep(dbh, new_j[:, 0]))
-    p.W.index_add_(0, j, keep(dw, new_j))
-    p.C.index_add_(0, j, keep(dc, new_j))
+    pi, pj = scatter.segment_plan(i), scatter.segment_plan(j)
+    add = scatter.index_add_det_
+    add(p.U, i, keep(du, new_i), plan=pi)
+    add(p.b, i, keep(db, new_i[:, 0]), plan=pi)
+    add(p.V, j, keep(dv, new_j), plan=pj)
+    add(p.bh, j, keep(dbh, new_j[:, 0]), plan=pj)
+    add(p.W, j, keep(dw, new_j), plan=pj)
+    add(p.C, j, keep(dc, new_j), plan=pj)
     return p
 
 

@@ -9,8 +9,10 @@ planes in place with one scatter each; they share the forward and the
 delta computation with the unpacked steps, so the two layouts stay bit
 for bit equal.
 
-Updates are applied to a mini-batch with a scatter-add (`index_add_`):
-on a conflict-free batch (each i and each j at most once) this is Eq. (5)
+Updates are applied to a mini-batch with a scatter-add
+(`scatter.index_add_det_`, which adds colliding rows in index order on
+both devices, so a step is bit-reproducible on the card): on a
+conflict-free batch (each i and each j at most once) this is Eq. (5)
 applied in parallel, exactly; with collisions it is the batch-SGD step
 scaled by 1/count.
 
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core import scatter
 from repro_torch.core.model import (Batch, PackedParams, Params,
                                     ScheduledData, assemble, predict,
                                     predict_gathered, predict_mf,
@@ -81,6 +84,8 @@ def _batch_scales(M: int, N: int, bt: Batch, conflict_free: bool, scales):
     if conflict_free:
         return 1.0, 1.0, 1.0, 1.0
     dev = bt.valid.device
+    # counts add 1.0s (or 0.0s): exact in float32 below 2^24 in any order,
+    # so the atomic `index_add_` gives the same bits on every run
     ci = torch.zeros(M, device=dev).index_add_(0, bt.i.long(), bt.valid)
     cj = torch.zeros(N, device=dev).index_add_(0, bt.j.long(), bt.valid)
     si = 1.0 / ci[bt.i.long()].clamp(min=1.0)
@@ -131,8 +136,8 @@ def mf_step(p: Params, bt: Batch, hp: Hyper, decay, bce: bool = False,
     _, _, si_c, sj_c = _batch_scales(p.U.shape[0], p.V.shape[0], bt,
                                      conflict_free, None)
     du, dv = _mf_deltas(bt, e, ui, vj, hp, decay, si_c, sj_c)
-    return dataclasses.replace(p, U=p.U.index_add(0, i, du),
-                               V=p.V.index_add(0, j, dv))
+    return dataclasses.replace(p, U=scatter.index_add_det(p.U, i, du),
+                               V=scatter.index_add_det(p.V, j, dv))
 
 
 def mf_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
@@ -148,8 +153,8 @@ def mf_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
     _, _, si_c, sj_c = _batch_scales(pp.row.shape[0], pp.col.shape[0], bt,
                                      conflict_free, scales)
     du, dv = _mf_deltas(bt, e, ui, vj, hp, decay, si_c, sj_c)
-    pp.row[:, :F].index_add_(0, i, du)
-    pp.col[:, :F].index_add_(0, j, dv)
+    scatter.index_add_det_(pp.row[:, :F], i, du)
+    scatter.index_add_det_(pp.col[:, :F], j, dv)
     return pp
 
 
@@ -178,10 +183,12 @@ def culsh_step(p: Params, bt: Batch, hp: Hyper, decay, bce: bool = False,
     most once, making the summed scatter exactly the parallel Eq. (5)."""
     i, j, (db, dbh, du, dv, dw, dc) = culsh_batch_deltas(
         p, bt, hp, decay, bce, conflict_free, bh_nb)
+    pi, pj = scatter.segment_plan(i), scatter.segment_plan(j)
+    add = lambda t, ids, d, plan: scatter.index_add_det(t, ids, d, plan=plan)
     return dataclasses.replace(
-        p, b=p.b.index_add(0, i, db), bh=p.bh.index_add(0, j, dbh),
-        U=p.U.index_add(0, i, du), V=p.V.index_add(0, j, dv),
-        W=p.W.index_add(0, j, dw), C=p.C.index_add(0, j, dc))
+        p, b=add(p.b, i, db, pi), bh=add(p.bh, j, dbh, pj),
+        U=add(p.U, i, du, pi), V=add(p.V, j, dv, pj),
+        W=add(p.W, j, dw, pj), C=add(p.C, j, dc, pj))
 
 
 def culsh_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
@@ -206,8 +213,9 @@ def culsh_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
                                        conflict_free, scales)
     db, dbh, du, dv, dw, dc = _culsh_deltas(
         bt, e, aux, b_i, bh_j, ui, vj, wj, cj, hp, decay, si, sj, si_c, sj_c)
-    pp.row.index_add_(0, i, torch.cat([du, db[:, None]], dim=1))
-    pp.col.index_add_(0, j, torch.cat([dv, dw, dc, dbh[:, None]], dim=1))
+    scatter.index_add_det_(pp.row, i, torch.cat([du, db[:, None]], dim=1))
+    scatter.index_add_det_(pp.col, j,
+                           torch.cat([dv, dw, dc, dbh[:, None]], dim=1))
     return pp
 
 
@@ -221,8 +229,8 @@ def train_epoch(p: Params, sp: SparseMatrix, JK: torch.Tensor,
     The general-case engine: per-batch `assemble` (a `lookup` per
     neighbour slot) and collision rescaling, correct for any batching;
     the batch order is `epoch_batches(key)`, the JAX package's.  Its
-    scatters collide, so on CUDA, where `index_add_` adds in atomic
-    order, an epoch is not bit-reproducible; on the CPU it is."""
+    scatters collide; `scatter.index_add_det_` adds them in index order,
+    so an epoch is bit-reproducible on the card as on the CPU."""
     dev = sp.vals.device
     idx, valid = epoch_batches(key.to(dev), sp.nnz, batch)
     decay = lr_decay(hp, epoch, dev)

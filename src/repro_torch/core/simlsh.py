@@ -20,6 +20,7 @@ import dataclasses
 import torch
 
 from repro_torch import prng
+from repro_torch.core import scatter
 from repro_torch.data.sparse import SparseMatrix
 
 
@@ -69,14 +70,18 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
 def band_accumulate(sp_rows, sp_cols, sp_vals, key, band: int, *,
                     N: int, bits: int, psi_pow: float, psi_mode: str = "pow",
                     psi_center: float = 0.0,
-                    phi: torch.Tensor | None = None) -> torch.Tensor:
+                    phi: torch.Tensor | None = None,
+                    plan: scatter.SegmentPlan | None = None) -> torch.Tensor:
     """Pre-sign accumulator S_j = Σ Ψ(r_ij) Φ(H_i) for one band → [N, bits].
 
     ``phi`` [nnz, bits], when given, replaces the drawn Φ rows (one per
     COO entry).  Otherwise Φ is drawn from ``key`` once per row id and
     gathered per entry — the same rows the JAX package draws per entry.
-    The segment sum is an `index_add_`, whose summation order differs
-    from JAX's `segment_sum`: accumulators near 0 may change sign."""
+    The segment sum is `scatter.index_add_det_` (``plan``: the sort of
+    ``sp_cols``, shared by every band): it adds in COO order on both
+    devices, so it is bit-reproducible, and gives the same bits on the
+    card as on the CPU; that order differs from JAX's `segment_sum`, so
+    accumulators near 0 may change sign against the JAX package's."""
     if phi is None:
         n_rows = int(sp_rows.max()) + 1 if sp_rows.numel() else 0
         table = phi_rows(key, band,
@@ -84,7 +89,7 @@ def band_accumulate(sp_rows, sp_cols, sp_vals, key, band: int, *,
         phi = table[sp_rows.long()]
     contrib = psi(sp_vals, psi_pow, psi_mode, psi_center)[:, None] * phi
     S = torch.zeros((N, bits), dtype=torch.float32, device=sp_vals.device)
-    return S.index_add_(0, sp_cols.long(), contrib)
+    return scatter.index_add_det_(S, sp_cols.long(), contrib, plan=plan)
 
 
 def encode(sp: SparseMatrix, cfg: SimLSHConfig,
@@ -99,12 +104,13 @@ def encode(sp: SparseMatrix, cfg: SimLSHConfig,
     if key is None and phi is None:
         raise ValueError("encode needs a prng key or precomputed phi rows")
     sigs, accs = [], []
+    plan = scatter.segment_plan(sp.cols)          # one sort for all bands
     for band in range(cfg.q):
         S = band_accumulate(
             sp.rows, sp.cols, sp.vals, key, band, N=sp.N, bits=cfg.sig_bits,
             psi_pow=cfg.psi_pow, psi_mode=cfg.psi_mode,
             psi_center=cfg.psi_center,
-            phi=None if phi is None else phi[band])
+            phi=None if phi is None else phi[band], plan=plan)
         sigs.append(pack_bits(S >= 0))
         if return_accumulators:
             accs.append(S)
@@ -131,10 +137,11 @@ def update_accumulators(S: torch.Tensor, new_rows, new_cols, new_vals,
     rows = torch.as_tensor(new_rows, dtype=torch.int32).to(dev)
     cols = torch.as_tensor(new_cols, dtype=torch.int32).to(dev)
     vals = torch.as_tensor(new_vals, dtype=torch.float32).to(dev)
+    plan = scatter.segment_plan(cols)
     S2 = torch.stack([
         S[band] + band_accumulate(rows, cols, vals, key, band, N=N_total,
                                   bits=bits, psi_pow=cfg.psi_pow,
                                   psi_mode=cfg.psi_mode,
-                                  psi_center=cfg.psi_center)
+                                  psi_center=cfg.psi_center, plan=plan)
         for band in range(q)])
     return S2, pack_bits(S2 >= 0)

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.core.scatter import index_add_det_
 from repro_torch.device import resolve_device
 
 
@@ -137,12 +138,15 @@ def degrees(sp: SparseMatrix):
 
 def baselines(sp: SparseMatrix, eps: float = 1e-9):
     """Paper §3.2 part ①: (μ [], b_i [M], b̂_j [N]) from the observed
-    entries."""
+    entries; the per-row and per-column sums add in COO order
+    (`scatter.index_add_det_`), the same bits on every run."""
     mu = sp.vals.sum() / (sp.nnz + eps)
     dr, dc = degrees(sp)
     dev = sp.vals.device
-    sr = torch.zeros(sp.M, device=dev).index_add_(0, sp.rows.long(), sp.vals)
-    sc = torch.zeros(sp.N, device=dev).index_add_(0, sp.cols.long(), sp.vals)
+    sr = index_add_det_(torch.zeros(sp.M, device=dev), sp.rows.long(),
+                        sp.vals)
+    sc = index_add_det_(torch.zeros(sp.N, device=dev), sp.cols.long(),
+                        sp.vals)
     b = torch.where(dr > 0, sr / dr.clamp(min=1) - mu, 0.0)
     bh = torch.where(dc > 0, sc / dc.clamp(min=1) - mu, 0.0)
     return mu, b, bh

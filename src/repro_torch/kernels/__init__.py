@@ -7,12 +7,30 @@ kernel or raises, on a CPU tensor it runs the plain version in
 picks the path: ``auto`` (the wrapper), ``cuda`` (the wrapper, and the
 tensors must be on the card) or ``ref`` (the plain version on any
 device — what the kernels are compared with).
+
+A kernel that fails to build or launch, or a wrapper that refuses the
+operands it is given, raises a `KernelError`: a caller that keeps a
+fallback path (the service's exact `full_topn`) re-raises it, so the
+plain version never answers for a failing kernel.
 """
 from __future__ import annotations
 
 import torch
 
 IMPLS = ("auto", "cuda", "ref")
+
+
+class KernelError(RuntimeError):
+    """A CUDA kernel failed to build or launch, or its wrapper refused its
+    operands."""
+
+
+class KernelValueError(KernelError, ValueError):
+    """A wrapper refused an operand's device, shape or value."""
+
+
+class KernelTypeError(KernelError, TypeError):
+    """A wrapper refused an operand's dtype."""
 
 
 def pick(impl: str, device: torch.device, kernel, ref):
@@ -22,8 +40,9 @@ def pick(impl: str, device: torch.device, kernel, ref):
     if impl == "ref":
         return ref
     if impl == "cuda" and device.type != "cuda":
-        raise ValueError(f"impl='cuda' needs tensors on a CUDA device, got "
-                         f"{device}")
+        raise KernelValueError(
+            f"impl='cuda' needs tensors on a CUDA device, got "
+            f"{device}")
     return kernel
 
 
@@ -32,12 +51,12 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank
     ``ndim`` on ``device`` — what the kernels take."""
     if t.device != device:
-        raise ValueError(f"{name}: expected a tensor on {device}, got "
-                         f"{t.device}")
+        raise KernelValueError(f"{name}: expected a tensor on {device}, got "
+                               f"{t.device}")
     if t.dtype != dtype:
-        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+        raise KernelTypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.ndim != ndim:
-        raise ValueError(f"{name}: expected rank {ndim}, got shape "
-                         f"{tuple(t.shape)}")
+        raise KernelValueError(f"{name}: expected rank {ndim}, got shape "
+                               f"{tuple(t.shape)}")
     if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel needs a contiguous tensor")
+        raise KernelValueError(f"{name}: the kernel needs a contiguous tensor")

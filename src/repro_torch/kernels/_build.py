@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from repro_torch.kernels import KernelError
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 LIB_NAME = "libreprotorch.so"
@@ -52,6 +54,8 @@ SIGNATURES = {
     # u, v, w, c, resid, impl, bbar, sR, sN, out, B, F, K, stream
     "neighbor_predict_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _P],
+    # dst, ld, rows, sorted_ids, order, src, n, width, stream
+    "segment_add_launch": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -69,8 +73,8 @@ def _nvcc() -> str:
             return str(Path(cand, "bin", "nvcc"))
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
-                           "first use and need the CUDA toolkit")
+        raise KernelError("nvcc not found: the CUDA kernels are built on "
+                         "first use and need the CUDA toolkit")
     return found
 
 
@@ -95,7 +99,7 @@ def _run_all(cmds: list[list[str]]) -> str:
         if p.returncode:
             errors.append(f"{' '.join(cmd)}\n{out}")
     if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise KernelError("CUDA kernel build failed:\n" + "\n".join(errors))
     return "".join(outs)
 
 
@@ -129,7 +133,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            try:
+                lib = ctypes.CDLL(str(build()))
+            except OSError as e:
+                raise KernelError(f"cannot load the kernel library: {e}") \
+                    from e
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -146,4 +154,4 @@ def loaded() -> bool:
 def check(err: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error (its `cudaGetLastError`)."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise KernelError(f"{what}: CUDA launch failed with error {err}")

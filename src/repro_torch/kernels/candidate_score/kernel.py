@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, check_operand
+from repro_torch.kernels import _build, KernelValueError, check_operand
 from repro_torch.kernels.candidate_score.ref import NEG, score_topn_ref
 
 __all__ = ["NEG", "LAUNCHES", "score_topn"]
@@ -37,29 +37,30 @@ def score_topn(row, mu, col, user_ids, cand, *, topn: int, tile_b: int = 8):
         return score_topn_ref(row, mu, col, user_ids, cand, topn=topn,
                               tile_b=tile_b)
     if dev.type != "cuda":
-        raise ValueError(f"score_topn: unsupported device {dev}")
+        raise KernelValueError(f"score_topn: unsupported device {dev}")
     check_operand(row, "row", torch.float32, 2, dev)
     check_operand(col, "col", torch.float32, 2, dev)
     check_operand(user_ids, "user_ids", torch.int32, 1, dev)
     check_operand(cand, "cand", torch.int32, 2, dev)
     if mu.device != dev or mu.dtype != torch.float32 or mu.numel() != 1:
-        raise ValueError(f"score_topn: mu must be one float32 on {dev}, got "
-                         f"{mu.dtype} {tuple(mu.shape)} on {mu.device}")
+        raise KernelValueError(
+            f"score_topn: mu must be one float32 on {dev}, got "
+            f"{mu.dtype} {tuple(mu.shape)} on {mu.device}")
     B, C = cand.shape
     (M, Fp1), N = row.shape, col.shape[0]
     if col.shape[1] != Fp1 or user_ids.shape[0] != B:
-        raise ValueError(f"score_topn: row {tuple(row.shape)}, col "
-                         f"{tuple(col.shape)}, user_ids "
-                         f"{tuple(user_ids.shape)} and cand {(B, C)} "
-                         f"disagree")
+        raise KernelValueError(f"score_topn: row {tuple(row.shape)}, col "
+                               f"{tuple(col.shape)}, user_ids "
+                               f"{tuple(user_ids.shape)} and cand {(B, C)} "
+                               f"disagree")
     if not 1 <= topn <= C:
-        raise ValueError(f"need 1 ≤ topn ≤ C, got topn={topn}, C={C}")
+        raise KernelValueError(f"need 1 ≤ topn ≤ C, got topn={topn}, C={C}")
     if M < 1 or N < 1 or Fp1 < 1:
-        raise ValueError(f"score_topn: planes of {M} and {N} rows of "
-                         f"{Fp1} floats")
+        raise KernelValueError(f"score_topn: planes of {M} and {N} rows of "
+                               f"{Fp1} floats")
     if (C + Fp1 + 2 * _WARPS * 32 + 2) * 4 > _MAX_SMEM:
-        raise ValueError(f"score_topn: C={C} and F+1={Fp1} exceed a "
-                         f"block's shared memory")
+        raise KernelValueError(f"score_topn: C={C} and F+1={Fp1} exceed a "
+                               f"block's shared memory")
     scores = torch.empty((B, topn), dtype=torch.float32, device=dev)
     items = torch.empty((B, topn), dtype=torch.int32, device=dev)
     if B == 0:

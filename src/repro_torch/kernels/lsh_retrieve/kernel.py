@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, check_operand
+from repro_torch.kernels import _build, KernelValueError, check_operand
 from repro_torch.kernels.lsh_retrieve.ref import lsh_retrieve_topc_ref
 
 LAUNCHES = 0
@@ -35,7 +35,7 @@ def lsh_retrieve_topc(starts, lens, extra, ids_flat, exclude, *, C: int,
         return lsh_retrieve_topc_ref(starts, lens, extra, ids_flat, exclude,
                                      C=C, cap=cap)
     if dev.type != "cuda":
-        raise ValueError(f"lsh_retrieve_topc: unsupported device {dev}")
+        raise KernelValueError(f"lsh_retrieve_topc: unsupported device {dev}")
     for t, name, nd in ((starts, "starts", 2), (lens, "lens", 2),
                         (extra, "extra", 2), (ids_flat, "ids_flat", 1),
                         (exclude, "exclude", 1)):
@@ -43,18 +43,19 @@ def lsh_retrieve_topc(starts, lens, extra, ids_flat, exclude, *, C: int,
     B, I = starts.shape
     X, E = extra.shape[1], exclude.shape[0]
     if lens.shape != starts.shape or extra.shape[0] != B:
-        raise ValueError(f"lsh_retrieve_topc: starts {tuple(starts.shape)}, "
-                         f"lens {tuple(lens.shape)} and extra "
-                         f"{tuple(extra.shape)} disagree")
+        raise KernelValueError(
+            f"lsh_retrieve_topc: starts {tuple(starts.shape)}, "
+            f"lens {tuple(lens.shape)} and extra "
+            f"{tuple(extra.shape)} disagree")
     if cap < 1 or X < 1 or E < 1:
-        raise ValueError("lsh_retrieve_topc: cap, X and E must be ≥ 1")
+        raise KernelValueError("lsh_retrieve_topc: cap, X and E must be ≥ 1")
     W = I * cap + X
     if not 1 <= C <= W:
-        raise ValueError(f"candidate budget C={C} must lie in [1, {W}]")
+        raise KernelValueError(f"candidate budget C={C} must lie in [1, {W}]")
     Wp = pool_width(I, cap, X)
     if (2 * Wp + E) * 4 > _MAX_SMEM:
-        raise ValueError(f"lsh_retrieve_topc: pool width {Wp} and {E} "
-                         f"exclusions exceed a block's shared memory")
+        raise KernelValueError(f"lsh_retrieve_topc: pool width {Wp} and {E} "
+                               f"exclusions exceed a block's shared memory")
     out = torch.empty((B, C), dtype=torch.int32, device=dev)
     lib = _build.library()
     err = lib.lsh_retrieve_topc_launch(

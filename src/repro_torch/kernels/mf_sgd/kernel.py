@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.model import Batch, PackedParams, slice_batch
-from repro_torch.kernels import _build, check_operand
+from repro_torch.kernels import (_build, KernelError, KernelValueError,
+                                  check_operand)
 from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
                                             apply_mf_sgd_ref)
 
@@ -59,7 +60,8 @@ def _check_vectors(dev, B, **vecs):
     for name, t in vecs.items():
         check_operand(t, name, torch.float32, 1, dev)
         if t.shape[0] != B:
-            raise ValueError(f"{name}: expected [{B}], got {tuple(t.shape)}")
+            raise KernelValueError(
+                f"{name}: expected [{B}], got {tuple(t.shape)}")
 
 
 def _check_tier(what: str, pp: PackedParams, i, j, r, valid, *, width: int,
@@ -69,29 +71,31 @@ def _check_tier(what: str, pp: PackedParams, i, j, r, valid, *, width: int,
     ``end`` ≤ P) and the [n, width] slot masks."""
     dev = pp.row.device
     if dev.type != "cuda":
-        raise ValueError(f"{what}: unsupported device {dev}")
+        raise KernelValueError(f"{what}: unsupported device {dev}")
     F, K = pp.F, pp.K
     if F < 1 or K < 0:
-        raise ValueError(f"{what}: F={F}, K={K}")
+        raise KernelValueError(f"{what}: F={F}, K={K}")
     check_operand(pp.row, "row", torch.float32, 2, dev)
     check_operand(pp.col, "col", torch.float32, 2, dev)
     if pp.row.shape[1] != F + 1 or pp.col.shape[1] != F + 2 * K + 1:
-        raise ValueError(f"{what}: planes {tuple(pp.row.shape)}, "
-                         f"{tuple(pp.col.shape)} disagree with F={F}, K={K}")
+        raise KernelValueError(
+            f"{what}: planes {tuple(pp.row.shape)}, "
+            f"{tuple(pp.col.shape)} disagree with F={F}, K={K}")
     for name, t, dtype in (("i", i, torch.int32), ("j", j, torch.int32),
                            ("r", r, torch.float32)):
         check_operand(t, name, dtype, 1, dev)
     P = i.shape[0]
     if j.shape[0] != P or r.shape[0] != P:
-        raise ValueError(f"{what}: i, j, r of lengths {P}, {j.shape[0]}, "
-                         f"{r.shape[0]} disagree")
+        raise KernelValueError(
+            f"{what}: i, j, r of lengths {P}, {j.shape[0]}, "
+            f"{r.shape[0]} disagree")
     if end > P:
-        raise ValueError(f"{what}: a window ends at {end}, past the {P} "
-                         f"triples")
+        raise KernelValueError(f"{what}: a window ends at {end}, past the {P} "
+                               f"triples")
     check_operand(valid, "valid", torch.float32, 2, dev)
     if valid.shape[1] != width:
-        raise ValueError(f"{what}: valid {tuple(valid.shape)} disagrees "
-                         f"with width {width}")
+        raise KernelValueError(f"{what}: valid {tuple(valid.shape)} disagrees "
+                               f"with width {width}")
 
 
 def _culsh_args(pp: PackedParams, i, j, r, nb, rnb, expl, valid, hp, *,
@@ -107,18 +111,20 @@ def _culsh_args(pp: PackedParams, i, j, r, nb, rnb, expl, valid, hp, *,
                            ("expl", expl, torch.float32)):
         check_operand(t, name, dtype, 2, dev)
         if t.shape != (P, K):
-            raise ValueError(f"culsh_sgd: {name} {tuple(t.shape)} disagrees "
-                             f"with [{P}, {K}]")
+            raise KernelValueError(
+                f"culsh_sgd: {name} {tuple(t.shape)} disagrees "
+                f"with [{P}, {K}]")
     _check_vectors(dev, 13, hp=hp)
     lib = _build.library()
     with torch.cuda.device(dev):
         cap = lib.culsh_sgd_capacity(F, K, int(bce))
     if cap < 0:
-        raise RuntimeError(f"culsh_sgd: occupancy query failed ({cap})")
+        raise KernelError(f"culsh_sgd: occupancy query failed ({cap})")
     blocks = -(-width // _CULSH_WARPS)
     if blocks > cap:
-        raise ValueError(f"culsh_sgd: a batch of {width} slots needs {blocks} "
-                         f"co-resident blocks; the card holds {cap}")
+        raise KernelValueError(
+            f"culsh_sgd: a batch of {width} slots needs {blocks} "
+            f"co-resident blocks; the card holds {cap}")
     return _CulshArgs(
         pp.row.data_ptr(), pp.col.data_ptr(), i.data_ptr(), j.data_ptr(),
         r.data_ptr(), nb.data_ptr(), rnb.data_ptr(), expl.data_ptr(),
@@ -166,8 +172,9 @@ class _Tier:
 def _tier_end(valid: torch.Tensor, starts: np.ndarray, width: int) -> int:
     """Where the tier's last window ends (0 for an empty tier)."""
     if valid.shape[0] != len(starts):
-        raise ValueError(f"{valid.shape[0]} slot masks for {len(starts)} "
-                         f"batches")
+        raise KernelValueError(
+            f"{valid.shape[0]} slot masks for {len(starts)} "
+            f"batches")
     return int(np.max(starts)) + width if len(starts) else 0
 
 

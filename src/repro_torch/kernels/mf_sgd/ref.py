@@ -37,6 +37,8 @@ def apply_mf_sgd_ref(pp: PackedParams, bt: Batch, hp, *,
     u = pp.row[i, :F]
     v = pp.col[j, :F]
     u2, v2, _ = mf_sgd_step_ref(u, v, bt.r, bt.valid, hp, bce=bce)
+    # conflict-free: no two live slots share an i or a j, and a padding
+    # slot adds an exact 0, so the atomic order cannot change a bit
     pp.row[:, :F].index_add_(0, i, u2 - u)
     pp.col[:, :F].index_add_(0, j, v2 - v)
     return pp
@@ -93,6 +95,7 @@ def apply_culsh_sgd_ref(pp: PackedParams, bt: Batch, hp, *,
     bh_nb = pp.bh[bt.nb.long()]                      # [B, K]
     row2, col2 = culsh_sgd_step_ref(row, col, bt.rnb, bh_nb, bt.expl, bt.r,
                                     bt.valid, hp, bce=bce)
+    # conflict-free, as in `apply_mf_sgd_ref`: the order cannot matter
     pp.row.index_add_(0, i, row2 - row)
     pp.col.index_add_(0, j, col2 - col)
     return pp

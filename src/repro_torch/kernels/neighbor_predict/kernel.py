@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, check_operand
+from repro_torch.kernels import _build, KernelValueError, check_operand
 from repro_torch.kernels.neighbor_predict.ref import neighbor_predict_ref
 
 __all__ = ["LAUNCHES", "neighbor_predict"]
@@ -27,7 +27,7 @@ def neighbor_predict(u, v, w, c, resid, impl, bbar, sR, sN):
     if dev.type == "cpu":
         return neighbor_predict_ref(u, v, w, c, resid, impl, bbar, sR, sN)
     if dev.type != "cuda":
-        raise ValueError(f"neighbor_predict: unsupported device {dev}")
+        raise KernelValueError(f"neighbor_predict: unsupported device {dev}")
     check_operand(u, "u", torch.float32, 2, dev)
     check_operand(w, "w", torch.float32, 2, dev)
     B, F = u.shape
@@ -39,8 +39,9 @@ def neighbor_predict(u, v, w, c, resid, impl, bbar, sR, sN):
                            ("sN", sN, (B,))):
         check_operand(t, name, torch.float32, len(shape), dev)
         if tuple(t.shape) != shape:
-            raise ValueError(f"neighbor_predict: {name} {tuple(t.shape)}, "
-                             f"expected {shape}")
+            raise KernelValueError(
+                f"neighbor_predict: {name} {tuple(t.shape)}, "
+                f"expected {shape}")
     out = torch.empty((B,), dtype=torch.float32, device=dev)
     err = _build.library().neighbor_predict_launch(
         u.data_ptr(), v.data_ptr(), w.data_ptr(), c.data_ptr(),

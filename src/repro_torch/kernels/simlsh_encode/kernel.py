@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, check_operand
+from repro_torch.kernels import _build, KernelValueError, check_operand
 from repro_torch.kernels.simlsh_encode.ref import simlsh_encode_ref
 
 __all__ = ["LAUNCHES", "simlsh_encode"]
@@ -29,15 +29,16 @@ def simlsh_encode(psi, phi):
     if dev.type == "cpu":
         return simlsh_encode_ref(psi, phi)
     if dev.type != "cuda":
-        raise ValueError(f"simlsh_encode: unsupported device {dev}")
+        raise KernelValueError(f"simlsh_encode: unsupported device {dev}")
     check_operand(psi, "psi", torch.float32, 2, dev)
     check_operand(phi, "phi", torch.float32, 3, dev)
     N, deg = psi.shape
     bits = phi.shape[2]
     if phi.shape[:2] != (N, deg) or not 0 < bits <= MAX_BITS:
-        raise ValueError(f"simlsh_encode: psi {tuple(psi.shape)} and phi "
-                         f"{tuple(phi.shape)} disagree, or bits > "
-                         f"{MAX_BITS}")
+        raise KernelValueError(
+            f"simlsh_encode: psi {tuple(psi.shape)} and phi "
+            f"{tuple(phi.shape)} disagree, or bits > "
+            f"{MAX_BITS}")
     out = torch.empty((N, bits), dtype=torch.float32, device=dev)
     err = _build.library().simlsh_encode_launch(
         psi.data_ptr(), phi.data_ptr(), out.data_ptr(), N, deg, bits,

@@ -22,13 +22,17 @@ wall-clock or global RNG state — whether call *n* at a site
 Determinism is the point: a chaos test that fails replays exactly, and
 the bench fault arm measures the *same* fault sequence every run.
 
-Sites (grep for ``faults.fire`` to audit): the port fires
+Sites (grep for ``faults.fire`` to audit), the JAX package's names:
 ``ckpt.save``, inside the checkpoint writer between the shard and the
-manifest (a "crash" there leaves a torn staging dir), and
-``serve.ingest``, in `RecsysService.ingest` after the batch passed
-validation and before the index changes.  The JAX package's other sites
-(``serve.rebuild``, ``online.update``, ``loop.*``) come with the modules
-that hold them.
+manifest (a "crash" there leaves a torn staging dir); ``serve.ingest``,
+in `RecsysService.ingest` after the batch passed validation and before
+the index changes; ``serve.flush``, before a flush's dispatch (an
+exception falls back to exact scoring, a stall ages the queue);
+``serve.rebuild`` and ``serve.rebuild.index``, in the background
+rebuilder before the build and on the built index; ``wal.append`` and
+``online.update``, in `OnlineUpdater.update` before the entry is written
+and between logging and applying it.  The always-on loop's ``loop.*``
+sites come with the module that holds them.
 
 Use as a context manager so a failing test can never leak a plan into
 the next one:

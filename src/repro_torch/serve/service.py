@@ -23,9 +23,20 @@ non-overlapping busy time.  Every metric lives in the service's private
 `obs.Registry`, which `stats()` reads.
 
 The ingestion plane (paper Alg. 4): `ingest` puts new items into the
-index tail, or rebuilds the index synchronously when the tail would
-overflow; `ingest_online_update` adopts a `core.online.online_update`
-result (grown parameters, merged interactions, new columns' signatures).
+index tail; when the tail would overflow it hands the full signature set
+to a background rebuild (`resil.rebuild`, validate-then-swap, on its own
+CUDA stream) while index v keeps serving, or rebuilds synchronously with
+``background_rebuild=False``; `ingest_online_update` adopts a
+`core.online.online_update` result (grown parameters, merged
+interactions, new columns' signatures).
+
+Resilience (the JAX package's): the admission queue is bounded
+(``max_pending``) with deadline-aware shedding (``deadline_s``) into a
+host-side popularity answer; a flush that fails at dispatch or at sync
+falls back to the exact `full_topn` — counted in ``stats()["fallbacks"]``,
+never quiet, and never for a kernel's own `KernelError`, which propagates;
+poison ingest batches are quarantined before any state is touched.  The shed / degraded / dropped / fallback / quarantine counters
+live in the service registry and surface through `stats()`.
 """
 from __future__ import annotations
 
@@ -39,14 +50,16 @@ import torch
 from repro_torch import obs
 from repro_torch.core import simlsh
 from repro_torch.core.model import Params, ServePlanes, pack_serve_planes
+from repro_torch.core.topk import SENTINEL
 from repro_torch.data.sparse import SparseMatrix
 from repro_torch.device import resolve_device
-from repro_torch.kernels import IMPLS
+from repro_torch.kernels import IMPLS, KernelError
 from repro_torch.kernels.candidate_score.ops import score_candidates
 # a module import: `lsh_retrieve.ops` imports this package's index, so it
 # may be mid-import when this module loads
 from repro_torch.kernels.lsh_retrieve import ops as lsh_ops
 from repro_torch.resil import faults
+from repro_torch.resil.rebuild import IndexRebuilder
 from repro_torch.resil.validate import (_MAX_ID, PoisonBatchError,
                                         check_accumulators,
                                         check_ingest_batch)
@@ -74,10 +87,24 @@ class ServeConfig:
     impl: str = "auto"        # auto | cuda | ref — auto launches the CUDA
                               # kernels on the card and runs their plain
                               # versions on the CPU
-    # knobs of later slices: any value but the default raises
+    # resilience knobs
+    max_pending: int = 0      # admission bound on queued users (0 = off);
+                              # overflow sheds the *oldest* chunks into the
+                              # degraded popularity path.  Keep it ≥ a few
+                              # micro_batches or steady traffic sheds too
+    deadline_s: float = 0.0   # queue-wait deadline (0 = off): chunks older
+                              # than this at dispatch time are shed instead
+                              # of scored — bounded staleness over stalls
+    background_rebuild: bool = True  # overflow rebuilds run on a worker
+                              # thread (its own CUDA stream) behind a
+                              # validate-then-swap gate (resil.rebuild);
+                              # False = synchronous rebuild on the ingest
+                              # path
+    rebuild_retries: int = 3  # failed/invalid background builds are retried
+                              # this many times before giving up (the old
+                              # index keeps serving either way)
+    # knob of a later slice: any value but the default raises
     shards: int | str = 0
-    max_pending: int = 0
-    deadline_s: float = 0.0
 
     def __post_init__(self):
         if self.mode not in ("candidate", "full"):
@@ -94,10 +121,6 @@ class ServeConfig:
             raise NotImplementedError(
                 "the legacy pool+dedup retrieval (band_budget=0) "
                 + _LATER.format("legacy serving paths"))
-        if self.max_pending or self.deadline_s:
-            raise NotImplementedError(
-                "load shedding (max_pending, deadline_s) "
-                + _LATER.format("resilience"))
 
 
 def full_topn(params: Params, user_ids: torch.Tensor, *, topn: int):
@@ -163,12 +186,20 @@ class RecsysService:
             enabled=True, mirror=obs.get())
         self._pending: collections.deque = collections.deque()
         self._n_pending = 0
-        # dispatched-but-unsynced flushes:
-        # (user_ids, n_real, t0_ns, (scores, items), done event or None)
+        # dispatched-but-unsynced flushes: (user_ids, n_real, t0_ns,
+        # (scores, items), done event or None, degraded)
         self._inflight: collections.deque = collections.deque()
         self._results: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         self._last_ready_ns = 0
         self._params_adopted = time.perf_counter()
+        # resilience state: the background rebuild slot, and the host
+        # mirror (μ, b, b̂, shortlist) of the degraded popularity path
+        # (invalidated on a parameter swap)
+        self._rebuilder: IndexRebuilder | None = None
+        self._rebuild_sigs = None        # full sigs of the build in flight
+        self._rebuild_attempts = 0
+        self._rebuild_t0 = 0.0
+        self._host_bias = None
         # cached SENTINEL-apron id plane, keyed by index identity
         self._ids_flat = None
         self._ids_flat_for = None
@@ -202,7 +233,9 @@ class RecsysService:
 
     def warmup(self):
         """Run one flush-shaped batch before the timed traffic (on the
-        card this also builds and loads the kernels)."""
+        card this also builds and loads the kernels).  It runs outside
+        every fallback: a kernel that fails to build or launch raises
+        here."""
         ids = torch.zeros((self.cfg.micro_batch,), dtype=torch.int32,
                           device=self.device)
         self._recommend(ids)
@@ -213,10 +246,18 @@ class RecsysService:
     # ---- request plane ----
 
     def submit(self, user_ids) -> None:
-        """Queue a request (any shape); flushes whole micro-batches."""
+        """Queue a request (any shape); flushes whole micro-batches.
+
+        Admission control (``cfg.max_pending``): when the queue exceeds
+        the bound, the *oldest* queued users are shed into the degraded
+        popularity path — under overload the service answers with bounded
+        staleness instead of letting queue wait grow without limit."""
+        self._poll_rebuild()
         arr = np.atleast_1d(np.asarray(user_ids, np.int32))
         self._pending.append((arr, time.perf_counter()))
         self._n_pending += arr.shape[0]
+        if self.cfg.max_pending and self._n_pending > self.cfg.max_pending:
+            self._shed_over_bound()
         self.obs.gauge_set("serve.queue_depth", self._n_pending)
         while self._n_pending >= self.cfg.micro_batch:
             self._flush_one()
@@ -224,6 +265,7 @@ class RecsysService:
     def flush(self) -> None:
         """Drain everything pending (final partial batch is padded) and
         sync every dispatched flush."""
+        self._poll_rebuild()
         while self._n_pending:
             self._flush_one()
         while self._inflight:
@@ -234,6 +276,7 @@ class RecsysService:
         everything in flight so the device is idle when the caller's next
         phase starts.  Work beyond the budget stays queued; returns the
         number of flushes dispatched."""
+        self._poll_rebuild()
         n = 0
         while self._n_pending and n < max_flushes:
             self._flush_one()
@@ -242,14 +285,93 @@ class RecsysService:
             self._sync_oldest()
         return n
 
+    # ---- load shedding / degraded serving ----
+
+    def _host_degraded(self, users: np.ndarray):
+        """Host-side popularity answer: items = the global shortlist,
+        scores = the bias part of Eq. (1) (μ + b_u + b̂_j) — no retrieval,
+        no device dispatch.  None when ``n_popular`` is off (callers then
+        drop instead of degrading)."""
+        if self.popular is None:
+            return None
+        if self._host_bias is None:
+            p = self.params
+            self._host_bias = (float(p.mu), p.b.cpu().numpy(),
+                               p.bh.cpu().numpy(),
+                               self.popular.cpu().numpy())
+        mu, b, bh, popular = self._host_bias
+        topn = self.cfg.topn
+        pop = popular[:topn]
+        n, w = users.shape[0], pop.shape[0]
+        safe_u = np.clip(users, 0, b.shape[0] - 1)
+        items = np.full((n, topn), SENTINEL, np.int32)
+        items[:, :w] = pop[None, :]
+        scores = np.full((n, topn), -np.inf, np.float32)
+        scores[:, :w] = mu + b[safe_u][:, None] + bh[pop][None, :]
+        return scores, items
+
+    def _shed_chunks(self, chunks: list) -> None:
+        """Turn shed request chunks into one degraded pseudo-flush so
+        `take_results` keeps submission order (shed chunks are always a
+        FIFO prefix of the queue, so enqueueing the entry now — before
+        the next real dispatch — preserves ordering)."""
+        users = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
+        reg = self.obs
+        reg.counter_add("serve.shed_users", users.shape[0])
+        res = self._host_degraded(users)
+        if res is None:          # no popularity shortlist → drop, loudly
+            reg.counter_add("serve.dropped_users", users.shape[0])
+            return
+        reg.counter_add("serve.degraded_users", users.shape[0])
+        self._inflight.append((users, users.shape[0], time.perf_counter_ns(),
+                               res, None, True))
+
+    def _shed_over_bound(self) -> None:
+        bound = self.cfg.max_pending
+        shed: list = []
+        while self._pending and self._n_pending > bound:
+            a, t_sub = self._pending.popleft()
+            excess = self._n_pending - bound
+            if a.shape[0] > excess:      # split: shed only the overflow
+                self._pending.appendleft((a[excess:], t_sub))
+                a = a[:excess]
+            shed.append(a)
+            self._n_pending -= a.shape[0]
+        if shed:
+            self._shed_chunks(shed)
+
+    def _shed_expired(self, now: float) -> None:
+        """Deadline shedding: queue-wait is monotone along the FIFO, so
+        expired chunks are exactly the queue prefix."""
+        dl = self.cfg.deadline_s
+        shed: list = []
+        while self._pending and now - self._pending[0][1] > dl:
+            a, _ = self._pending.popleft()
+            self._n_pending -= a.shape[0]
+            shed.append(a)
+        if shed:
+            self._shed_chunks(shed)
+
     def _flush_one(self) -> None:
         """Dispatch one micro-batch; sync the *previous* flush only after
-        this one is enqueued (double-buffered dispatch-ahead)."""
+        this one is enqueued (double-buffered dispatch-ahead).
+
+        Resilience: expired chunks are shed *before* filling the batch
+        (deadline shedding), and a failure while the flush is dispatched
+        — an injected ``serve.flush`` fault, or any other error outside
+        the kernels — falls back to the exact O(N) `full_topn` (counter
+        ``serve.fallback_full``, ``stats()["fallbacks"]``).  The fallback
+        is counted, never quiet, and it never answers for a kernel: a
+        `KernelError` (a kernel that fails to build or launch, or a
+        wrapper that refuses its operands) propagates, and a sticky CUDA
+        error raises again from `full_topn`."""
         mb = self.cfg.micro_batch
         reg = self.obs
         with reg.span("serve.flush.dispatch"):
             # consume only as many queued arrays as one micro-batch needs
             now = time.perf_counter()
+            if self.cfg.deadline_s:
+                self._shed_expired(now)
             chunks, n, t_last = [], 0, now
             while self._pending and n < mb:
                 a, t_sub = self._pending.popleft()
@@ -257,6 +379,8 @@ class RecsysService:
                 chunks.append(a)
                 n += a.shape[0]
                 t_last = t_sub
+            if not chunks:           # everything this flush would have
+                return               # taken was shed past its deadline
             flat = chunks[0] if len(chunks) == 1 else np.concatenate(chunks)
             take = flat[:mb]
             if flat.size > mb:
@@ -267,21 +391,51 @@ class RecsysService:
             reg.gauge_set("serve.queue_depth", self._n_pending)
             if n_real < mb:  # pad the final partial batch to the fixed shape
                 take = np.concatenate([take, np.zeros(mb - n_real, np.int32)])
-            t0_ns = time.perf_counter_ns()
             ids = torch.from_numpy(take).to(self.device, non_blocking=True)
-            out = self._recommend(ids)                   # async on the card
+            try:
+                faults.fire("serve.flush")    # before the timer: injected
+                # stalls read as queue wait, not scoring latency
+                t0_ns = time.perf_counter_ns()
+                out = self._recommend(ids)               # async on the card
+            except KernelError:
+                raise
+            except Exception:  # noqa: BLE001 — degrade, never stall
+                reg.counter_add("serve.fallback_full")
+                t0_ns = time.perf_counter_ns()
+                out = full_topn(self.params, ids, topn=self.cfg.topn)
             done = self._done_event()
-        self._inflight.append((take, n_real, t0_ns, out, done))
+        self._inflight.append((take, n_real, t0_ns, out, done, False))
         reg.counter_add("serve.flushes")
         while len(self._inflight) > 1:
             self._sync_oldest()
 
     def _sync_oldest(self) -> None:
-        take, n_real, t0_ns, (scores, items), done = self._inflight.popleft()
-        if done is not None:
-            done.synchronize()
-        now_ns = time.perf_counter_ns()
+        take, n_real, t0_ns, (scores, items), done, degraded = \
+            self._inflight.popleft()
         reg = self.obs
+        if degraded:
+            # shed pseudo-flush: computed on the host at shed time; it
+            # never touched the device, so it adds no flush latency or
+            # busy time (p50/p99 stay about the real pipeline)
+            reg.counter_add("serve.users", n_real)
+            self._results.append((take[:n_real], scores[:n_real],
+                                  items[:n_real]))
+            return
+        try:
+            if done is not None:
+                done.synchronize()
+        except Exception:  # noqa: BLE001 — a deferred device failure:
+            # recompute through the exact baseline rather than lose the
+            # batch.  Only torch's device errors reach here (a KernelError
+            # raises at dispatch), and a kernel's fault on the card is a
+            # sticky CUDA error, which raises again from full_topn
+            reg.counter_add("serve.fallback_full")
+            scores, items = full_topn(
+                self.params, torch.from_numpy(take).to(self.device),
+                topn=self.cfg.topn)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        now_ns = time.perf_counter_ns()
         # latency: dispatch → result readiness (includes time queued
         # behind the previous flush); busy wall: overlap counted once
         reg.record_span("serve.flush", t0_ns, now_ns - t0_ns)
@@ -295,12 +449,22 @@ class RecsysService:
 
     def take_results(self):
         """[(user_ids, scores, items)] for every flush since the last take,
-        in dispatch order, padding stripped."""
+        in dispatch order, padding stripped.  Shed chunks appear as
+        degraded pseudo-flushes in the same submission order; only
+        *dropped* requests (``n_popular == 0`` under shedding) produce no
+        rows."""
         out, self._results = self._results, []
         return out
 
     def stats(self) -> dict:
-        """Serving stats, read entirely from the obs registry."""
+        """Serving stats, read entirely from the obs registry.  The
+        resilience counters: ``shed`` = admission/deadline victims,
+        ``degraded`` = shed users answered by the popularity path,
+        ``dropped`` = shed with no shortlist, ``fallbacks`` = flushes
+        answered by exact `full_topn`, ``quarantined`` = poison ingest
+        batches refused, ``ingest_rejected`` = ingests refused by a
+        read-only tier (none is ported, so 0), ``index_stale`` = an
+        overflow awaits its background rebuild's swap."""
         reg = self.obs
         flush_s = reg.span_durations("serve.flush")
         secs = np.asarray(flush_s) if flush_s else np.zeros((1,))
@@ -317,10 +481,70 @@ class RecsysService:
             queue=self._n_pending,
             ingest_to_servable_s=reg.gauge("serve.ingest_to_servable_s",
                                            0.0),
+            shed=int(reg.counter("serve.shed_users")),
+            degraded=int(reg.counter("serve.degraded_users")),
+            dropped=int(reg.counter("serve.dropped_users")),
+            fallbacks=int(reg.counter("serve.fallback_full")),
             quarantined=int(reg.counter("serve.quarantined")),
+            ingest_rejected=int(reg.counter("serve.ingest_rejected")),
+            index_stale=bool(reg.gauge("serve.index_stale", 0.0)),
             model_age_s=time.perf_counter() - self._params_adopted,
             device=str(self.device),
         )
+
+    # ---- background rebuild (double-buffered validate-then-swap) ----
+
+    def _start_rebuild(self, full_sigs) -> None:
+        if self._rebuilder is None:
+            self._rebuilder = IndexRebuilder(self.obs)
+        full_sigs = torch.as_tensor(full_sigs).to(self.device)
+        self._rebuild_sigs = full_sigs       # kept for bounded auto-retry
+        self._rebuild_attempts = 0
+        self._rebuild_t0 = time.perf_counter()
+        # stale: the tail overflowed, so items past base+tail are not yet
+        # retrievable — cleared when the validated v+1 swaps in
+        self.obs.gauge_set("serve.index_stale", 1.0)
+        self._rebuilder.submit(full_sigs, tail_cap=self.index.tail_cap)
+
+    def _poll_rebuild(self) -> None:
+        """Called at the serving loop's edges (submit, flush, ingest):
+        swap in a validated rebuild, or retry / roll back a failed one.
+        Index v serves on in every branch — flushes in flight captured
+        its tensors, which nothing writes in place, and a failed or
+        invalid build is simply never taken.  On the card the serving
+        stream waits on the worker's post-validation event (inside
+        `IndexRebuilder.take`) before the swap."""
+        if self._rebuilder is None:
+            return
+        status, idx, err = self._rebuilder.take()
+        if status == "ready":
+            self.index = idx
+            self._rebuild_sigs = None
+            with self.obs.span("serve.rebuild.swap"):
+                self.warmup()
+            self.obs.counter_add("serve.rebuild.swaps")
+            self.obs.gauge_set("serve.index_stale", 0.0)
+            self.obs.gauge_set("serve.ingest_to_servable_s",
+                               time.perf_counter() - self._rebuild_t0)
+        elif status == "failed":
+            self._rebuild_attempts += 1
+            if (self._rebuild_sigs is not None
+                    and self._rebuild_attempts < self.cfg.rebuild_retries):
+                self.obs.counter_add("serve.rebuild.retries")
+                self._rebuilder.submit(self._rebuild_sigs,
+                                       tail_cap=self.index.tail_cap)
+            else:
+                # rollback is the default: keep serving v; the index stays
+                # stale (missing post-overflow items) and says so loudly
+                self.obs.counter_add("serve.rebuild.gave_up")
+                self._rebuild_sigs = None
+
+    def request_rebuild(self, full_sigs) -> None:
+        """Hand the full [q, N] signature set to the background rebuilder;
+        serving continues on index v and the validated v+1 swaps in at a
+        later flush boundary (`_poll_rebuild`)."""
+        self._poll_rebuild()
+        self._start_rebuild(full_sigs)
 
     # ---- ingestion plane (paper Alg. 4) ----
 
@@ -328,15 +552,17 @@ class RecsysService:
         """Insert new items into the index tail; rebuild on overflow
         (which needs ``full_sigs`` [q, N_total], the new items included).
 
-        The rebuild is synchronous: the service serves the rebuilt index
-        when this returns.  (The JAX package's default hands it to a
-        background rebuilder; the port behaves as the JAX package does
-        with ``background_rebuild=False`` until its resilience slice.)
-        Poison batches (wrong dtype, NaN rows, negative or duplicate ids)
-        raise `PoisonBatchError` before any state is touched and count
+        With ``cfg.background_rebuild`` (the default) an overflow hands
+        ``full_sigs`` to the background rebuilder and returns at once:
+        the service keeps serving index v (marked stale) and swaps in the
+        validated v+1 at a later flush boundary.  Otherwise the rebuild
+        is synchronous and served when this returns.  Poison batches
+        (wrong dtype, NaN rows, negative or duplicate ids) raise
+        `PoisonBatchError` before any state is touched and count
         ``serve.quarantined``.  Crossing the empty-tail boundary, or a
-        rebuild, changes the flush's shapes, so the service re-warms here
-        — in ingestion time, not in the next request's latency."""
+        synchronous rebuild, changes the flush's shapes, so the service
+        re-warms here — in ingestion time, not in the next request's
+        latency."""
         t0_ns = time.perf_counter_ns()
         try:
             check_ingest_batch(new_sigs, new_ids, q=self.index.q)
@@ -344,7 +570,9 @@ class RecsysService:
             self.obs.counter_add("serve.quarantined")
             raise
         faults.fire("serve.ingest")
+        self._poll_rebuild()
         n = int(new_ids.shape[0])
+        background = False
         with self.obs.span("serve.ingest"):
             had_tail = self.index.tail_fill > 0
             rebuilt = lsh_index.needs_rebuild(self.index, n)
@@ -352,19 +580,28 @@ class RecsysService:
                 if full_sigs is None:
                     raise ValueError(
                         "tail overflow and no full_sigs to rebuild")
-                with self.obs.span("serve.ingest.rebuild"):
-                    self.index = lsh_index.rebuild(self.index, full_sigs)
+                background = self.cfg.background_rebuild
+                if background:
+                    self._start_rebuild(full_sigs)
+                else:
+                    with self.obs.span("serve.ingest.rebuild"):
+                        self.index = lsh_index.rebuild(self.index,
+                                                       full_sigs)
             else:
                 with self.obs.span("serve.ingest.insert"):
                     self.index = lsh_index.insert(self.index, new_sigs,
                                                   new_ids)
-            if rebuilt or (self.index.tail_fill > 0) != had_tail:
+            if not background and (rebuilt or (self.index.tail_fill > 0)
+                                   != had_tail):
                 with self.obs.span("serve.ingest.warmup"):
                     self.warmup()
         self.obs.counter_add("serve.ingests")
         self.obs.counter_add("serve.ingested_items", n)
-        self.obs.gauge_set("serve.ingest_to_servable_s",
-                           (time.perf_counter_ns() - t0_ns) * 1e-9)
+        # on the background path `_poll_rebuild` sets ingest→servable to
+        # the overflow → swap latency once v+1 lands
+        if not background:
+            self.obs.gauge_set("serve.ingest_to_servable_s",
+                               (time.perf_counter_ns() - t0_ns) * 1e-9)
 
     def ingest_online_update(self, state, N_old: int) -> None:
         """Adopt a `core.online.online_update` result: swap in the grown
@@ -394,6 +631,7 @@ class RecsysService:
                 self.params = state.params.to(self.device)
                 self._params_adopted = time.perf_counter()
                 self.planes = pack_serve_planes(self.params)
+                self._host_bias = None     # the degraded path's mirror
                 self.sp = state.sp.to(self.device)
                 if self.cfg.n_popular:
                     self.popular = popular_shortlist(self.params,
@@ -407,7 +645,3 @@ class RecsysService:
                 self.warmup()
         self.obs.gauge_set("serve.ingest_to_servable_s",
                            (time.perf_counter_ns() - t0_ns) * 1e-9)
-
-    def request_rebuild(self, *args, **kwargs):
-        raise NotImplementedError("RecsysService.request_rebuild "
-                                  + _LATER.format("resilience"))

@@ -4,7 +4,9 @@ restores in the other bit for bit.
 
 A step directory ``step-{step:08d}`` holds one ``shard-0.npz`` with the
 leaves ``a0, a1, ...`` of a dataclass of tensors in field order (for
-`Params`: U, V, b, bh, W, C, mu) and a ``manifest.json`` written **last**
+`Params`: U, V, b, bh, W, C, mu), or of a dict in sorted key order (the
+order `jax.tree_util` flattens a dict in; `resil.wal.state_tree`), and a
+``manifest.json`` written **last**
 (``{"step", "nleaves"}``); its presence certifies the step.  Each file
 is written to a temp name, fsynced and `os.replace`d, inside a staging
 dir ``.tmp-{step}`` whose rename to the step dir is the commit point;
@@ -39,8 +41,22 @@ KEEP = 3
 _save_thread: threading.Thread | None = None
 
 
+def _names(tree) -> list:
+    if isinstance(tree, dict):
+        return sorted(tree)
+    return [f.name for f in dataclasses.fields(tree)]
+
+
 def _leaves(tree) -> list:
-    return [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    if isinstance(tree, dict):
+        return [tree[k] for k in _names(tree)]
+    return [getattr(tree, k) for k in _names(tree)]
+
+
+def _host_copy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().copy()
+    return np.array(x)
 
 
 def _replace_write(path: str, write_fn) -> None:
@@ -63,10 +79,11 @@ def wait() -> None:
 
 
 def save(directory: str, tree, *, step: int, sync: bool = False) -> None:
-    """Save a dataclass of tensors as step ``step`` on a background thread
-    (joined first if one is pending; ``sync`` joins this one too)."""
+    """Save a dataclass of tensors, or a dict of tensors and arrays, as
+    step ``step`` on a background thread (joined first if one is pending;
+    ``sync`` joins this one too)."""
     wait()
-    host = [t.detach().cpu().numpy().copy() for t in _leaves(tree)]
+    host = [_host_copy(t) for t in _leaves(tree)]
 
     def _write():
         tmp = os.path.join(directory, f".tmp-{step}")
@@ -143,11 +160,12 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore(directory: str, tree_like, *, step: int | None = None):
-    """Restore into the structure of ``tree_like`` (a dataclass of
-    tensors), each leaf on its counterpart's device → (tree, step).  With
-    ``step=None`` the newest complete step wins; an explicit torn
-    ``step`` raises.  A leaf whose shape differs from ``tree_like``'s
-    raises `ValueError`."""
+    """Restore into the structure of ``tree_like`` → (tree, step).  For a
+    dataclass of tensors each leaf lands on its counterpart's device, and
+    a leaf whose shape differs raises `ValueError`; a dict (whose values
+    only name the keys, as the JAX package's templates do) comes back as
+    a dict of host numpy arrays.  With ``step=None`` the newest complete
+    step wins; an explicit torn ``step`` raises."""
     wait()
     if step is None:
         step = latest_step(directory)
@@ -162,14 +180,19 @@ def restore(directory: str, tree_like, *, step: int | None = None):
     path = os.path.join(directory, f"step-{step:08d}", SHARD)
     out = {}
     with np.load(path, allow_pickle=False) as data:
-        for i, (f, like) in enumerate(zip(dataclasses.fields(tree_like),
-                                          _leaves(tree_like))):
+        for i, (name, like) in enumerate(zip(_names(tree_like),
+                                             _leaves(tree_like))):
             a = data[f"a{i}"]
+            if isinstance(tree_like, dict):
+                out[name] = a
+                continue
             if a.shape != tuple(like.shape):
-                raise ValueError(f"checkpoint step {step}: leaf {f.name} "
+                raise ValueError(f"checkpoint step {step}: leaf {name} "
                                  f"has shape {a.shape}, expected "
                                  f"{tuple(like.shape)}")
-            out[f.name] = torch.from_numpy(a).to(like.device)
+            out[name] = torch.from_numpy(a).to(like.device)
+    if isinstance(tree_like, dict):
+        return out, step
     return dataclasses.replace(tree_like, **out), step
 
 

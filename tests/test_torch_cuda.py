@@ -776,7 +776,8 @@ def _online_delta(st, M2, N2, n=800, seed=3):
     rng = np.random.default_rng(seed)
     key = (rng.integers(0, M2, n).astype(np.int64) * N2
            + rng.integers(0, N2, n))
-    old = st.sp.rows.numpy().astype(np.int64) * N2 + st.sp.cols.numpy()
+    old = (st.sp.rows.cpu().numpy().astype(np.int64) * N2
+           + st.sp.cols.cpu().numpy())
     key = np.setdiff1d(np.unique(key), old)
     return ((key // N2).astype(np.int32), (key % N2).astype(np.int32),
             rng.uniform(1, 5, key.shape[0]).astype(np.float32))
@@ -897,3 +898,196 @@ def test_fit_kernel_impl_ref_launches_nothing_and_compile_seconds(cuda):
                dataclasses.replace(cfg, kernel_impl="auto"))
     assert sgd_kernel.CULSH_LAUNCHES > before and auto.compile_seconds == 0.0
     assert abs(auto.history[-1][2] - ref.history[-1][2]) < 1e-4
+
+
+# ------------------------------------------- deterministic scatter, resilience
+
+def _scatter_inputs(kind, rng):
+    """(plane, width, idx, src) on the CPU: the scatter's dst is
+    ``plane[:, :width]`` (a column slice of a wider plane) when ``width``
+    is set, else the whole plane."""
+    plane, width, n, hi = {
+        "1-D": (torch.zeros(700), None, 5000, 700),
+        "2-D": (torch.zeros(300, 33), None, 900, 300),
+        "column slice": (torch.zeros(300, 257), 128, 512, 300),
+        "fit leftover batch": (torch.zeros(3000, 257), None, 512, 3000),
+        "all colliding": (torch.zeros(4, 9), None, 3000, 1)}[kind]
+    plane.copy_(torch.tensor(rng.normal(size=plane.shape).astype(np.float32)))
+    idx = rng.integers(0, hi, n) + (2 if kind == "all colliding" else 0)
+    shape = (n,) + ((width,) if width else tuple(plane.shape[1:]))
+    src = rng.normal(size=shape) * 10.0 ** rng.integers(-4, 5, shape)
+    return plane, width, torch.tensor(idx), torch.tensor(
+        src.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["1-D", "2-D", "column slice",
+                                  "fit leftover batch", "all colliding"])
+def test_segment_add_on_card_equals_cpu_index_add(cuda, kind):
+    """The card's deterministic scatter gives the CPU's `index_add_` bits,
+    and the same bits on every run (the atomic `index_add_` need not);
+    the columns outside a slice stay as they were."""
+    from repro_torch.core import scatter
+    plane, width, idx, src = _scatter_inputs(kind, np.random.default_rng(0))
+    view = (lambda t: t[:, :width]) if width else (lambda t: t)
+    want = plane.clone()
+    view(want).index_add_(0, idx, src)
+    outs = []
+    for _ in range(2):
+        g = plane.to(cuda)
+        before = scatter.LAUNCHES
+        got = scatter.index_add_det_(view(g), idx.to(cuda), src.to(cuda))
+        torch.cuda.synchronize()
+        assert scatter.LAUNCHES == before + 1
+        assert got.data_ptr() == g.data_ptr()
+        outs.append(g.cpu())
+    assert torch.equal(outs[0], want), float((outs[0] - want).abs().max())
+    assert torch.equal(outs[0], outs[1])
+    g = plane.to(cuda)
+    plan = scatter.segment_plan(idx.to(cuda))
+    scatter.index_add_det_(view(g), idx.to(cuda), src.to(cuda), plan=plan)
+    assert torch.equal(g.cpu(), want)
+
+
+def test_segment_add_refuses_what_the_kernel_does_not_take(cuda):
+    from repro_torch.core import scatter
+    idx = torch.zeros(4, dtype=torch.long, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        scatter.index_add_det_(torch.zeros(3, 2, dtype=torch.float64,
+                                           device=cuda), idx,
+                               torch.zeros(4, 2, dtype=torch.float64,
+                                           device=cuda))
+    with pytest.raises(ValueError, match="does not match"):
+        scatter.index_add_det_(torch.zeros(3, 2, device=cuda), idx,
+                               torch.zeros(4, 3, device=cuda))
+    with pytest.raises(ValueError, match="adjacent columns"):
+        scatter.index_add_det_(torch.zeros(2, 3, device=cuda).T, idx[:3],
+                               torch.zeros(3, 2, device=cuda))
+
+
+def test_encode_on_card_is_reproducible(cuda):
+    """Two encodes on the card give the same accumulators bit for bit, and
+    the CPU's (the segment sum adds in COO order on both)."""
+    params, sp, sigs, _ = _state()
+    cfg = simlsh.SimLSHConfig(G=8, p=2, q=10)
+    sp_g = sp.to(cuda)
+    runs = [simlsh.encode(sp_g, cfg, prng.PRNGKey(0),
+                          return_accumulators=True) for _ in range(2)]
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][0].cpu(), sigs)
+    _, S_cpu = simlsh.encode(sp, cfg, prng.PRNGKey(0),
+                             return_accumulators=True)
+    assert torch.equal(runs[0][1].cpu(), S_cpu)
+
+
+def test_online_update_on_card_is_bit_identical_run_to_run(cuda):
+    from repro_torch.core import online
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.core import scatter
+    st, lsh = _online_state()
+    M2, N2 = st.M + 40, st.N + 12
+    d = _online_delta(st, M2, N2)
+    gpu_st = _state_to(st, cuda)
+    before = scatter.LAUNCHES
+    runs = [online.online_update(gpu_st, *d, lsh, Hyper(), prng.PRNGKey(9),
+                                 M_new=M2, N_new=N2, K=8, epochs=2)
+            for _ in range(2)]
+    assert scatter.LAUNCHES > before
+    for f in ("U", "b", "V", "bh", "W", "C"):
+        assert torch.equal(getattr(runs[0].params, f),
+                           getattr(runs[1].params, f)), f
+    assert torch.equal(runs[0].S, runs[1].S)
+    assert torch.equal(runs[0].JK, runs[1].JK)
+
+
+def test_wal_recovery_on_card_is_bit_identical(cuda, tmp_path):
+    """Crash on the third update after logging it; `recover` (checkpoint
+    at 2, replay of 3) equals an uninterrupted updater leaf for leaf."""
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.resil import OnlineUpdater, faults, wal
+    from repro_torch.resil.faults import FaultSpec, InjectedFault
+    st, lsh = _online_state()
+    st = _state_to(st, cuda)
+    kw = dict(K=8, epochs=1, batch=512, ckpt_every=2)
+
+    def drive(up, crash_at=None):
+        M, N = st.M, st.N
+        for i in range(3):
+            M, N = M + 6, N + 3
+            d = _online_delta(up.state, M, N, n=300, seed=40 + i)
+            if i == crash_at:
+                with faults.injected({"online.update":
+                                      FaultSpec(at_calls=(0,))}):
+                    with pytest.raises(InjectedFault):
+                        up.update(*d, prng.PRNGKey(i), M_new=M, N_new=N)
+                return
+            up.update(*d, prng.PRNGKey(i), M_new=M, N_new=N)
+
+    def host(x):
+        return x.cpu() if isinstance(x, torch.Tensor) else torch.tensor(x)
+
+    crashed = OnlineUpdater(st, lsh, Hyper(), root=str(tmp_path / "a"), **kw)
+    drive(crashed, crash_at=2)
+    rec = OnlineUpdater.recover(str(tmp_path / "a"), lsh, Hyper(),
+                                device=cuda, **kw)
+    whole = OnlineUpdater(st, lsh, Hyper(), root=str(tmp_path / "b"), **kw)
+    drive(whole)
+    assert rec.seq == whole.seq == 3
+    assert rec.state.params.U.device.type == "cuda"
+    ta, tb = wal.state_tree(rec.state), wal.state_tree(whole.state)
+    for k in ta:
+        assert torch.equal(host(ta[k]), host(tb[k])), k
+
+
+def test_background_rebuild_swaps_on_card(cuda):
+    """An overflow hands the rebuild to the worker's stream; flushes go on
+    against index v; the validated v+1 swaps in at the next flush and its
+    flushes equal the plain versions (ids bit for bit)."""
+    params, sp, sigs, index = _state()
+    cfg = ServeConfig(topn=10, micro_batch=64, C=128, n_seeds=8, cap=8,
+                      n_popular=16, tile_b=8, band_budget=256)
+    svc = RecsysService(params, index, sp, cfg, device=cuda).warmup()
+    full = torch.cat([sigs, sigs[:, :40]], dim=1).to(cuda)
+    ids = torch.arange(1500, 1540, dtype=torch.int32, device=cuda)
+    svc.ingest(full[:, 1500:], ids, full_sigs=full)          # 40 > tail 32
+    assert svc.stats()["index_stale"] and svc.index.n_items == 1500
+    users = np.arange(0, 960, 15, dtype=np.int32)
+    svc.submit(users)                     # served on v while v+1 builds
+    svc._rebuilder.join(60)
+    svc.submit(users)                     # the swap lands here
+    svc.flush()
+    assert svc.index.n_items == 1540 and not svc.stats()["index_stale"]
+    assert svc.index.device.type == "cuda"
+    assert svc.obs.counter("serve.rebuild.swaps") == 1
+    assert svc.stats()["fallbacks"] == 0
+    want = build_index(full, tail_cap=32, device=cuda)
+    for f in ("sorted_sigs", "sorted_ids", "bucket_lo", "bucket_hi"):
+        assert torch.equal(getattr(svc.index, f), getattr(want, f)), f
+    res = svc.take_results()
+    assert len(res) == 2
+    kw = dict(n_seeds=8, cap=8, C=128, window=64, tail_scan=False, topn=10,
+              tile_b=8)
+    s_ref, i_ref = recommend_walked_kernel(
+        svc.planes, svc.index, svc.sp, torch.from_numpy(users).to(cuda),
+        svc.popular, svc._flat_ids(), impl="ref", **kw)
+    assert np.array_equal(res[1][2], i_ref.cpu().numpy())
+    np.testing.assert_allclose(res[1][1], s_ref.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("field", ["sorted_ids", "bucket_hi", "sorted_sigs"])
+def test_validate_index_on_card_says_what_it_says_on_the_cpu(cuda, field):
+    """The checks run on the index's device: a clean index passes and a
+    corrupted one gets the CPU's problem strings."""
+    from repro_torch.resil import validate_index
+    _, _, _, index = _state()
+    a = getattr(index, field).clone()
+    if field == "sorted_ids":
+        a[0, 0] = a[0, 1]
+    elif field == "bucket_hi":
+        a[2] = 0
+    else:
+        a = a.flip(1).contiguous()
+    bad = dataclasses.replace(index, **{field: a})
+    assert validate_index(index.to(cuda)) == validate_index(index) == []
+    want = validate_index(bad)
+    assert want and validate_index(bad.to(cuda)) == want

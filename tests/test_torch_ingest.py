@@ -3,10 +3,10 @@
 helpers (`lookup_items`, `lookup_signatures`, `signatures_of`,
 `needs_rebuild`, `rebuild`).
 
-The JAX package's service runs with ``background_rebuild=False`` (the
-port rebuilds synchronously until its resilience slice) and its Pallas
-kernels in interpret mode; the port's runs on the CPU (its kernels'
-plain versions).  From identical state, after each ingest, the tail
+Both services run with ``background_rebuild=False`` (the synchronous
+rebuild; `tests/test_torch_service_resil.py` holds the background one)
+and the JAX package's Pallas kernels in interpret mode; the port's runs
+on the CPU (its kernels' plain versions).  From identical state, after each ingest, the tail
 contents and every index array must be equal, served ids bit-exact and
 scores within 1e-5.
 """
@@ -58,7 +58,8 @@ def _services(params, sp, sigs, n_base, tail_cap, kw=KW):
                             background_rebuild=False, **kw))
     tsvc = RecsysService(tp, build_index(torch.tensor(sigs[:, :n_base]),
                                          tail_cap=tail_cap, device="cpu"),
-                         tsp, ServeConfig(**kw), device="cpu")
+                         tsp, ServeConfig(background_rebuild=False, **kw),
+                         device="cpu")
     return jsvc, tsvc
 
 
@@ -314,7 +315,8 @@ def test_ingest_online_update_matches_jax(online_world):
                                     background_rebuild=False, **SMALL_KW))
     tsvc = RecsysService(tst0.params, build_index(torch.tensor(sigs),
                                                   tail_cap=16, device="cpu"),
-                         tst0.sp, ServeConfig(**SMALL_KW), device="cpu")
+                         tst0.sp, ServeConfig(background_rebuild=False,
+                                              **SMALL_KW), device="cpu")
     rng = np.random.default_rng(3)
     for k, (prev, st) in enumerate(zip(states, states[1:])):
         tst = _port_state(st, np.asarray(st.hash_key))

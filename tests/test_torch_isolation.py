@@ -41,7 +41,10 @@ def test_the_port_has_its_files():
             "src/repro_torch/kernels/simlsh_encode/kernel.py",
             "src/repro_torch/kernels/simlsh_encode/ops.py",
             "src/repro_torch/kernels/neighbor_predict/kernel.py",
-            "src/repro_torch/kernels/neighbor_predict/ops.py"} <= names
+            "src/repro_torch/kernels/neighbor_predict/ops.py",
+            "src/repro_torch/core/scatter.py",
+            "src/repro_torch/resil/rebuild.py",
+            "src/repro_torch/resil/wal.py"} <= names
     assert len(names) >= 20
 
 

@@ -26,6 +26,7 @@ from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
 from repro_torch.resil import PoisonBatchError
 from repro_torch.serve import (RecsysService, ServeConfig, full_topn, insert,
                                popular_shortlist, recommend_walked_kernel)
+from repro_torch.serve.index import signatures_of
 from test_torch_serve_index import planted_state
 
 SENTINEL = 2 ** 31 - 1
@@ -173,8 +174,8 @@ def test_flush_some_leaves_the_rest_queued(state):
 
 
 @pytest.mark.parametrize("knob", [dict(shards=2), dict(shards="auto"),
-                                  dict(band_budget=0), dict(max_pending=64),
-                                  dict(deadline_s=0.5)])
+                                  dict(band_budget=0), dict(shards=1),
+                                  dict(shards=4)])
 def test_later_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="later slice"):
         ServeConfig(**knob)
@@ -183,15 +184,25 @@ def test_later_slice_knobs_raise(knob):
 @pytest.mark.parametrize("method", ["ingest", "ingest_online_update",
                                     "request_rebuild"])
 def test_ingest_and_rebuild_raise(state, method):
-    """The background rebuild is a later slice; the two ingest entry
-    points exist and refuse a poisoned input before touching anything
-    (`tests/test_torch_ingest.py` holds them against the JAX package)."""
+    """The two ingest entry points refuse a poisoned input before touching
+    anything (`tests/test_torch_ingest.py` holds them against the JAX
+    package); `request_rebuild` hands the signatures to the background
+    rebuilder, and the validated index swaps in at the next flush
+    (`tests/test_torch_service_resil.py` holds it against the JAX
+    package)."""
     _, ts = state
     svc = RecsysService(ts["params"], ts["index"], ts["sp"],
                         ServeConfig(**KW), device="cpu")
     if method == "request_rebuild":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            svc.request_rebuild(None)
+        before = svc.index
+        svc.request_rebuild(signatures_of(before))
+        assert svc.stats()["index_stale"]
+        svc._rebuilder.join(60)
+        svc.flush()                       # the swap lands at a loop edge
+        assert svc.index is not before and not svc.stats()["index_stale"]
+        assert svc.obs.counter("serve.rebuild.swaps") == 1
+        for f in ("sorted_sigs", "sorted_ids", "bucket_lo", "bucket_hi"):
+            assert torch.equal(getattr(svc.index, f), getattr(before, f))
         return
     poison = dict(
         ingest=(None, None),
