@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths — serving, the offline
 fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
-online learning and its resilience layer — on one CUDA card.
+online learning, its resilience layer, the always-on loop and the fit's
+neighbour comparators — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -114,12 +115,41 @@ Phases, in order; any failure raises and the script exits non-zero:
     on against index v, then the validated swap; a corrupt build refused
     by the validation gate and never served; and the gate's verdict and
     outcome on the fit's 8-bit catalog.  Every phase that injects no
-    ``serve.flush`` fault must show 0 fallbacks.
+    ``serve.flush`` fault must show 0 fallbacks;
+17. the always-on loop — `OnlineLoop` on phase 15's final state (the
+    fit's model at full width): `OnlineUpdater(K=64, epochs=3,
+    batch=4096)`, `OnlineLoop.build_service` with phase 3's
+    `ServeConfig` and a 1,024-item tail, `LoopConfig` defaults, a fixed
+    20,000 of the held-out ratings as the drift probe; each slice
+    submits 2 × 256 users (a quarter new ids) and even slices offer a ΔΩ
+    (phase 16's recipe).  A 6-slice reference arm, the counters zeroed
+    just before (one `lsh_retrieve` and one `candidate_score` launch a
+    scored flush or warm-up; each slice's first flush against the plain
+    versions), its states' leaf SHA-256 kept by seq; a drift trip forced
+    on it (``drift_tol`` −0.5), whose requested rebuild of the fit's
+    8-bit catalog ends as the validation gate says; then three arms
+    killed at ``loop.slice`` call 3, ``loop.ckpt`` call 1 and
+    ``loop.drift`` call 1, each recovered by `OnlineLoop.recover` to the
+    reference's hashes at its seq and run one more slice with nothing
+    dropped; the span seconds, staleness p99 and the time to recover
+    (restore, WAL replay, `build_service` and warm-up);
+18. comparators — `fit(use_kernels=True)` with ``rand``, ``rp_cos`` and
+    ``minhash`` beside ``simlsh`` on phase 8's data and model for 2
+    epochs, and ``gsm`` beside ``simlsh`` at `MOVIELENS_LIKE`'s M × N
+    (69,878 × 10,677; 10⁶ ratings) with the paper's Table-7 settings
+    (F = 16, K = 8, G = 8, p = 1, q = 20, band_cap 16, ψ 2.0) for 6
+    epochs: the `culsh_sgd` counter equals conflict-free steps × epochs
+    and the RMSE falls in each;
+    minhash and random-K equal to their CPU run on one band, RP_cos run
+    twice bit-identical; GSM's J^K against a float64 recompute on 64
+    sampled rows; each method's neighbour seconds and device memory
+    beside simLSH's, and GSM's dense-operand reckoning at the 100M
+    model, which the card cannot hold.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–16 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–18 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -153,6 +183,11 @@ N_ITEMS = 1_000_000         # the serving catalog (phases 3–7)
 FIT_M, FIT_N, FIT_NNZ, FIT_F, FIT_K, FIT_EPOCHS = (700_000, 30_000, 2_000_000,
                                                    128, 64, 3)
 SGD_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's (tests/test_kernels.py)
+# phase 18's GSM data: MOVIELENS_LIKE's M × N with 10⁶ of its 9,900,054
+# ratings (the host generator's oversampling grows faster than linearly:
+# 2·10⁶ took 79 s on the card's host; GSM's dense operands and products
+# depend on M × N only)
+GSM_NNZ = 1_000_000
 
 
 def make_catalog(N: int, device, *, seed: int = 0, F: int = 48,
@@ -1774,6 +1809,462 @@ def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
                 library_ms=plain_ms)
 
 
+def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
+               power: str) -> None:
+    """Phase 17: the always-on `OnlineLoop` at full width, on phase 15's
+    state.  A 6-slice reference arm (its states' leaf hashes kept by
+    seq), a drift trip forced on it, and three arms killed at
+    ``loop.slice`` call 3, ``loop.ckpt`` call 1 and ``loop.drift`` call
+    1, each recovered with `OnlineLoop.recover` and held to the
+    reference's hashes at its seq."""
+    import dataclasses
+    import hashlib
+    import shutil
+    import tempfile
+
+    from repro_torch import obs, prng
+    from repro_torch.core import scatter
+    from repro_torch.kernels.candidate_score import kernel as score_kernel
+    from repro_torch.kernels.candidate_score.ref import assert_topn_close
+    from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
+    from repro_torch.loop import LoopConfig, OnlineLoop
+    from repro_torch.resil import OnlineUpdater, faults, wal
+    from repro_torch.resil.faults import FaultPlan, FaultSpec, InjectedFault
+    from repro_torch.serve import recommend_walked_kernel
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    st0, te = octx["st"], octx["te"]
+    lsh, hp, K = octx["lsh"], octx["hp"], octx["K"]
+    B = scfg.micro_batch
+    rng = np.random.default_rng(args.seed + 17)
+    n_hold = min(round(20_000 * args.fit_scale), te[0].size // 4)
+    holdout = tuple(torch.as_tensor(a[:n_hold], device=dev) for a in te)
+    rest = tuple(a[n_hold:] for a in te)
+    cfg = LoopConfig(tail_cap=max(1, round(1024 * args.fit_scale)))
+    up_kw = dict(K=K, epochs=3, batch=4096)
+
+    # the stream, the same in every arm: a ΔΩ on slices 0, 2 and 4 (a
+    # third of the remaining held-out ratings each, plus new users rating
+    # 20 items and new items rated by 20 old users: phase 16's recipe),
+    # and 2 × B users a slice, a quarter of them new ids
+    deltas, M_, N_ = [], st0.M, st0.N
+    n_u = max(1, round(100 * args.fit_scale))
+    n_i = max(1, round(50 * args.fit_scale))
+    for k, part in enumerate(np.array_split(np.arange(rest[0].size), 3)):
+        M2, N2 = M_ + n_u, N_ + n_i
+        r = np.concatenate([np.repeat(np.arange(M_, M2), 20),
+                            rng.integers(0, M_, 20 * n_i)])
+        c = np.concatenate([rng.integers(0, N2, 20 * n_u),
+                            np.repeat(np.arange(N_, N2), 20)])
+        key = np.unique(r.astype(np.int64) * N2 + c)
+        r, c = key // N2, key % N2
+        deltas.append(((np.concatenate([rest[0][part], r]).astype(np.int32),
+                        np.concatenate([rest[1][part], c]).astype(np.int32),
+                        np.concatenate([rest[2][part],
+                                        rng.integers(1, 6, r.size)])
+                        .astype(np.float32)),
+                       M2, N2, prng.PRNGKey(args.seed + 170 + k)))
+        M_, N_ = M2, N2
+    traffic = []
+    for s in range(6):
+        m_hi = deltas[s // 2][1]
+        traffic.append(np.concatenate([
+            rng.integers(0, st0.M, 2 * B - B // 2),
+            rng.integers(st0.M, m_hi, B // 2)]).astype(np.int32))
+
+    def leaf_hashes(st):
+        out = {}
+        for k, v in wal.state_tree(st).items():
+            a = v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+            out[k] = hashlib.sha256(np.ascontiguousarray(a).tobytes()
+                                    + str((a.dtype, a.shape)).encode()
+                                    ).hexdigest()
+        return out
+
+    def new_loop(root, reg):
+        up = OnlineUpdater(st0, lsh, hp, root=root, registry=reg, **up_kw)
+        svc = OnlineLoop.build_service(st0, scfg, tail_cap=cfg.tail_cap)
+        return OnlineLoop(up, svc, cfg, holdout=holdout, registry=reg)
+
+    def drive(loop, slices, kill=None, hashes=None, on_slice=None):
+        """Run ``slices`` of the stream; a kill raises at its site.  →
+        True when killed."""
+        plan = (faults.install(FaultPlan({kill[0]: FaultSpec(
+            at_calls=(kill[1],))})) if kill else None)
+        try:
+            for s in slices:
+                loop.svc.submit(traffic[s])
+                if s % 2 == 0:
+                    d, M2, N2, key = deltas[s // 2]
+                    loop.offer_delta(*d, key, M_new=M2, N_new=N2)
+                if on_slice is not None:
+                    on_slice(s, loop)
+                try:
+                    loop.run_slice()
+                except InjectedFault:
+                    return True
+                if hashes is not None:
+                    hashes[loop.updater.seq] = leaf_hashes(loop.state)
+            return False
+        finally:
+            if plan is not None:
+                faults.uninstall()
+
+    def settle(svc):
+        """Let a requested rebuild end: swapped, or given up on."""
+        for _ in range(2 * svc.cfg.rebuild_retries + 2):
+            if svc._rebuilder is None or svc._rebuild_sigs is None:
+                break
+            svc._rebuilder.join(600)
+            svc.flush()
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    base = tempfile.mkdtemp(prefix="chip_smoke-loop-",
+                            dir=os.path.join(ROOT, "build"))
+    try:
+        # ---- the reference arm: the main path, counters zeroed before ----
+        reg = obs.Registry(enabled=True)
+        loop = new_loop(os.path.join(base, "ref"), reg)
+        svc = loop.svc
+        served, checked, err = [], 0, 0.0
+
+        def snapshot(s, lp):
+            served.append((lp.svc.planes, lp.svc.index, lp.svc.sp,
+                           lp.svc.popular, lp.svc._flat_ids()))
+
+        ref = {}
+        lsh_kernel.LAUNCHES = 0
+        score_kernel.LAUNCHES = 0
+        scatter.LAUNCHES = 0
+        t0 = time.perf_counter()
+        kw = dict(n_seeds=scfg.n_seeds, cap=scfg.cap, C=scfg.C,
+                  window=scfg.seed_window, topn=scfg.topn,
+                  tile_b=scfg.tile_b)
+        for s in range(6):
+            drive(loop, [s], hashes=ref, on_slice=snapshot)
+            # the slice's first flush against the plain versions, on the
+            # state it served from
+            planes, index, sp_, popular, flat = served[-1]
+            (u, sc, it), *_ = svc.take_results()
+            s_ref, i_ref = recommend_walked_kernel(
+                planes, index, sp_, torch.from_numpy(u).to(dev), popular,
+                flat, tail_scan=index.tail_fill > 0, impl="ref", **kw)
+            err = max(err, assert_topn_close(sc, it, s_ref, i_ref))
+            checked += 1
+            served[-1] = None
+        sync()
+        wall = time.perf_counter() - t0
+        launches = dict(lsh_retrieve=lsh_kernel.LAUNCHES,
+                        candidate_score=score_kernel.LAUNCHES)
+        seg_launches = scatter.LAUNCHES
+        st = svc.stats()
+        warmups = sum(len(svc.obs.span_durations(n)) for n in (
+            "serve.ingest_online.warmup", "serve.ingest.warmup",
+            "serve.rebuild.swap"))
+        spans = {n: reg.span_durations(n) for n in (
+            "loop.slice", "loop.serve", "loop.train", "loop.drift",
+            "loop.publish", "loop.ckpt", "online.update", "online.micro",
+            "resil.wal.append")}
+        stale = reg.hist_summary("loop.staleness_s")
+        c = lambda n: int(reg.counter(n))
+        print(f"[17 loop] M={st0.M} N={st0.N} F={st0.params.U.shape[1]} "
+              f"K={K}, LoopConfig defaults (tail_cap {cfg.tail_cap}), "
+              f"holdout {n_hold} ratings; 6 slices in {wall:.2f} s to "
+              f"M={loop.state.M} N={loop.state.N} "
+              f"({loop.state.sp.nnz} ratings), seq {loop.updater.seq}; "
+              f"deltas of " + "/".join(str(d[0][0].size) for d in deltas)
+              + " ratings", flush=True)
+        print("[17 loop] span seconds (count: each): " + "; ".join(
+            f"{n} ({len(v)}: " + ", ".join(f"{x:.3f}" for x in v) + ")"
+            for n, v in spans.items()), flush=True)
+        print(f"[17 loop] staleness p99 {stale.get('p99', float('nan')):.3f}"
+              f" s (max {stale.get('max', float('nan')):.3f}, "
+              f"{stale.get('count', 0)} readings); publishes "
+              f"{c('loop.publishes')}, checkpoints {c('loop.ckpts')}, "
+              f"slices trained {c('loop.slices_trained')}, guard trips "
+              f"{c('loop.guard_trips')} (per-delta {c('resil.guard_trips')})"
+              f", drift trips {c('loop.drift_rebuilds')}, slice failures "
+              f"{c('loop.slice_failures')}, quarantined "
+              f"{c('loop.quarantined')}; drift rmse now "
+              f"{reg.gauge('loop.drift_rmse'):.6f}", flush=True)
+        print(f"[17 serve] {st['batches']} flushes, {st['users']} users: "
+              f"{st['qps']:.0f} users/s, p50 {st['p50_ms']:.3f} ms, p99 "
+              f"{st['p99_ms']:.3f} ms; launches {launches} = flushes "
+              f"{st['batches']} + warm-ups {warmups}; {checked} flushes (one "
+              f"a slice) within 1e-5 of the plain versions (max abs err "
+              f"{err:.3g}); dropped {st['dropped']}, fallbacks "
+              f"{st['fallbacks']}; segment_add launches {seg_launches} "
+              f"(power limit {power})", flush=True)
+        if c("loop.slice_failures") or st["dropped"] or st["fallbacks"]:
+            raise AssertionError(f"reference arm: slice failures "
+                                 f"{c('loop.slice_failures')}, dropped "
+                                 f"{st['dropped']}, fallbacks "
+                                 f"{st['fallbacks']}")
+        if c("loop.slices_trained") != 6 or c("online.updates") != 3:
+            raise AssertionError("the reference arm did not train every "
+                                 "slice and apply every delta")
+        if on_card and any(n != st["batches"] + warmups
+                           for n in launches.values()):
+            raise AssertionError(f"launches {launches} for {st['batches']} "
+                                 f"flushes and {warmups} warm-ups")
+        if on_card and not seg_launches:
+            raise AssertionError("segment_add never launched in the loop")
+
+        # ---- a drift trip on the loop's own path: the fit's catalog ----
+        trip = OnlineLoop(loop.updater, svc, dataclasses.replace(
+            cfg, drift_every=1, drift_tol=-0.5, micro_epochs=0,
+            ckpt_every=0), holdout=holdout, registry=obs.Registry(
+                enabled=True))
+        gave0 = int(svc.obs.counter("serve.rebuild.gave_up"))
+        swaps0 = int(svc.obs.counter("serve.rebuild.swaps"))
+        before_idx = svc.index
+        trip.run(3, degrade=False)
+        settle(svc)
+        tripped = int(trip.obs.counter("loop.drift_rebuilds"))
+        gave = int(svc.obs.counter("serve.rebuild.gave_up")) - gave0
+        swapped = int(svc.obs.counter("serve.rebuild.swaps")) - swaps0
+        outcome = ("gave_up" if gave else "swapped" if swapped
+                   else "pending")
+        print(f"[17 drift] drift_tol -0.5 on the reference loop: "
+              f"{tripped} trip(s) over 3 probes; the requested rebuild "
+              f"ended {outcome} (index kept: {svc.index is before_idx}, "
+              f"index_stale {svc.stats()['index_stale']}, builds "
+              f"{svc._rebuilder.builds}, failures {svc._rebuilder.failures})",
+              flush=True)
+        if tripped != 1 or outcome == "pending":
+            raise AssertionError(f"drift trips {tripped}, rebuild "
+                                 f"{outcome}")
+        del trip, loop, svc, served
+        gc.collect()
+
+        # ---- three arms killed at the loop's fault sites, recovered ----
+        for site, call in (("loop.slice", 3), ("loop.ckpt", 1),
+                           ("loop.drift", 1)):
+            root = os.path.join(base, site)
+            arm = new_loop(root, obs.Registry(enabled=True))
+            if not drive(arm, range(6), kill=(site, call)):
+                raise AssertionError(f"the fault at {site} never fired")
+            del arm
+            gc.collect()
+            rreg = obs.Registry(enabled=True)
+            sync()
+            t0 = time.perf_counter()
+            rec = OnlineLoop.recover(root, lsh, hp, scfg, cfg=cfg,
+                                     base_state=st0, holdout=holdout,
+                                     registry=rreg, **up_kw)
+            sync()
+            rec_s = time.perf_counter() - t0
+            q = rec.updater.seq
+            got = leaf_hashes(rec.state)
+            unequal = sorted(k for k in got if got[k] != ref.get(q, {}).get(k))
+            nxt = rec.slice_count
+            drive(rec, [nxt % 6])
+            sync()
+            rst = rec.svc.stats()
+            part = lambda n: sum(rreg.span_durations(n))
+            print(f"[17 kill] {site} call {call}: recovered to seq {q} "
+                  f"(slice {nxt}) in {rec_s:.3f} s = restore "
+                  f"{part('loop.recover.restore'):.3f} + WAL replay "
+                  f"{part('resil.wal.replay'):.3f} "
+                  f"({len(rreg.span_durations('resil.wal.replay'))} "
+                  f"entries) + build_service and warm-up "
+                  f"{part('loop.recover.service'):.3f} s; "
+                  f"{len(got) - len(unequal)} of {len(got)} leaf hashes "
+                  f"equal the reference's at seq {q}; one more slice: "
+                  f"dropped {rst['dropped']}, fallbacks {rst['fallbacks']}, "
+                  f"slice failures "
+                  f"{int(rreg.counter('loop.slice_failures'))}", flush=True)
+            if q not in ref or unequal:
+                raise AssertionError(f"{site}: seq {q}, unequal leaves "
+                                     f"{unequal}")
+            if (rst["dropped"] or rst["fallbacks"]
+                    or rreg.counter("loop.slice_failures")):
+                raise AssertionError(f"{site}: the recovered loop's slice "
+                                     f"failed or dropped users")
+            del rec
+            gc.collect()
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    sync()
+    print(f"[17 loop] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
+def comparators_phase(args, ctx: dict, dev, on_card: bool,
+                      power: str) -> None:
+    """Phase 18: the fit's Top-K comparators.  ``rand``, ``rp_cos`` and
+    ``minhash`` on phase 8's data and model; ``gsm`` beside ``simlsh`` at
+    `MOVIELENS_LIKE`'s own M × N with the paper's Table-7 settings."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import baselines, gsm, simlsh
+    from repro_torch.data import synthetic
+    from repro_torch.data.sparse import from_coo, train_test_split
+    from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
+    from repro_torch.train.trainer import FitConfig, build_neighbours, fit
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+
+    def run(tag, tr, te, shape, cfg):
+        """Neighbours alone (seconds, the device's peak MB above what was
+        resident), then `fit` with the `culsh_sgd` counter zeroed just
+        before.  → the `FitResult`."""
+        sp = from_coo(*tr, shape, device=dev)
+        k_nb = prng.split(prng.PRNGKey(cfg.seed), 3)[0]
+        sync()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        JK, S, _ = build_neighbours(sp, cfg, k_nb)
+        sync()
+        nb_s = time.perf_counter() - t0
+        peak = ((torch.cuda.max_memory_allocated() - held) / 1e6 if on_card
+                else float("nan"))
+        kept = megabytes(JK, *(() if S is None else (S,)))
+        del sp, JK, S
+        sgd_kernel.CULSH_LAUNCHES = 0
+        res = fit(tr, te, shape, cfg, device=dev)
+        launches = sgd_kernel.CULSH_LAUNCHES
+        nb_cf = res.schedule_stats["nb_cf"]
+        rm = [h[2] for h in res.history]
+        ep = np.diff([0.0] + [h[1] for h in res.history])
+        print(f"[18 {tag}] method={cfg.method} M={shape[0]} N={shape[1]} "
+              f"F={cfg.F} K={cfg.K}: neighbours {nb_s:.3f} s alone "
+              f"(peak {peak:.1f} MB on the card above what was resident; "
+              f"J^K{' + S' if cfg.method == 'simlsh' else ''} kept "
+              f"{kept:.1f} MB), {res.neighbour_seconds:.3f} s in the fit; "
+              f"epochs s " + ", ".join(f"{x:.3f}" for x in ep)
+              + f"; rmse " + ", ".join(f"{x:.6f}" for x in rm)
+              + f"; culsh_sgd launches {launches} = {nb_cf} conflict-free "
+              f"steps x {cfg.epochs} epochs (power limit {power})",
+              flush=True)
+        if not (np.isfinite(rm).all() and rm[-1] < rm[0]):
+            raise AssertionError(f"{cfg.method}: the fit did not train: {rm}")
+        if on_card and launches != nb_cf * cfg.epochs:
+            raise AssertionError(f"{cfg.method}: culsh_sgd launched "
+                                 f"{launches} times, expected "
+                                 f"{nb_cf * cfg.epochs}")
+        return res
+
+    # ---- rand, rp_cos, minhash on phase 8's data and model ----
+    tr, te, shape, cfg = ctx["tr"], ctx["te"], ctx["shape"], ctx["cfg"]
+    base = ctx["res"]
+    ep = np.diff([0.0] + [h[1] for h in base.history])
+    print(f"[18 simlsh] phase 10's fit: neighbours "
+          f"{base.neighbour_seconds:.3f} s; epochs s "
+          + ", ".join(f"{x:.3f}" for x in ep) + "; rmse "
+          + ", ".join(f"{h[2]:.6f}" for h in base.history), flush=True)
+    # simLSH again beside them, at the same depth in the same state of the
+    # process (phase 10's epochs ran before phases 11–17)
+    for method in ("simlsh", "rand", "rp_cos", "minhash"):
+        run("fit", tr, te, shape, dataclasses.replace(cfg, method=method,
+                                                      epochs=2))
+        gc.collect()
+    # bit-equality: minhash and random-K against the CPU on one band, and
+    # RP_cos run twice on the card
+    k_sig, k_top = prng.split(prng.split(prng.PRNGKey(cfg.seed), 3)[0])
+    one = dataclasses.replace(cfg.lsh, q=1)
+    sp_card = from_coo(*tr, shape, device=dev)
+    sp_cpu = from_coo(*tr, shape, device="cpu")
+    mh = baselines.minhash_signatures(sp_card, one, k_sig)
+    mh_eq = torch.equal(mh.cpu(), baselines.minhash_signatures(sp_cpu, one,
+                                                               k_sig))
+    rk = baselines.rand_topk(k_top, shape[1], cfg.K, device=dev)
+    rk_eq = torch.equal(rk.cpu(), baselines.rand_topk(k_top, shape[1],
+                                                      cfg.K))
+    rp = [baselines.rp_cos_signatures(sp_card, cfg.lsh, k_sig)
+          for _ in range(2)]
+    rp_eq = torch.equal(rp[0], rp[1])
+    print(f"[18 check] minhash (one band) equal to the CPU's: {mh_eq}; "
+          f"rand_topk equal to the CPU's: {rk_eq}; rp_cos ({cfg.lsh.q} "
+          f"bands) run twice on the card bit-identical: {rp_eq}", flush=True)
+    if not (mh_eq and rk_eq and rp_eq):
+        raise AssertionError("a comparator's bits moved")
+    del sp_card, sp_cpu, mh, rk, rp
+    gc.collect()
+
+    # ---- gsm beside simlsh at MOVIELENS_LIKE's M × N, Table-7 settings ----
+    spec7 = synthetic.MOVIELENS_LIKE
+    M7 = max(64, int(spec7.M * args.fit_scale))
+    N7 = max(32, int(spec7.N * args.fit_scale))
+    nnz7 = int(GSM_NNZ * args.fit_scale)
+    t0 = time.perf_counter()
+    rows, cols, vals, _ = synthetic.generate(dataclasses.replace(
+        spec7, M=M7, N=N7, nnz=nnz7), seed=args.seed)
+    tr7, te7 = train_test_split(np.random.default_rng(args.seed), rows, cols,
+                                vals)
+    gen_s = time.perf_counter() - t0
+    print(f"[18 gsm] MOVIELENS_LIKE at M={M7} N={N7} with {nnz7} ratings "
+          f"(of its {spec7.nnz}) generated in {gen_s:.1f} s (host numpy)",
+          flush=True)
+    cfg7 = FitConfig(F=16, K=8, epochs=6, batch=4096, method="gsm",
+                     lsh=simlsh.SimLSHConfig(G=8, p=1, q=20, band_cap=16,
+                                             psi_pow=2.0),
+                     seed=args.seed, use_kernels=True)
+    res_g = run("gsm", tr7, te7, (M7, N7), cfg7)
+    run("gsm", tr7, te7, (M7, N7), dataclasses.replace(cfg7,
+                                                       method="simlsh"))
+    # J^K of 64 sampled rows against a float64 recompute of their scores
+    sp7 = from_coo(*tr7, (M7, N7), device=dev)
+    r, c, v = sp7.rows.long(), sp7.cols.long(), sp7.vals.double()
+    cnt = torch.zeros(N7, dtype=torch.float64, device=dev).index_add_(
+        0, c, torch.ones_like(v))
+    mean = torch.zeros(N7, dtype=torch.float64, device=dev).index_add_(
+        0, c, v) / cnt.clamp(min=1.0)
+    xc = v - mean[c]
+    picks = torch.from_numpy(np.random.default_rng(args.seed).choice(
+        N7, size=min(64, N7), replace=False)).to(dev)
+    pos = torch.full((N7,), -1, dtype=torch.long, device=dev)
+    pos[picks] = torch.arange(picks.numel(), device=dev)
+    hit = pos[c] >= 0
+    sub = lambda w: torch.zeros((M7, picks.numel()), dtype=torch.float64,
+                                device=dev).index_put_(
+        (r[hit], pos[c][hit]), w[hit])
+
+    def gram(w, x):
+        """[N, 64]: Σ_i w[i, j2] · x[i, k] over the ratings (i, j2)."""
+        return torch.zeros((N7, picks.numel()), dtype=torch.float64,
+                           device=dev).index_add_(0, c, w[:, None] * x[r])
+
+    ones = torch.ones_like(xc)
+    num = gram(xc, sub(xc))                          # [N, 64]
+    n = gram(ones, sub(ones))
+    d1 = gram(xc * xc, sub(ones))                    # Σ B[i,j1] X2[i,j2]
+    d2 = gram(ones, sub(xc * xc))                    # Σ X2[i,j1] B[i,j2]
+    S = (n / (n + 100.0) * num / torch.sqrt(torch.clamp(d2 * d1, min=1e-12))
+         ).T                                           # [64, N]
+    S[torch.arange(picks.numel(), device=dev), picks] = float("-inf")
+    jk = res_g.JK[picks].long()
+    picked = torch.gather(S, 1, jk).sort(dim=1, descending=True).values
+    best = torch.topk(S, cfg7.K, dim=1).values
+    gsm_err = float((picked - best).abs().max())
+    flops, full_bytes = gsm.gsm_flops_bytes(M7, N7, cfg7.K)
+    flops100, full100 = gsm.gsm_flops_bytes(FIT_M, FIT_N, FIT_K)
+    cap = (torch.cuda.get_device_properties(0).total_memory if on_card
+           else float("nan"))
+    print(f"[18 gsm] J^K of {picks.numel()} sampled rows against a float64 "
+          f"recompute: their scores within {gsm_err:.3g} of the K best "
+          f"(limit 1e-5); at M={M7} N={N7} one dense [M, N] float32 "
+          f"operand is {4 * M7 * N7 / 1e9:.2f} GB, the full GSM "
+          f"{full_bytes / 1e9:.3f} GB and {flops:.3g} flops; at the 100M "
+          f"model (M={FIT_M}, N={FIT_N}) one operand would be "
+          f"{4 * FIT_M * FIT_N / 1e9:.1f} GB against the card's "
+          f"{cap / 1e9:.1f} GB (the full GSM {full100 / 1e9:.1f} GB, "
+          f"{flops100:.3g} flops), so GSM is not run there", flush=True)
+    if not gsm_err <= 1e-5:
+        raise AssertionError(f"GSM's J^K is off the float64 scores by "
+                             f"{gsm_err:.3g}")
+    del sp7, S, num, n, d1, d2, res_g
+    gc.collect()
+    sync()
+    print(f"[18 comparators] phase seconds "
+          f"{time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -2029,6 +2520,8 @@ def main(argv=None) -> int:
         args, octx, dict(params=params, sp=sp, sigs=sigs, cfg=cfg,
                          p5=(st["p50_ms"], st["p99_ms"])),
         dev, on_card, power))
+    loop_phase(args, octx, cfg, dev, on_card, power)
+    comparators_phase(args, ctx, dev, on_card, power)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

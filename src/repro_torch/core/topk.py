@@ -76,3 +76,17 @@ def topk_from_signatures(sigs: torch.Tensor, key: torch.Tensor, *, K: int,
                          for s in sigs])                   # [q, N, cap]
     cands = cands.permute(1, 0, 2).reshape(sigs.shape[1], -1)
     return topk_frequent(cands, key, K=K)
+
+
+def topk_first_index(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Row-wise top-``k`` column ids of float32 ``scores`` [B, N] as
+    int64, in `lax.top_k`'s order: a float's total order (−0 below +0),
+    equal scores lower id first.  A `topk` over int64 keys that pack the
+    score's order-preserving int32 image above the complement of the
+    id, so every key is distinct and no tie is left to the sort."""
+    bits = scores.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    N = scores.shape[1]
+    rank = torch.arange(N - 1, -1, -1, dtype=torch.int64,
+                        device=scores.device)                  # N−1−id
+    return torch.topk((ordered << 32) | rank, k, dim=1).indices

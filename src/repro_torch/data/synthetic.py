@@ -33,6 +33,17 @@ class DatasetSpec:
 MOVIELENS_LIKE = DatasetSpec("movielens-like", 69_878, 10_677, 9_900_054)
 
 
+def scaled(spec: DatasetSpec, scale: float) -> DatasetSpec:
+    """``spec`` with M and N scaled by ``scale`` (at least 64 and 32) and
+    the ratings by ``scale²`` (the density kept)."""
+    return dataclasses.replace(
+        spec,
+        M=max(64, int(spec.M * scale)),
+        N=max(32, int(spec.N * scale)),
+        nnz=int(spec.nnz * scale * scale),
+    )
+
+
 def generate(spec: DatasetSpec, seed: int = 0):
     """COO triples (rows, cols, vals) and the planted item groups.
 
@@ -84,3 +95,14 @@ def generate(spec: DatasetSpec, seed: int = 0):
     raw = raw + rng.normal(0, spec.noise, raw.shape)
     vals = np.clip(mid + amp * np.tanh(raw), spec.rmin, spec.rmax).astype(np.float32)
     return rows, cols, vals, group
+
+
+def add_noise(rng: np.random.Generator, vals, rate: float, rmin: float,
+              rmax: float):
+    """Paper Table 8 robustness protocol: corrupt ``rate`` of the ratings
+    uniformly in [rmin, rmax) (a new array; ``vals`` is untouched)."""
+    vals = vals.copy()
+    k = int(len(vals) * rate)
+    idx = rng.choice(len(vals), size=k, replace=False)
+    vals[idx] = rng.uniform(rmin, rmax, size=k).astype(np.float32)
+    return vals

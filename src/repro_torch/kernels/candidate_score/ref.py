@@ -49,13 +49,17 @@ def score_topn_ref(row, mu, col, user_ids, cand, *, topn: int,
     """row [M, F+1] (U‖b), mu [] (μ), col [N, F+1] (V‖b̂), user_ids [B],
     cand [B, C] SENTINEL-padded ids → (scores [B, topn] f32, items
     [B, topn] int32, SENTINEL where a slot was padding): the user rows
-    gathered with μ folded into their bias column, ids clipped to [0, N),
-    SENTINEL slots masked, `candidate_score_topn_ref`, and the slots
-    translated back to item ids."""
+    gathered (ids clamped to [0, M)) with μ folded into their bias
+    column, ids clipped to [0, N), SENTINEL slots masked,
+    `candidate_score_topn_ref`, and the slots translated back to item
+    ids."""
     F = row.shape[1] - 1
     safe = cand.clamp(0, col.shape[0] - 1).contiguous()
     mask = (cand != SENTINEL).to(torch.float32)
-    urow = row[user_ids.long()]                    # ONE row-side gather
+    # ONE row-side gather; a user id past the rows (a user the loop has
+    # trained but not yet published) reads the last row, as the kernel
+    # and the JAX package's clamped gather do
+    urow = row[user_ids.long().clamp(0, row.shape[0] - 1)]
     urow[:, F] += mu                               # bias col := μ + b_i
     scores, idx = candidate_score_topn_ref(urow, col, safe, mask, topn=topn,
                                            tile_b=tile_b)

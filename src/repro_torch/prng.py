@@ -72,12 +72,14 @@ def PRNGKey(seed: int, device="cpu") -> torch.Tensor:
 
 
 def split(key: torch.Tensor, num=2) -> torch.Tensor:
-    """`jax.random.split(key, num)` → keys ``[*shape, 2]``."""
+    """`jax.random.split(key, num)` → keys ``[*shape, 2]``.  A batch of
+    keys ``[..., 2]`` splits each (→ ``[..., *shape, 2]``), as a `vmap`
+    of `split` would."""
     shape = (num,) if isinstance(num, int) else tuple(num)
     k1, k2 = _words(key, key.device)
     hi, lo = _counter(math.prod(shape), key.device)
-    b1, b2 = threefry2x32(k1[0], k2[0], hi, lo)
-    return torch.stack([b1, b2], dim=-1).reshape(*shape, 2)
+    b1, b2 = threefry2x32(k1, k2, hi, lo)
+    return torch.stack([b1, b2], dim=-1).reshape(*key.shape[:-1], *shape, 2)
 
 
 def fold_in(key: torch.Tensor, data) -> torch.Tensor:
@@ -160,11 +162,14 @@ def _mul32(x, c: int):
 
 def randint(key, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
     """`jax.random.randint(key, shape, minval, maxval)` for int32: two
-    32-bit draws folded modulo the span (JAX's biased-but-cheap rule)."""
+    32-bit draws folded modulo the span (JAX's biased-but-cheap rule).  A
+    batch of keys ``[..., 2]`` gives ``[..., *shape]``, one draw per key
+    (a `vmap` of `randint`)."""
     minval, maxval = int(minval), int(maxval)
     if not (-2 ** 31 <= minval and maxval <= 2 ** 31 - 1):
         raise ValueError("randint: bounds must fit in int32")
-    k1, k2 = split(key)
+    ks = split(key)
+    k1, k2 = ks[..., 0, :], ks[..., 1, :]
     higher = random_bits(k1, shape, device)
     lower = random_bits(k2, shape, device)
     span = 1 if maxval <= minval else (maxval - minval) & M32

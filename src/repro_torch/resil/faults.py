@@ -31,8 +31,10 @@ exception falls back to exact scoring, a stall ages the queue);
 ``serve.rebuild`` and ``serve.rebuild.index``, in the background
 rebuilder before the build and on the built index; ``wal.append`` and
 ``online.update``, in `OnlineUpdater.update` before the entry is written
-and between logging and applying it.  The always-on loop's ``loop.*``
-sites come with the module that holds them.
+and between logging and applying it; ``loop.slice``, ``loop.drift``
+and ``loop.ckpt``, in `repro_torch.loop.OnlineLoop` before a slice
+starts, before the drift probe and before a progress checkpoint — pure
+crash windows, where a kill recovers bit-identically.
 
 Use as a context manager so a failing test can never leak a plan into
 the next one:

@@ -34,7 +34,8 @@ The files are the JAX package's: ``wal-{seq:012d}.npz`` entries holding
 the same fields — ``M_new``, ``N_new``, ``seq``), and checkpoints of the
 `state_tree` dict in `train.checkpoint`'s format.  A log either package
 wrote replays in the other.  Entries with a ``kind`` (the always-on
-loop's slices) are refused: the loop's own recovery replays them.
+loop's slices) are refused: `repro_torch.loop.OnlineLoop.recover`
+replays them.
 
 Fault-injection sites: ``wal.append`` (before an entry is written) and
 ``online.update`` (after it is logged, before it is applied).
@@ -324,9 +325,9 @@ class OnlineUpdater:
             if e.meta.get("kind") is not None:
                 raise ValueError(
                     f"WAL entry {e.seq} is a {e.meta['kind']!r} entry "
-                    f"written by the always-on loop — OnlineUpdater.recover "
-                    f"replays only online_update entries; the loop's own "
-                    f"recovery also replays micro-epochs and loop cursors")
+                    f"written by the always-on loop — recover with "
+                    f"repro_torch.loop.OnlineLoop.recover(), which also "
+                    f"replays micro-epochs and loop cursors")
             for k, v in want.items():
                 if e.meta.get(k) != v:
                     raise ValueError(

@@ -50,7 +50,7 @@ import torch
 from repro_torch import obs
 from repro_torch.core import simlsh
 from repro_torch.core.model import Params, ServePlanes, pack_serve_planes
-from repro_torch.core.topk import SENTINEL
+from repro_torch.core.topk import SENTINEL, topk_first_index
 from repro_torch.data.sparse import SparseMatrix
 from repro_torch.device import resolve_device
 from repro_torch.kernels import IMPLS, KernelError
@@ -127,18 +127,12 @@ def full_topn(params: Params, user_ids: torch.Tensor, *, topn: int):
     """Exact dense scoring — every item, every user.  The O(N) baseline.
 
     Equal scores keep the lower item id first, as `lax.top_k` orders
-    them: the selection is a `topk` over int64 keys that pack the score's
-    order-preserving int32 image above the complement of the item id, so
-    every key is distinct and its order is (score desc, id asc)."""
-    u = user_ids.long()
+    them (`topk.topk_first_index`).  A user id past the rows reads the
+    last one (the JAX package's clamped gather)."""
+    u = user_ids.long().clamp(0, params.U.shape[0] - 1)
     scores = (params.mu + params.b[u][:, None] + params.bh[None, :]
               + params.U[u] @ params.V.T) + 0.0       # −0 → +0: equal keys
-    bits = scores.view(torch.int32)
-    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
-    N = scores.shape[1]
-    rank = torch.arange(N - 1, -1, -1, dtype=torch.int64,
-                        device=scores.device)                  # N−1−id
-    item = torch.topk((ordered << 32) | rank, topn, dim=1).indices
+    item = topk_first_index(scores, topn)
     return torch.gather(scores, 1, item), item.to(torch.int32)
 
 

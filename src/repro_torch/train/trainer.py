@@ -10,9 +10,11 @@ JAX package splits them, so the same seed gives the same signatures,
 J^K, schedule and batch order.  ``schedule="none"`` is the legacy
 per-batch-search path (`sgd.train_epoch`, `model.rmse`); ``ckpt_dir``
 resumes from the newest complete checkpoint and, with ``ckpt_every``,
-saves one every that many epochs (`train/checkpoint.py`).  The
-comparator neighbour methods and more than one shard raise
-`NotImplementedError`.
+saves one every that many epochs (`train/checkpoint.py`).  ``method``
+picks the neighbour search: simLSH, or one of the paper's comparators
+(exact GSM, random-K, RP_cos, minHash; `core/gsm.py`,
+`core/baselines.py`), each feeding its J^K into the same epochs.  More
+than one shard raises `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -22,14 +24,12 @@ from typing import Callable
 import torch
 
 from repro_torch import obs, prng
-from repro_torch.core import model, sgd, simlsh, topk
+from repro_torch.core import baselines, gsm, model, sgd, simlsh, topk
 from repro_torch.data.sparse import (SparseMatrix, conflict_free_schedule,
                                      from_coo)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import IMPLS, _build
 from repro_torch.train import checkpoint as ckpt
-
-UNPORTED_METHODS = ("gsm", "rand", "rp_cos", "minhash")
 
 
 @dataclasses.dataclass
@@ -38,9 +38,8 @@ class FitConfig:
     K: int = 32
     epochs: int = 12
     batch: int = 4096
-    method: str = "simlsh"      # simlsh | none (plain MF); the JAX
-                                # package's gsm | rand | rp_cos | minhash
-                                # are not ported
+    method: str = "simlsh"      # simlsh | gsm | rand | rp_cos | minhash
+                                # | none (plain MF)
     lsh: simlsh.SimLSHConfig = dataclasses.field(
         default_factory=simlsh.SimLSHConfig)
     hp: sgd.Hyper = dataclasses.field(default_factory=sgd.Hyper)
@@ -96,16 +95,25 @@ def _sync(dev: torch.device) -> None:
 def build_neighbours(sp: SparseMatrix, cfg: FitConfig, key):
     """Neighbour search → (JK or None, S or None, signature key)."""
     k_sig, k_top = prng.split(key)
+    S = None
     if cfg.method == "none":
         return None, None, k_sig
-    if cfg.method in UNPORTED_METHODS:
-        raise NotImplementedError(f"method={cfg.method!r} is not ported; "
-                                  f"use 'simlsh' or 'none'")
-    if cfg.method != "simlsh":
+    if cfg.method == "simlsh":
+        sigs, S = simlsh.encode(sp, cfg.lsh, k_sig, return_accumulators=True)
+        JK = topk.topk_from_signatures(sigs, k_top, K=cfg.K,
+                                       band_cap=cfg.lsh.band_cap)
+    elif cfg.method == "gsm":
+        JK = gsm.gsm_topk(sp, K=cfg.K)
+    elif cfg.method == "rand":
+        JK = baselines.rand_topk(k_top, sp.N, cfg.K, device=sp.rows.device)
+    elif cfg.method in ("rp_cos", "minhash"):
+        signatures = (baselines.rp_cos_signatures if cfg.method == "rp_cos"
+                      else baselines.minhash_signatures)
+        JK = baselines.signatures_topk(signatures(sp, cfg.lsh, k_sig),
+                                       k_top, K=cfg.K,
+                                       band_cap=cfg.lsh.band_cap)
+    else:
         raise ValueError(f"unknown method {cfg.method}")
-    sigs, S = simlsh.encode(sp, cfg.lsh, k_sig, return_accumulators=True)
-    JK = topk.topk_from_signatures(sigs, k_top, K=cfg.K,
-                                   band_cap=cfg.lsh.band_cap)
     return JK, S, k_sig
 
 

@@ -1091,3 +1091,186 @@ def test_validate_index_on_card_says_what_it_says_on_the_cpu(cuda, field):
     assert validate_index(index.to(cuda)) == validate_index(index) == []
     want = validate_index(bad)
     assert want and validate_index(bad.to(cuda)) == want
+
+
+# ------------------------------------------------- the always-on loop
+
+_LOOP_REF = {}
+
+
+def _loop_on_card(root, cuda):
+    """`tests/test_resil.py`'s loop (its `LoopConfig` and `ServeConfig`)
+    on `_online_state`'s state on the card."""
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.loop import LoopConfig, OnlineLoop
+    from repro_torch.resil import OnlineUpdater
+    st, lsh = _online_state()
+    st = _state_to(st, cuda)
+    cfg = LoopConfig(serve_flushes=2, micro_epochs=1, micro_batch=512,
+                     deltas_per_slice=2, max_lag=2, ckpt_every=2,
+                     drift_every=2, drift_window=4, tail_cap=16, seed=0)
+    serve = ServeConfig(topn=5, micro_batch=8, C=32, n_seeds=4, cap=8,
+                        n_popular=16)
+    up = OnlineUpdater(st, lsh, Hyper(), root=str(root), K=8, epochs=1,
+                       batch=512)
+    svc = OnlineLoop.build_service(st, serve, tail_cap=cfg.tail_cap)
+    hold = tuple(a[:200] for a in (st.sp.rows, st.sp.cols, st.sp.vals))
+    return OnlineLoop(up, svc, cfg, holdout=hold), st, lsh, cfg, serve
+
+
+def _drive_on_card(loop, kill_site=None, kill_call=0):
+    """Six slices of `test_resil.py`'s schedule; → (killed, {seq: state
+    tree on the host})."""
+    from repro_torch.resil import faults, wal
+    from repro_torch.resil.faults import FaultSpec, InjectedFault
+    M, N = loop.state.M, loop.state.N
+    snaps = {}
+    plan = (faults.install(faults.FaultPlan(
+        {kill_site: FaultSpec(at_calls=(kill_call,))})) if kill_site
+        else None)
+    try:
+        for s in range(6):
+            rng = np.random.default_rng(500 + s)
+            loop.svc.submit(rng.integers(0, M, 16).astype(np.int32))
+            if s % 2 == 0:
+                M, N = M + 4, N + 2
+                d = _online_delta(loop.state, M, N, n=250, seed=1000 + s)
+                loop.offer_delta(*d, prng.PRNGKey(70 + s), M_new=M, N_new=N)
+            try:
+                loop.run_slice()
+            except InjectedFault:
+                return True, snaps
+            snaps[loop.updater.seq] = {
+                k: (v.cpu() if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.asarray(v)))
+                for k, v in wal.state_tree(loop.state).items()}
+        return False, snaps
+    finally:
+        if plan is not None:
+            faults.uninstall()
+
+
+def _loop_reference(cuda, root):
+    if "snaps" not in _LOOP_REF:
+        loop, *_ = _loop_on_card(root, cuda)
+        killed, snaps = _drive_on_card(loop)
+        assert not killed
+        assert loop.state.params.U.device.type == "cuda"
+        assert loop.svc.stats()["dropped"] == 0
+        _LOOP_REF["snaps"] = snaps
+    return _LOOP_REF["snaps"]
+
+
+def test_loop_on_card_run_twice_is_bit_identical(cuda, tmp_path):
+    """Six slices (ΔΩ, micro-epochs, drift probes, publishes, checkpoints)
+    on the card, twice in fresh roots: every state, by seq, bit for bit."""
+    ref = _loop_reference(cuda, tmp_path / "ref")
+    loop, *_ = _loop_on_card(tmp_path / "again", cuda)
+    killed, snaps = _drive_on_card(loop)
+    assert not killed and sorted(snaps) == sorted(ref)
+    for q in ref:
+        for k in ref[q]:
+            assert torch.equal(snaps[q][k], ref[q][k]), (q, k)
+
+
+@pytest.mark.parametrize("site,call", [("loop.slice", 3), ("loop.ckpt", 1),
+                                       ("loop.drift", 1)])
+def test_loop_kill_at_each_site_recovers_bit_identically_on_card(
+        cuda, tmp_path, site, call):
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.loop import OnlineLoop
+    from repro_torch.resil import wal
+    ref = _loop_reference(cuda, tmp_path / "ref")
+    loop, st0, lsh, cfg, serve = _loop_on_card(tmp_path / "killed", cuda)
+    killed, _ = _drive_on_card(loop, kill_site=site, kill_call=call)
+    assert killed
+    del loop
+    rec = OnlineLoop.recover(str(tmp_path / "killed"), lsh, Hyper(), serve,
+                             K=8, epochs=1, batch=512, cfg=cfg,
+                             base_state=st0)
+    assert rec.state.params.U.device.type == "cuda"
+    want = ref[rec.updater.seq]
+    for k, v in wal.state_tree(rec.state).items():
+        got = v.cpu() if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.asarray(v))
+        assert torch.equal(got, want[k]), (site, k)
+    rec.svc.submit(np.arange(16, dtype=np.int32))
+    rec.run_slice()
+    assert rec.svc.stats()["dropped"] == 0
+
+
+# ------------------------------------------------- the fit's comparators
+
+def _comparator_data(M=2000, N=500, nnz=20_000, seed=0):
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=M, N=N, nnz=nnz)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=seed)
+    return spec, rows, cols, vals
+
+
+def test_gsm_topk_on_card_matches_cpu(cuda):
+    """Ids equal to the CPU run's except where two scores agree within
+    1e-5 (the two devices' matmuls round differently)."""
+    from repro_torch.core import gsm
+    spec, rows, cols, vals = _comparator_data()
+    sp = from_coo(rows, cols, vals, (spec.M, spec.N), device="cpu")
+    cpu = gsm.gsm_topk(sp, K=16).numpy().astype(np.int64)
+    got = gsm.gsm_topk(sp.to(cuda), K=16)
+    assert got.device.type == "cuda"
+    got = got.cpu().numpy().astype(np.int64)
+    X = np.zeros((spec.M, spec.N))
+    B = np.zeros((spec.M, spec.N))
+    X[rows, cols], B[rows, cols] = vals, 1.0
+    Xc = (X - X.sum(0) / np.maximum(B.sum(0), 1.0)) * B
+    X2 = Xc * Xc
+    n = B.T @ B
+    S = n / (n + 100.0) * (Xc.T @ Xc) / np.sqrt(
+        np.maximum((X2.T @ B) * (B.T @ X2), 1e-12))
+    np.fill_diagonal(S, -np.inf)
+    differ = got != cpu
+    s_got = np.take_along_axis(S, got, axis=1)
+    s_cpu = np.take_along_axis(S, cpu, axis=1)
+    assert (np.abs(s_got - s_cpu)[differ] <= 1e-5).all()
+    assert differ.sum() <= 0.01 * differ.size
+
+
+def test_comparator_signatures_on_card_equal_cpu(cuda):
+    """minHash and random-K are threefry draws and an order-free minimum;
+    RP_cos sums through `index_add_det_`: all bit-equal to the CPU, and
+    run to run."""
+    from repro_torch.core import baselines
+    spec, rows, cols, vals = _comparator_data()
+    sp = from_coo(rows, cols, vals, (spec.M, spec.N), device="cpu")
+    cfg = simlsh.SimLSHConfig(G=8, p=3, q=6)
+    key = prng.PRNGKey(11)
+    for fn in (baselines.minhash_signatures, baselines.rp_cos_signatures):
+        want = fn(sp, cfg, key)
+        runs = [fn(sp.to(cuda), cfg, key) for _ in range(2)]
+        assert runs[0].device.type == "cuda"
+        assert torch.equal(runs[0].cpu(), want), fn.__name__
+        assert torch.equal(runs[0], runs[1]), fn.__name__
+    got = baselines.rand_topk(key, spec.N, 16, device=cuda)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), baselines.rand_topk(key, spec.N, 16))
+
+
+@pytest.mark.parametrize("method", ["rp_cos", "minhash", "rand", "gsm"])
+def test_fit_with_comparator_on_card_launches_culsh_per_cf_step(cuda,
+                                                                 method):
+    from repro_torch.train.trainer import FitConfig, fit
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=300, N=90,
+                               nnz=4000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=0)
+    tr, te = train_test_split(np.random.default_rng(0), rows, cols, vals)
+    cfg = FitConfig(F=16, K=8, epochs=2, cf_batch=64, use_kernels=True,
+                    method=method,
+                    lsh=simlsh.SimLSHConfig(G=8, p=1, q=10, band_cap=16))
+    before = sgd_kernel.CULSH_LAUNCHES
+    res = fit(tr, te, (spec.M, spec.N), cfg)
+    assert (sgd_kernel.CULSH_LAUNCHES - before
+            == res.schedule_stats["nb_cf"] * cfg.epochs)
+    assert res.JK.device.type == "cuda"
+    cpu = fit(tr, te, (spec.M, spec.N), cfg, device="cpu")
+    if method != "gsm":
+        assert torch.equal(res.JK.cpu(), cpu.JK)
+    for (_, _, a), (_, _, b) in zip(res.history, cpu.history):
+        assert abs(a - b) < 1e-4

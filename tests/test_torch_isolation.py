@@ -44,7 +44,10 @@ def test_the_port_has_its_files():
             "src/repro_torch/kernels/neighbor_predict/ops.py",
             "src/repro_torch/core/scatter.py",
             "src/repro_torch/resil/rebuild.py",
-            "src/repro_torch/resil/wal.py"} <= names
+            "src/repro_torch/resil/wal.py",
+            "src/repro_torch/loop/supervisor.py",
+            "src/repro_torch/core/gsm.py",
+            "src/repro_torch/core/baselines.py"} <= names
     assert len(names) >= 20
 
 

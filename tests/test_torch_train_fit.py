@@ -10,9 +10,10 @@ CPU at a small size (M = 200, N = 80, 2,700 training triples).
   statistics equal, and the test RMSE after each of 3 epochs within
   1e-4 of the JAX package's (2.4e-7 measured: the Φ, J^K, schedule and
   batch order are bit-equal, the initial factors agree to a few ulp).
-* The paths `fit` does not port yet (the comparator neighbour methods,
-  more than one shard) raise `NotImplementedError`, and with no device
-  given it runs on ``cuda``.  ``schedule="none"`` and checkpoints run:
+* The path `fit` does not port yet (more than one shard) raises
+  `NotImplementedError`; the comparator neighbour methods run (their
+  parity: `test_torch_comparators.py`), and with no device given it runs
+  on ``cuda``.  ``schedule="none"`` and checkpoints run:
   `tests/test_torch_legacy_ckpt.py`.
 * `convert` carries keys and packed planes between the packages.
 """
@@ -155,9 +156,17 @@ def test_fit_matches_jax(data, method, use_kernels):
     (dict(shards=2), "shard"),
 ])
 def test_unported_paths_raise(data, change, match):
+    """Only more than one shard is refused.  Each comparator method the
+    JAX package accepts runs (its parity: `test_torch_comparators.py`),
+    and is refused only beside ``shards=2``, for the shards."""
     spec, tr, te = data
     cfg = trainer.FitConfig(epochs=1, **SMALL, **change)
-    with pytest.raises(NotImplementedError, match=match):
+    if "method" in change:
+        res = trainer.fit(tr, te, (spec.M, spec.N), cfg, device="cpu")
+        assert cfg.method == match and res.JK.shape == (spec.N, SMALL["K"])
+        assert np.isfinite(res.history[-1][2])
+        cfg = dataclasses.replace(cfg, shards=2)
+    with pytest.raises(NotImplementedError, match="shard"):
         trainer.fit(tr, te, (spec.M, spec.N), cfg, device="cpu")
 
 
