@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port's main paths — serving, the offline
 fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
-online learning, its resilience layer, the always-on loop and the fit's
-neighbour comparators — on one CUDA card.
+online learning, its resilience layer, the always-on loop, the fit's
+neighbour comparators and the other serving paths — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -145,11 +145,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     sampled rows; each method's neighbour seconds and device memory
     beside simLSH's, and GSM's dense-operand reckoning at the 100M
     model, which the card cannot hold.
+19. serving paths — on phase 3's catalog at full width with its J^K
+    (`topk_from_signatures(sigs, fold_in(key, 1), K=16, band_cap=16)`,
+    `benchmarks/bench_serve.py`'s recipe) and a fresh index: the legacy
+    pool + dedup oracle (``band_budget=0``) for warm-up + 64 flushes, the
+    counters zeroed just before (one `candidate_score` launch a flush or
+    warm-up, no `lsh_retrieve`), its first 8 flushes against
+    `recommend_candidates(impl="ref")` at 1e-5, `retrieve_for_users` on
+    the card equal to the CPU's, a ``pool_width=512`` flush; the plain
+    walk (``impl="ref"``: no kernel launch), `walk_candidates` on the
+    card equal to the CPU's; each arm's recall@10 on phase 6's probe
+    users (floor 0.5) and the plain walk's top-10 overlap with the
+    kernel path; ``route_full_below = N + 1`` answering `full_topn`'s
+    ids and ``-1`` reporting its verdict; `profile_flush` on the kernel
+    walk, plain walk and legacy services (the JAX span names, the staged
+    answer equal to the fused flush's).
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–18 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–19 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -2265,6 +2280,192 @@ def comparators_phase(args, ctx: dict, dev, on_card: bool,
           f"{time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+def serve_paths_phase(args, serve: dict, dev, on_card: bool,
+                      power: str) -> None:
+    """Phase 19: the serving paths beside the kernel walk, on phase 3's
+    catalog at full width with its J^K (`benchmarks/bench_serve.py`'s
+    recipe) and a fresh index (tail_cap 128): the legacy pool + dedup
+    oracle (``band_budget=0``) through the `candidate_score` kernel, the
+    plain walk (``impl="ref"``, no kernel), small-catalog routing and
+    `profile_flush` on three paths."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import topk
+    from repro_torch.kernels.candidate_score import kernel as score_kernel
+    from repro_torch.kernels.candidate_score.ref import assert_topn_close
+    from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
+    from repro_torch.core.topk import SENTINEL
+    from repro_torch.serve import (RecsysService, build_index,
+                                   recommend_candidates, retrieve_for_users,
+                                   walk_candidates)
+
+    t_phase = time.perf_counter()
+    params, sp, sigs, scfg = (serve[k] for k in ("params", "sp", "sigs",
+                                                 "cfg"))
+    probe, exact = serve["probe"], serve["exact"]
+    B, M, N = scfg.micro_batch, sp.M, sp.N
+    t0 = time.perf_counter()
+    JK = topk.topk_from_signatures(sigs, prng.fold_in(serve["key"], 1),
+                                   K=16, band_cap=16)
+    index = build_index(sigs, tail_cap=128, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+    print(f"[19 state] J^K [{N}, 16] and a fresh index in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(args.seed + 19)
+    batches = [rng.integers(0, M, B).astype(np.int32)
+               for _ in range(BATCHES)]
+    rkw = dict(n_seeds=scfg.n_seeds, cap=scfg.cap, window=scfg.seed_window)
+
+    def service(**kw):
+        return RecsysService(params, index, sp, dataclasses.replace(scfg, **kw),
+                             JK=JK, device=dev)
+
+    def launches():
+        return dict(lsh_retrieve=lsh_kernel.LAUNCHES,
+                    candidate_score=score_kernel.LAUNCHES)
+
+    def drive(tag, svc):
+        """Warm-up + the 64 flushes, the counters zeroed just before; the
+        probe users' recall@10 after.  → (stats, results, launches,
+        probe answers, recall)."""
+        lsh_kernel.LAUNCHES = score_kernel.LAUNCHES = 0
+        svc.warmup()
+        for users in batches:
+            svc.submit(users)
+        svc.flush()
+        n = launches()
+        st, res = svc.stats(), svc.take_results()
+        svc.submit(probe)
+        svc.flush()
+        got = np.concatenate([r[2] for r in svc.take_results()])
+        rec = sum(len(set(g) & set(e)) for g, e in zip(got, exact)) / exact.size
+        print(f"[19 {tag}] {st['batches']} flushes, {st['users']} users: "
+              f"{st['qps']:.0f} users/s (busy time), p50 {st['p50_ms']:.3f} "
+              f"ms, p99 {st['p99_ms']:.3f} ms per flush; launches {n}; "
+              f"recall@{scfg.topn} {rec:.4f} on {len(probe)} probe users "
+              f"(floor 0.5; power limit {power})", flush=True)
+        if st["fallbacks"] or not rec >= 0.5:
+            raise AssertionError(f"{tag}: fallbacks {st['fallbacks']}, "
+                                 f"recall {rec:.4f}")
+        return st, res, n, got, rec
+
+    # ---- (a) the legacy pool + dedup oracle ----
+    legacy = service(band_budget=0)
+    st, res, n, got_legacy, _ = drive("legacy", legacy)
+    if on_card and n != dict(lsh_retrieve=0,
+                             candidate_score=st["batches"] + 1):
+        raise AssertionError(f"legacy: launches {n} for {st['batches']} "
+                             f"flushes + 1 warm-up")
+    ckw = dict(rkw, C=scfg.C, pool_width=0, fold_mates=True, tail_scan=False,
+               topn=scfg.topn, tile_b=scfg.tile_b)
+    err = 0.0
+    for users, s, i in res[:8]:
+        s_ref, i_ref = recommend_candidates(
+            legacy.planes, index, sp, torch.from_numpy(users).to(dev),
+            legacy.JK, legacy.popular, impl="ref", **ckw)
+        err = max(err, assert_topn_close(s, i, s_ref, i_ref))
+    users = torch.from_numpy(batches[0]).to(dev)
+    index_c, sp_c = index.to("cpu"), sp.to("cpu")    # the CPU's copies
+    cand = retrieve_for_users(index, sp, users, C=scfg.C, JK=legacy.JK,
+                              popular=legacy.popular, tail_scan=False, **rkw)
+    cand_cpu = retrieve_for_users(index_c, sp_c, users.cpu(), C=scfg.C,
+                                  JK=legacy.JK.cpu(),
+                                  popular=legacy.popular.cpu(),
+                                  tail_scan=False, **rkw)
+    if not torch.equal(cand.cpu(), cand_cpu):
+        raise AssertionError("legacy: retrieve_for_users on the card differs "
+                             "from the CPU's")
+    filled = float((cand != SENTINEL).float().mean())
+    wide = service(band_budget=0, pool_width=512)
+    cand_w = retrieve_for_users(index, sp, users, C=scfg.C, JK=wide.JK,
+                                popular=wide.popular, pool_width=512,
+                                tail_scan=False, **rkw).cpu().numpy()
+    P = wide.popular.shape[0]
+    uniq = all(len(set(r[r != SENTINEL])) == int((r != SENTINEL).sum())
+               for r in cand_w)
+    wide.submit(batches[0])
+    wide.flush()
+    items_w = wide.take_results()[0][2]
+    uniq &= all(len(set(r)) == len(r) for r in items_w)
+    print(f"[19 legacy] first 8 flushes within 1e-5 of recommend_candidates("
+          f"impl='ref') (max abs err {err:.3g}); retrieve_for_users on the "
+          f"card equal to the CPU's (slots filled {filled:.3f}); pool_width "
+          f"512: ids unique per row {uniq}, shortlist in the last {P} slots",
+          flush=True)
+    if not uniq or not (cand_w[:, -P:] == wide.popular.cpu().numpy()).all():
+        raise AssertionError("legacy: pool_width=512 candidates")
+    del wide
+
+    # ---- (b) the plain walk ----
+    plain = service(impl="ref")
+    st, res, n, got_plain, _ = drive("plain walk", plain)
+    if n != dict(lsh_retrieve=0, candidate_score=0):
+        raise AssertionError(f"plain walk launched kernels: {n}")
+    wkw = dict(rkw, budget=scfg.band_budget)
+    ids, seeds = walk_candidates(index, sp, users, **wkw)
+    ids_c, seeds_c = walk_candidates(index_c, sp_c, users.cpu(), **wkw)
+    if not (torch.equal(ids.cpu(), ids_c) and torch.equal(seeds.cpu(),
+                                                          seeds_c)):
+        raise AssertionError("walk_candidates on the card differs from the "
+                             "CPU's")
+    kern = serve["probe_items"]
+    overlap = lambda a: sum(len(set(g) & set(e))
+                            for g, e in zip(a, kern)) / kern.size
+    print(f"[19 plain walk] walk_candidates on the card equal to the CPU's "
+          f"(slots used {float((ids != SENTINEL).float().mean()):.3f} of "
+          f"{scfg.band_budget}); top-10 overlap with the kernel path (phase "
+          f"6) {overlap(got_plain):.4f}, legacy with the kernel path "
+          f"{overlap(got_legacy):.4f}", flush=True)
+
+    # ---- (c) small-catalog routing ----
+    routed = service(route_full_below=N + 1)
+    routed.submit(probe)
+    routed.flush()
+    got_r = np.concatenate([r[2] for r in routed.take_results()])
+    auto = service(route_full_below=-1)
+    rd = auto.route_decision()
+    thr = 48 * scfg.C                   # the auto threshold (36,864 items)
+    print(f"[19 route] route_full_below={N + 1}: {routed.route_decision()}, "
+          f"answers equal full_topn's {np.array_equal(got_r, exact)}; "
+          f"route_full_below=-1: {rd}", flush=True)
+    if not np.array_equal(got_r, exact):
+        raise AssertionError("routed answers differ from full_topn's")
+    if rd != dict(enabled=True, threshold=thr, n_items=N,
+                  decision="full" if N <= thr else "candidate") or \
+            auto.stats()["route"] != rd:
+        raise AssertionError(f"route_full_below=-1: {rd}")
+    del routed, auto, index_c, sp_c
+
+    # ---- (d) profile_flush: staged spans, staged answer = fused ----
+    walk = ["serve.flush", "serve.flush.retrieve",
+            "serve.flush.retrieve.desc", "serve.flush.retrieve.walk",
+            "serve.flush.score"]
+    want = {"kernel walk": walk, "plain walk": walk + ["serve.flush.select"],
+            "legacy": ["serve.flush", "serve.flush.retrieve",
+                       "serve.flush.retrieve.pool",
+                       "serve.flush.retrieve.dedup", "serve.flush.score"]}
+    for tag, svc in (("kernel walk", service().warmup()),
+                     ("plain walk", plain), ("legacy", legacy)):
+        svc.submit(batches[1])
+        svc.flush()
+        _, s_f, i_f = svc.take_results()[0]
+        secs = svc.profile_flush(batches[1])
+        s_p, i_p = (x.cpu().numpy() for x in svc.profiled)
+        same = (np.array_equal(i_p, i_f)
+                and float(np.abs(s_p - s_f).max()) <= 1e-5)
+        print(f"[19 profile] {tag}: " + ", ".join(
+            f"{k.removeprefix('serve.flush.') if k != 'serve.flush' else k} "
+            f"{v * 1e3:.3f} ms" for k, v in secs.items())
+            + f"; staged answer = fused {same}", flush=True)
+        if sorted(secs) != sorted(want[tag]) or not same:
+            raise AssertionError(f"profile_flush ({tag}): {sorted(secs)}, "
+                                 f"staged = fused {same}")
+    print(f"[19 paths] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -2522,6 +2723,10 @@ def main(argv=None) -> int:
         dev, on_card, power))
     loop_phase(args, octx, cfg, dev, on_card, power)
     comparators_phase(args, ctx, dev, on_card, power)
+    serve_paths_phase(args, dict(params=params, sp=sp, sigs=sigs, cfg=cfg,
+                                 probe=probe, exact=exact, probe_items=got_p,
+                                 key=prng.PRNGKey(args.seed, device=dev)),
+                      dev, on_card, power)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

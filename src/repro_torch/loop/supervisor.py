@@ -465,7 +465,8 @@ class OnlineLoop:
         sigs = simlsh.pack_bits(state.S >= 0)
         idx = lsh_index.build_index(sigs, tail_cap=tail_cap, device=dev)
         return RecsysService(state.params, idx, state.sp, serve_cfg,
-                             registry=registry, device=dev).warmup()
+                             JK=state.JK, registry=registry,
+                             device=dev).warmup()
 
     @classmethod
     def recover(cls, root: str, lsh, hp, serve_cfg: ServeConfig, *, K: int,

@@ -1,17 +1,25 @@
 """Request-batching serving loop: retrieval → candidate scoring → top-N
-(`repro/serve/service.py`, single-device walk path).
+(`repro/serve/service.py`, single device).
 
 A `RecsysService` owns the trained parameters (packed once into the
-`ServePlanes` scoring layout), the persistent `LSHIndex`, and two
-pipelines:
+`ServePlanes` scoring layout), the persistent `LSHIndex`, and the
+serving pipelines, routed by `ServeConfig` as the JAX package routes
+them (`RecsysService._recommend`):
 
-  * ``candidate`` — `recommend_walked_kernel`: seeds → window descriptors
-    → the `lsh_retrieve` kernel (walk + dedup) → the `candidate_score`
-    kernel (gather, score, top-N).  On the card these are two chained
-    CUDA kernels; on the CPU the same function runs their plain
-    versions.
-  * ``full`` — exact `μ + b_i + b̂ + U Vᵀ` top-N over every item, the
-    O(N) baseline kept for recall measurement.
+  * ``band_budget > 0`` — the walk path.  `recommend_walked_kernel`:
+    seeds → window descriptors → the `lsh_retrieve` kernel (walk +
+    dedup) → the `candidate_score` kernel (gather, score, top-N); on the
+    CPU the same function runs their plain versions.  With
+    ``impl="ref"``, `recommend_walked`: merged interval descriptors
+    enumerated under the budget, the pool scored with its duplicates,
+    duplicate-masked top-N — plain PyTorch on any device, the path the
+    JAX package runs on its CPU by default.
+  * ``band_budget = 0`` — `recommend_candidates`, the legacy pool +
+    dedup oracle: the bucket-mate / seed / J^K / tail union
+    deduplicated by one hashed sort, scored by the `candidate_score`
+    kernel (its plain version on the CPU or with ``impl="ref"``).
+  * ``mode="full"`` (or a catalog at most ``route_full_below`` items) —
+    exact `μ + b_i + b̂ + U Vᵀ` top-N over every item, `full_topn`.
 
 Requests are micro-batched: `submit` queues user ids and flushes a
 fixed-shape batch whenever ``micro_batch`` are pending (the final partial
@@ -20,7 +28,8 @@ the device before flush k is synced, so the host-side assembly and copy
 out of one flush overlap the device work of the next.  Latency is
 measured per flush from dispatch to result readiness, and QPS divides by
 non-overlapping busy time.  Every metric lives in the service's private
-`obs.Registry`, which `stats()` reads.
+`obs.Registry`, which `stats()` reads; `profile_flush` runs one flush
+stage by stage under nested spans.
 
 The ingestion plane (paper Alg. 4): `ingest` puts new items into the
 index tail; when the tail would overflow it hands the full signature set
@@ -28,7 +37,7 @@ to a background rebuild (`resil.rebuild`, validate-then-swap, on its own
 CUDA stream) while index v keeps serving, or rebuilds synchronously with
 ``background_rebuild=False``; `ingest_online_update` adopts a
 `core.online.online_update` result (grown parameters, merged
-interactions, new columns' signatures).
+interactions, J^K, new columns' signatures).
 
 Resilience (the JAX package's): the admission queue is bounded
 (``max_pending``) with deadline-aware shedding (``deadline_s``) into a
@@ -55,6 +64,7 @@ from repro_torch.data.sparse import SparseMatrix
 from repro_torch.device import resolve_device
 from repro_torch.kernels import IMPLS, KernelError
 from repro_torch.kernels.candidate_score.ops import score_candidates
+from repro_torch.kernels.candidate_score.ref import NEG
 # a module import: `lsh_retrieve.ops` imports this package's index, so it
 # may be mid-import when this module loads
 from repro_torch.kernels.lsh_retrieve import ops as lsh_ops
@@ -65,12 +75,22 @@ from repro_torch.resil.validate import (_MAX_ID, PoisonBatchError,
                                         check_ingest_batch)
 from repro_torch.serve import index as lsh_index
 from repro_torch.serve.index import LSHIndex, padded_flat_ids
+from repro_torch.serve.retrieve import (_walk_gather, candidate_pool,
+                                        enumerate_windows,
+                                        finalize_candidates,
+                                        retrieve_for_users, seed_items,
+                                        tail_hits, walk_candidates,
+                                        window_descriptors)
 
 _LATER = "is not ported yet: it belongs to a later slice of the port ({})"
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
+    """The JAX package's `ServeConfig` less two fields: ``interpret``
+    selects the Pallas interpreter, which has no counterpart here, and
+    ``shard_budget`` comes with ``shards`` in the multi-device tier (any
+    ``shards`` but 0 raises until then)."""
     mode: str = "candidate"   # candidate | full
     topn: int = 10
     micro_batch: int = 256
@@ -80,13 +100,34 @@ class ServeConfig:
     cap: int = 8              # bucket-mates taken per band per seed
     n_popular: int = 64       # global popularity shortlist size (0 = off)
     seed_window: int = 64
-    band_budget: int = 512    # > 0 = the window-walk retrieval path; the
-                              # kernel path walks whole windows, so only
-                              # 0 vs > 0 matters here
-    tile_b: int = 8           # plain scorer's gather tile (users)
-    impl: str = "auto"        # auto | cuda | ref — auto launches the CUDA
-                              # kernels on the card and runs their plain
-                              # versions on the CPU
+    use_jk: bool = True       # include seeds' training Top-K lists (the
+                              # legacy path; the service's JK argument)
+    fold_mates: bool = True   # fold per-(seed, band) bucket runs pairwise
+                              # (halves the dedup sort width; see
+                              # retrieve._fold_prefix_runs)
+    pool_width: int = 0       # generic pre-dedup pool compaction width
+                              # (0 = off; see retrieve.compact_pool)
+    band_budget: int = 512    # > 0 = the window-walk retrieval path (the
+                              # default pipeline): the lsh_retrieve kernel
+                              # walks whole windows (band_budget is not
+                              # read there), and with impl="ref" merged
+                              # per-band intervals are enumerated under
+                              # this shared per-user slot budget
+                              # (retrieve.walk_candidates), duplicates
+                              # folded at top-n selection.  0 = the legacy
+                              # pool+dedup retrieval (the exact oracle).
+                              # Size it near the p90 merged-interval mass
+                              # (~q·n_seeds·3 at cap=8 on zipf catalogs):
+                              # budget truncation drops whole trailing
+                              # windows, which costs recall fast
+    route_full_below: int = 0 # candidate-mode routing escape hatch: serve
+                              # via exact full_topn when the catalog has at
+                              # most this many items (candidate retrieval
+                              # has a fixed per-user cost that exceeds the
+                              # O(N) scan on small catalogs; the JAX
+                              # package measured the crossover ≈ 48·C
+                              # items on its CPU).  -1 = that auto
+                              # threshold; 0 = off (the default)
     # resilience knobs
     max_pending: int = 0      # admission bound on queued users (0 = off);
                               # overflow sheds the *oldest* chunks into the
@@ -103,6 +144,16 @@ class ServeConfig:
     rebuild_retries: int = 3  # failed/invalid background builds are retried
                               # this many times before giving up (the old
                               # index keeps serving either way)
+    # kernel knobs
+    tile_b: int = 8           # plain scorer's gather tile (users)
+    walk_tile_b: int = 16     # gather tile of the plain walk path's pool
+                              # scoring (recommend_walked)
+    impl: str = "auto"        # auto | cuda | ref — auto launches the CUDA
+                              # kernels on the card and runs their plain
+                              # versions on the CPU; ref is the JAX
+                              # package's CPU default: the plain walk path
+                              # (band_budget > 0) or the plain scorer
+                              # (band_budget = 0), on any device
     # knob of a later slice: any value but the default raises
     shards: int | str = 0
 
@@ -117,10 +168,9 @@ class ServeConfig:
             raise NotImplementedError(
                 "sharded serving (shards != 0) " + _LATER.format(
                     "multi-device tiers"))
-        if self.band_budget == 0:
-            raise NotImplementedError(
-                "the legacy pool+dedup retrieval (band_budget=0) "
-                + _LATER.format("legacy serving paths"))
+
+    def resolved_pool_width(self) -> int:
+        return self.pool_width
 
 
 def full_topn(params: Params, user_ids: torch.Tensor, *, topn: int):
@@ -144,6 +194,99 @@ def popular_shortlist(params: Params, n: int) -> torch.Tensor:
     return order[:n].to(torch.int32).contiguous()
 
 
+def recommend_candidates(planes: ServePlanes, index: LSHIndex,
+                         sp: SparseMatrix, user_ids: torch.Tensor,
+                         JK: torch.Tensor | None,
+                         popular: torch.Tensor | None, *, n_seeds: int,
+                         cap: int, C: int, window: int, pool_width: int,
+                         fold_mates: bool, tail_scan: bool, topn: int,
+                         tile_b: int, impl: str = "auto"):
+    """The legacy pool + dedup path (``band_budget=0``): the
+    `retrieve_for_users` candidates scored by the `candidate_score`
+    kernel (on the card; its plain version on the CPU or with
+    ``impl="ref"``).  → (scores [B, topn], items [B, topn])."""
+    cand = retrieve_for_users(index, sp, user_ids, n_seeds=n_seeds, cap=cap,
+                              C=C, JK=JK, popular=popular, window=window,
+                              pool_width=pool_width, fold_mates=fold_mates,
+                              tail_scan=tail_scan)
+    return score_candidates(planes, user_ids, cand, topn=topn, tile_b=tile_b,
+                            impl=impl)
+
+
+def _pool_scores(urow: torch.Tensor, plane: torch.Tensor, cand: torch.Tensor,
+                 *, tile_b: int) -> torch.Tensor:
+    """Scores of a [B, W] id pool with its duplicates, ``tile_b`` users
+    at a time (a [tile_b, W, F+1] gather, never the [B, W, F] cube).
+    SENTINEL slots score NEG."""
+    F = plane.shape[1] - 1
+    out = []
+    for t0 in range(0, cand.shape[0], tile_b):
+        u, c = urow[t0:t0 + tile_b], cand[t0:t0 + tile_b]
+        rows = plane[c.clamp(0, plane.shape[0] - 1).long()]
+        s = (torch.einsum("bf,bcf->bc", u[:, :F], rows[..., :F])
+             + rows[..., F] + u[:, F][:, None])
+        out.append(torch.where(c == SENTINEL, NEG, s))
+    return torch.cat(out) if out else urow.new_empty(cand.shape)
+
+
+def _score_pool(planes: ServePlanes, user_ids: torch.Tensor,
+                cand: torch.Tensor, popular: torch.Tensor | None, *,
+                tile_b: int):
+    """Walked pool + popularity shortlist → (scores [B, W(+P)], cand
+    [B, W(+P)]).  The shortlist is batch-constant, so its scores are ONE
+    [B, F]·[F, P] product, never a per-user gather.  A user id past the
+    rows reads the last one (the JAX package's clamped gather)."""
+    F = planes.F
+    urow = planes.row[user_ids.long().clamp(0, planes.row.shape[0] - 1)]
+    urow[:, F] += planes.mu                       # bias col := μ + b_i
+    s = _pool_scores(urow, planes.col, cand, tile_b=tile_b)
+    if popular is None:
+        return s, cand
+    B, P = cand.shape[0], popular.shape[0]
+    prow = planes.col[popular.long()]                            # [P, F+1]
+    ps = (urow[:, :F] @ prow[:, :F].T + prow[None, :, F]
+          + urow[:, F][:, None])
+    return (torch.cat([s, ps], dim=1),
+            torch.cat([cand, popular[None, :].expand(B, P)], dim=1))
+
+
+def _select_topn_masked(s: torch.Tensor, cand: torch.Tensor, *, topn: int):
+    """Duplicate-masked top-n over a pool that was never deduplicated:
+    ``topn`` rounds of full-width argmax, each masking every slot that
+    holds the picked *id*, so cross-band duplicates (and the popular ∩
+    walk overlap) collapse here instead of in a [B, W] sort.  Ties pick
+    the lowest slot (`argmax` returns the first maximal index, on either
+    device); an exhausted row emits SENTINEL at NEG."""
+    bi = torch.arange(s.shape[0], device=s.device)
+    outs, outi = [], []
+    for _ in range(topn):
+        i = torch.argmax(s, dim=1)
+        sv = s[bi, i]
+        picked = cand[bi, i]
+        outs.append(sv)
+        outi.append(torch.where(sv > NEG, picked,
+                                torch.full_like(picked, SENTINEL)))
+        s = torch.where(cand == picked[:, None], NEG, s)
+    return torch.stack(outs, 1), torch.stack(outi, 1)
+
+
+def recommend_walked(planes: ServePlanes, index: LSHIndex, sp: SparseMatrix,
+                     user_ids: torch.Tensor, popular: torch.Tensor | None, *,
+                     n_seeds: int, cap: int, budget: int, window: int,
+                     tail_k: int, topn: int, tile_b: int):
+    """The plain walk path (``impl="ref"``, the JAX package's CPU
+    default): window descriptors → budgeted slot enumeration → pool
+    scoring with duplicates intact → duplicate-masked top-n.  Plain
+    PyTorch on either device; no kernel is launched.  ``tail_k`` is the
+    tail scan width (`RecsysService._tail_k`); 0 skips the tail."""
+    ids, seeds = walk_candidates(index, sp, user_ids, n_seeds=n_seeds,
+                                 cap=cap, budget=budget, window=window)
+    if tail_k:
+        ids = torch.cat([ids, tail_hits(index, seeds, k=tail_k)], dim=1)
+    s, cand = _score_pool(planes, user_ids, ids, popular, tile_b=tile_b)
+    return _select_topn_masked(s, cand, topn=topn)
+
+
 def recommend_walked_kernel(planes: ServePlanes, index: LSHIndex,
                             sp: SparseMatrix, user_ids: torch.Tensor,
                             popular: torch.Tensor | None,
@@ -163,8 +306,8 @@ def recommend_walked_kernel(planes: ServePlanes, index: LSHIndex,
 
 class RecsysService:
     def __init__(self, params: Params, index: LSHIndex, sp: SparseMatrix,
-                 cfg: ServeConfig, *, registry: obs.Registry | None = None,
-                 device=None):
+                 cfg: ServeConfig, JK: torch.Tensor | None = None, *,
+                 registry: obs.Registry | None = None, device=None):
         dev = resolve_device(device)
         self.device = dev
         self.params = params.to(dev)
@@ -172,6 +315,9 @@ class RecsysService:
         self.index = index.to(dev)
         self.sp = sp.to(dev)
         self.cfg = cfg
+        # the seeds' Top-K lists join the legacy path's pool
+        self.JK = (torch.as_tensor(JK).to(dev, torch.int32)
+                   if JK is not None and cfg.use_jk else None)
         self.popular = (popular_shortlist(self.params, cfg.n_popular)
                         if cfg.n_popular else None)
         # a PRIVATE registry: two services' same-named metrics never
@@ -197,6 +343,7 @@ class RecsysService:
         # cached SENTINEL-apron id plane, keyed by index identity
         self._ids_flat = None
         self._ids_flat_for = None
+        self.profiled = None             # profile_flush's staged answer
 
     # ---- core pipelines ----
 
@@ -206,15 +353,58 @@ class RecsysService:
             self._ids_flat_for = self.index
         return self._ids_flat
 
-    def _recommend(self, user_ids: torch.Tensor):
+    def route_decision(self) -> dict:
+        """The small-catalog routing verdict: candidate retrieval costs a
+        fixed ~C-proportional amount per user, so below a catalog-size
+        crossover the exact O(N) scan is faster *and* exact.
+        ``decision`` reports what the heuristic picks even when routing
+        is off (``enabled=False``)."""
         cfg = self.cfg
-        if cfg.mode == "full":
+        thr = cfg.route_full_below if cfg.route_full_below > 0 else 48 * cfg.C
+        n = self.planes.n_items
+        decision = ("full" if cfg.mode == "candidate" and n <= thr
+                    else cfg.mode)
+        return dict(enabled=cfg.route_full_below != 0, threshold=int(thr),
+                    n_items=int(n), decision=decision)
+
+    def _tail_k(self) -> int:
+        """Tail scan width of the plain walk path: the resident tail
+        prefix (slots fill in insertion order) rounded up to 16; 0 skips
+        the scan while the tail is empty."""
+        n = self.index.tail_fill
+        return 0 if not n else min(self.index.tail_cap, -(-n // 16) * 16)
+
+    def _recommend(self, user_ids: torch.Tensor):
+        """The JAX package's routing, branch for branch (``impl="ref"``
+        is its CPU default, the plain walk path)."""
+        cfg = self.cfg
+        if cfg.mode == "full" or (cfg.route_full_below and
+                                  self.route_decision()["decision"] == "full"):
             return full_topn(self.params, user_ids, topn=cfg.topn)
-        return recommend_walked_kernel(
-            self.planes, self.index, self.sp, user_ids, self.popular,
-            self._flat_ids(), n_seeds=cfg.n_seeds, cap=cfg.cap, C=cfg.C,
-            window=cfg.seed_window, tail_scan=self.index.tail_fill > 0,
-            topn=cfg.topn, tile_b=cfg.tile_b, impl=cfg.impl)
+        if cfg.band_budget and cfg.impl == "ref":
+            return recommend_walked(
+                self.planes, self.index, self.sp, user_ids, self.popular,
+                n_seeds=cfg.n_seeds, cap=cfg.cap, budget=cfg.band_budget,
+                window=cfg.seed_window, tail_k=self._tail_k(), topn=cfg.topn,
+                tile_b=cfg.walk_tile_b)
+        if cfg.band_budget:
+            return recommend_walked_kernel(
+                self.planes, self.index, self.sp, user_ids, self.popular,
+                self._flat_ids(), n_seeds=cfg.n_seeds, cap=cfg.cap, C=cfg.C,
+                window=cfg.seed_window, tail_scan=self.index.tail_fill > 0,
+                topn=cfg.topn, tile_b=cfg.tile_b, impl=cfg.impl)
+        return recommend_candidates(
+            self.planes, self.index, self.sp, user_ids, self.JK, self.popular,
+            n_seeds=cfg.n_seeds, cap=cfg.cap, C=cfg.C, window=cfg.seed_window,
+            pool_width=cfg.resolved_pool_width(), fold_mates=cfg.fold_mates,
+            tail_scan=self.index.tail_fill > 0, topn=cfg.topn,
+            tile_b=cfg.tile_b, impl=cfg.impl)
+
+    def _barrier(self) -> None:
+        """Wait for the device's queued work (nothing to wait for on the
+        CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _done_event(self):
         """An event recorded after the work just enqueued (None on CPU,
@@ -233,8 +423,7 @@ class RecsysService:
         ids = torch.zeros((self.cfg.micro_batch,), dtype=torch.int32,
                           device=self.device)
         self._recommend(ids)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._barrier()
         return self
 
     # ---- request plane ----
@@ -427,8 +616,7 @@ class RecsysService:
             scores, items = full_topn(
                 self.params, torch.from_numpy(take).to(self.device),
                 topn=self.cfg.topn)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            self._barrier()
         now_ns = time.perf_counter_ns()
         # latency: dispatch → result readiness (includes time queued
         # behind the previous flush); busy wall: overlap counted once
@@ -458,7 +646,8 @@ class RecsysService:
         answered by exact `full_topn`, ``quarantined`` = poison ingest
         batches refused, ``ingest_rejected`` = ingests refused by a
         read-only tier (none is ported, so 0), ``index_stale`` = an
-        overflow awaits its background rebuild's swap."""
+        overflow awaits its background rebuild's swap.  ``route`` is
+        `route_decision`; ``shards`` is 1 (the single-device path)."""
         reg = self.obs
         flush_s = reg.span_durations("serve.flush")
         secs = np.asarray(flush_s) if flush_s else np.zeros((1,))
@@ -483,8 +672,113 @@ class RecsysService:
             ingest_rejected=int(reg.counter("serve.ingest_rejected")),
             index_stale=bool(reg.gauge("serve.index_stale", 0.0)),
             model_age_s=time.perf_counter() - self._params_adopted,
+            # small-catalog routing: the verdict is always reported;
+            # `enabled` says whether _recommend acts on it
+            route=self.route_decision(),
+            shards=1,                    # the single-device path
             device=str(self.device),
         )
+
+    def profile_flush(self, user_ids=None) -> dict:
+        """One *staged* flush with nested host spans — the observability
+        view of the hot path.  The stages run as separate calls with a
+        readiness barrier (`torch.cuda.synchronize` on the card) after
+        each, so the span tree carries real wall times: serve.flush →
+        retrieve(.desc → .walk) → score → select on the plain walk path,
+        retrieve(.desc → .walk) → score on the kernel walk path,
+        retrieve(.pool → .dedup) → score on the legacy path, score alone
+        in full mode.  A profiling tool, not a serving mode.  Returns
+        {span name: seconds} for this run; the staged answer (scores,
+        items) is kept in ``self.profiled``."""
+        cfg = self.cfg
+        reg = self.obs
+        if user_ids is None:
+            user_ids = np.arange(cfg.micro_batch, dtype=np.int32)
+        ids = torch.from_numpy(np.atleast_1d(np.asarray(
+            user_ids, np.int32))).to(self.device)
+        sync = self._barrier
+        names = ["serve.flush"]
+        with reg.span("serve.flush"):
+            if cfg.mode == "full":
+                with reg.span("serve.flush.score"):
+                    out = full_topn(self.params, ids, topn=cfg.topn)
+                    sync()
+                names += ["serve.flush.score"]
+            elif cfg.band_budget and cfg.impl == "ref":
+                # plain walk: desc → walk → score → select (the dedup
+                # happens inside select; there is no dedup stage)
+                tail_k = self._tail_k()
+                with reg.span("serve.flush.retrieve"):
+                    with reg.span("serve.flush.retrieve.desc"):
+                        seeds = seed_items(self.sp, ids, n_seeds=cfg.n_seeds,
+                                           window=cfg.seed_window)
+                        starts, counts = window_descriptors(
+                            self.index, seeds, cap=cfg.cap)
+                        sync()
+                    with reg.span("serve.flush.retrieve.walk"):
+                        pos = enumerate_windows(starts, counts,
+                                                budget=cfg.band_budget)
+                        walked = _walk_gather(self.index, pos)
+                        if tail_k:
+                            walked = torch.cat(
+                                [walked, tail_hits(self.index, seeds,
+                                                   k=tail_k)], dim=1)
+                        sync()
+                with reg.span("serve.flush.score"):
+                    s, cand = _score_pool(self.planes, ids, walked,
+                                          self.popular,
+                                          tile_b=cfg.walk_tile_b)
+                    sync()
+                with reg.span("serve.flush.select"):
+                    out = _select_topn_masked(s, cand, topn=cfg.topn)
+                    sync()
+                names += ["serve.flush.retrieve",
+                          "serve.flush.retrieve.desc",
+                          "serve.flush.retrieve.walk",
+                          "serve.flush.score", "serve.flush.select"]
+            else:
+                with reg.span("serve.flush.retrieve"):
+                    if cfg.band_budget:
+                        # kernel walk: the lsh_retrieve kernel IS the
+                        # walk + dedup stage
+                        stages = ("desc", "walk")
+                        with reg.span("serve.flush.retrieve.desc"):
+                            desc = lsh_ops.walk_descriptors(
+                                self.index, self.sp, ids,
+                                n_seeds=cfg.n_seeds, cap=cfg.cap,
+                                window=cfg.seed_window,
+                                tail_scan=self.index.tail_fill > 0)
+                            sync()
+                        with reg.span("serve.flush.retrieve.walk"):
+                            cand = lsh_ops.walk_topc(
+                                *desc, self._flat_ids(), self.popular,
+                                C=cfg.C, cap=cfg.cap, impl=cfg.impl)
+                            sync()
+                    else:
+                        stages = ("pool", "dedup")
+                        with reg.span("serve.flush.retrieve.pool"):
+                            pool = candidate_pool(
+                                self.index, self.sp, ids,
+                                n_seeds=cfg.n_seeds, cap=cfg.cap, JK=self.JK,
+                                window=cfg.seed_window,
+                                fold_mates=cfg.fold_mates,
+                                tail_scan=self.index.tail_fill > 0)
+                            sync()
+                        with reg.span("serve.flush.retrieve.dedup"):
+                            cand = finalize_candidates(
+                                pool, C=cfg.C, popular=self.popular,
+                                pool_width=cfg.resolved_pool_width())
+                            sync()
+                with reg.span("serve.flush.score"):
+                    out = score_candidates(self.planes, ids, cand,
+                                           topn=cfg.topn, tile_b=cfg.tile_b,
+                                           impl=cfg.impl)
+                    sync()
+                names += ["serve.flush.retrieve",
+                          *(f"serve.flush.retrieve.{n}" for n in stages),
+                          "serve.flush.score"]
+        self.profiled = out
+        return {n: reg.span_durations(n)[-1] for n in names}
 
     # ---- background rebuild (double-buffered validate-then-swap) ----
 
@@ -627,6 +921,8 @@ class RecsysService:
                 self.planes = pack_serve_planes(self.params)
                 self._host_bias = None     # the degraded path's mirror
                 self.sp = state.sp.to(self.device)
+                if self.JK is not None:
+                    self.JK = state.JK.to(self.device)
                 if self.cfg.n_popular:
                     self.popular = popular_shortlist(self.params,
                                                      self.cfg.n_popular)

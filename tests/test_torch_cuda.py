@@ -1274,3 +1274,123 @@ def test_fit_with_comparator_on_card_launches_culsh_per_cf_step(cuda,
         assert torch.equal(res.JK.cpu(), cpu.JK)
     for (_, _, a), (_, _, b) in zip(res.history, cpu.history):
         assert abs(a - b) < 1e-4
+
+
+# ------------------------------------ the legacy and plain walk serving paths
+
+def _legacy_state(tail):
+    """`_state()` with its J^K (`benchmarks/bench_serve.py`'s recipe) and,
+    with ``tail``, twenty cloned items in the index tail."""
+    from repro_torch.core import topk
+    params, sp, sigs, index = _state()
+    JK = topk.topk_from_signatures(sigs, prng.fold_in(prng.PRNGKey(0), 1),
+                                   K=16, band_cap=16)
+    if tail:
+        index = insert(index, sigs[:, 5:25],
+                       torch.arange(1500, 1520, dtype=torch.int32))
+    return params, sp, index, JK
+
+
+LEGACY_CFG = ServeConfig(topn=10, micro_batch=64, C=128, n_seeds=8, cap=8,
+                         n_popular=16, tile_b=8, band_budget=0,
+                         background_rebuild=False)
+
+
+def test_legacy_service_on_card_launches_the_scorer_per_flush(cuda):
+    """``band_budget=0`` on the card: one `candidate_score` launch a flush
+    or warm-up and no `lsh_retrieve`; every flush within 1e-5 of
+    `recommend_candidates(impl="ref")` on the same users, and of the
+    CPU service."""
+    from repro_torch.serve import recommend_candidates
+    params, sp, index, JK = _legacy_state(tail=True)
+    users = np.arange(0, 960, 3, dtype=np.int32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        svc = RecsysService(params, index, sp, LEGACY_CFG, JK=JK, device=dev)
+        before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+        svc.warmup()
+        svc.submit(users)
+        svc.flush()
+        res = svc.take_results()
+        n = (lsh_kernel.LAUNCHES - before[0], score_kernel.LAUNCHES - before[1])
+        assert n == ((0, svc.stats()["batches"] + 1) if dev == "cuda"
+                     else (0, 0))
+        out[dev] = res
+        if dev == "cuda":
+            for u, s, i in res:
+                want = recommend_candidates(
+                    svc.planes, svc.index, svc.sp,
+                    torch.from_numpy(u).to(cuda), svc.JK, svc.popular,
+                    n_seeds=8, cap=8, C=128, window=64, pool_width=0,
+                    fold_mates=True, tail_scan=True, topn=10, tile_b=8,
+                    impl="ref")
+                assert_topn_close(s, i, *want)
+    for (_, s, i), (_, s_c, i_c) in zip(out["cuda"], out["cpu"]):
+        assert_topn_close(s, i, s_c, i_c)
+
+
+@pytest.mark.parametrize("tail", [False, True])
+def test_retrieval_on_card_is_bit_equal_to_cpu(cuda, tail):
+    """The legacy and plain-walk retrieval stages are integer work: the
+    card's ids equal the CPU's bit for bit."""
+    from repro_torch.serve import (retrieve_for_items, retrieve_for_users,
+                                   walk_candidates)
+    params, sp, index, JK = _legacy_state(tail)
+    users = torch.arange(0, 960, 7, dtype=torch.int32)
+    popular = torch.arange(16, dtype=torch.int32) * 50
+    gidx, gsp = index.to(cuda), sp.to(cuda)
+    for pool_width in (0, 96):
+        kw = dict(n_seeds=8, cap=8, C=128, popular=popular,
+                  pool_width=pool_width, tail_scan=tail)
+        got = retrieve_for_users(gidx, gsp, users.to(cuda), JK=JK.to(cuda),
+                                 **dict(kw, popular=popular.to(cuda)))
+        assert torch.equal(got.cpu(), retrieve_for_users(index, sp, users,
+                                                         JK=JK, **kw))
+    for budget in (64, 512):
+        got = walk_candidates(gidx, gsp, users.to(cuda), n_seeds=8, cap=8,
+                              budget=budget)
+        want = walk_candidates(index, sp, users, n_seeds=8, cap=8,
+                               budget=budget)
+        assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    items = torch.arange(0, 1520, 11, dtype=torch.int32)
+    assert torch.equal(
+        retrieve_for_items(gidx, items.to(cuda), cap=8, C=64).cpu(),
+        retrieve_for_items(index, items, cap=8, C=64))
+
+
+@pytest.mark.parametrize("tail_k", [0, 32])
+def test_recommend_walked_on_card_matches_cpu(cuda, tail_k):
+    """The plain walk path launches no kernel; its answers on the card
+    are within 1e-5 of the CPU's."""
+    from repro_torch.core.model import pack_serve_planes
+    from repro_torch.serve import popular_shortlist, recommend_walked
+    params, sp, index, _ = _legacy_state(tail=bool(tail_k))
+    users = torch.arange(0, 960, 5, dtype=torch.int32)
+    kw = dict(n_seeds=8, cap=8, budget=256, window=64, tail_k=tail_k,
+              topn=10, tile_b=16)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params.to(dev)
+        before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+        out[dev] = recommend_walked(pack_serve_planes(p), index.to(dev),
+                                    sp.to(dev), users.to(dev),
+                                    popular_shortlist(p, 16), **kw)
+        assert (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES) == before
+    assert_topn_close(*out["cuda"], *out["cpu"])
+
+
+@pytest.mark.parametrize("knob", [dict(), dict(impl="ref"),
+                                  dict(band_budget=0)])
+def test_profile_flush_on_card_staged_equals_fused(cuda, knob):
+    params, sp, index, JK = _legacy_state(tail=True)
+    cfg = dataclasses.replace(LEGACY_CFG, **{"band_budget": 256, **knob})
+    svc = RecsysService(params, index, sp, cfg, JK=JK, device=cuda).warmup()
+    users = np.arange(0, 640, 10, dtype=np.int32)
+    svc.submit(users)
+    svc.flush()
+    _, s, i = svc.take_results()[0]
+    secs = svc.profile_flush(users)
+    assert secs["serve.flush"] >= secs["serve.flush.score"] > 0
+    np.testing.assert_array_equal(svc.profiled[1].cpu().numpy(), i)
+    np.testing.assert_allclose(svc.profiled[0].cpu().numpy(), s, rtol=1e-5,
+                               atol=1e-5)

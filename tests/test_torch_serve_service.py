@@ -5,7 +5,7 @@ from identical state: the JAX package's `RecsysService` with the Pallas
 kernels in interpret mode, the port's on the CPU (its kernels' plain
 versions).  Top-10 ids must be equal and scores within 1e-5.  The rest
 pins the service's request plane, the exact `full_topn` (tie order
-included) and the knobs left to later slices.
+included) and the knob left to a later slice (``shards``).
 """
 import dataclasses
 from types import SimpleNamespace
@@ -174,8 +174,7 @@ def test_flush_some_leaves_the_rest_queued(state):
 
 
 @pytest.mark.parametrize("knob", [dict(shards=2), dict(shards="auto"),
-                                  dict(band_budget=0), dict(shards=1),
-                                  dict(shards=4)])
+                                  dict(shards=1), dict(shards=4)])
 def test_later_slice_knobs_raise(knob):
     with pytest.raises(NotImplementedError, match="later slice"):
         ServeConfig(**knob)
