@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port's main paths — serving, the offline
 fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
 online learning, its resilience layer, the always-on loop, the fit's
-neighbour comparators and the other serving paths — on one CUDA card.
+neighbour comparators, the other serving paths and the multi-device
+tiers — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -159,12 +160,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     kernel path; ``route_full_below = N + 1`` answering `full_topn`'s
     ids and ``-1`` reporting its verdict; `profile_flush` on the kernel
     walk, plain walk and legacy services (the JAX span names, the staged
-    answer equal to the fused flush's).
+    answer equal to the fused flush's);
+20. multi-device tiers — on four logical shards of the card
+    (``REPRO_TORCH_LOGICAL_DEVICES=4``, printed with the card count):
+    (a) on an N = 4,000 catalog of phase 3's recipe with nothing
+    truncated (cap 4,096, budgets 16,384), D = 2 and 4 give the top-10 id
+    sets of a single-device ``impl="ref"`` service, and the D = 4 flush
+    at the bench settings equals the same flush on the CPU; (b) phase 3's
+    catalog and `ServeConfig` with ``shards=4``: warm-up + 64 flushes
+    with both serving kernels' counters zeroed just before (both must
+    stay 0), recall@10 on phase 6's probe users (floor 0.5) beside phase
+    19's plain walk (the JAX gate of −0.01, reported), `validate_index`
+    clean on the sharded index, the three ingest entry points refused
+    with `ShardedIngestUnsupported` and `OnlineLoop` refusing the
+    service; (c) phase 8's model scheduled with ``shards=4``: the shard
+    tier's cells, share of the ratings and MB; two epochs through the
+    mesh and through the one-device replay from one state (every leaf
+    and the test RMSE within 1e-5), each epoch's shard tier timed alone;
+    `fit(shards=4, use_kernels=True)` for 2 epochs, its `culsh_sgd`
+    counter zeroed just before equal to the width tiers' steps × 2 and
+    its RMSE falling, beside phase 10's epochs.  Phases 8–18 fit with
+    ``shards=1``, so their launch counts do not depend on the machine's
+    card count.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–19 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–20 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -413,9 +435,11 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     N = max(1, int(FIT_N * args.fit_scale))
     nnz = int(FIT_NNZ * args.fit_scale)
     F, K = FIT_F, FIT_K
+    # one shard: these phases' launch counts must not depend on how many
+    # cards the machine has (phase 20 runs the shard tier)
     cfg = FitConfig(F=F, K=K, epochs=FIT_EPOCHS, method="simlsh",
                     lsh=simlsh.SimLSHConfig(G=8, p=1, q=10, band_cap=16),
-                    seed=args.seed, use_kernels=True)
+                    seed=args.seed, use_kernels=True, shards=1)
     spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=M, N=N, nnz=nnz)
 
     def data():
@@ -2219,7 +2243,7 @@ def comparators_phase(args, ctx: dict, dev, on_card: bool,
     cfg7 = FitConfig(F=16, K=8, epochs=6, batch=4096, method="gsm",
                      lsh=simlsh.SimLSHConfig(G=8, p=1, q=20, band_cap=16,
                                              psi_pow=2.0),
-                     seed=args.seed, use_kernels=True)
+                     seed=args.seed, use_kernels=True, shards=1)
     res_g = run("gsm", tr7, te7, (M7, N7), cfg7)
     run("gsm", tr7, te7, (M7, N7), dataclasses.replace(cfg7,
                                                        method="simlsh"))
@@ -2400,7 +2424,7 @@ def serve_paths_phase(args, serve: dict, dev, on_card: bool,
 
     # ---- (b) the plain walk ----
     plain = service(impl="ref")
-    st, res, n, got_plain, _ = drive("plain walk", plain)
+    st, res, n, got_plain, rec_plain = drive("plain walk", plain)
     if n != dict(lsh_retrieve=0, candidate_score=0):
         raise AssertionError(f"plain walk launched kernels: {n}")
     wkw = dict(rkw, budget=scfg.band_budget)
@@ -2463,6 +2487,297 @@ def serve_paths_phase(args, serve: dict, dev, on_card: bool,
             raise AssertionError(f"profile_flush ({tag}): {sorted(secs)}, "
                                  f"staged = fused {same}")
     print(f"[19 paths] phase seconds {time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return rec_plain
+
+
+def shard_phase(args, serve: dict, ctx: dict, dev, on_card: bool,
+                power: str) -> None:
+    """Phase 20: the multi-device tiers on four logical shards of the one
+    card (`REPRO_TORCH_LOGICAL_DEVICES`): (a) the sharded flush exact on
+    a small catalog, against the single-device plain walk and the CPU;
+    (b) sharded serving on phase 3's catalog; (c) the fit's shard tier on
+    phase 8's model, the mesh against the one-device replay, and
+    `fit(shards=4)`."""
+    import dataclasses
+
+    from repro_torch import convert, prng
+    from repro_torch.core import model, sgd, simlsh
+    from repro_torch.core.topk import SENTINEL
+    from repro_torch.data.sparse import conflict_free_schedule, from_coo
+    from repro_torch.kernels.candidate_score import kernel as score_kernel
+    from repro_torch.kernels.candidate_score.ref import assert_topn_close
+    from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
+    from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
+    from repro_torch.launch import mesh as shard_mesh
+    from repro_torch.loop import OnlineLoop
+    from repro_torch.resil import validate_index
+    from repro_torch.serve import (RecsysService, ServeConfig,
+                                   ShardedIngestUnsupported, build_index,
+                                   signatures_of)
+    from repro_torch.train.trainer import fit
+
+    t_phase = time.perf_counter()
+    D = 4
+    os.environ[shard_mesh.LOGICAL_DEVICES] = str(D)
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    n_cards = torch.cuda.device_count() if on_card else 0
+    mesh = shard_mesh.make_shard_mesh(D, dev)
+    print(f"[20 mesh] {shard_mesh.LOGICAL_DEVICES}={D}: "
+          f"torch.cuda.device_count() {n_cards}, mesh "
+          f"{[str(d) for d in mesh.devices]} (logical shards run one after "
+          f"another on one stream: their seconds are the sharded program's "
+          f"total work on one card, not a {D}-card wall time)", flush=True)
+
+    # ---- (a) exactness on a small catalog (phase 3's recipe) ----
+    U, V, bh, rows, cols, vals, M_a = make_catalog(4000, dev, seed=args.seed)
+    z = np.zeros((4000, 1), np.float32)
+    params_a = convert.params_from_numpy(U, V, np.zeros(M_a, np.float32), bh,
+                                         z, z, 3.0, device=dev)
+    sp_a = from_coo(rows, cols, vals, (M_a, 4000), device=dev)
+    sigs_a = simlsh.encode(sp_a, simlsh.SimLSHConfig(G=8, p=2, q=10,
+                                                     band_cap=16),
+                           prng.PRNGKey(args.seed, device=dev))
+    index_a = build_index(sigs_a, tail_cap=0, device=dev)
+    users_a = np.random.default_rng(args.seed + 20).integers(
+        0, M_a, 128).astype(np.int32)
+    exact = dict(topn=10, micro_batch=128, n_seeds=8, cap=4096,
+                 band_budget=16384, shard_budget=16384, n_popular=0,
+                 use_jk=False)
+
+    def top_sets(s, i):
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        return [(frozenset(i[u][i[u] != SENTINEL].tolist()),
+                 np.sort(s[u][i[u] != SENTINEL])) for u in range(len(i))]
+
+    ref_out = RecsysService(params_a, index_a, sp_a,
+                            ServeConfig(**exact, impl="ref"), device=dev
+                            )._recommend(torch.from_numpy(users_a).to(dev))
+    for d_ in (2, D):
+        got = RecsysService(params_a, index_a, sp_a,
+                            ServeConfig(**exact, shards=d_), device=dev
+                            )._recommend(torch.from_numpy(users_a).to(dev))
+        err = 0.0
+        for (ids_a, s_a), (ids_b, s_b) in zip(top_sets(*got),
+                                              top_sets(*ref_out)):
+            if ids_a != ids_b:
+                raise AssertionError(f"D={d_}: the top-N ids differ from the "
+                                     f"single-device walk's")
+            np.testing.assert_allclose(s_a, s_b, rtol=1e-5, atol=1e-5)
+            err = max(err, float(np.abs(s_a - s_b).max(initial=0.0)))
+        print(f"[20 exact] D={d_}, nothing truncated (cap 4096, budgets "
+              f"16384): top-10 id sets equal to the single-device plain "
+              f"walk's on {len(users_a)} users (max abs score err "
+              f"{err:.3g})", flush=True)
+    bench = dict(topn=10, micro_batch=128, C=512, n_seeds=16, cap=8,
+                 n_popular=64, tile_b=16, band_budget=512, shards=D)
+    s_card, i_card = RecsysService(params_a, index_a, sp_a,
+                                   ServeConfig(**bench), device=dev
+                                   )._recommend(torch.from_numpy(users_a
+                                                                 ).to(dev))
+    s_cpu, i_cpu = RecsysService(params_a.to("cpu"), index_a.to("cpu"),
+                                 sp_a.to("cpu"), ServeConfig(**bench),
+                                 device="cpu")._recommend(
+        torch.from_numpy(users_a))
+    err = assert_topn_close(s_card, i_card, s_cpu, i_cpu)
+    print(f"[20 exact] D={D} at the bench settings: the card's flush within "
+          f"1e-5 of the CPU's (max abs err {err:.3g}; ids equal "
+          f"{torch.equal(i_card.cpu(), i_cpu)})", flush=True)
+    del params_a, sp_a, sigs_a, index_a
+
+    # ---- (b) sharded serving at full width (phase 3's catalog) ----
+    params, sp, sigs, scfg = (serve[k] for k in ("params", "sp", "sigs",
+                                                 "cfg"))
+    probe, exact_ids = serve["probe"], serve["exact"]
+    B, M, N = scfg.micro_batch, sp.M, sp.N
+    index = build_index(sigs, tail_cap=128, device=dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if on_card else 0
+    t0 = time.perf_counter()
+    svc = RecsysService(params, index, sp,
+                        dataclasses.replace(scfg, shards=D), device=dev)
+    sync()
+    t_build = time.perf_counter() - t0
+    tier = svc._shard_state
+    mb_tier = (torch.cuda.memory_allocated() - held) / 1e6 if on_card else 0
+    probs = validate_index(tier.index)
+    print(f"[20 serve] shards={D}: bounds {tier.index.bounds.tolist()}, "
+          f"block {tier.index.block}, per-shard budget "
+          f"{svc.cfg.resolved_shard_budget(D)}; tier built in {t_build:.2f} "
+          f"s, {mb_tier:.0f} MB on the card; validate_index: "
+          f"{probs or 'clean'}", flush=True)
+    if probs:
+        raise AssertionError(f"the sharded index is invalid: {probs}")
+    rng = np.random.default_rng(args.seed + 21)
+    batches = [rng.integers(0, M, B).astype(np.int32)
+               for _ in range(BATCHES)]
+    lsh_kernel.LAUNCHES = score_kernel.LAUNCHES = 0
+    t0 = time.perf_counter()
+    svc.warmup()
+    for users in batches:
+        svc.submit(users)
+    svc.flush()
+    wall = time.perf_counter() - t0
+    n = dict(lsh_retrieve=lsh_kernel.LAUNCHES,
+             candidate_score=score_kernel.LAUNCHES)
+    st = svc.stats()
+    items = np.concatenate([r[2] for r in svc.take_results()])
+    svc.submit(probe)
+    svc.flush()
+    got = np.concatenate([r[2] for r in svc.take_results()])
+    rec = sum(len(set(g) & set(e))
+              for g, e in zip(got, exact_ids)) / exact_ids.size
+    rec_plain = serve["plain_recall"]
+    print(f"[20 serve] {st['batches']} flushes, {st['users']} users: "
+          f"{st['qps']:.0f} users/s (busy time), p50 {st['p50_ms']:.3f} ms, "
+          f"p99 {st['p99_ms']:.3f} ms per flush; wall {wall:.2f} s incl. "
+          f"warm-up; launches {n}; recall@{scfg.topn} {rec:.4f} on "
+          f"{len(probe)} probe users (floor 0.5) beside the single-device "
+          f"plain walk's {rec_plain:.4f} (phase 19) and the kernel walk's "
+          f"{serve['recall']:.4f} (phase 6); the JAX gate (sharded ≥ single "
+          f"- 0.01) {'holds' if rec >= rec_plain - 0.01 else 'misses'} "
+          f"(power limit {power})", flush=True)
+    if n != dict(lsh_retrieve=0, candidate_score=0):
+        raise AssertionError(f"the sharded flush launched kernels: {n}")
+    if (st["fallbacks"] or not rec >= 0.5
+            or items.shape != (BATCHES * B, scfg.topn)
+            or not ((items >= 0) & (items < N)).all()):
+        raise AssertionError(f"sharded serving: fallbacks {st['fallbacks']}, "
+                             f"recall {rec:.4f}, answers {items.shape}")
+    secs = svc.profile_flush(batches[0])
+    print(f"[20 serve] profile_flush: " + ", ".join(
+        f"{k} {v * 1e3:.3f} ms" for k, v in secs.items()), flush=True)
+    full = signatures_of(index)
+    refused = []
+    for name, call in (
+            ("ingest", lambda: svc.ingest(full[:, :1], torch.tensor(
+                [N], dtype=torch.int32, device=dev), full_sigs=full)),
+            ("ingest_online_update", lambda: svc.ingest_online_update(
+                None, N)),
+            ("request_rebuild", lambda: svc.request_rebuild(full))):
+        try:
+            call()
+        except ShardedIngestUnsupported:
+            refused.append(name)
+    try:       # the loop refuses the service before it reads the updater
+        OnlineLoop(None, svc)
+        loop_refused = False
+    except ValueError as e:
+        loop_refused = "single-device" in str(e)
+    print(f"[20 serve] read-only: refused {refused}, ingest_rejected "
+          f"{svc.stats()['ingest_rejected']}; OnlineLoop refuses the "
+          f"service {loop_refused}", flush=True)
+    if len(refused) != 3 or not loop_refused:
+        raise AssertionError("the sharded service must be read-only")
+    del svc, tier, index, full
+
+    # ---- (c) the fit's shard tier at full width (phase 8's model) ----
+    tr, te, (M, N), cfg = ctx["tr"], ctx["te"], ctx["shape"], ctx["cfg"]
+    sp = from_coo(*tr, (M, N), device=dev)
+    JK, res1 = ctx["res"].JK, ctx["res"]
+    k_nb, k_init, k_ep = prng.split(prng.PRNGKey(cfg.seed), 3)
+    t0 = time.perf_counter()
+    sched = conflict_free_schedule(
+        sp.rows.cpu().numpy(), sp.cols.cpu().numpy(), batch=cfg.cf_batch,
+        tiers=cfg.tiers, tier_shrink=cfg.tier_shrink,
+        min_fill_frac=cfg.min_fill_frac, shards=D, M=M, N=N, seed=cfg.seed)
+    t_sched = time.perf_counter() - t0
+    sd = model.build_scheduled_data(sp, JK, sched)
+    shd = model.build_shard_data(sp, JK, sched)
+    sync()
+    sh = sched.stats()["shard"]
+    fields = lambda x: [getattr(x, f.name) for f in dataclasses.fields(x)]
+    print(f"[20 fit] shards={D} schedule in {t_sched:.2f} s (host): shard "
+          f"tier {sh['rounds']} cells of width {sh['width']} ({sh['n']} "
+          f"ratings, {sh['n'] / sp.nnz:.4f} of {sp.nnz}, fill "
+          f"{sh['fill']:.3f}); ShardData {megabytes(*fields(shd)):.1f} MB, "
+          f"the rest's ScheduledData {megabytes(*fields(sd)):.1f} MB; "
+          f"extents rows {sh['extent_rows']} cols {sh['extent_cols']}",
+          flush=True)
+    te_r, te_c, te_v = (torch.as_tensor(a, device=dev) for a in te)
+    p0 = model.remap_params(model.init_from_data(k_init, sp, cfg.F, cfg.K),
+                            sched)
+
+    def epochs(meshed: bool):
+        pp = model.pack_params(p0)
+        tier_s, epoch_s = [], []
+        for ep in range(2):
+            key = prng.fold_in(k_ep, ep)
+            start = dataclasses.replace(pp, row=pp.row.clone(),
+                                        col=pp.col.clone())
+            sync()
+            t0 = time.perf_counter()
+            sgd.train_epoch_scheduled(pp, sd, sched, key, ep, cfg.hp,
+                                      shd=shd, use_kernels=True,
+                                      mesh=mesh if meshed else None)
+            sync()
+            epoch_s.append(time.perf_counter() - t0)
+            # the shard tier alone, as the epoch ran it: the same start
+            # state, round order (keys[0] of the epoch's split) and decay
+            cp = start
+            shd_p, valid_p = sgd._shard_round_shuffle(
+                shd, sched, prng.split(key, 2 + len(sched.tier_starts))[0])
+            decay = sgd.lr_decay(cfg.hp, ep, dev)
+            sync()
+            t0 = time.perf_counter()
+            if meshed:
+                sgd._sharded_tier(cp, shd_p, valid_p, sched, cfg.hp, decay,
+                                  mesh, mf_only=False, bce=False)
+            else:
+                sgd._shard_replay(cp, shd_p, valid_p, sched, cfg.hp, decay,
+                                  mf_only=False, bce=False)
+            sync()
+            tier_s.append(time.perf_counter() - t0)
+            del start, cp, shd_p, valid_p
+        p = model.unmap_params(model.unpack_params(pp), sched)
+        return p, model.rmse(p, sp, JK, te_r, te_c, te_v), epoch_s, tier_s
+
+    p_mesh, r_mesh, ep_mesh, tier_mesh = epochs(True)
+    p_rep, r_rep, ep_rep, tier_rep = epochs(False)
+    diff = max(float((getattr(p_mesh, f) - getattr(p_rep, f)).abs().max())
+               for f in ("U", "V", "b", "bh", "W", "C"))
+    r_mesh, r_rep = float(r_mesh), float(r_rep)
+    print(f"[20 fit] two epochs through the mesh and through the replay: "
+          f"max leaf |diff| {diff:.3g} (limit 1e-5), test rmse {r_mesh:.6f} "
+          f"/ {r_rep:.6f} (limit 1e-5); epoch s mesh "
+          f"{[round(x, 3) for x in ep_mesh]}, replay "
+          f"{[round(x, 3) for x in ep_rep]}; the shard tier alone s mesh "
+          f"{[round(x, 3) for x in tier_mesh]}, replay "
+          f"{[round(x, 3) for x in tier_rep]} ({sh['rounds']} cells on the "
+          f"packed steps, host-paced)", flush=True)
+    if not (diff <= 1e-5 and abs(r_mesh - r_rep) <= 1e-5):
+        raise AssertionError("the mesh shard tier differs from the replay")
+    del p_mesh, p_rep, sd, shd, p0
+
+    sgd_kernel.CULSH_LAUNCHES = 0
+    res = fit(tr, te, (M, N), dataclasses.replace(cfg, shards=D, epochs=2),
+              device=dev)
+    launches = sgd_kernel.CULSH_LAUNCHES
+    st4 = res.schedule_stats
+    width_steps = sum(t["rounds"] for t in st4["tiers"])
+    rm = [h[2] for h in res.history]
+    ep_s = np.diff([0.0] + [h[1] for h in res.history]).round(3).tolist()
+    ep1 = np.diff([0.0] + [h[1] for h in res1.history]).round(3).tolist()
+    share = np.mean(tier_mesh) / np.mean(ep_mesh)
+    print(f"[20 fit] fit(shards={D}, use_kernels=True, epochs=2): rmse "
+          f"{rm} (phase 10's one-shard fit: {[h[2] for h in res1.history][:2]}"
+          f"); schedule cf_frac {st4['cf_frac']:.4f} (phase 8's one-shard "
+          f"{res1.schedule_stats['cf_frac']:.4f}), {st4['nb_lo']} leftover "
+          f"batches ({res1.schedule_stats['nb_lo']}); culsh_sgd_step "
+          f"launches {launches} = {width_steps} width-tier steps x 2 epochs "
+          f"(the shard tier's {st4['shard']['rounds']} cells run the packed "
+          f"steps); epoch s {ep_s} beside phase 10's {ep1}; the shard tier "
+          f"{share:.3f} of a mesh epoch (power limit {power})", flush=True)
+    if not (np.isfinite(rm).all() and rm[-1] < rm[0]):
+        raise AssertionError(f"the sharded fit did not train: rmse {rm}")
+    if st4["shard"]["shards"] != D or not st4["shard"]["n"]:
+        raise AssertionError(f"the fit has no {D}-shard tier: {st4['shard']}")
+    if on_card and launches != width_steps * 2:
+        raise AssertionError(f"culsh_sgd_step launched {launches} times, "
+                             f"expected {width_steps * 2}")
+    del os.environ[shard_mesh.LOGICAL_DEVICES]
+    print(f"[20 shards] phase seconds {time.perf_counter() - t_phase:.1f}",
           flush=True)
 
 
@@ -2723,10 +3038,12 @@ def main(argv=None) -> int:
         dev, on_card, power))
     loop_phase(args, octx, cfg, dev, on_card, power)
     comparators_phase(args, ctx, dev, on_card, power)
-    serve_paths_phase(args, dict(params=params, sp=sp, sigs=sigs, cfg=cfg,
-                                 probe=probe, exact=exact, probe_items=got_p,
-                                 key=prng.PRNGKey(args.seed, device=dev)),
-                      dev, on_card, power)
+    serve = dict(params=params, sp=sp, sigs=sigs, cfg=cfg, probe=probe,
+                 exact=exact, probe_items=got_p, recall=recall,
+                 key=prng.PRNGKey(args.seed, device=dev))
+    serve["plain_recall"] = serve_paths_phase(args, serve, dev, on_card,
+                                              power)
+    shard_phase(args, serve, ctx, dev, on_card, power)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

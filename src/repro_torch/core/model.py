@@ -13,7 +13,8 @@ Three layouts of the parameters: the public `Params`; the training
 planes `PackedParams` (U‖b and V‖W‖C‖b̂, two gather/scatter pairs per SGD
 step); and the serving planes `ServePlanes` (U‖b and V‖b̂).  The fit's
 data layout is `ScheduledData` (triples in schedule order, so a batch is
-a contiguous view) and its eval cache `EvalCache`; the legacy path
+a contiguous view), with `ShardData` for a multi-shard schedule's
+block-aligned tier, and its eval cache `EvalCache`; the legacy path
 evaluates with a lookup per batch instead (`eval_batches`, `rmse`).
 """
 from __future__ import annotations
@@ -232,6 +233,57 @@ def build_scheduled_data(sp: SparseMatrix, JK: torch.Tensor, sched, *,
     return ScheduledData(*_ordered_planes(
         sp, JK, sched, sched.order[sched.shard_span:], sched.pad_width,
         mf_only=mf_only, chunk=chunk))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardData:
+    """Shard-tier cells as dense ``[D, S, R, Wsh]`` slot arrays: cell
+    ``(d, s, r)`` *is* the batch, and the leading axis is the shard axis
+    (shard ``d`` trains on ``[d]``).  Empty slots are masked by
+    ``sched.shard_valid``; ids are in the schedule's block-padded space."""
+
+    i: torch.Tensor     # [D, S, R, W] int32
+    j: torch.Tensor     # [D, S, R, W] int32
+    r: torch.Tensor     # [D, S, R, W] float32
+    nb: torch.Tensor    # [D, S, R, W, K] int32
+    rnb: torch.Tensor   # [D, S, R, W, K] float32
+    expl: torch.Tensor  # [D, S, R, W, K] float32
+
+
+def build_shard_data(sp: SparseMatrix, JK: torch.Tensor, sched, *,
+                     mf_only: bool = False,
+                     chunk: int = 65536) -> ShardData | None:
+    """Shard-tier cells gathered into the dense ``[D, S, R, Wsh]`` layout
+    on ``sp``'s device (None when the schedule has no shard tier)."""
+    if sched.shard_span == 0:
+        return None
+    Wsh = sched.shard_width
+    planes = _ordered_planes(sp, JK, sched, sched.order[:sched.shard_span],
+                             Wsh, mf_only=mf_only, chunk=chunk)
+    idx = torch.from_numpy(sched.shard_starts[..., None].astype(np.int64)
+                           + np.arange(Wsh)).to(sp.vals.device)
+    return ShardData(*(p[idx] for p in planes))
+
+
+def shard_col_plane(col: torch.Tensor, bounds) -> torch.Tensor:
+    """Partition an ``[N, W]`` item plane into block-padded shards →
+    ``[D, block, W]`` (``block`` = the largest extent): local row ``l`` of
+    shard ``d`` is global row ``bounds[d] + l``; rows past the shard's
+    extent are zero and never gathered (the sharded walk masks local ids
+    ≥ the shard's item count)."""
+    bounds = np.asarray(bounds)
+    ext = np.diff(bounds)
+    out = col.new_zeros((len(ext), int(ext.max())) + tuple(col.shape[1:]))
+    for d, (lo, n) in enumerate(zip(bounds[:-1].tolist(), ext.tolist())):
+        out[d, :n] = col[lo:lo + n]
+    return out
+
+
+def unshard_col_plane(stack: torch.Tensor, bounds) -> torch.Tensor:
+    """Inverse of `shard_col_plane`: each shard's rows without padding,
+    concatenated back to the ``[N, W]`` id order."""
+    ext = np.diff(np.asarray(bounds))
+    return torch.cat([stack[d, :int(n)] for d, n in enumerate(ext)])
 
 
 def slice_batch(sd: ScheduledData, start: int, width: int,

@@ -1,5 +1,5 @@
 """Stochastic optimization — paper Eq. (4)/(5) updates and the Eq. (7)
-learning-rate decay (`repro/core/sgd.py`), single device.
+learning-rate decay (`repro/core/sgd.py`).
 
 Two engines: ``mf_step`` (CUSGD++, plain MF {U, V}) and ``culsh_step``
 (CULSH-MF, the six-parameter update).  The *unpacked* steps take `Params`
@@ -19,11 +19,12 @@ scaled by 1/count.
 `train_epoch` is the legacy path (``schedule="none"``): shuffled
 mini-batches assembled by lookup, on the unpacked steps with per-batch
 collision scaling.  `train_epoch_scheduled` is the offline hot path:
-contiguous-view batches of the schedule-ordered `ScheduledData`,
-conflict-free width tiers on the packed planes — through the fused CUDA
-steps of `kernels/mf_sgd` with ``use_kernels`` — and the leftover
-batches on the scaled step with their precomputed collision
-normalizers.
+the block-aligned shard tier of a multi-shard schedule first (over the
+dense `ShardData` cells, on the packed steps), then contiguous-view
+batches of the schedule-ordered `ScheduledData`: conflict-free width
+tiers on the packed planes — through the fused CUDA steps of
+`kernels/mf_sgd` with ``use_kernels`` — and the leftover batches on the
+scaled step with their precomputed collision normalizers.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ import torch
 from repro_torch import prng
 from repro_torch.core import scatter
 from repro_torch.core.model import (Batch, PackedParams, Params,
-                                    ScheduledData, assemble, predict,
-                                    predict_gathered, predict_mf,
+                                    ScheduledData, ShardData, assemble,
+                                    predict, predict_gathered, predict_mf,
                                     slice_batch)
 from repro_torch.data.sparse import EpochSchedule, SparseMatrix, epoch_batches
 from repro_torch.kernels import pick
@@ -44,6 +45,7 @@ from repro_torch.kernels.mf_sgd.kernel import (culsh_sgd_tier,
                                                culsh_sgd_tier_ref,
                                                mf_sgd_tier, mf_sgd_tier_ref)
 from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
+from repro_torch.launch import mesh as shard_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -268,26 +270,147 @@ def _cf_scan(pp: PackedParams, sd: ScheduledData, starts: np.ndarray,
     return pp
 
 
+_SHD_FIELDS = ("i", "j", "r", "nb", "rnb", "expl")
+
+
+def _shard_round_shuffle(shd: ShardData, sched: EpochSchedule, key):
+    """Per-epoch round order of the block-aligned tier → the round-
+    permuted (ShardData, valid [D, S, R, Wsh] bool) on ``shd``'s device.
+
+    Rounds are permuted within each sub-epoch, identically across
+    shards (the cells at one (s, r) touch disjoint blocks, so any common
+    round order keeps them conflict-free): sub-epoch ``s`` takes
+    `prng.permutation` of the ``s``-th key of ``split(key, S)``, as the
+    JAX package's `vmap` draws it."""
+    dev = shd.i.device
+    _, S, R = sched.shard_starts.shape
+    valid = torch.as_tensor(sched.shard_valid, device=dev)
+    if R == 0:
+        return shd, valid
+    perms = torch.stack([prng.permutation(k, R)
+                         for k in prng.split(key, S)]).to(dev)   # [S, R]
+    srow = torch.arange(S, device=dev)[:, None]
+    prm = lambda a: a[:, srow, perms]
+    return (ShardData(*(prm(getattr(shd, f)) for f in _SHD_FIELDS)),
+            prm(valid))
+
+
+def _cell_batch(bi, bj, br, bnb, brnb, bexpl, val) -> Batch:
+    """A dense ShardData cell *is* the batch — no window slicing."""
+    return Batch(i=bi, j=bj, r=br, nb=bnb, rnb=brnb, expl=bexpl,
+                 impl=1.0 - bexpl, valid=val)
+
+
+def _cell_step(pp: PackedParams, bt: Batch, hp: Hyper, decay, bh0, *,
+               mf_only: bool, bce: bool) -> None:
+    """One conflict-free cell on the packed steps, in place; CULSH-MF
+    reads the neighbours' b̂ from the epoch-start snapshot ``bh0``."""
+    if mf_only:
+        mf_step_packed(pp, bt, hp, decay, bce, conflict_free=True)
+    else:
+        culsh_step_packed(pp, bt, hp, decay, bce, conflict_free=True,
+                          bh_nb=bh0[bt.nb.long()])
+
+
+def _shard_replay(pp: PackedParams, shd: ShardData, valid: torch.Tensor,
+                  sched: EpochSchedule, hp: Hyper, decay, *, mf_only: bool,
+                  bce: bool) -> PackedParams:
+    """The shard tier on one device, in place: the cells in (s, r, d)
+    order with the epoch-start b̂ snapshot — the order and snapshot of
+    `_sharded_tier`, whose D cells of a step touch disjoint parameter
+    blocks, so the two agree."""
+    D, S, R = sched.shard_starts.shape
+    bh0 = pp.bh.clone()
+    vf = valid.to(torch.float32)
+    cells = [getattr(shd, f) for f in _SHD_FIELDS]
+    for s in range(S):
+        for r in range(R):
+            for d in range(D):
+                _cell_step(pp, _cell_batch(*(a[d, s, r] for a in cells),
+                                           vf[d, s, r]),
+                           hp, decay, bh0, mf_only=mf_only, bce=bce)
+    return pp
+
+
+def _sharded_tier(pp: PackedParams, shd: ShardData, valid: torch.Tensor,
+                  sched: EpochSchedule, hp: Hyper, decay,
+                  mesh: shard_mesh.ShardMesh, *, mf_only: bool,
+                  bce: bool) -> PackedParams:
+    """The shard tier over ``mesh`` (cuMF's rotation), in place.
+
+    Shard ``d`` holds col block ``d`` (V/W/C/b̂, which stays put) and
+    scans sub-epoch ``s``'s rounds on row block ``(d+s) % D``, with the
+    cells' ids made local to the two blocks; after each sub-epoch its
+    row block (U‖b) moves to shard ``d−1`` (`shard_mesh.ppermute` over
+    the JAX ring ``[(i, (i−1) % D)]``).  After D rotations every row
+    block is home again and both planes are written back.  Neighbour
+    baselines use the epoch-start snapshot, since neighbour cols cross
+    block boundaries.  The planes must be in the schedule's block-padded
+    id space (`model.remap_params`)."""
+    D = sched.shards
+    if mesh.size != D:
+        raise ValueError(f"the schedule has {D} shards, the mesh "
+                         f"{mesh.size}")
+    mB, nB = sched.block_rows, sched.block_cols
+    devs = mesh.devices
+    bh0 = pp.bh.clone()
+    rowb = [pp.row[d * mB:(d + 1) * mB].to(dev) for d, dev in enumerate(devs)]
+    colb = [pp.col[d * nB:(d + 1) * nB].to(dev) for d, dev in enumerate(devs)]
+    local = []                   # each shard's replicated operands and cells
+    for d, dev in enumerate(devs):
+        local.append((pp.mu.to(dev), decay.to(dev), bh0.to(dev),
+                      [getattr(shd, f)[d].to(dev) for f in _SHD_FIELDS],
+                      valid[d].to(dev, torch.float32)))
+    ring = [(i, (i - 1) % D) for i in range(D)]
+    for s in range(D):
+        for d, dev in enumerate(devs):
+            mu, dec, bh0_d, cells, vf = local[d]
+            row0, col0 = ((d + s) % D) * mB, d * nB
+            pl = PackedParams(row=rowb[d], col=colb[d], mu=mu, F=pp.F,
+                              K=pp.K)
+            with shard_mesh.on(dev):
+                for r in range(cells[0].shape[1]):
+                    bt = _cell_batch(*(a[s, r] for a in cells), vf[s, r])
+                    ok = ((bt.i >= row0) & (bt.i < row0 + mB)
+                          & (bt.j >= col0) & (bt.j < col0 + nB))
+                    bt = dataclasses.replace(
+                        bt, i=(bt.i - row0).clamp(0, mB - 1),
+                        j=(bt.j - col0).clamp(0, nB - 1),
+                        valid=bt.valid * ok)
+                    _cell_step(pl, bt, hp, dec, bh0_d, mf_only=mf_only,
+                               bce=bce)
+        rowb = shard_mesh.ppermute(rowb, ring)
+    for d in range(D):
+        pp.row[d * mB:(d + 1) * mB].copy_(rowb[d])
+        pp.col[d * nB:(d + 1) * nB].copy_(colb[d])
+    return pp
+
+
 def train_epoch_scheduled(pp: PackedParams, sd: ScheduledData,
                           sched: EpochSchedule, key: torch.Tensor,
-                          epoch: int, hp: Hyper, *, mf_only: bool = False,
-                          bce: bool = False, use_kernels: bool = False,
-                          impl: str = "auto") -> PackedParams:
+                          epoch: int, hp: Hyper, *,
+                          shd: ShardData | None = None,
+                          mf_only: bool = False, bce: bool = False,
+                          use_kernels: bool = False, impl: str = "auto",
+                          mesh: shard_mesh.ShardMesh | None = None
+                          ) -> PackedParams:
     """One epoch over a tiered conflict-free schedule, updating ``pp`` in
     place (the offline hot path).
 
-    Each width tier runs its batches in a per-epoch order, `prng.
-    permutation(keys[2 + t])`, exactly the JAX package's; the leftover
-    batches follow in the order of ``keys[1]`` on the scaled step, never
-    through the kernels.  Batch order, tier starts and masks are drawn
-    and permuted on the host once per epoch, so no step reads the device;
-    the kernel hyper vector is built once per epoch on the device.  The
-    block-aligned shard tier (``sched.shards > 1``) is not ported and
-    raises.  ``impl`` picks the fused step of ``use_kernels`` (see
-    `_cf_scan`)."""
-    if sched.shard_span:
-        raise NotImplementedError("the block-aligned shard tier is not "
-                                  "ported; schedule with shards=1")
+    The block-aligned shard tier of a multi-shard schedule runs first,
+    over the dense cells ``shd`` (`model.build_shard_data`) in the round
+    order of ``keys[0]`` (`_shard_round_shuffle`): over ``mesh`` when
+    given (`_sharded_tier`), else replayed on one device in the same
+    (s, r, d) order (`_shard_replay`).  It runs on the packed steps with
+    the epoch-start b̂ snapshot, never on the fused kernels, which read
+    the live b̂.  Each width tier then runs its batches in a per-epoch
+    order, `prng.permutation(keys[2 + t])`, exactly the JAX package's;
+    the leftover batches follow in the order of ``keys[1]`` on the
+    scaled step, never through the kernels.  Batch order, tier starts and
+    masks are drawn and permuted on the host once per epoch, so no width-
+    tier step reads the device; the kernel hyper vector is built once per
+    epoch on the device.  ``impl`` picks the fused step of
+    ``use_kernels`` (see `_cf_scan`)."""
     dev = pp.row.device
     decay = lr_decay(hp, epoch, dev)
     hpv = None
@@ -296,6 +419,15 @@ def train_epoch_scheduled(pp: PackedParams, sd: ScheduledData,
                else culsh_hyper(hp, decay, pp.mu))
     keys = prng.split(key, 2 + len(sched.tier_starts))
     kw = dict(mf_only=mf_only, bce=bce)
+    if sched.shard_span:
+        if shd is None:
+            raise ValueError("the schedule has a shard tier: pass "
+                             "shd=model.build_shard_data(...)")
+        shd_p, valid_p = _shard_round_shuffle(shd, sched, keys[0])
+        if mesh is not None:
+            _sharded_tier(pp, shd_p, valid_p, sched, hp, decay, mesh, **kw)
+        else:
+            _shard_replay(pp, shd_p, valid_p, sched, hp, decay, **kw)
     on_dev = lambda a: torch.as_tensor(a, device=dev)
     for t, (starts, valid) in enumerate(zip(sched.tier_starts,
                                             sched.tier_valid)):

@@ -392,6 +392,10 @@ def _balanced_bounds(counts: np.ndarray, D: int, floor: int = 1) -> np.ndarray:
     return bounds
 
 
+# the serving shards' cuts (`serve.index.shard_bounds`) use the same rule
+balanced_bounds = _balanced_bounds
+
+
 def _block_id_map(bounds: np.ndarray, size: int, extent: int) -> np.ndarray:
     """Original id → block-padded id: ``g ∈ block d ↦ d·extent + (g −
     bounds[d])``.  Strictly monotone (blocks keep their internal order and

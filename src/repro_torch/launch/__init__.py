@@ -1,0 +1,8 @@
+"""repro_torch.launch — the shard mesh of the multi-device tiers
+(`repro/launch`, less the language-model meshes)."""
+from repro_torch.launch.mesh import (LOGICAL_DEVICES, ShardMesh,
+                                     device_count, make_shard_mesh,
+                                     serve_shard_count)
+
+__all__ = ["LOGICAL_DEVICES", "ShardMesh", "device_count", "make_shard_mesh",
+           "serve_shard_count"]

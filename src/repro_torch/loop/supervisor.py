@@ -187,14 +187,18 @@ class OnlineLoop:
     sees the loop template.  Direct `updater.update()` calls between
     slices remain safe (same WAL, same seq space) but `recover()` must
     then replay them too — which it does, dispatching on entry kind.
-    (The port serves on one device only — `ServeConfig` refuses
-    ``shards`` — so there is no sharded service to refuse here.)
     """
 
     def __init__(self, updater: OnlineUpdater, service: RecsysService,
                  cfg: LoopConfig = LoopConfig(), *, holdout=None,
                  registry: obs.Registry | None = None,
                  _slice: int = 0, _micro: int = 0):
+        if service._shard_state is not None:
+            raise ValueError(
+                "OnlineLoop needs a single-device RecsysService — sharded "
+                "serving is read-only (ShardedIngestUnsupported) and cannot "
+                "adopt published states; run the loop on a shards=0 service "
+                "and rebuild the sharded tier from its checkpoints")
         self.updater = updater
         self.svc = service
         self.cfg = cfg

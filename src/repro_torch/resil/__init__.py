@@ -2,7 +2,8 @@
 
   * `faults`   — deterministic fault injection (the chaos substrate);
   * `validate` — poison-batch quarantine (`PoisonBatchError`) and index
-    invariant / recall-smoke validation (`validate_index`);
+    invariant / recall-smoke validation (`validate_index`, and
+    `validate_sharded_index` for the sharded serving index);
   * `rebuild`  — background double-buffered index rebuild with a
     validate-then-swap gate and rollback by default (`IndexRebuilder`),
     on its own CUDA stream on the card;
@@ -23,12 +24,14 @@ from repro_torch.resil.rebuild import IndexRebuilder
 from repro_torch.resil.validate import (IndexValidationError,
                                         PoisonBatchError, check_accumulators,
                                         check_delta, check_ids,
-                                        check_ingest_batch, validate_index)
+                                        check_ingest_batch, validate_index,
+                                        validate_sharded_index)
 from repro_torch.resil.wal import OnlineUpdater, WriteAheadLog
 
 __all__ = [
     "faults", "DivergenceError", "GuardConfig", "check_divergence",
     "IndexRebuilder", "IndexValidationError", "PoisonBatchError",
     "check_accumulators", "check_delta", "check_ids", "check_ingest_batch",
-    "validate_index", "OnlineUpdater", "WriteAheadLog",
+    "validate_index", "validate_sharded_index", "OnlineUpdater",
+    "WriteAheadLog",
 ]

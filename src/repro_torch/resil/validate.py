@@ -147,10 +147,12 @@ def validate_index(index, *, probe: int = 64, seed: int = 0) -> list:
     swapped in.  The O(q·N) checks run on the index's own device (the
     background rebuilder's stream on the card): only their per-band
     verdicts and one probe batch's candidates come back to the host, so
-    validating a 10⁶-item index moves kilobytes, not the index.  The
-    sharded index is not ported (a later slice)."""
+    validating a 10⁶-item index moves kilobytes, not the index.  A
+    `ShardedLSHIndex` goes to `validate_sharded_index`."""
     from repro_torch.serve.index import lookup_signatures   # no cycle
 
+    if hasattr(index, "bounds"):           # a ShardedLSHIndex
+        return validate_sharded_index(index, probe=probe, seed=seed)
     probs: list = []
     arrays = [(torch.as_tensor(getattr(index, name)), name) for name in (
         "sorted_sigs", "sorted_ids", "bucket_lo", "bucket_hi", "slot_of")]
@@ -207,4 +209,64 @@ def validate_index(index, *, probe: int = 64, seed: int = 0) -> list:
         if miss:
             probs.append(f"recall smoke: {len(miss)}/{len(ids)} probe items "
                          f"failed self-retrieval (e.g. id {miss[0]})")
+    return probs
+
+
+def validate_sharded_index(index, *, probe: int = 64, seed: int = 0) -> list:
+    """`validate_index` for a `ShardedLSHIndex`: the CSR bucket
+    invariants on each shard's `shard_local_view`, and the sharded
+    geometry — bounds strictly increasing over [0, n_items], ``n_local``
+    equal to the cuts' extents, the common ``block`` their largest, and
+    every padding slot (and no real item) carrying `_EMPTY_SIG`, so no
+    probe lands on one.  The self-retrieval smoke probes real local ids
+    only (< ``n_local``): the padding slots share one large `_EMPTY_SIG`
+    bucket, where a cap-4 probe would miss on a healthy index."""
+    from repro_torch.serve.index import (_EMPTY_SIG, lookup_signatures,
+                                         shard_local_view)
+
+    probs: list = []
+    bounds = _np(index.bounds)
+    n_local = _np(index.n_local)
+    D = int(index.shards)
+    if bounds.shape != (D + 1,):
+        return [f"bounds: shape {bounds.shape} != ({D + 1},)"]
+    if bounds[0] != 0 or bounds[-1] != index.n_items:
+        probs.append(f"bounds: [{bounds[0]}, {bounds[-1]}] does not cover "
+                     f"[0, {index.n_items}]")
+    if np.any(np.diff(bounds) <= 0):
+        probs.append("bounds: not strictly increasing")
+    if not np.array_equal(n_local, np.diff(bounds)):
+        probs.append(f"n_local {n_local.tolist()} != diff(bounds)")
+    if n_local.size and int(n_local.max()) != index.block:
+        probs.append(f"block {index.block} != max shard extent "
+                     f"{int(n_local.max())}")
+    if probs:
+        return probs
+
+    rng = np.random.default_rng(seed)
+    per = max(1, probe // D)
+    for d in range(D):
+        view = shard_local_view(index, d)
+        for p in validate_index(view, probe=0):
+            probs.append(f"shard {d}: {p}")
+        ss = view.sorted_sigs
+        q = ss.shape[0]
+        nl = int(n_local[d])
+        n_pad = int((ss == _EMPTY_SIG).sum())
+        if n_pad != (index.block - nl) * q:
+            probs.append(f"shard {d}: {n_pad} padding signatures, expected "
+                         f"{(index.block - nl) * q} "
+                         f"(block {index.block} - n_local {nl} per band)")
+        if probs:
+            break
+        if nl and per:
+            ids = rng.choice(nl, size=min(per, nl), replace=False)
+            slots = view.slot_of[:, torch.as_tensor(ids, device=ss.device)]
+            qsigs = torch.gather(ss, 1, slots.long()).T.contiguous()
+            cand = _np(lookup_signatures(view, qsigs, cap=4))
+            miss = [int(i) for k, i in enumerate(ids) if i not in cand[k]]
+            if miss:
+                probs.append(f"shard {d}: recall smoke {len(miss)}/"
+                             f"{len(ids)} real items failed self-retrieval "
+                             f"(e.g. local id {miss[0]})")
     return probs

@@ -16,6 +16,10 @@ Online inserts go to a small *tail* buffer that probes scan linearly
 full signature set (`needs_rebuild`, `rebuild`).  `insert` is functional:
 it returns a new index and leaves the old one untouched, as the JAX
 package's immutable arrays do.
+
+The sharded serving tier partitions the items into nnz-balanced ranges
+(`shard_bounds`) and builds the same per-band CSR per shard over its
+*local* ids (`build_sharded_index` → `ShardedLSHIndex`, no tail).
 """
 from __future__ import annotations
 
@@ -318,3 +322,114 @@ def lookup_items(index: LSHIndex, item_ids: torch.Tensor, *, cap: int,
         qsigs = _sig_of_items(index, item_ids)
     tail = _tail_matches(index, index.tail_sigs, qsigs, width=cap)
     return torch.cat([core, _bands_to_rows(tail)], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Sharded index.  Each shard builds the per-band CSR above over its own
+# items in a local id space 0..n_d−1, block-padded to the largest extent:
+# padding slots carry `_EMPTY_SIG`, which sorts before every real
+# signature and matches no probe, so they form one inert bucket at the
+# front of each band.  Slice d of the stacked [D, ...] arrays is shard
+# d's local index.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedLSHIndex:
+    """Per-shard bucket CSR over local ids, stacked on a leading shard
+    axis.  Global id ``g`` of shard ``d`` (``bounds[d] ≤ g < bounds[d+1]``)
+    is local id ``g − bounds[d]``; local ids ≥ ``n_local[d]`` are
+    padding.  No tail: the sharded tier serves a complete catalog, and
+    online inserts go through the single-device tail + rebuild path."""
+
+    sorted_sigs: torch.Tensor   # [D, q, block] int32, ascending per band
+    sorted_ids: torch.Tensor    # [D, q, block] int32 local ids
+    bucket_lo: torch.Tensor     # [D, q, block] int32
+    bucket_hi: torch.Tensor     # [D, q, block] int32
+    slot_of: torch.Tensor       # [D, q, block] int32 local id → slot
+    n_local: torch.Tensor       # [D] int32 real (non-padding) items per shard
+    bounds: torch.Tensor        # [D+1] int32 global cut points
+    n_items: int
+    block: int
+
+    @property
+    def shards(self) -> int:
+        return self.sorted_sigs.shape[0]
+
+    @property
+    def q(self) -> int:
+        return self.sorted_sigs.shape[1]
+
+
+def shard_bounds(counts: np.ndarray, shards: int) -> np.ndarray:
+    """nnz-balanced item cuts for the serving shards: ``counts [N]`` are
+    the items' rating counts → ``bounds [D+1]``.  The extent floor of
+    N/(4·D) bounds the block padding at ~4× on zipf catalogs, whose head
+    shard would otherwise shrink to a few very popular items."""
+    from repro_torch.data.sparse import balanced_bounds   # no cycle
+    N, D = len(counts), shards
+    return balanced_bounds(np.asarray(counts), D,
+                           floor=max(1, N // (4 * max(D, 1))))
+
+
+def build_sharded_index(sigs, *, shards: int,
+                        counts: np.ndarray | None = None,
+                        bounds: np.ndarray | None = None) -> ShardedLSHIndex:
+    """sigs [q, N] int32 → the block-padded per-shard CSR stack on
+    ``sigs``'s device.  ``bounds`` (explicit cuts) wins over ``counts``
+    (nnz-balanced cuts, `shard_bounds`); with neither, the id range is
+    cut evenly.  The guards of `build_index` apply."""
+    if isinstance(sigs, np.ndarray):
+        sigs = torch.from_numpy(sigs)
+    if sigs.dtype != torch.int32:
+        raise TypeError(f"build_sharded_index: signatures must be int32, "
+                        f"got {sigs.dtype}")
+    if sigs.ndim != 2:
+        raise ValueError(f"build_sharded_index: expected [q, N] signatures, "
+                         f"got shape {tuple(sigs.shape)}")
+    q, N = sigs.shape
+    if N > _MAX_ID:
+        raise ValueError(f"build_sharded_index: item ids must stay below "
+                         f"2^30 (the dedup hash mask); got N={N}")
+    if shards < 1 or N < shards:
+        raise ValueError(f"build_sharded_index: need 1 ≤ shards ≤ N, got "
+                         f"shards={shards}, N={N}")
+    if bounds is None:
+        bounds = (shard_bounds(counts, shards) if counts is not None else
+                  np.linspace(0, N, shards + 1).astype(np.int64))
+    bounds = np.asarray(bounds, np.int64)
+    if (len(bounds) != shards + 1 or bounds[0] != 0 or bounds[-1] != N
+            or np.any(np.diff(bounds) < 1)):
+        raise ValueError(f"build_sharded_index: bounds {bounds} must be "
+                         f"strictly increasing from 0 to N={N}")
+    dev = sigs.device
+    ext = np.diff(bounds)
+    block = int(ext.max())
+    parts = []
+    for d in range(shards):
+        part = torch.full((q, block), _EMPTY_SIG, dtype=torch.int32,
+                          device=dev)
+        part[:, :int(ext[d])] = sigs[:, int(bounds[d]):int(bounds[d + 1])]
+        parts.append(_build_arrays(part))
+    ssig, sids, lo, hi, slot = (torch.stack(a) for a in zip(*parts))
+    return ShardedLSHIndex(
+        sorted_sigs=ssig, sorted_ids=sids, bucket_lo=lo, bucket_hi=hi,
+        slot_of=slot,
+        n_local=torch.tensor(ext, dtype=torch.int32, device=dev),
+        bounds=torch.tensor(bounds, dtype=torch.int32, device=dev),
+        n_items=N, block=block)
+
+
+def shard_local_view(index: ShardedLSHIndex, d: int) -> LSHIndex:
+    """Shard ``d``'s arrays as a plain tail-less `LSHIndex` over its
+    ``block`` local ids (padding slots included as `_EMPTY_SIG` items) —
+    for validation and tests."""
+    dev = index.sorted_sigs.device
+    return LSHIndex(
+        sorted_sigs=index.sorted_sigs[d], sorted_ids=index.sorted_ids[d],
+        bucket_lo=index.bucket_lo[d], bucket_hi=index.bucket_hi[d],
+        slot_of=index.slot_of[d],
+        tail_sigs=torch.full((index.q, 0), _EMPTY_SIG, dtype=torch.int32,
+                             device=dev),
+        tail_ids=torch.full((0,), SENTINEL, dtype=torch.int32, device=dev),
+        n_base=index.block, tail_cap=0, tail_fill=0)

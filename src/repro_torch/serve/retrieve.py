@@ -21,6 +21,10 @@ any seed in any band.  Three pipelines build them:
     (`dedup_candidates`) into a fixed [B, C], with the popularity
     shortlist in reserved trailing slots (`finalize_candidates`).
 
+The sharded tier walks each shard's local buckets by *signature*
+(`shard_seed_sigs`, `sig_window_descriptors`, `shard_walk_local`) and
+lifts the survivors to global ids (`translate_local_ids`).
+
 All of it is integer work, bit-equal to the JAX package on either device.
 """
 from __future__ import annotations
@@ -29,7 +33,8 @@ import torch
 
 from repro_torch.core.topk import SENTINEL
 from repro_torch.data.sparse import SparseMatrix
-from repro_torch.serve.index import LSHIndex, _sig_of_items, lookup_items
+from repro_torch.serve.index import (_EMPTY_SIG, LSHIndex, _sig_of_items,
+                                     lookup_items)
 
 # invertible 30-bit multiplicative hash (2654435761·x mod 2³⁰) and its
 # inverse; item ids stay below 2³⁰.  The products are taken in int64, so
@@ -358,3 +363,86 @@ def tail_hits(index: LSHIndex, seeds: torch.Tensor, *,
            == index.tail_sigs[:, :k][:, None, None, :]).any(dim=2).any(dim=0)
     return torch.where(hit, index.tail_ids[None, :k],
                        torch.full_like(index.tail_ids[None, :k], SENTINEL))
+
+
+# ---------------------------------------------------------------------------
+# The shard-local walk (one shard's half of the sharded flush).  A seed's
+# slot exists only in its owning shard, so every shard walks its own
+# local buckets by the seed's band signatures, which the owner computes
+# and the flush sums across shards.  Ids stay local until scoring is done.
+# ---------------------------------------------------------------------------
+
+
+def shard_seed_sigs(ssig: torch.Tensor, slot_of: torch.Tensor,
+                    seeds: torch.Tensor, lo: int, n_local: int
+                    ) -> torch.Tensor:
+    """The band signatures of the seeds this shard owns.
+
+    ssig/slot_of [q, block] (one shard's arrays), seeds [B, S] global
+    ids, ``lo`` the shard's first global id, ``n_local`` its real item
+    count → [q, B, S] int32: the seed's signature where this shard owns
+    it, 0 elsewhere.  Each seed has one owner, so the sum over shards
+    gives every shard every seed's signature; seeds no shard owns must be
+    masked to `_EMPTY_SIG` after the sum (a sum of zeros is a legal
+    signature)."""
+    q, block = ssig.shape
+    local = seeds - lo
+    owned = (seeds != SENTINEL) & (local >= 0) & (local < n_local)
+    safe = local.clamp(0, block - 1).reshape(-1).long()
+    slot = slot_of[:, safe].long()                             # [q, B·S]
+    sig = torch.gather(ssig, 1, slot).reshape((q,) + tuple(seeds.shape))
+    return torch.where(owned[None], sig, torch.zeros_like(sig))
+
+
+def sig_window_descriptors(ssig: torch.Tensor, qsigs: torch.Tensor, *,
+                           cap: int):
+    """Signature-addressed window descriptors over one shard's local CSR.
+
+    ssig [q, block] (ascending per band), qsigs [q, B, S] seed band
+    signatures (`_EMPTY_SIG` = invalid) → (starts, counts) [B, q·S], flat
+    positions into the shard's ``sorted_ids.reshape(-1)``.  A window is
+    the first ≤ ``cap`` slots of the local bucket (bucket-head: a probing
+    shard has no seed slot to centre on); when a bucket fits in ``cap``
+    both geometries give the whole bucket, so the union over shards is
+    the single-device window union whenever nothing truncates.  Windows
+    of one band that share a bucket merge to one (`_merge_intervals`).
+    A signature the shard lacks gets an empty window at its insertion
+    point, which may equal a bucket's start; the JAX package's bitonic
+    sort may order such a tie otherwise, so the two packages' empty
+    windows may sit at other positions, while the windows the walk reads
+    are equal, in order."""
+    q, block = ssig.shape
+    _, B, S = qsigs.shape
+    flat = qsigs.reshape(q, B * S).contiguous()
+    lo = torch.searchsorted(ssig, flat, side="left",
+                            out_int32=True).reshape(q, B, S)
+    hi = torch.searchsorted(ssig, flat, side="right",
+                            out_int32=True).reshape(q, B, S)
+    valid = qsigs != _EMPTY_SIG
+    big = torch.full_like(lo, _BIG)
+    st = torch.where(valid, lo, big)
+    en = torch.where(valid, torch.minimum(lo + cap, hi), big)
+    base = (torch.arange(q, dtype=torch.int32, device=ssig.device)
+            * block)[:, None, None]
+    return _merge_intervals(st, en, base)
+
+
+def shard_walk_local(ssig: torch.Tensor, sids: torch.Tensor,
+                     qsigs: torch.Tensor, n_local: int, *, cap: int,
+                     budget: int) -> torch.Tensor:
+    """One shard's walked candidates in LOCAL ids, SENTINEL-padded:
+    ssig/sids [q, block], qsigs [q, B, S] (`shard_seed_sigs` summed) →
+    [B, budget].  Padding slots (local id ≥ ``n_local``) are masked here
+    — no real probe reaches them, but the mask keeps that unconditional.
+    Cross-band duplicates remain (as in `walk_candidates`)."""
+    starts, counts = sig_window_descriptors(ssig, qsigs, cap=cap)
+    pos = enumerate_windows(starts, counts, budget=budget)
+    flat = sids.reshape(-1)
+    sent = torch.full_like(pos, SENTINEL)
+    lid = torch.where(pos >= 0, flat[pos.clamp(min=0).long()], sent)
+    return torch.where(lid < n_local, lid, sent)
+
+
+def translate_local_ids(local_ids: torch.Tensor, lo: int) -> torch.Tensor:
+    """Shard-local → global ids, ``l ↦ lo + l``; SENTINEL stays."""
+    return torch.where(local_ids == SENTINEL, local_ids, local_ids + lo)

@@ -1,5 +1,5 @@
 """Request-batching serving loop: retrieval → candidate scoring → top-N
-(`repro/serve/service.py`, single device).
+(`repro/serve/service.py`).
 
 A `RecsysService` owns the trained parameters (packed once into the
 `ServePlanes` scoring layout), the persistent `LSHIndex`, and the
@@ -20,6 +20,12 @@ them (`RecsysService._recommend`):
     kernel (its plain version on the CPU or with ``impl="ref"``).
   * ``mode="full"`` (or a catalog at most ``route_full_below`` items) —
     exact `μ + b_i + b̂ + U Vᵀ` top-N over every item, `full_topn`.
+  * ``shards`` > 1 (walk path only) — `recommend_sharded`: the items cut
+    into D nnz-balanced ranges, each shard's col block and local index
+    on its device of a shard mesh (`launch.mesh`), the walk and scoring
+    per shard in plain PyTorch, and the partial top-Ns merged by a log₂D
+    butterfly (`merge_topn`).  Read-only: ingestion raises
+    `ShardedIngestUnsupported`.
 
 Requests are micro-batched: `submit` queues user ids and flushes a
 fixed-shape batch whenever ``micro_batch`` are pending (the final partial
@@ -58,7 +64,8 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core import simlsh
-from repro_torch.core.model import Params, ServePlanes, pack_serve_planes
+from repro_torch.core.model import (Params, ServePlanes, pack_serve_planes,
+                                    shard_col_plane)
 from repro_torch.core.topk import SENTINEL, topk_first_index
 from repro_torch.data.sparse import SparseMatrix
 from repro_torch.device import resolve_device
@@ -68,29 +75,37 @@ from repro_torch.kernels.candidate_score.ref import NEG
 # a module import: `lsh_retrieve.ops` imports this package's index, so it
 # may be mid-import when this module loads
 from repro_torch.kernels.lsh_retrieve import ops as lsh_ops
+from repro_torch.launch import mesh as shard_mesh
 from repro_torch.resil import faults
 from repro_torch.resil.rebuild import IndexRebuilder
 from repro_torch.resil.validate import (_MAX_ID, PoisonBatchError,
                                         check_accumulators,
                                         check_ingest_batch)
 from repro_torch.serve import index as lsh_index
-from repro_torch.serve.index import LSHIndex, padded_flat_ids
+from repro_torch.serve.index import (_EMPTY_SIG, LSHIndex, ShardedLSHIndex,
+                                     padded_flat_ids)
 from repro_torch.serve.retrieve import (_walk_gather, candidate_pool,
                                         enumerate_windows,
                                         finalize_candidates,
                                         retrieve_for_users, seed_items,
-                                        tail_hits, walk_candidates,
-                                        window_descriptors)
+                                        shard_seed_sigs, shard_walk_local,
+                                        tail_hits, translate_local_ids,
+                                        walk_candidates, window_descriptors)
 
-_LATER = "is not ported yet: it belongs to a later slice of the port ({})"
+
+class ShardedIngestUnsupported(NotImplementedError):
+    """Online ingestion was attempted on a sharded service.  Sharded
+    serving is read-only — the per-shard index and col-plane partitions
+    are built once from a complete catalog.  Run the ingest on a
+    single-device service (``dataclasses.replace(cfg, shards=0)``), whose
+    tail + rebuild path absorbs it, and construct a new sharded service
+    from the grown state.  Rejections count ``serve.ingest_rejected``."""
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The JAX package's `ServeConfig` less two fields: ``interpret``
-    selects the Pallas interpreter, which has no counterpart here, and
-    ``shard_budget`` comes with ``shards`` in the multi-device tier (any
-    ``shards`` but 0 raises until then)."""
+    """The JAX package's `ServeConfig` less ``interpret``, which selects
+    the Pallas interpreter and has no counterpart here."""
     mode: str = "candidate"   # candidate | full
     topn: int = 10
     micro_batch: int = 256
@@ -120,6 +135,15 @@ class ServeConfig:
                               # (~q·n_seeds·3 at cap=8 on zipf catalogs):
                               # budget truncation drops whole trailing
                               # windows, which costs recall fast
+    shards: int | str = 0     # sharded serving tier: 0 = off (the
+                              # single-device paths); "auto" = the largest
+                              # power of two ≤ the device count
+                              # (`launch.mesh.device_count`); an int =
+                              # exactly that many shards (a power of two;
+                              # more than the devices raises).  Walk path
+                              # only (band_budget > 0) and read-only
+    shard_budget: int = 0     # per-shard walk slot budget (0 = auto:
+                              # resolved_shard_budget)
     route_full_below: int = 0 # candidate-mode routing escape hatch: serve
                               # via exact full_topn when the catalog has at
                               # most this many items (candidate retrieval
@@ -154,8 +178,6 @@ class ServeConfig:
                               # package's CPU default: the plain walk path
                               # (band_budget > 0) or the plain scorer
                               # (band_budget = 0), on any device
-    # knob of a later slice: any value but the default raises
-    shards: int | str = 0
 
     def __post_init__(self):
         if self.mode not in ("candidate", "full"):
@@ -164,13 +186,21 @@ class ServeConfig:
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{self.impl!r}")
-        if self.shards != 0:
-            raise NotImplementedError(
-                "sharded serving (shards != 0) " + _LATER.format(
-                    "multi-device tiers"))
 
     def resolved_pool_width(self) -> int:
         return self.pool_width
+
+    def resolved_shard_budget(self, shards: int) -> int:
+        """The per-shard walk budget: ``shard_budget``, or 2× the shard's
+        share of ``band_budget`` rounded up to 32, at least 64 (a
+        shard's bucket-head windows do not centre on the seed, so it
+        needs more slack than budget/D; the JAX package measured recall
+        ~0.02 below the single-device walk at 1.5× and within ±0.001 at
+        2×)."""
+        if self.shard_budget:
+            return self.shard_budget
+        per = -(-2 * self.band_budget // max(shards, 1))
+        return max(64, -(-per // 32) * 32)
 
 
 def full_topn(params: Params, user_ids: torch.Tensor, *, topn: int):
@@ -304,6 +334,123 @@ def recommend_walked_kernel(planes: ServePlanes, index: LSHIndex,
                             tile_b=tile_b, impl=impl)
 
 
+def merge_topn(sa: torch.Tensor, ia: torch.Tensor, sb: torch.Tensor,
+               ib: torch.Tensor, *, topn: int):
+    """Merge two top-n partial lists into the top-n of their union:
+    (scores, ids) pairs [B, n] → [B, topn].
+
+    The order is the JAX package's two-key `lax.sort` over (−score, id):
+    score descending, then id ascending, with ±0 equal and every NaN
+    last — so the merge is associative and commutative, and the
+    butterfly reduce does not depend on how the catalog was split.  Each
+    pair becomes one int64 key (the order-preserving int32 image of the
+    canonical −score above the id's unsigned image), so no tie is left
+    to the sort.  (NEG, SENTINEL) padding sinks below every real score;
+    the two sides' real ids must be disjoint (shards partition the
+    catalog)."""
+    s = torch.cat([sa, sb], dim=1)
+    i = torch.cat([ia, ib], dim=1)
+    # the comparator's canonical keys: −0 → +0, and one NaN, which sorts
+    # last
+    neg = -s
+    neg = torch.where(neg == 0, torch.zeros_like(neg), neg)
+    neg = torch.where(torch.isnan(neg), torch.full_like(neg, float("nan")),
+                      neg)
+    bits = neg.contiguous().view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).to(torch.int64)
+    key = (ordered << 32) | (i.to(torch.int64) + 2 ** 31)
+    order = torch.sort(key, dim=1).indices[:, :topn]
+    return torch.gather(s, 1, order), torch.gather(i, 1, order)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Shard:
+    """One serving shard's state, on its device of the mesh: the col
+    block, the local index arrays, and its id range as host ints."""
+    device: torch.device
+    col: torch.Tensor      # [block, F+1] — global rows lo … lo+n_local−1
+    ssig: torch.Tensor     # [q, block] int32
+    sids: torch.Tensor     # [q, block] int32 local ids
+    slot: torch.Tensor     # [q, block] int32
+    lo: int
+    n_local: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedServing:
+    """The sharded tier of a `RecsysService`: the stacked index (on the
+    service's device, for validation), the mesh, and each shard's col
+    block and local index (`_Shard`) on its device."""
+    index: ShardedLSHIndex
+    mesh: shard_mesh.ShardMesh
+    parts: tuple
+
+    @property
+    def shards(self) -> int:
+        return self.mesh.size
+
+
+def recommend_sharded(planes: ServePlanes, sp: SparseMatrix,
+                      user_ids: torch.Tensor, popular: torch.Tensor | None,
+                      parts, *, n_seeds: int, cap: int, budget: int,
+                      window: int, topn: int, tile_b: int):
+    """The sharded flush over the shards ``parts`` (`_Shard`s).  On the
+    service's device: the seeds and the user rows with μ added.  Per
+    shard: the seeds' band signatures it owns (`shard_seed_sigs`), summed
+    over the shards (`launch.mesh.psum`) and masked where no shard owns
+    the seed; the walk of its local buckets under ``budget``
+    (`shard_walk_local`) and its part of the popularity shortlist, scored
+    against its col block (`_pool_scores`) and selected in global ids
+    (`_select_topn_masked`).  Then log₂D butterfly rounds: each shard
+    takes its XOR partner's partial (`launch.mesh.ppermute`) and merges
+    (`merge_topn`).  Shard 0's answer → (scores, items) [B, topn].
+    Plain PyTorch: no kernel is launched."""
+    seeds = seed_items(sp, user_ids, n_seeds=n_seeds, window=window)
+    F = planes.F
+    urow = planes.row[user_ids.long().clamp(0, planes.row.shape[0] - 1)]
+    urow[:, F] += planes.mu                       # bias col := μ + b_i
+    seeds_d = [seeds.to(sh.device) for sh in parts]      # replicated
+    contrib = []
+    for sh, sd in zip(parts, seeds_d):
+        with shard_mesh.on(sh.device):
+            contrib.append(shard_seed_sigs(sh.ssig, sh.slot, sd, sh.lo,
+                                           sh.n_local))
+    qsigs = shard_mesh.psum(contrib)
+    ps, pi = [], []
+    for sh, sd, qs in zip(parts, seeds_d, qsigs):
+        with shard_mesh.on(sh.device):
+            qs = torch.where((sd != SENTINEL)[None], qs,
+                             torch.full_like(qs, _EMPTY_SIG))
+            local = shard_walk_local(sh.ssig, sh.sids, qs, sh.n_local,
+                                     cap=cap, budget=budget)
+            if popular is not None:
+                # the shard scores the shortlist items it owns; the union
+                # over the shards is the whole shortlist
+                pl = popular.to(sh.device) - sh.lo
+                pl = torch.where((pl >= 0) & (pl < sh.n_local), pl,
+                                 torch.full_like(pl, SENTINEL))
+                local = torch.cat(
+                    [local, pl[None, :].expand(local.shape[0], -1)], dim=1)
+            s = _pool_scores(urow.to(sh.device), sh.col, local,
+                             tile_b=tile_b)
+            a, b = _select_topn_masked(s, translate_local_ids(local, sh.lo),
+                                       topn=topn)
+        ps.append(a)
+        pi.append(b)
+    D, k = len(parts), 1
+    while k < D:
+        perm = [(d, d ^ k) for d in range(D)]
+        qs_, qi_ = shard_mesh.ppermute(ps, perm), shard_mesh.ppermute(pi, perm)
+        merged = []
+        for d, sh in enumerate(parts):
+            with shard_mesh.on(sh.device):
+                merged.append(merge_topn(ps[d], pi[d], qs_[d], qi_[d],
+                                         topn=topn))
+        ps, pi = (list(x) for x in zip(*merged))
+        k *= 2
+    return ps[0], pi[0]
+
+
 class RecsysService:
     def __init__(self, params: Params, index: LSHIndex, sp: SparseMatrix,
                  cfg: ServeConfig, JK: torch.Tensor | None = None, *,
@@ -344,6 +491,43 @@ class RecsysService:
         self._ids_flat = None
         self._ids_flat_for = None
         self.profiled = None             # profile_flush's staged answer
+        # the sharded tier (ServeConfig.shards), built once from the same
+        # (params, index, sp) the single-device paths serve
+        self._shard_state: ShardedServing | None = None
+        shards = (shard_mesh.serve_shard_count(cfg.shards, dev)
+                  if cfg.mode != "full" else 1)
+        if shards > 1:
+            self._init_shards(shards)
+
+    def _init_shards(self, shards: int) -> None:
+        """Cut the items into nnz-balanced shards and place each shard's
+        col block and local index on its device of the mesh."""
+        cfg = self.cfg
+        if not cfg.band_budget:
+            raise ValueError("sharded serving requires the walk path "
+                             "(band_budget > 0); the legacy pool+dedup "
+                             "pipeline is single-device only")
+        if self.index.tail_fill:
+            raise ValueError("sharded serving requires an empty index tail "
+                             "— rebuild before sharding (online ingest is "
+                             "single-device only)")
+        mesh = shard_mesh.make_shard_mesh(shards, self.device)
+        counts = np.bincount(self.sp.cols.cpu().numpy(),
+                             minlength=self.planes.n_items)
+        bounds = lsh_index.shard_bounds(counts, shards)
+        sidx = lsh_index.build_sharded_index(
+            lsh_index.signatures_of(self.index), shards=shards,
+            bounds=bounds)
+        col_stack = shard_col_plane(self.planes.col, bounds)
+        parts = tuple(
+            _Shard(device=dev, col=col_stack[d].to(dev),
+                   ssig=sidx.sorted_sigs[d].to(dev),
+                   sids=sidx.sorted_ids[d].to(dev),
+                   slot=sidx.slot_of[d].to(dev), lo=int(bounds[d]),
+                   n_local=int(bounds[d + 1] - bounds[d]))
+            for d, dev in enumerate(mesh.devices))
+        self._shard_state = ShardedServing(index=sidx, mesh=mesh,
+                                           parts=parts)
 
     # ---- core pipelines ----
 
@@ -376,11 +560,19 @@ class RecsysService:
 
     def _recommend(self, user_ids: torch.Tensor):
         """The JAX package's routing, branch for branch (``impl="ref"``
-        is its CPU default, the plain walk path)."""
+        is its CPU default, the plain walk path; the sharded tier is the
+        same plain program for every ``impl``)."""
         cfg = self.cfg
         if cfg.mode == "full" or (cfg.route_full_below and
                                   self.route_decision()["decision"] == "full"):
             return full_topn(self.params, user_ids, topn=cfg.topn)
+        if self._shard_state is not None:
+            D = self._shard_state.shards
+            return recommend_sharded(
+                self.planes, self.sp, user_ids, self.popular,
+                self._shard_state.parts, n_seeds=cfg.n_seeds, cap=cfg.cap,
+                budget=cfg.resolved_shard_budget(D), window=cfg.seed_window,
+                topn=cfg.topn, tile_b=cfg.walk_tile_b)
         if cfg.band_budget and cfg.impl == "ref":
             return recommend_walked(
                 self.planes, self.index, self.sp, user_ids, self.popular,
@@ -644,10 +836,11 @@ class RecsysService:
         ``degraded`` = shed users answered by the popularity path,
         ``dropped`` = shed with no shortlist, ``fallbacks`` = flushes
         answered by exact `full_topn`, ``quarantined`` = poison ingest
-        batches refused, ``ingest_rejected`` = ingests refused by a
-        read-only tier (none is ported, so 0), ``index_stale`` = an
-        overflow awaits its background rebuild's swap.  ``route`` is
-        `route_decision`; ``shards`` is 1 (the single-device path)."""
+        batches refused, ``ingest_rejected`` = ingests refused by the
+        read-only sharded tier, ``index_stale`` = an overflow awaits its
+        background rebuild's swap.  ``route`` is `route_decision`;
+        ``shards`` is the sharded tier's D, 1 on the single-device
+        paths."""
         reg = self.obs
         flush_s = reg.span_durations("serve.flush")
         secs = np.asarray(flush_s) if flush_s else np.zeros((1,))
@@ -675,7 +868,8 @@ class RecsysService:
             # small-catalog routing: the verdict is always reported;
             # `enabled` says whether _recommend acts on it
             route=self.route_decision(),
-            shards=1,                    # the single-device path
+            shards=(self._shard_state.shards
+                    if self._shard_state is not None else 1),
             device=str(self.device),
         )
 
@@ -687,9 +881,10 @@ class RecsysService:
         retrieve(.desc → .walk) → score → select on the plain walk path,
         retrieve(.desc → .walk) → score on the kernel walk path,
         retrieve(.pool → .dedup) → score on the legacy path, score alone
-        in full mode.  A profiling tool, not a serving mode.  Returns
-        {span name: seconds} for this run; the staged answer (scores,
-        items) is kept in ``self.profiled``."""
+        in full mode, and the sharded flush whole (its per-shard stages
+        and collectives are one program).  A profiling tool, not a
+        serving mode.  Returns {span name: seconds} for this run; the
+        staged answer (scores, items) is kept in ``self.profiled``."""
         cfg = self.cfg
         reg = self.obs
         if user_ids is None:
@@ -704,6 +899,11 @@ class RecsysService:
                     out = full_topn(self.params, ids, topn=cfg.topn)
                     sync()
                 names += ["serve.flush.score"]
+            elif self._shard_state is not None:
+                with reg.span("serve.flush.sharded"):
+                    out = self._recommend(ids)
+                    sync()
+                names += ["serve.flush.sharded"]
             elif cfg.band_budget and cfg.impl == "ref":
                 # plain walk: desc → walk → score → select (the dedup
                 # happens inside select; there is no dedup stage)
@@ -827,10 +1027,21 @@ class RecsysService:
                 self.obs.counter_add("serve.rebuild.gave_up")
                 self._rebuild_sigs = None
 
+    def _refuse_if_sharded(self, advice: str) -> None:
+        """The sharded tier is read-only: count the rejection and raise."""
+        if self._shard_state is not None:
+            self.obs.counter_add("serve.ingest_rejected")
+            raise ShardedIngestUnsupported(f"sharded serving is read-only: "
+                                           f"{advice}")
+
     def request_rebuild(self, full_sigs) -> None:
         """Hand the full [q, N] signature set to the background rebuilder;
         serving continues on index v and the validated v+1 swaps in at a
-        later flush boundary (`_poll_rebuild`)."""
+        later flush boundary (`_poll_rebuild`).  Single-device only: the
+        sharded tier is rebuilt by constructing a new service."""
+        self._refuse_if_sharded(
+            "request the rebuild on a single-device service and construct "
+            "a new sharded service from the swapped index")
         self._poll_rebuild()
         self._start_rebuild(full_sigs)
 
@@ -850,7 +1061,12 @@ class RecsysService:
         ``serve.quarantined``.  Crossing the empty-tail boundary, or a
         synchronous rebuild, changes the flush's shapes, so the service
         re-warms here — in ingestion time, not in the next request's
-        latency."""
+        latency.  A sharded service refuses (`ShardedIngestUnsupported`)."""
+        self._refuse_if_sharded(
+            "apply this ingest on a single-device service (tail insert + "
+            "rebuild on overflow) and construct a new sharded service from "
+            "the rebuilt index, or hand full_sigs to request_rebuild() on "
+            "that single-device service")
         t0_ns = time.perf_counter_ns()
         try:
             check_ingest_batch(new_sigs, new_ids, q=self.index.q)
@@ -899,7 +1115,13 @@ class RecsysService:
         unchanged").  NaN-poisoned new accumulator columns raise
         `PoisonBatchError` (counted in ``serve.quarantined``) before
         anything is touched; the handoff's seconds, drain to re-warm, are
-        ``serve.ingest_to_servable_s``."""
+        ``serve.ingest_to_servable_s``.  A sharded service refuses
+        (`ShardedIngestUnsupported`)."""
+        self._refuse_if_sharded(
+            "run the online-update handoff on a single-device service "
+            "(shards=0) and construct a new sharded service from the grown "
+            "state — or route the full re-signed signature set through "
+            "request_rebuild() there")
         t0_ns = time.perf_counter_ns()
         try:
             check_accumulators(state.S, N_old)

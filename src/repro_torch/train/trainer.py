@@ -1,5 +1,5 @@
-"""End-to-end trainer for CULSH-MF (`repro/train/trainer.py`), single
-device, on the conflict-free schedule.
+"""End-to-end trainer for CULSH-MF (`repro/train/trainer.py`) on the
+conflict-free schedule.
 
 Wires the pipeline of paper Fig. 2:
   R (COO) → simLSH signatures (Eq. 3) → bucket Top-K J^K → tiered
@@ -13,8 +13,11 @@ resumes from the newest complete checkpoint and, with ``ckpt_every``,
 saves one every that many epochs (`train/checkpoint.py`).  ``method``
 picks the neighbour search: simLSH, or one of the paper's comparators
 (exact GSM, random-K, RP_cos, minHash; `core/gsm.py`,
-`core/baselines.py`), each feeding its J^K into the same epochs.  More
-than one shard raises `NotImplementedError`.
+`core/baselines.py`), each feeding its J^K into the same epochs.
+``shards`` > 1 gives the schedule a block-aligned D×D tier that trains
+over a shard mesh of D devices (`launch.mesh`; logical shards of one
+device where ``REPRO_TORCH_LOGICAL_DEVICES`` allows them), with the
+parameters in the schedule's block-padded id space.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from repro_torch.data.sparse import (SparseMatrix, conflict_free_schedule,
                                      from_coo)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import IMPLS, _build
+from repro_torch.launch.mesh import device_count, make_shard_mesh
 from repro_torch.train import checkpoint as ckpt
 
 
@@ -54,7 +58,10 @@ class FitConfig:
     tiers: int = 4               # schedule width tiers
     tier_shrink: float = 0.5     # tier width ratio
     min_fill_frac: float = 0.5   # last-tier re-pack threshold
-    shards: int | str = "auto"   # 'auto' = 1 here (single device)
+    shards: int | str = "auto"   # block-aligned shard tier: 'auto' = the
+                                 # device count (`launch.mesh.
+                                 # device_count`); clamped to the count,
+                                 # M and N; 1 = no shard tier
     use_kernels: bool = False    # conflict-free batches through the fused
                                  # kernels/mf_sgd step (its plain version
                                  # on CPU tensors)
@@ -117,14 +124,6 @@ def build_neighbours(sp: SparseMatrix, cfg: FitConfig, key):
     return JK, S, k_sig
 
 
-def _check_ported(cfg: FitConfig) -> None:
-    if cfg.schedule not in ("auto", "conflict_free", "none"):
-        raise ValueError(f"unknown schedule {cfg.schedule}")
-    if cfg.shards != "auto" and int(cfg.shards) > 1:
-        raise NotImplementedError("more than one shard (the block-rotation "
-                                  "tier) is not ported")
-
-
 def fit(train_coo, test_coo, shape, cfg: FitConfig,
         log: Callable[[str], None] | None = None,
         registry: obs.Registry | None = None, device=None) -> FitResult:
@@ -133,7 +132,8 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
     every ``eval_every`` epochs.  Runs on ``cuda`` unless ``device`` says
     otherwise.  All timings are read back from the obs registry's spans
     (the shared registry when enabled, else a private one)."""
-    _check_ported(cfg)
+    if cfg.schedule not in ("auto", "conflict_free", "none"):
+        raise ValueError(f"unknown schedule {cfg.schedule}")
     dev = resolve_device(device)
     reg = registry if registry is not None else obs.scoped()
     key = prng.PRNGKey(cfg.seed)
@@ -159,12 +159,18 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
             params, start_epoch = restored
     scheduled = cfg.schedule != "none"
     bce = cfg.loss == "bce"
+    # the shard tier trains over a mesh only when D > 1 devices exist
+    n_dev = device_count(dev)
+    shards = n_dev if cfg.shards == "auto" else int(cfg.shards)
+    shards = max(1, min(shards, n_dev, sp.M, sp.N))
+    mesh = make_shard_mesh(shards, dev) if scheduled and shards > 1 else None
 
     # once-per-fit precomputation of the scheduled path: the tiered
     # conflict-free schedule, the schedule-ordered data and the eval cache
     prep_secs = 0.0
     sched_stats = None
     ec = None
+    shd = None
     if scheduled:
         with reg.span("train.prep"):
             with reg.span("train.prep.schedule"):
@@ -172,11 +178,12 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
                     sp.rows.cpu().numpy(), sp.cols.cpu().numpy(),
                     batch=min(cfg.cf_batch, cfg.batch), tiers=cfg.tiers,
                     tier_shrink=cfg.tier_shrink,
-                    min_fill_frac=cfg.min_fill_frac, shards=1, M=sp.M,
+                    min_fill_frac=cfg.min_fill_frac, shards=shards, M=sp.M,
                     N=sp.N, seed=cfg.seed)
             with reg.span("train.prep.pack"):
                 sd = model.build_scheduled_data(sp, JK, sched,
                                                 mf_only=mf_only)
+                shd = model.build_shard_data(sp, JK, sched, mf_only=mf_only)
                 _sync(dev)
             if cfg.eval_every:
                 with reg.span("train.prep.eval_cache"):
@@ -192,12 +199,16 @@ def fit(train_coo, test_coo, shape, cfg: FitConfig,
                 f"{sched_stats['nb_lo']} leftover batches "
                 f"(cf_frac={sched_stats['cf_frac']:.2f}, "
                 f"fill={sched_stats['fill']:.2f}, prep={prep_secs:.2f}s)")
-        state = model.pack_params(params)
-        to_public = model.unpack_params
+        # the training state lives in the schedule's block-padded id space
+        # (the identity on one shard); the public Params at eval,
+        # checkpoint and result
+        state = model.pack_params(model.remap_params(params, sched))
+        to_public = lambda q: model.unmap_params(model.unpack_params(q),
+                                                 sched)
         run = lambda q, ep: sgd.train_epoch_scheduled(
-            q, sd, sched, prng.fold_in(k_ep, ep), ep, cfg.hp,
+            q, sd, sched, prng.fold_in(k_ep, ep), ep, cfg.hp, shd=shd,
             mf_only=mf_only, bce=bce, use_kernels=cfg.use_kernels,
-            impl=cfg.kernel_impl)
+            impl=cfg.kernel_impl, mesh=mesh)
     else:
         state = params
         to_public = lambda q: q

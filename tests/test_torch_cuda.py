@@ -17,7 +17,11 @@ atol 1e-6 (the JAX package's kernel tolerance, `tests/test_kernels.py`),
 with the rows of invalid slots bit for bit unchanged; `simlsh_encode` within rtol/atol 1e-5, and bit
 for bit with Φ = ±1 (the kernel and its plain version both sum over d in
 order, and every product is exact); `neighbor_predict` within rtol/atol
-1e-4.
+1e-4.  The multi-device tiers run on four logical shards of the card
+(``REPRO_TORCH_LOGICAL_DEVICES=4``): the sharded flush equal to the CPU's
+and launching neither serving kernel, its truncation-free answers equal
+to the one-device plain walk's, and the fit's mesh shard tier within
+1e-5 of its one-device replay.
 """
 import dataclasses
 import pathlib
@@ -1394,3 +1398,93 @@ def test_profile_flush_on_card_staged_equals_fused(cuda, knob):
     np.testing.assert_array_equal(svc.profiled[1].cpu().numpy(), i)
     np.testing.assert_allclose(svc.profiled[0].cpu().numpy(), s, rtol=1e-5,
                                atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device tiers on four logical shards of the card
+# ---------------------------------------------------------------------------
+
+SHARD_BENCH = dict(topn=10, micro_batch=64, C=512, n_seeds=16, cap=8,
+                   n_popular=64, tile_b=16, band_budget=512)
+SHARD_EXACT = dict(topn=10, micro_batch=64, n_seeds=8, cap=4096,
+                   band_budget=16384, shard_budget=16384, n_popular=0,
+                   use_jk=False)
+
+
+def _sharded(params, index, sp, dev, **kw):
+    return RecsysService(params, index, sp, ServeConfig(**kw), device=dev)
+
+
+def test_sharded_flush_on_card_equals_cpu_and_launches_nothing(
+        cuda, monkeypatch):
+    from repro_torch.launch.mesh import LOGICAL_DEVICES
+    monkeypatch.setenv(LOGICAL_DEVICES, "4")
+    params, sp, sigs, _ = _state()
+    index = build_index(sigs, tail_cap=0, device="cpu")
+    users = torch.arange(0, 960, 15, dtype=torch.int32)
+    before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+    svc = _sharded(params, index, sp, cuda, **SHARD_BENCH, shards=4)
+    assert svc.stats()["shards"] == 4
+    assert {d.type for d in svc._shard_state.mesh.devices} == {"cuda"}
+    got = svc._recommend(users.to(cuda))
+    torch.cuda.synchronize()
+    assert (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES) == before
+    want = _sharded(params, index, sp, "cpu", **SHARD_BENCH,
+                    shards=4)._recommend(users)
+    assert_topn_close(*got, *want)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_sharded_regime1_on_card_equals_single_device_walk(cuda, monkeypatch,
+                                                           D):
+    from repro_torch.launch.mesh import LOGICAL_DEVICES
+    monkeypatch.setenv(LOGICAL_DEVICES, "4")
+    params, sp, sigs, _ = _state()
+    index = build_index(sigs, tail_cap=0, device="cpu")
+    users = torch.arange(0, 960, 15, dtype=torch.int32).to(cuda)
+    s_a, i_a = _sharded(params, index, sp, cuda, **SHARD_EXACT,
+                        shards=D)._recommend(users)
+    s_b, i_b = _sharded(params, index, sp, cuda, **SHARD_EXACT,
+                        impl="ref")._recommend(users)
+    for u in range(users.shape[0]):
+        ra, rb = i_a[u] != SENTINEL, i_b[u] != SENTINEL
+        assert set(i_a[u][ra].tolist()) == set(i_b[u][rb].tolist()), u
+        np.testing.assert_allclose(np.sort(s_a[u][ra].cpu().numpy()),
+                                   np.sort(s_b[u][rb].cpu().numpy()),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mf_only", [False, True])
+def test_mesh_shard_tier_on_card_equals_replay(cuda, monkeypatch, mf_only):
+    """Two epochs of a four-shard schedule through the mesh (four logical
+    shards of the card) and through the one-device replay, from one
+    state: within 1e-5 in every leaf."""
+    from repro_torch.launch.mesh import LOGICAL_DEVICES, make_shard_mesh
+    monkeypatch.setenv(LOGICAL_DEVICES, "4")
+    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=240, N=96,
+                               nnz=4000)
+    rows, cols, vals, _ = synthetic.generate(spec, seed=0)
+    sp = from_coo(rows, cols, vals, (spec.M, spec.N), device=cuda)
+    rng = np.random.default_rng(0)
+    JK = torch.tensor(rng.integers(0, spec.N, (spec.N, 8)),
+                      dtype=torch.int32, device=cuda)
+    sched = sparse.conflict_free_schedule(
+        sp.rows.cpu().numpy(), sp.cols.cpu().numpy(), batch=64, M=spec.M,
+        N=spec.N, shards=4, seed=0)
+    sd = model.build_scheduled_data(sp, JK, sched, mf_only=mf_only)
+    shd = model.build_shard_data(sp, JK, sched, mf_only=mf_only)
+    p0 = model.remap_params(model.init_from_data(prng.PRNGKey(0), sp, 8, 8),
+                            sched)
+    out = []
+    for mesh in (make_shard_mesh(4, cuda), None):
+        pp = model.pack_params(p0)
+        for ep in range(2):
+            sgd.train_epoch_scheduled(pp, sd, sched,
+                                      prng.fold_in(prng.PRNGKey(1), ep), ep,
+                                      sgd.Hyper(), shd=shd, mf_only=mf_only,
+                                      use_kernels=True, mesh=mesh)
+        torch.cuda.synchronize()
+        out.append(pp)
+    for a, b in ((out[0].row, out[1].row), (out[0].col, out[1].col)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)

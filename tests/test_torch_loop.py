@@ -3,8 +3,8 @@
 
 * Every case of `tests/test_loop.py` on the port, at its size
   (`MOVIELENS_LIKE` reshaped to M = 80, N = 40, 1,200 ratings; G = 4,
-  p = 1, q = 4; F = 8, K = 4), except the sharded refusal: the port
-  serves on one device only, so it has no sharded service to refuse.
+  p = 1, q = 4; F = 8, K = 4); the sharded refusal on a real two-shard
+  service over two logical CPU devices.
 * The loop cases of `tests/test_resil.py` on the port at that file's
   size (M = 120, N = 50, 2,000 ratings; G = 8, p = 1, q = 6; F = 16,
   K = 8), with the port as its own oracle, **bit-exact**: a kill at
@@ -53,10 +53,12 @@ from repro_torch import convert, prng
 from repro_torch.core import simlsh
 from repro_torch.core.sgd import Hyper
 from repro_torch.kernels.candidate_score.ref import assert_topn_close
+from repro_torch.launch.mesh import LOGICAL_DEVICES
 from repro_torch.loop import LoopConfig, OnlineLoop
 from repro_torch.resil import GuardConfig, OnlineUpdater, faults, wal
 from repro_torch.resil.faults import FaultPlan, FaultSpec, InjectedFault
-from repro_torch.serve import ServeConfig, recommend_walked_kernel
+from repro_torch.serve import (ServeConfig, ShardedIngestUnsupported,
+                               recommend_walked_kernel)
 
 PATH_TOL = dict(rtol=1e-5, atol=1e-5)
 S_TOL = dict(rtol=1e-4, atol=1e-3)
@@ -280,6 +282,23 @@ def test_flush_some_bounds_dispatches(tiny_state, tmp_path):
     assert svc.flush_some(2) == 0              # nothing left pending
     assert svc.stats()["queue"] == 0
     assert svc.stats()["users"] == 4
+
+
+def test_loop_refuses_sharded_service_and_typed_ingest_error(
+        tiny_state, tmp_path, monkeypatch):
+    loop = _loop(tmp_path, tiny_state)
+    st0 = loop.state
+    monkeypatch.setenv(LOGICAL_DEVICES, "2")
+    svc = OnlineLoop.build_service(st0, dataclasses.replace(SERVE, shards=2),
+                                   tail_cap=0)
+    assert svc.stats()["shards"] == 2
+    with pytest.raises(ValueError, match="single-device"):
+        OnlineLoop(loop.updater, svc, CFG)
+    with pytest.raises(ShardedIngestUnsupported):
+        svc.ingest_online_update(st0, N_old=st0.N)
+    with pytest.raises(ShardedIngestUnsupported):
+        svc.request_rebuild(simlsh.pack_bits(st0.S >= 0))
+    assert svc.stats()["ingest_rejected"] == 2
 
 
 def test_online_updater_recover_refuses_loop_entries(tiny_state, tmp_path):

@@ -248,11 +248,11 @@ def test_loop_build_service_on_the_legacy_path_matches_jax(online_state):
 
 def test_config_takes_every_jax_field_but_two():
     """The port's `ServeConfig` has the JAX package's fields less
-    ``interpret`` (the Pallas interpreter) and ``shard_budget`` (with the
-    multi-device tier, as ``shards != 0``), and the same defaults."""
+    ``interpret`` (the Pallas interpreter), and the same defaults (the
+    name is from before the sharded tier brought ``shard_budget``)."""
     j = {f.name: f.default for f in dataclasses.fields(JConfig)}
     t = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
-    assert set(t) == set(j) - {"interpret", "shard_budget"}
+    assert set(t) == set(j) - {"interpret"}
     assert t == {k: v for k, v in j.items() if k in t}
     assert ServeConfig(band_budget=0).resolved_pool_width() == 0
     assert ServeConfig(pool_width=96).resolved_pool_width() == 96

@@ -5,7 +5,7 @@ from identical state: the JAX package's `RecsysService` with the Pallas
 kernels in interpret mode, the port's on the CPU (its kernels' plain
 versions).  Top-10 ids must be equal and scores within 1e-5.  The rest
 pins the service's request plane, the exact `full_topn` (tie order
-included) and the knob left to a later slice (``shards``).
+included) and ``shards`` on a CPU without logical devices.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -23,6 +23,7 @@ from repro.serve import popular_shortlist as jpopular
 from repro_torch.kernels.candidate_score import kernel as score_kernel
 from repro_torch.kernels.lsh_retrieve import kernel as lsh_kernel
 from repro_torch.kernels.lsh_retrieve.ops import retrieve_candidates
+from repro_torch.launch import mesh
 from repro_torch.resil import PoisonBatchError
 from repro_torch.serve import (RecsysService, ServeConfig, full_topn, insert,
                                popular_shortlist, recommend_walked_kernel)
@@ -175,9 +176,24 @@ def test_flush_some_leaves_the_rest_queued(state):
 
 @pytest.mark.parametrize("knob", [dict(shards=2), dict(shards="auto"),
                                   dict(shards=1), dict(shards=4)])
-def test_later_slice_knobs_raise(knob):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServeConfig(**knob)
+def test_later_slice_knobs_raise(state, knob, monkeypatch):
+    """``shards`` is ported (the name is from when it was refused): the
+    config takes every value, and a service on the CPU without logical
+    devices raises for more shards than its one device, as the JAX
+    package's `serve_shard_count` does, and serves on one device for
+    ``"auto"`` and 1 (the sharded tier's parity:
+    `test_torch_shard_serve.py`)."""
+    _, ts = state
+    monkeypatch.delenv(mesh.LOGICAL_DEVICES, raising=False)
+    cfg = ServeConfig(**KW, **knob)
+    if knob["shards"] in (2, 4):
+        with pytest.raises(ValueError, match="exceeds the 1 local"):
+            RecsysService(ts["params"], ts["index"], ts["sp"], cfg,
+                          device="cpu")
+    else:
+        svc = RecsysService(ts["params"], ts["index"], ts["sp"], cfg,
+                            device="cpu")
+        assert svc._shard_state is None and svc.stats()["shards"] == 1
 
 
 @pytest.mark.parametrize("method", ["ingest", "ingest_online_update",

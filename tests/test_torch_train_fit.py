@@ -10,10 +10,11 @@ CPU at a small size (M = 200, N = 80, 2,700 training triples).
   statistics equal, and the test RMSE after each of 3 epochs within
   1e-4 of the JAX package's (2.4e-7 measured: the Φ, J^K, schedule and
   batch order are bit-equal, the initial factors agree to a few ulp).
-* The path `fit` does not port yet (more than one shard) raises
-  `NotImplementedError`; the comparator neighbour methods run (their
-  parity: `test_torch_comparators.py`), and with no device given it runs
-  on ``cuda``.  ``schedule="none"`` and checkpoints run:
+* The comparator neighbour methods run (their parity:
+  `test_torch_comparators.py`), each also beside ``shards=2`` on two
+  logical CPU devices (the shard tier's parity:
+  `test_torch_shard_train.py`); with no device given `fit` runs on
+  ``cuda``.  ``schedule="none"`` and checkpoints run:
   `tests/test_torch_legacy_ckpt.py`.
 * `convert` carries keys and packed planes between the packages.
 """
@@ -34,6 +35,7 @@ from repro.train import trainer as jtrainer
 from repro_torch import convert, prng
 from repro_torch.core import model, sgd, simlsh
 from repro_torch.data import sparse, synthetic
+from repro_torch.launch import mesh as shard_mesh
 from repro_torch.train import trainer
 
 LSH = dict(G=8, p=1, q=10, band_cap=16)
@@ -155,10 +157,13 @@ def test_fit_matches_jax(data, method, use_kernels):
     (dict(method="minhash"), "minhash"),
     (dict(shards=2), "shard"),
 ])
-def test_unported_paths_raise(data, change, match):
-    """Only more than one shard is refused.  Each comparator method the
-    JAX package accepts runs (its parity: `test_torch_comparators.py`),
-    and is refused only beside ``shards=2``, for the shards."""
+def test_unported_paths_raise(data, change, match, monkeypatch):
+    """No path is refused any more (the name is the earlier slices').
+    Each comparator method the JAX package accepts runs (its parity:
+    `test_torch_comparators.py`), and runs beside ``shards=2`` on two
+    logical CPU devices, with a two-shard tier; without the devices
+    ``shards=2`` is clamped to one shard, as the JAX package's `fit`
+    clamps to its devices."""
     spec, tr, te = data
     cfg = trainer.FitConfig(epochs=1, **SMALL, **change)
     if "method" in change:
@@ -166,8 +171,16 @@ def test_unported_paths_raise(data, change, match):
         assert cfg.method == match and res.JK.shape == (spec.N, SMALL["K"])
         assert np.isfinite(res.history[-1][2])
         cfg = dataclasses.replace(cfg, shards=2)
-    with pytest.raises(NotImplementedError, match="shard"):
-        trainer.fit(tr, te, (spec.M, spec.N), cfg, device="cpu")
+    else:
+        monkeypatch.delenv(shard_mesh.LOGICAL_DEVICES, raising=False)
+        res = trainer.fit(tr, te, (spec.M, spec.N), cfg, device="cpu")
+        assert res.schedule_stats["shard"]["shards"] == 1
+    monkeypatch.setenv(shard_mesh.LOGICAL_DEVICES, "2")
+    res = trainer.fit(tr, te, (spec.M, spec.N), cfg, device="cpu")
+    assert res.schedule_stats["shard"]["shards"] == 2 and match in (
+        "shard", cfg.method)
+    assert res.schedule_stats["shard"]["n"] > 0
+    assert np.isfinite(res.history[-1][2])
 
 
 def test_unknown_options_are_errors(data):
@@ -187,7 +200,7 @@ def test_shard_tier_epoch_raises(data):
         M=spec.M, N=spec.N, seed=0)
     assert sched.shard_span > 0
     pp = model.pack_params(model.init_from_data(prng.PRNGKey(0), tsp, 8, 4))
-    with pytest.raises(NotImplementedError, match="shard"):
+    with pytest.raises(ValueError, match="shard tier"):   # no cells given
         sgd.train_epoch_scheduled(pp, None, sched, prng.PRNGKey(0), 0,
                                   sgd.Hyper())
 
