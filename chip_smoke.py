@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port's main paths — serving, the offline
 fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
 online learning, its resilience layer, the always-on loop, the fit's
-neighbour comparators, the other serving paths and the multi-device
-tiers — on one CUDA card.
+neighbour comparators, the other serving paths, the multi-device tiers,
+the Table-10 comparison with the NCF models, the examples and dense LM
+serving — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -181,12 +182,42 @@ Phases, in order; any failure raises and the script exits non-zero:
     counter zeroed just before equal to the width tiers' steps × 2 and
     its RMSE falling, beside phase 10's epochs.  Phases 8–18 fit with
     ``shards=1``, so their launch counts do not depend on the machine's
-    card count.
+    card count;
+21. Table 10 — `benchmarks/bench_ncf.py`'s planted implicit recipe and
+    protocol, re-implemented here at `MOVIELENS_LIKE`'s M × N (69,878 ×
+    10,677, 15 draws a user): each user's last positive held out against
+    50 sampled negatives; CULSH-MF (``loss="bce"``, F = 16, K = 8, 40
+    epochs, `bench_ncf.py`'s `Hyper`) on positives plus 3:1 negatives,
+    the `culsh_sgd` counter zeroed just before (= conflict-free steps ×
+    40), then the bce kernel against its plain version at these shapes
+    (F = 16 and K = 8 leave lanes masked) on the trained state and the
+    first and last window of each width tier of the fit's schedule;
+    GMF, MLP and NeuMF (`core/ncf.py`, F = 16, tower (32, 16)) for
+    200 full-batch Adam steps at lr 2e-2 on 1:1 negatives; each model's
+    wall seconds, HR@10 and first and last loss (every loss must fall);
+    NeuMF's first step on the card against the CPU (each gradient leaf
+    within 1e-9 of its largest entry in float64 and 1e-3 in float32, the
+    Adam update of the same gradients 1e-6);
+22. examples — each `examples/torch_*.py` in a subprocess on the card at
+    its default size (``torch_train_lshmf_100m --small``; the serving
+    example also with ``--online-loop --slices 3``): exit 0, its last
+    lines, and its ``--report`` line's launch counters (`culsh_sgd` in
+    every one; `lsh_retrieve` and `candidate_score` in the serving ones)
+    and, for the serving example, its kernel walk held against the
+    kernels' plain versions on one probe flush of its own shapes;
+23. dense LM serving — `repro_torch.launch.serve.serve` at llama3-8b's
+    full width (8.0·10⁹ float32 parameters drawn layer by layer on the
+    card), batch 4, prompt 64, 32 decoded tokens: prefill and decode
+    seconds, tokens/s beside the bound of reading the float32 weights
+    once a step, resident and peak MB; on a 2-layer cut of the same
+    widths, prefill's last-position logits against a 64-step decode (the
+    KV cache) and the card's bfloat16 prefill against the CPU's float32,
+    each within a stated multiple of bfloat16's unit roundoff.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–20 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–23 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -225,6 +256,9 @@ SGD_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's (tests/test_kernels.py
 # 2·10⁶ took 79 s on the card's host; GSM's dense operands and products
 # depend on M × N only)
 GSM_NNZ = 1_000_000
+# phase 21: Table 10 at MOVIELENS_LIKE's M × N, 15 interactions a user
+# (`benchmarks/bench_ncf.py`'s recipe), 200 full-batch Adam steps a model
+T10_M, T10_N, T10_PER_USER, T10_STEPS = 69_878, 10_677, 15, 200
 
 
 def make_catalog(N: int, device, *, seed: int = 0, F: int = 48,
@@ -401,6 +435,44 @@ def megabytes(*ts) -> float:
     return sum(t.numel() * t.element_size() for t in ts) / 1e6
 
 
+def copy_planes(q):
+    """A copy of packed fit planes (the fused steps update in place)."""
+    import dataclasses
+    return dataclasses.replace(q, row=q.row.clone(), col=q.col.clone())
+
+
+def fused_vs_plain(state, b, hp, *, F: int, bce=False, mf=False):
+    """The fused step (CUSGD++ with ``mf``, else CULSH-MF) on a copy of
+    ``state`` against the plain gather → step → delta scatter on
+    another; every row no live slot owns (and, for CUSGD++, every
+    column past F) must stay bit for bit → (kernel planes, plain
+    planes, max abs err)."""
+    from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
+    from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
+                                                apply_mf_sgd_ref)
+
+    dev = state.row.device
+    kern, plain = ((sgd_kernel.mf_sgd_batch, apply_mf_sgd_ref) if mf
+                   else (sgd_kernel.culsh_sgd_batch, apply_culsh_sgd_ref))
+    got = kern(copy_planes(state), b, hp, bce=bce)
+    want = plain(copy_planes(state), b, hp, bce=bce)
+    err = 0.0
+    for g, w in ((got.row, want.row), (got.col, want.col)):
+        torch.testing.assert_close(g, w, **SGD_TOL)
+        err = max(err, float((g - w).abs().max()))
+    live = b.valid > 0
+    for g, x, ids in ((got.row, state.row, b.i), (got.col, state.col,
+                                                   b.j)):
+        rest = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
+        rest[ids[live].long()] = False
+        if not torch.equal(g[rest], x[rest]):
+            raise AssertionError("a row no live slot owns changed")
+        if mf and not torch.equal(g[:, F:], x[:, F:]):
+            raise AssertionError("the CUSGD++ step changed a column "
+                                 "past F")
+    return got, want, err
+
+
 def fit_phases(args, dev, on_card: bool, power: str) -> list:
     """Phases 8–11: the offline CULSH-MF fit (`train.trainer.fit`) at the
     width of the repo's ~100M-parameter model; → (the two fused steps'
@@ -497,40 +569,13 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     decay = sgd.lr_decay(cfg.hp, 0, dev)
     hpv = culsh_hyper(cfg.hp, decay, pp.mu)
     hmf = mf_hyper(cfg.hp, decay, dev)
-    copy = lambda q: dataclasses.replace(q, row=q.row.clone(),
-                                         col=q.col.clone())
+    copy = copy_planes
 
     def window(t, k, width=None):
         width = width or sched.widths[t]
         return model.slice_batch(sd, int(sched.tier_starts[t][k]), width,
                                  torch.as_tensor(sched.tier_valid[t][k][:width],
                                                  device=dev).float())
-
-    def fused_vs_plain(state, b, hp, bce=False, mf=False):
-        """The fused step (CUSGD++ with ``mf``, else CULSH-MF) on a copy of
-        ``state`` against the plain gather → step → delta scatter on
-        another; every row no live slot owns (and, for CUSGD++, every
-        column past F) must stay bit for bit → (kernel planes, plain
-        planes, max abs err)."""
-        kern, plain = ((sgd_kernel.mf_sgd_batch, apply_mf_sgd_ref) if mf
-                       else (sgd_kernel.culsh_sgd_batch, apply_culsh_sgd_ref))
-        got = kern(copy(state), b, hp, bce=bce)
-        want = plain(copy(state), b, hp, bce=bce)
-        err = 0.0
-        for g, w in ((got.row, want.row), (got.col, want.col)):
-            torch.testing.assert_close(g, w, **SGD_TOL)
-            err = max(err, float((g - w).abs().max()))
-        live = b.valid > 0
-        for g, x, ids in ((got.row, state.row, b.i), (got.col, state.col,
-                                                       b.j)):
-            rest = torch.ones(x.shape[0], dtype=torch.bool, device=dev)
-            rest[ids[live].long()] = False
-            if not torch.equal(g[rest], x[rest]):
-                raise AssertionError("a row no live slot owns changed")
-            if mf and not torch.equal(g[:, F:], x[:, F:]):
-                raise AssertionError("the CUSGD++ step changed a column "
-                                     "past F")
-        return got, want, err
 
     bt = window(0, 0)
     W0 = sched.widths[0]
@@ -549,17 +594,17 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     culsh_err = 0.0
     for state, b in culsh_cases.values():
         for bce in (False, True):
-            got, _, err = fused_vs_plain(state, b, hpv, bce)
+            got, _, err = fused_vs_plain(state, b, hpv, F=F, bce=bce)
             culsh_err = max(culsh_err, err)
-    got, _, _ = fused_vs_plain(wc, off, hpv)
+    got, _, _ = fused_vs_plain(wc, off, hpv, F=F)
     if not (torch.equal(got.row, wc.row) and torch.equal(got.col, wc.col)):
         raise AssertionError("an all-invalid batch changed the planes")
     mf_err = 0.0
     for state, b in culsh_cases.values():
         for bce in (False, True):
-            mf_err = max(mf_err, fused_vs_plain(state, b, hmf, bce,
-                                                mf=True)[2])
-    got, _, _ = fused_vs_plain(wc, off, hmf, mf=True)
+            mf_err = max(mf_err, fused_vs_plain(state, b, hmf, F=F,
+                                                bce=bce, mf=True)[2])
+    got, _, _ = fused_vs_plain(wc, off, hmf, F=F, mf=True)
     if not (torch.equal(got.row, wc.row) and torch.equal(got.col, wc.col)):
         raise AssertionError("an all-invalid batch changed the planes "
                              "(CUSGD++)")
@@ -575,7 +620,7 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     hp_hz[1], hp_hz[4] = 0.3, 0.05                  # γ of b̂ and of W
     hz_err = 0.0
     for _ in range(20):
-        _, want, err = fused_vs_plain(wc, hz, hp_hz)
+        _, want, err = fused_vs_plain(wc, hz, hp_hz, F=F)
         hz_err = max(hz_err, err)
     stale = copy(wc)                    # slot by slot: reads updated b̂
     for s_ in torch.nonzero(bt.valid > 0).flatten().tolist():
@@ -2781,6 +2826,442 @@ def shard_phase(args, serve: dict, ctx: dict, dev, on_card: bool,
           flush=True)
 
 
+def table10_phase(args, dev, on_card: bool, power: str) -> dict:
+    """Phase 21: the paper's Table 10 — CULSH-MF on implicit feedback
+    (``loss="bce"``) against GMF, MLP and NeuMF (`core/ncf.py`), with
+    `benchmarks/bench_ncf.py`'s recipe and protocol re-implemented here
+    at `MOVIELENS_LIKE`'s M × N.  → the bce fit's `culsh_sgd` count."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.core import model, ncf, sgd
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.core.simlsh import SimLSHConfig
+    from repro_torch.data.sparse import conflict_free_schedule, from_coo
+    from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
+    from repro_torch.kernels.mf_sgd.ops import culsh_hyper
+    from repro_torch.train.trainer import FitConfig, fit
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    M = max(200, int(T10_M * min(1.0, args.fit_scale * 10)))
+    N = max(100, int(T10_N * min(1.0, args.fit_scale * 10)))
+    # the planted implicit recipe (bench_ncf.py::make_implicit): user u
+    # likes items around 7u mod N; duplicate (u, i) draws collapse
+    rng = np.random.default_rng(0)
+    users = np.repeat(np.arange(M), T10_PER_USER).astype(np.int32)
+    items = ((users * 7 + rng.integers(0, 6, len(users))) % N).astype(
+        np.int32)
+    _, uq = np.unique(users.astype(np.int64) * N + items, return_index=True)
+    users, items = users[uq], items[uq]
+    vals = np.ones(len(users), np.float32)
+    # the protocol: each user's last positive held out, 50 sampled
+    # negatives to rank it against
+    rng = np.random.default_rng(1)
+    te_mask = np.zeros(len(users), bool)
+    _, last = np.unique(users[::-1], return_index=True)
+    te_mask[len(users) - 1 - last] = True
+    tr = (users[~te_mask], items[~te_mask], vals[~te_mask])
+    te_u, te_i = users[te_mask], items[te_mask]
+    cands = rng.integers(0, N, (len(te_u), 50)).astype(np.int32)
+    print(f"[21 data] M={M} N={N}: {len(users)} positives from "
+          f"{M * T10_PER_USER} draws ({T10_PER_USER} a user, 6 items "
+          f"apart at most), {len(te_u)} held out, 50 negatives each",
+          flush=True)
+    te_t, ti_t, cand_t = (torch.from_numpy(a).to(dev)
+                          for a in (te_u, te_i, cands))
+
+    def hr_mf(p) -> float:
+        """`bench_ncf.py::hr_mf`: the held-out positive's rank by the MF
+        score U·V + μ + b + b̂ among its 50 negatives."""
+        it = torch.cat([ti_t[:, None], cand_t], dim=1).long()
+        u = te_t.long()
+        z = ((p.U[u][:, None, :] * p.V[it]).sum(-1) + p.mu + p.b[u][:, None]
+             + p.bh[it])
+        return float(((z > z[:, :1]).sum(1) < 10).float().mean())
+
+    # CULSH-MF: positives = 1 plus 3:1 sampled negatives = 0
+    negs_mf = rng.integers(0, N, 3 * len(tr[0])).astype(np.int32)
+    tr_mf = (np.concatenate([tr[0]] * 4), np.concatenate([tr[1], negs_mf]),
+             np.concatenate([tr[2], np.zeros(3 * len(tr[0]), np.float32)]))
+    test = (te_u, te_i, np.ones(len(te_u), np.float32))
+    cfg = FitConfig(F=16, K=8, epochs=40, batch=2048, method="simlsh",
+                    lsh=SimLSHConfig(G=8, p=1, q=10, psi_pow=1.0),
+                    hp=Hyper(a_u=0.2, a_v=0.2, a_b=0.1, a_bh=0.1, beta=0.02),
+                    loss="bce", eval_every=0, use_kernels=True, shards=1)
+    sp_mf = from_coo(*tr_mf, (M, N), device=dev)
+    sample = np.random.default_rng(2).choice(len(tr_mf[0]), 200_000)
+    s_r, s_c, s_y = (torch.from_numpy(a[sample]).to(dev) for a in tr_mf)
+
+    def mf_loss(res) -> float:
+        """The training BCE of the fit's logits (Eq. 1) on a fixed sample
+        of 200,000 of its pairs."""
+        z = torch.cat([model.predict(res.params, bt)[0] for bt in
+                       model.eval_batches(sp_mf, res.JK, s_r, s_c, s_y)])
+        return float(ncf.bce(z[:len(sample)], s_y))
+
+    first = fit(tr_mf, test, (M, N), dataclasses.replace(cfg, epochs=1),
+                device=dev)
+    loss_first = mf_loss(first)
+    del first
+    sync()
+    sgd_kernel.CULSH_LAUNCHES = 0                   # the bce fit's path
+    t0 = time.perf_counter()
+    res = fit(tr_mf, test, (M, N), cfg, device=dev)
+    sync()
+    t_culsh = time.perf_counter() - t0
+    launches = sgd_kernel.CULSH_LAUNCHES
+    nb_cf = res.schedule_stats["nb_cf"]
+    loss_last, hr_c = mf_loss(res), hr_mf(res.params)
+    print(f"[21 culsh-mf] fit(loss='bce', F=16, K=8, 40 epochs) on "
+          f"{len(tr_mf[0])} pairs: {t_culsh:.2f} s wall (neighbours "
+          f"{res.neighbour_seconds:.2f} s), HR@10 {hr_c:.4f}, training BCE "
+          f"{loss_first:.4f} after epoch 1 -> {loss_last:.4f} after epoch "
+          f"40; culsh_sgd launches {launches} = {nb_cf} conflict-free steps "
+          f"x 40 epochs (power limit {power})", flush=True)
+    if not (np.isfinite(hr_c) and loss_last < loss_first):
+        raise AssertionError(f"CULSH-MF (bce): HR {hr_c}, BCE {loss_first} "
+                             f"-> {loss_last}")
+    if on_card and not launches == nb_cf * cfg.epochs > 0:
+        raise AssertionError(f"the bce fit launched culsh_sgd {launches} "
+                             f"times, expected {nb_cf * cfg.epochs}")
+    # the bce kernel against its plain version at this path's shapes
+    # (F = 16, K = 8: the lanes past F and K are masked), on the trained
+    # state and the first and last window of each width tier of the
+    # fit's own schedule, at the last epoch's rates
+    sched = conflict_free_schedule(
+        sp_mf.rows.cpu().numpy(), sp_mf.cols.cpu().numpy(),
+        batch=min(cfg.cf_batch, cfg.batch), tiers=cfg.tiers,
+        tier_shrink=cfg.tier_shrink, min_fill_frac=cfg.min_fill_frac,
+        shards=1, M=M, N=N, seed=cfg.seed)
+    sd = model.build_scheduled_data(sp_mf, res.JK, sched)
+    state = model.pack_params(model.remap_params(res.params, sched))
+    hpv = culsh_hyper(cfg.hp, sgd.lr_decay(cfg.hp, cfg.epochs - 1, dev),
+                      state.mu)
+    k_err, windows = 0.0, []
+    for t, (starts, valid) in enumerate(zip(sched.tier_starts,
+                                            sched.tier_valid)):
+        w = sched.widths[t]
+        for k in sorted({0, len(starts) - 1}) if len(starts) else ():
+            b = model.slice_batch(sd, int(starts[k]), w, torch.as_tensor(
+                valid[k][:w], device=dev).float())
+            k_err = max(k_err, fused_vs_plain(state, b, hpv, F=cfg.F,
+                                              bce=True)[2])
+            windows.append(f"{w}:{int(b.valid.sum())}")
+    print(f"[21 check] culsh_sgd (bce, F=16, K=8) within rtol 1e-5 / atol "
+          f"1e-6 of the plain gather -> step -> scatter on the trained "
+          f"state, {len(windows)} windows of the fit's schedule (width:live "
+          f"{', '.join(windows)}), max abs err {k_err:.3g}", flush=True)
+    del res, sp_mf, sd, state
+
+    # the NCF family: positives plus 1:1 sampled negatives, full batch
+    negs = rng.integers(0, N, len(tr[0])).astype(np.int32)
+    i_all, j_all, y_all = (torch.from_numpy(a).to(dev) for a in (
+        np.concatenate([tr[0], tr[0]]), np.concatenate([tr[1], negs]),
+        np.concatenate([np.ones(len(tr[0])), np.zeros(len(tr[0]))]).astype(
+            np.float32)))
+    rows = dict(culsh_mf=dict(s=t_culsh, hr10=hr_c, loss=(loss_first,
+                                                          loss_last)))
+    for kind in ("gmf", "mlp", "neumf"):
+        c = ncf.NCFConfig(M=M, N=N, F=16, mlp_layers=(32, 16), kind=kind)
+        p = ncf.init(c, prng.PRNGKey(0), device=dev)
+        m = ncf.tree_map(torch.zeros_like, p)
+        v = ncf.tree_map(torch.zeros_like, p)
+        if kind == "neumf":
+            first_step_vs_cpu(p, c, i_all, j_all, y_all)
+        with torch.no_grad():
+            loss0 = float(ncf.bce_loss(p, c, i_all, j_all, y_all))
+        sync()
+        t0 = time.perf_counter()
+        for t in range(1, T10_STEPS + 1):
+            p, m, v = ncf.adam_step(p, m, v, t, c, i_all, j_all, y_all,
+                                    lr=2e-2)
+        sync()
+        t_dl = time.perf_counter() - t0
+        with torch.no_grad():
+            loss1 = float(ncf.bce_loss(p, c, i_all, j_all, y_all))
+        hr = float(ncf.hit_ratio(p, c, te_t, ti_t, cand_t, topk=10))
+        rows[kind] = dict(s=t_dl, hr10=hr, loss=(loss0, loss1))
+        print(f"[21 {kind}] {T10_STEPS} full-batch Adam steps (lr 2e-2) on "
+              f"{len(i_all)} pairs: {t_dl:.2f} s wall ({t_dl / t_culsh:.2f}x "
+              f"CULSH-MF's), HR@10 {hr:.4f}, BCE {loss0:.4f} before step 1 "
+              f"-> {loss1:.4f} after step {T10_STEPS}", flush=True)
+        if not (np.isfinite(hr) and loss1 < loss0):
+            raise AssertionError(f"{kind}: HR {hr}, BCE {loss0} -> {loss1}")
+    print(f"[21 done] phase 21 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(rows=rows, culsh_launches=launches)
+
+
+def first_step_vs_cpu(p, c, i, j, y) -> None:
+    """The card's first NeuMF step against the same step on the CPU, each
+    gradient leaf held to its own largest entry (an embedding entry's
+    gradient over this phase's pairs is ~1e-9, so an absolute bound would
+    pass a zero or sign-flipped leaf):
+
+    * in float64, card = CPU within 1e-9 of each leaf's max |g| — the
+      same autograd graph on both, rounding at 2⁻⁵³;
+    * in float32 (the path's dtype), card = CPU within 1e-3 of each
+      leaf's max |g|: every leaf sums ~10⁶ pair terms that cancel to a
+      small result, so float32 fixes a leaf only to ~1e-4–1e-3 of its
+      scale (the CPU's own float32 gradient against its float64 one is
+      printed); a zero or sign-flipped leaf is off by 1–2× its scale;
+    * the Adam update of the *same* float32 gradients within 1e-6 (Adam's
+      first step is ≈ lr·sign(g), so a gradient near 0 that flips sign
+      between summation orders would move an entry by 2·lr)."""
+    from repro_torch.core import ncf
+
+    if p["gmf_u"].device.type != "cuda":
+        return
+    host = lambda tree: ncf.tree_map(lambda a: a.cpu(), tree)
+    f64 = lambda tree: ncf.tree_map(lambda a: a.double(), tree)
+    g_card = ncf.grads(p, c, i, j, y)
+    g_cpu = ncf.grads(host(p), c, i.cpu(), j.cpu(), y.cpu())
+    g64_card = ncf.grads(f64(p), c, i, j, y.double())
+    g64_cpu = ncf.grads(f64(host(p)), c, i.cpu(), j.cpu(), y.cpu().double())
+    names = [k if not isinstance(p[k], list) else f"{k}[{n}]"
+             for k in sorted(p)
+             for n in range(len(p[k]) if isinstance(p[k], list) else 1)]
+    rel = lambda a, b, r: float((a.cpu().double() - b.double()).abs().max()
+                                / r.abs().max())
+    rows, r32, r64 = [], 0.0, 0.0
+    for name, a, b, a64, b64 in zip(names, *map(ncf.leaves, (
+            g_card, g_cpu, g64_card, g64_cpu))):
+        if not float(b64.abs().max()) > 0:
+            raise AssertionError(f"NeuMF's gradient leaf {name} is zero")
+        e32, e64 = rel(a, b, b64), rel(a64, b64, b64)
+        r32, r64 = max(r32, e32), max(r64, e64)
+        rows.append(f"{name} {float(b64.abs().max()):.3g}: {e32:.3g} / "
+                    f"{e64:.3g} (CPU f32 vs f64 {rel(b, b64, b64):.3g})")
+    zeros = lambda tree: ncf.tree_map(torch.zeros_like, tree)
+    with torch.no_grad():
+        card = ncf.adam_update(p, zeros(p), zeros(p), g_card, 1, lr=2e-2)
+        cpu = ncf.adam_update(host(p), zeros(host(p)), zeros(host(p)),
+                              host(g_card), 1, lr=2e-2)
+    u_err = max(float((a.cpu() - b).abs().max())
+                for tc, th in zip(card, cpu)
+                for a, b in zip(ncf.leaves(tc), ncf.leaves(th)))
+    with torch.no_grad():
+        l_card = float(ncf.bce_loss(card[0], c, i, j, y))
+        l_cpu = float(ncf.bce_loss(ncf.adam_update(
+            host(p), zeros(host(p)), zeros(host(p)), g_cpu, 1, lr=2e-2)[0],
+            c, i.cpu(), j.cpu(), y.cpu()))
+    print(f"[21 check] NeuMF's first step, card vs CPU, each gradient leaf "
+          f"(max |g|: float32 / float64 error over it): " + "; ".join(rows)
+          + f" -- limits 1e-3 / 1e-9; the Adam update of the same "
+          f"gradients within {u_err:.3g} (limit 1e-6), the loss after "
+          f"each side's own step {l_card:.7f} / {l_cpu:.7f}", flush=True)
+    if not (r32 <= 1e-3 and r64 <= 1e-9 and u_err <= 1e-6
+            and abs(l_card - l_cpu) <= 1e-5):
+        raise AssertionError(f"NeuMF's first step: gradients {r32} / "
+                             f"{r64} of their scales, update {u_err}, "
+                             f"loss {l_card} / {l_cpu}")
+
+
+def examples_phase(args, dev, on_card: bool, power: str) -> dict:
+    """Phase 22: each `examples/torch_*.py` as a user runs it, in a
+    subprocess on the card at its own default size (the 100M script
+    with ``--small``: phases 8–10 run its full size), with ``--report``
+    printing the kernels' launch counters."""
+    build = os.path.join(ROOT, "build", "chip_smoke_examples")
+    runs = [("torch_quickstart", []), ("torch_online_learning", []),
+            ("torch_serve_recsys", []),
+            ("torch_serve_recsys", ["--online-loop", "--slices", "3",
+                                    "--root", os.path.join(build, "loop")]),
+            ("torch_train_lshmf_100m", ["--small", "--ckpt-dir",
+                                        os.path.join(build, "ckpt"),
+                                        "--trace", os.path.join(
+                                            build, "train_trace.json")])]
+    small = ["--M", "600", "--N", "100", "--nnz", "12000", "--epochs", "2"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t_phase = time.perf_counter()
+    import shutil
+    shutil.rmtree(build, ignore_errors=True)
+    os.makedirs(build)
+    out = {}
+    for name, extra in runs:
+        argv = [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
+                "--report", *extra]
+        if not on_card:                          # rehearsal: the CPU, tiny
+            argv += ["--device", "cpu"] + (
+                ["--shape", "2000,300,16,8,20000,2"]
+                if name == "torch_train_lshmf_100m" else small)
+        t0 = time.perf_counter()
+        done = subprocess.run(argv, env=env, capture_output=True, text=True,
+                              timeout=600, cwd=build)
+        wall = time.perf_counter() - t0
+        tag = name.replace("torch_", "") + (" --online-loop" if extra and
+                                            extra[0] == "--online-loop"
+                                            else "")
+        lines = done.stdout.strip().splitlines()
+        print(f"[22 {tag}] exit {done.returncode} in {wall:.1f} s; last "
+              f"lines:", flush=True)
+        for line in lines[-4:]:
+            print(f"[22 {tag}]   {line}", flush=True)
+        if done.returncode != 0:
+            print(done.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"{name} {extra} exited "
+                                 f"{done.returncode}")
+        rep = [json.loads(line[len("report "):]) for line in lines
+               if line.startswith("report ")]
+        if len(rep) != 1:
+            raise AssertionError(f"{name}: no report line")
+        launches = rep[0]["launches"]
+        out[tag] = dict(wall=wall, **rep[0])
+        need = ["culsh_sgd"] + (["lsh_retrieve", "candidate_score"]
+                                if "serve_recsys" in name else [])
+        if on_card and not all(launches[k] > 0 for k in need):
+            raise AssertionError(f"{tag}: launches {launches}: each of "
+                                 f"{need} must run")
+        if on_card and tag == "serve_recsys":
+            # the example held its kernel walk against the kernels' plain
+            # versions on one probe flush (`assert_topn_close`, 1e-5)
+            chk = rep[0].get("walk_vs_plain")
+            if not chk or not np.isfinite(chk["max_abs_err"]):
+                raise AssertionError(f"{tag}: no kernel-vs-plain check in "
+                                     f"its report: {rep[0]}")
+            print(f"[22 {tag}] kernel walk vs plain on {chk['users']} "
+                  f"probe users: max abs score err "
+                  f"{chk['max_abs_err']:.3g}", flush=True)
+    shutil.rmtree(build, ignore_errors=True)
+    print(f"[22 done] phase 22 in {time.perf_counter() - t_phase:.1f} s "
+          f"(power limit {power})", flush=True)
+    return out
+
+
+def lm_phase(args, dev, on_card: bool, power: str) -> dict:
+    """Phase 23: dense LM serving (`repro_torch.launch.serve.serve`) at
+    llama3-8b's full width; its KV cache (prefill's last-position logits
+    against a token-by-token decode of the same prompt) and the card
+    against the CPU (float32) on a 2-layer cut of the same widths."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch.configs import base as CB
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, steps
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    full = CB.get("llama3-8b")
+    if not on_card:
+        full = CB.reduced(full)                  # rehearsal size
+    u = 2.0 ** -8                                # bfloat16's unit roundoff
+    B, S = 4, 64
+    # ---- (a) 2-layer cut of the full widths: cache and card vs CPU ----
+    cut = dataclasses.replace(full, L=2)
+    p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cut.vocab, (B, S)).astype(np.int32)).to(dev)
+    pre, _ = steps.make_prefill(cut)(p, {"tokens": toks})
+    dec = steps.make_decode_step(cut)
+    cache = steps.init_cache(cut, B, S, device=dev)
+    for t in range(S):
+        lg, cache = dec(p, cache, toks[:, t:t + 1])
+    sync()
+    rms = float(pre.float().pow(2).mean().sqrt())
+    err = (lg[:, 0] - pre).abs()
+    d_max, d_mean = float(err.max()), float(err.mean())
+    print(f"[23 cache] {cut.name} cut to L=2 (d={cut.d_model}, "
+          f"ff={cut.d_ff}, V={cut.vocab_padded(1)}), bfloat16: prefill's "
+          f"last-position logits vs a {S}-step decode of the same prompts: "
+          f"max abs {d_max:.4g}, mean {d_mean:.4g} (logit rms {rms:.4g}; "
+          f"limits 16u·rms {16 * u * rms:.4g} and 4u·rms {4 * u * rms:.4g}, "
+          f"u = 2^-8)", flush=True)
+    if not (d_max <= 16 * u * rms and d_mean <= 4 * u * rms):
+        raise AssertionError("the decode's KV cache disagrees with prefill")
+    host = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict)
+                else v.cpu()) for k, v in p.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref, _ = steps.make_prefill(dataclasses.replace(cut, dtype="float32"))(
+            host, {"tokens": toks.cpu()})
+    t_cpu = time.perf_counter() - t0
+    rms32 = float(ref.pow(2).mean().sqrt())
+    err = (pre.cpu() - ref).abs()
+    c_max, c_mean = float(err.max()), float(err.mean())
+    print(f"[23 cpu] the same prefill on the CPU in float32 ({t_cpu:.1f} s): "
+          f"card (bfloat16) within max abs {c_max:.4g}, mean {c_mean:.4g} "
+          f"(logit rms {rms32:.4g}; limits 32u·rms {32 * u * rms32:.4g} and "
+          f"8u·rms {8 * u * rms32:.4g}); greedy tokens equal on "
+          f"{float((pre.cpu().argmax(-1) == ref.argmax(-1)).float().mean()):.2f}"
+          f" of the rows", flush=True)
+    if not (c_max <= 32 * u * rms32 and c_mean <= 8 * u * rms32):
+        raise AssertionError("the card's logits disagree with the CPU's")
+    del p, host, cache, pre, lg, ref
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- (b) the served model at full width ----
+    held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
+                            device=dev)
+    sync()
+    t_init = time.perf_counter() - t0
+    logs = []
+    out, st = serve(full, batch=B, prompt_len=S, gen=32, seed=0,
+                    log=logs.append, device=dev, params=params)
+    nparam = sum(t.numel() for v in params.values() for t in (
+        v.values() if isinstance(v, dict) else (v,)))
+    bound_s = 4 * nparam / HBM_BYTES_PER_S       # float32 weights, one read
+    print(f"[23 serve] {full.name} ({nparam / 1e9:.3f}e9 float32 params, "
+          f"{4 * nparam / 1e9:.1f} GB) batch {B}, prompt {S}, gen 32: "
+          f"params drawn in {t_init:.1f} s, prefill "
+          f"{st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s, "
+          f"{st['tok_per_s']:.1f} tokens/s (bound {B / bound_s:.0f} tokens/s:"
+          f" the float32 weights read once a step, {1e3 * bound_s:.2f} ms); "
+          + (f"resident {st['resident_mb']:.0f} MB, peak {st['peak_mb']:.0f}"
+             f" MB (phases before it held {held:.0f} MB) " if on_card else "")
+          + f"(power limit {power})", flush=True)
+    o = out.cpu().numpy()
+    if o.shape != (B, 33) or not ((o >= 0) & (o < full.vocab)).all():
+        raise AssertionError(f"served tokens {o.shape} out of range")
+    if on_card:
+        profile_decode(full, params, B, S, dev)
+    print(f"[23 done] phase 23 in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return dict(st, nparam=nparam, bound_tok_s=B / bound_s, cache=(
+        d_max, d_mean), cpu=(c_max, c_mean))
+
+
+def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3):
+    """``steps_n`` decode steps of the served model under `torch.profiler`
+    (after a prefill and two warm steps): the device's busy share of the
+    window and its time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import steps
+
+    toks = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    cache = steps.init_cache(cfg, B, S + 2 + steps_n, device=dev)
+    _, pc = steps.make_prefill(cfg)(params, {"tokens": toks})
+    cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
+    cache["pos"] = S
+    dec = steps.make_decode_step(cfg)
+    last = toks[:, -1:]
+    for _ in range(2):
+        _, cache = dec(params, cache, last)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps_n):
+            _, cache = dec(params, cache, last)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy, by_name = device_activity(prof)       # µs
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"[23 profile] {steps_n} decode steps in {1e3 * wall:.1f} ms "
+          f"(profiled): {len(spans)} device activities, busy "
+          f"{busy / 1e3:.1f} ms (share {busy / 1e6 / wall:.3f}); by kernel "
+          f"ms: " + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -2851,8 +3332,11 @@ def main(argv=None) -> int:
     lsh = simlsh.SimLSHConfig(G=9, p=2, q=10, band_cap=16)
     sigs = simlsh.encode(sp, lsh, prng.PRNGKey(args.seed, device=dev))
     index = build_index(sigs, tail_cap=128, device=dev)
+    # the kernel walk: what impl="auto" resolves to on the card, named so
+    # that the CPU rehearsal walks the same way through the kernels'
+    # plain versions (its "auto" there is the plain walk)
     cfg = ServeConfig(topn=10, micro_batch=256, C=768, n_seeds=16, cap=8,
-                      n_popular=64, tile_b=16, band_budget=768)
+                      n_popular=64, tile_b=16, band_budget=768, impl="cuda")
     svc = RecsysService(params, index, sp, cfg, device=dev)
     if on_card:
         torch.cuda.synchronize()
@@ -3044,6 +3528,9 @@ def main(argv=None) -> int:
     serve["plain_recall"] = serve_paths_phase(args, serve, dev, on_card,
                                               power)
     shard_phase(args, serve, ctx, dev, on_card, power)
+    table10_phase(args, dev, on_card, power)
+    examples_phase(args, dev, on_card, power)
+    lm_phase(args, dev, on_card, power)
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

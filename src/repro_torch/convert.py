@@ -87,6 +87,29 @@ def online_state_from_numpy(params, S, JK, sp, hash_key, M: int, N: int,
         hash_key=None if hash_key is None else key_from_numpy(hash_key))
 
 
+def ncf_params_from_numpy(tree: dict, device=None) -> dict:
+    """The JAX package's NCF parameter dict (arrays, ``mlp_w`` / ``mlp_b``
+    as lists of arrays) → the port's dict of float32 tensors."""
+    dev = resolve_device(device)
+    f = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return {k: [f(a) for a in v] if isinstance(v, (list, tuple)) else f(v)
+            for k, v in tree.items()}
+
+
+def lm_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
+    """The JAX package's LM parameter tree (``init_params``'s nested dict
+    of arrays) → the port's dict of tensors, in ``dtype`` (a torch dtype
+    or its name; default float32)."""
+    dev = resolve_device(device)
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    dtype = dtype or torch.float32
+    conv = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev,
+                                  dtype=dtype)
+    return {k: lm_params_from_numpy(v, dev, dtype) if isinstance(v, dict)
+            else conv(v) for k, v in tree.items()}
+
+
 def to_numpy(x):
     """A tensor → ndarray; a dataclass of tensors → dict of its fields with
     every tensor as an ndarray (other fields unchanged)."""

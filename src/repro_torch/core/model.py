@@ -329,6 +329,14 @@ def predict_mf(p: Params, bt: Batch):
     return (p.U[bt.i.long()] * p.V[bt.j.long()]).sum(1)
 
 
+def _clamp_ids(p: Params, bt: Batch) -> Batch:
+    """``bt`` with row and col ids past the parameters' rows read as the
+    last row, as the JAX package's gathers clamp them (a test triple of
+    a user or item the fit never saw; its neighbour lookups miss)."""
+    return dataclasses.replace(bt, i=bt.i.clamp(max=p.U.shape[0] - 1),
+                               j=bt.j.clamp(max=p.V.shape[0] - 1))
+
+
 @dataclasses.dataclass(frozen=True)
 class EvalCache:
     """Test-set neighbour gathers, computed once per fit (the test
@@ -348,7 +356,7 @@ def build_eval_cache(sp_train: SparseMatrix, JK: torch.Tensor, rows, cols,
     if mf_only:
         z = torch.zeros((T, 0), dtype=torch.float32, device=dev)
         return EvalCache(z.to(torch.int32), z, z)
-    nb = JK[cols.long()]
+    nb = JK[cols.long().clamp(max=JK.shape[0] - 1)]   # clamped, as in JAX
     rnb = torch.empty(nb.shape, dtype=torch.float32, device=dev)
     expl = torch.empty(nb.shape, dtype=torch.float32, device=dev)
     for c0 in range(0, T, chunk):
@@ -370,8 +378,9 @@ def rmse_cached(p: Params, ec: EvalCache, rows, cols, vals, *,
         sl = lambda a: a[s:s + batch]
         expl = sl(ec.expl)
         r = sl(vals)
-        bt = Batch(sl(rows), sl(cols), r, sl(ec.nb), sl(ec.rnb), expl,
-                   1.0 - expl, torch.ones_like(r))
+        bt = _clamp_ids(p, Batch(sl(rows), sl(cols), r, sl(ec.nb),
+                                 sl(ec.rnb), expl, 1.0 - expl,
+                                 torch.ones_like(r)))
         pred = predict_mf(p, bt) if mf_only else predict(p, bt)[0]
         sse = sse + ((r - pred) ** 2).sum()
     return torch.sqrt(sse / n)
@@ -391,7 +400,7 @@ def eval_batches(sp_train: SparseMatrix, JK: torch.Tensor, rows, cols, vals,
              < n).to(torch.float32)
     for s in range(0, nb_batches * batch, batch):
         i, j = rows_p[s:s + batch], cols_p[s:s + batch]
-        nb = JK[j.long()]
+        nb = JK[j.long().clamp(max=JK.shape[0] - 1)]    # clamped, as in JAX
         rnb, hit = lookup(sp_train, i[:, None].expand(nb.shape), nb)
         expl = hit.to(torch.float32)
         yield Batch(i, j, vals_p[s:s + batch], nb, rnb, expl, 1.0 - expl,
@@ -404,6 +413,7 @@ def rmse(p: Params, sp_train: SparseMatrix, JK, rows, cols, vals, *,
     legacy path's eval, as a 0-dim device tensor."""
     sse = torch.zeros((), dtype=torch.float32, device=vals.device)
     for bt in eval_batches(sp_train, JK, rows, cols, vals, batch=batch):
+        bt = _clamp_ids(p, bt)
         pred = predict_mf(p, bt) if mf_only else predict(p, bt)[0]
         sse = sse + ((bt.r - pred) ** 2 * bt.valid).sum()
     return torch.sqrt(sse / int(rows.shape[0]))

@@ -60,3 +60,18 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
                                f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise KernelValueError(f"{name}: the kernel needs a contiguous tensor")
+
+
+def launch_counts() -> dict:
+    """Each hand-written kernel's launch counter, by the kernel's name
+    (what an entry point's ``--report`` line prints)."""
+    from repro_torch.core import scatter
+    from repro_torch.kernels.candidate_score import kernel as score
+    from repro_torch.kernels.lsh_retrieve import kernel as lsh
+    from repro_torch.kernels.mf_sgd import kernel as sgd
+    from repro_torch.kernels.neighbor_predict import kernel as pred
+    from repro_torch.kernels.simlsh_encode import kernel as enc
+    return dict(lsh_retrieve=lsh.LAUNCHES, candidate_score=score.LAUNCHES,
+                culsh_sgd=sgd.CULSH_LAUNCHES, mf_sgd=sgd.MF_LAUNCHES,
+                simlsh_encode=enc.LAUNCHES, neighbor_predict=pred.LAUNCHES,
+                segment_add=scatter.LAUNCHES)

@@ -56,9 +56,10 @@ def _words(key: torch.Tensor, device):
     return key[..., 0:1], key[..., 1:2]
 
 
-def _counter(n: int, device):
-    """`iota_2x32_shape`: the flat index 0..n-1 as (high, low) words."""
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+def _counter(n: int, device, start: int = 0):
+    """`iota_2x32_shape`: the flat index start..start+n-1 as (high, low)
+    words."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
     return idx >> 32, idx & M32
 
 
@@ -111,7 +112,11 @@ def _f32(x) -> torch.Tensor:
 def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
     """`jax.random.uniform` in float32: the top 23 bits become the
     mantissa of a float in [1, 2), shifted and scaled to [minval, maxval)."""
-    bits = random_bits(key, shape, device)
+    return _uniform_bits(random_bits(key, shape, device), minval, maxval)
+
+
+def _uniform_bits(bits: torch.Tensor, minval, maxval) -> torch.Tensor:
+    """`uniform`'s float32 values from its 32-bit draws."""
     one = 0x3F800000
     f = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = _f32(minval).to(f.device), _f32(maxval).to(f.device)
@@ -148,9 +153,33 @@ def normal(key, shape, device=None) -> torch.Tensor:
     """`jax.random.normal` in float32: √2·erfinv(u), u uniform in
     (−1, 1).  `log1p` differs between libraries, so a draw may differ
     from JAX's by a few ulp (at most 3 measured; 99 % are equal)."""
+    return _normal_bits(random_bits(key, shape, device))
+
+
+def _normal_bits(bits: torch.Tensor) -> torch.Tensor:
+    """`normal`'s float32 values from its 32-bit draws."""
     lo = np.nextafter(np.float32(-1.0), np.float32(0.0), dtype=np.float32)
-    u = uniform(key, shape, float(lo), 1.0, device)
+    u = _uniform_bits(bits, float(lo), 1.0)
     return _f32(np.sqrt(2)).to(u.device) * _erfinv(u)
+
+
+def normal_chunked(key, shape, device=None,
+                   chunk: int = 1 << 24) -> torch.Tensor:
+    """`normal(key, shape)` drawn ``chunk`` elements at a time into one
+    float32 tensor: in the partitionable mode element i depends on its
+    flat index alone, so the chunks are the whole draw's slices and the
+    int64 working set stays ``chunk`` wide (a 128k × 4096 embedding
+    table would need tens of GB of it at once)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    device = key.device if device is None else torch.device(device)
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.float32, device=device)
+    k1, k2 = _words(key, device)
+    for s in range(0, n, chunk):
+        c = min(chunk, n - s)
+        b1, b2 = threefry2x32(k1, k2, *_counter(c, device, start=s))
+        out[s:s + c] = _normal_bits(b1 ^ b2)
+    return out.reshape(shape)
 
 
 def _mul32(x, c: int):

@@ -6,10 +6,12 @@ A `RecsysService` owns the trained parameters (packed once into the
 serving pipelines, routed by `ServeConfig` as the JAX package routes
 them (`RecsysService._recommend`):
 
-  * ``band_budget > 0`` — the walk path.  `recommend_walked_kernel`:
-    seeds → window descriptors → the `lsh_retrieve` kernel (walk +
-    dedup) → the `candidate_score` kernel (gather, score, top-N); on the
-    CPU the same function runs their plain versions.  With
+  * ``band_budget > 0`` — the walk path.  On the card (``impl="auto"``
+    or ``"cuda"``), `recommend_walked_kernel`: seeds → window
+    descriptors → the `lsh_retrieve` kernel (walk + dedup) → the
+    `candidate_score` kernel (gather, score, top-N); with
+    ``interpret=True``, or ``impl="cuda"`` on the CPU, the same function
+    runs their plain versions.  On the CPU (``impl="auto"``) or with
     ``impl="ref"``, `recommend_walked`: merged interval descriptors
     enumerated under the budget, the pool scored with its duplicates,
     duplicate-masked top-N — plain PyTorch on any device, the path the
@@ -172,12 +174,16 @@ class ServeConfig:
     tile_b: int = 8           # plain scorer's gather tile (users)
     walk_tile_b: int = 16     # gather tile of the plain walk path's pool
                               # scoring (recommend_walked)
-    impl: str = "auto"        # auto | cuda | ref — auto launches the CUDA
-                              # kernels on the card and runs their plain
-                              # versions on the CPU; ref is the JAX
-                              # package's CPU default: the plain walk path
-                              # (band_budget > 0) or the plain scorer
-                              # (band_budget = 0), on any device
+    interpret: bool | None = None  # None = auto (the kernels' plain
+                              # versions only on the CPU); True runs the
+                              # kernel walk's plain versions on any device
+                              # (the JAX package's Pallas interpret mode)
+    impl: str = "auto"        # auto | cuda | ref — auto picks ref on the
+                              # CPU and the CUDA kernels on the card (the
+                              # JAX package's scorer_impl); ref is the
+                              # plain walk path (band_budget > 0) or the
+                              # plain scorer (band_budget = 0), on any
+                              # device; cuda is the kernel walk / scorer
 
     def __post_init__(self):
         if self.mode not in ("candidate", "full"):
@@ -186,6 +192,37 @@ class ServeConfig:
         if self.impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got "
                              f"{self.impl!r}")
+
+    def scorer_impl(self, device) -> str:
+        """``impl`` with ``"auto"`` resolved for tensors on ``device``:
+        ``"ref"`` on the CPU, ``"cuda"`` on the card (the JAX package's
+        `scorer_impl`, which reads the backend where this reads the
+        device)."""
+        if self.impl != "auto":
+            return self.impl
+        return "ref" if torch.device(device).type == "cpu" else "cuda"
+
+    def interpret_mode(self, device) -> bool:
+        """Whether the kernel walk runs its kernels' plain versions:
+        ``interpret``, or on the CPU when it is None."""
+        if self.interpret is not None:
+            return self.interpret
+        return torch.device(device).type == "cpu"
+
+    def kernel_impl(self, device) -> str:
+        """The ``impl`` the serving ops get: ``"ref"`` (the plain
+        versions) for the plain scorer; in interpret mode the kernels'
+        plain versions — on the CPU through their wrappers (``"auto"``,
+        which run them for CPU tensors, so a wrapper's error still
+        raises through the flush there:
+        `test_service_kernel_error_is_never_answered_by_the_fallback`),
+        on the card directly (``"ref"``); else ``"cuda"`` (the kernels,
+        which raise off the card)."""
+        if self.scorer_impl(device) == "ref":
+            return "ref"
+        if self.interpret_mode(device):
+            return "auto" if torch.device(device).type == "cpu" else "ref"
+        return "cuda"
 
     def resolved_pool_width(self) -> int:
         return self.pool_width
@@ -559,10 +596,12 @@ class RecsysService:
         return 0 if not n else min(self.index.tail_cap, -(-n // 16) * 16)
 
     def _recommend(self, user_ids: torch.Tensor):
-        """The JAX package's routing, branch for branch (``impl="ref"``
-        is its CPU default, the plain walk path; the sharded tier is the
-        same plain program for every ``impl``)."""
+        """The JAX package's routing, branch for branch, on ``impl``
+        resolved for the service's device (``"auto"`` on the CPU is the
+        plain walk path; the sharded tier is the same plain program for
+        every ``impl``)."""
         cfg = self.cfg
+        impl = cfg.kernel_impl(self.device)
         if cfg.mode == "full" or (cfg.route_full_below and
                                   self.route_decision()["decision"] == "full"):
             return full_topn(self.params, user_ids, topn=cfg.topn)
@@ -573,7 +612,7 @@ class RecsysService:
                 self._shard_state.parts, n_seeds=cfg.n_seeds, cap=cfg.cap,
                 budget=cfg.resolved_shard_budget(D), window=cfg.seed_window,
                 topn=cfg.topn, tile_b=cfg.walk_tile_b)
-        if cfg.band_budget and cfg.impl == "ref":
+        if cfg.band_budget and cfg.scorer_impl(self.device) == "ref":
             return recommend_walked(
                 self.planes, self.index, self.sp, user_ids, self.popular,
                 n_seeds=cfg.n_seeds, cap=cfg.cap, budget=cfg.band_budget,
@@ -584,13 +623,13 @@ class RecsysService:
                 self.planes, self.index, self.sp, user_ids, self.popular,
                 self._flat_ids(), n_seeds=cfg.n_seeds, cap=cfg.cap, C=cfg.C,
                 window=cfg.seed_window, tail_scan=self.index.tail_fill > 0,
-                topn=cfg.topn, tile_b=cfg.tile_b, impl=cfg.impl)
+                topn=cfg.topn, tile_b=cfg.tile_b, impl=impl)
         return recommend_candidates(
             self.planes, self.index, self.sp, user_ids, self.JK, self.popular,
             n_seeds=cfg.n_seeds, cap=cfg.cap, C=cfg.C, window=cfg.seed_window,
             pool_width=cfg.resolved_pool_width(), fold_mates=cfg.fold_mates,
             tail_scan=self.index.tail_fill > 0, topn=cfg.topn,
-            tile_b=cfg.tile_b, impl=cfg.impl)
+            tile_b=cfg.tile_b, impl=impl)
 
     def _barrier(self) -> None:
         """Wait for the device's queued work (nothing to wait for on the
@@ -904,7 +943,7 @@ class RecsysService:
                     out = self._recommend(ids)
                     sync()
                 names += ["serve.flush.sharded"]
-            elif cfg.band_budget and cfg.impl == "ref":
+            elif cfg.band_budget and cfg.scorer_impl(self.device) == "ref":
                 # plain walk: desc → walk → score → select (the dedup
                 # happens inside select; there is no dedup stage)
                 tail_k = self._tail_k()
@@ -952,7 +991,8 @@ class RecsysService:
                         with reg.span("serve.flush.retrieve.walk"):
                             cand = lsh_ops.walk_topc(
                                 *desc, self._flat_ids(), self.popular,
-                                C=cfg.C, cap=cfg.cap, impl=cfg.impl)
+                                C=cfg.C, cap=cfg.cap,
+                                impl=cfg.kernel_impl(self.device))
                             sync()
                     else:
                         stages = ("pool", "dedup")
@@ -972,7 +1012,7 @@ class RecsysService:
                 with reg.span("serve.flush.score"):
                     out = score_candidates(self.planes, ids, cand,
                                            topn=cfg.topn, tile_b=cfg.tile_b,
-                                           impl=cfg.impl)
+                                           impl=cfg.kernel_impl(self.device))
                     sync()
                 names += ["serve.flush.retrieve",
                           *(f"serve.flush.retrieve.{n}" for n in stages),

@@ -243,9 +243,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 def test_service_on_card_launches_both_kernels_and_matches_cpu(cuda):
+    """``impl="cuda"``: the kernel walk on the card, its kernels' plain
+    versions on the CPU (the default on the CPU is the plain walk)."""
     params, sp, _, index = _state()
     cfg = ServeConfig(topn=10, micro_batch=64, C=128, n_seeds=8, cap=8,
-                      n_popular=16, tile_b=8, band_budget=256)
+                      n_popular=16, tile_b=8, band_budget=256, impl="cuda")
     users = np.arange(0, 960, 3, dtype=np.int32)
     out = {}
     for dev in ("cpu", "cuda"):
@@ -1488,3 +1490,165 @@ def test_mesh_shard_tier_on_card_equals_replay(cuda, monkeypatch, mf_only):
     for a, b in ((out[0].row, out[1].row), (out[0].col, out[1].col)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# routing on the card, NCF, the bce fit, the examples and dense LM serving
+# ---------------------------------------------------------------------------
+
+def test_default_service_on_card_runs_the_kernel_walk(cuda):
+    """``impl="auto"`` resolves to the kernels on the card (one launch of
+    each a flush); ``interpret=True`` runs their plain versions there,
+    launching nothing, with the same ids."""
+    params, sp, _, index = _state()
+    kw = dict(topn=10, micro_batch=64, C=128, n_seeds=8, cap=8,
+              n_popular=16, tile_b=8, band_budget=256)
+    users = np.arange(0, 960, 3, dtype=np.int32)
+    out = {}
+    for interp in (None, True):
+        svc = RecsysService(params, index, sp,
+                            ServeConfig(interpret=interp, **kw),
+                            device=cuda)
+        assert svc.cfg.kernel_impl(cuda) == ("cuda" if interp is None
+                                             else "ref")
+        before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+        svc.submit(users)
+        svc.flush()
+        res = svc.take_results()
+        n = (lsh_kernel.LAUNCHES - before[0],
+             score_kernel.LAUNCHES - before[1])
+        assert n == ((len(res), len(res)) if interp is None else (0, 0))
+        out[interp] = np.concatenate([r[2] for r in res])
+    assert (out[None] == out[True]).mean() > 0.99
+
+
+def _implicit(M=400, N=100, per_user=8, seed=0):
+    rng = np.random.default_rng(seed)
+    users = np.repeat(np.arange(M), per_user).astype(np.int32)
+    items = ((users * 7 + rng.integers(0, 6, len(users))) % N).astype(
+        np.int32)
+    _, uq = np.unique(users.astype(np.int64) * N + items, return_index=True)
+    return users[uq], items[uq], M, N
+
+
+def test_ncf_first_step_on_card_matches_cpu(cuda):
+    """Each NCF model's gradients on the card within 1e-5 of the CPU's,
+    relative to each leaf's largest entry, and the Adam update of the same gradients within 1e-6."""
+    from repro_torch.core import ncf
+    users, items, M, N = _implicit()
+    negs = np.random.default_rng(1).integers(0, N, len(users))
+    i = torch.from_numpy(np.concatenate([users, users]))
+    j = torch.from_numpy(np.concatenate([items, negs]).astype(np.int32))
+    y = torch.cat([torch.ones(len(users)), torch.zeros(len(users))])
+    for kind in ("gmf", "mlp", "neumf"):
+        c = ncf.NCFConfig(M=M, N=N, F=16, mlp_layers=(32, 16), kind=kind)
+        p = ncf.init(c, prng.PRNGKey(0), device="cpu")
+        pc = ncf.tree_map(lambda a: a.to(cuda), p)
+        g = ncf.grads(p, c, i, j, y)
+        gc = ncf.grads(pc, c, i.to(cuda), j.to(cuda), y.to(cuda))
+        for a, b in zip(ncf.leaves(gc), ncf.leaves(g)):
+            scale = float(b.abs().max())          # each leaf's own scale
+            assert scale > 0
+            assert float((a.cpu() - b).abs().max()) <= (
+                1e-5 * scale + 4 * float(np.spacing(np.float32(scale))))
+        z = lambda t: ncf.tree_map(torch.zeros_like, t)
+        with torch.no_grad():
+            up_c = ncf.adam_update(pc, z(pc), z(pc), gc, 1, lr=2e-2)
+            up = ncf.adam_update(p, z(p), z(p),
+                                 ncf.tree_map(lambda a: a.cpu(), gc), 1,
+                                 lr=2e-2)
+        for tc, th in zip(up_c, up):
+            for a, b in zip(ncf.leaves(tc), ncf.leaves(th)):
+                np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
+                                           rtol=1e-6, atol=1e-6)
+        users_t = torch.arange(M, dtype=torch.int32)
+        cands = torch.from_numpy(np.random.default_rng(2).integers(
+            0, N, (M, 50)).astype(np.int32))
+        pos = (users_t * 7) % N
+        hits = lambda hr: round(float(hr) * M)        # the mean's last bit
+        assert hits(ncf.hit_ratio(pc, c, users_t.to(cuda), pos.to(cuda),
+                                  cands.to(cuda))) == hits(
+            ncf.hit_ratio(p, c, users_t, pos, cands))
+
+
+def test_bce_fit_on_card_launches_culsh_sgd_and_matches_cpu(cuda):
+    """Table 10's implicit fit (``loss="bce"``) on the card: one
+    `culsh_sgd` launch a conflict-free step an epoch, every parameter
+    within 1e-4 of the CPU fit's after 3 epochs."""
+    from repro_torch.core.sgd import Hyper
+    from repro_torch.train.trainer import FitConfig, fit
+    users, items, M, N = _implicit()
+    negs = np.random.default_rng(1).integers(0, N, 3 * len(users))
+    tr = (np.concatenate([users] * 4),
+          np.concatenate([items, negs]).astype(np.int32),
+          np.concatenate([np.ones(len(users)),
+                          np.zeros(3 * len(users))]).astype(np.float32))
+    te = (users[:50], items[:50], np.ones(50, np.float32))
+    cfg = FitConfig(F=16, K=8, epochs=3, batch=2048, method="simlsh",
+                    lsh=simlsh.SimLSHConfig(G=8, p=1, q=10, psi_pow=1.0),
+                    hp=Hyper(a_u=0.2, a_v=0.2, a_b=0.1, a_bh=0.1, beta=0.02),
+                    loss="bce", eval_every=0, use_kernels=True, shards=1)
+    before = sgd_kernel.CULSH_LAUNCHES
+    card = fit(tr, te, (M, N), cfg, device=cuda)
+    n = sgd_kernel.CULSH_LAUNCHES - before
+    cpu = fit(tr, te, (M, N), cfg, device="cpu")
+    assert n == card.schedule_stats["nb_cf"] * 3 > 0
+    for f in ("U", "V", "b", "bh", "W", "C"):
+        np.testing.assert_allclose(getattr(card.params, f).cpu().numpy(),
+                                   getattr(cpu.params, f).numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=f)
+
+
+def _example(name):
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / (
+        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"_ex_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_examples_on_card_launch_their_kernels(cuda, capsys):
+    small = ["--M", "600", "--N", "100", "--nnz", "12000", "--epochs", "2"]
+    before = sgd_kernel.CULSH_LAUNCHES
+    quick = _example("torch_quickstart").main(small)
+    assert sgd_kernel.CULSH_LAUNCHES > before and np.isfinite(quick["rmse"])
+    cpu = _example("torch_quickstart").main(["--device", "cpu", *small])
+    assert abs(quick["rmse"] - cpu["rmse"]) < 1e-3
+    before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+    got = _example("torch_serve_recsys").cli([*small, "--report"])
+    assert lsh_kernel.LAUNCHES > before[0]
+    assert score_kernel.LAUNCHES > before[1]
+    assert got["recall"] > 0.5 and got["fallbacks"] == 0
+    # --report held the kernel walk against its plain versions
+    assert got["walk_vs_plain"]["users"] == 256
+
+
+def test_lm_on_card_matches_cpu_and_its_cache(cuda):
+    """Reduced llama3-8b on the card: at float32 the greedy tokens of
+    `serve` equal the CPU's; in bfloat16 the prefill's last logits equal
+    a token-by-token decode's within 16·2⁻⁸ of their rms."""
+    from repro_torch.configs import base as CB
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, steps
+    cfg = dataclasses.replace(CB.reduced(CB.get("llama3-8b")),
+                              dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict)
+              else v.to(cuda)) for k, v in p.items()}
+    got, st = serve(cfg, batch=2, prompt_len=16, gen=8, device=cuda,
+                    params=pc, log=lambda *_: None)
+    want, _ = serve(cfg, batch=2, prompt_len=16, gen=8, device="cpu",
+                    params=p, log=lambda *_: None)
+    assert torch.equal(got.cpu(), want) and st["peak_mb"] > 0
+    bf = dataclasses.replace(cfg, dtype="bfloat16")
+    toks = torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0)).to(cuda)
+    pre, _ = steps.make_prefill(bf)(pc, {"tokens": toks})
+    cache = steps.init_cache(bf, 2, 24, device=cuda)
+    dec = steps.make_decode_step(bf)
+    for t in range(24):
+        lg, cache = dec(pc, cache, toks[:, t:t + 1])
+    rms = float(pre.pow(2).mean().sqrt())
+    assert float((lg[:, 0] - pre).abs().max()) <= 16 * 2 ** -8 * rms

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of `src/repro_torch/` and no part of
-`chip_smoke.py` imports JAX or the JAX package `repro` (only the tests
-import both).  Checked on the syntax tree, so an import inside a function
+"""The port stands alone: no module of `src/repro_torch/`, no example of
+the port (`examples/torch_*.py`) and no part of `chip_smoke.py` imports
+JAX, the JAX package `repro` or the reference's `benchmarks` (only the
+tests import both).  Checked on the syntax tree, so an import inside a function
 counts as much as one at the top."""
 import ast
 import pathlib
@@ -8,9 +9,9 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: pathlib.Path) -> set:
@@ -47,7 +48,22 @@ def test_the_port_has_its_files():
             "src/repro_torch/resil/wal.py",
             "src/repro_torch/loop/supervisor.py",
             "src/repro_torch/core/gsm.py",
-            "src/repro_torch/core/baselines.py"} <= names
+            "src/repro_torch/core/baselines.py",
+            "src/repro_torch/core/ncf.py",
+            "src/repro_torch/configs/base.py",
+            "src/repro_torch/configs/all.py",
+            "src/repro_torch/configs/llama3_8b.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/lm.py",
+            "src/repro_torch/models/steps.py",
+            "src/repro_torch/launch/serve.py",
+            "examples/torch_quickstart.py",
+            "examples/torch_online_learning.py",
+            "examples/torch_serve_recsys.py",
+            "examples/torch_train_lshmf_100m.py"} <= names
+    configs = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob(
+        "*.py")}
+    assert {f"src/repro_torch/configs/{c}.py" for c in configs} <= names
     assert len(names) >= 20
 
 

@@ -8,6 +8,9 @@ the same users flush by flush:
   service with ``band_budget=0, impl="ref"``;
 * ``impl="ref"`` with ``band_budget > 0`` (the plain walk path, the JAX
   package's CPU default) against the JAX service with ``impl="ref"``;
+* the default configuration (``impl="auto"``) against the JAX package's
+  default: on the CPU both resolve to the plain walk path, and
+  ``interpret`` resolves as the JAX package's `interpret_mode`;
 * small-catalog routing (`route_decision`, ``route_full_below``) and
   ``stats()["route"]``;
 * `profile_flush`'s span names on each of its four branches, its staged
@@ -115,22 +118,93 @@ def test_legacy_service_equals_jax(state, knob, tail):
 def test_ref_service_runs_the_plain_walk_like_jax(state, tail, budget):
     """``impl="ref"`` routes to `recommend_walked` in both packages.  At
     budget 64 the walk truncates, so its answers differ from the kernel
-    walk's (whole windows, C = 128) — what the port answered before it
-    routed ``impl="ref"`` as the JAX package does."""
+    walk's (``impl="cuda"``: whole windows, C = 128) — what the port
+    answered before it routed ``impl="ref"`` as the JAX package does."""
     kw = dict(KW, band_budget=budget)
     jsvc, tsvc = _services(state, tail, dict(kw, **JREF),
                            dict(kw, impl="ref", background_rebuild=False))
     items = _assert_same_flushes(jsvc, tsvc, state[4])
     if budget == 64:
         _, kern = _services(state, tail, dict(kw, **JREF),
-                            dict(kw, background_rebuild=False))
+                            dict(kw, impl="cuda", background_rebuild=False))
         other = np.concatenate([r[2] for r in _flushes(kern, state[4])])
         assert (other != items).any()
 
 
+@pytest.mark.parametrize("tail", [False, True])
+@pytest.mark.parametrize("budget", [64, 256])
+def test_default_service_equals_the_default_jax_service(state, tail, budget):
+    """A default-config service (``impl="auto"``, ``interpret=None``)
+    answers flush for flush like the JAX package's default service on
+    the CPU: both resolve to the plain walk `recommend_walked`, which
+    launches no kernel.  At budget 64 the walk truncates, so the kernel
+    walk (``impl="cuda"``) answers otherwise."""
+    kw = dict(KW, band_budget=budget, background_rebuild=False)
+    jsvc, tsvc = _services(state, tail, kw, kw)
+    assert jsvc.cfg.scorer_impl() == "ref"
+    assert tsvc.cfg.scorer_impl(tsvc.device) == "ref"
+    before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+    items = _assert_same_flushes(jsvc, tsvc, state[4])
+    assert (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES) == before
+    if budget == 64:
+        _, kern = _services(state, tail, kw, dict(kw, impl="cuda"))
+        other = np.concatenate([r[2] for r in _flushes(kern, state[4])])
+        assert (other != items).any()
+
+
+@pytest.mark.parametrize("impl,interpret,device,want", [
+    ("auto", None, "cpu", ("ref", True, "ref")),
+    ("auto", None, "cuda", ("cuda", False, "cuda")),
+    ("auto", True, "cuda", ("cuda", True, "ref")),
+    ("auto", False, "cpu", ("ref", False, "ref")),
+    ("cuda", None, "cpu", ("cuda", True, "auto")),
+    ("cuda", True, "cpu", ("cuda", True, "auto")),
+    ("cuda", False, "cpu", ("cuda", False, "cuda")),
+    ("cuda", None, "cuda", ("cuda", False, "cuda")),
+    ("ref", None, "cuda", ("ref", False, "ref")),
+    ("ref", True, "cpu", ("ref", True, "ref")),
+])
+def test_impl_and_interpret_resolve_like_jax(impl, interpret, device, want):
+    """``scorer_impl`` / ``interpret_mode`` are the JAX package's, with the
+    device in place of the backend (``cuda`` ↔ ``pallas``); ``kernel_impl``
+    maps the JAX pair onto the ops' ``impl``: the kernels only for the
+    kernel path outside interpret mode, which on the CPU goes through
+    the wrappers (``"auto"``: their plain versions for CPU tensors)."""
+    cfg = ServeConfig(impl=impl, interpret=interpret)
+    dev = torch.device(device)
+    got = (cfg.scorer_impl(dev), cfg.interpret_mode(dev), cfg.kernel_impl(dev))
+    assert got == want
+    if device == "cpu":
+        jcfg = JConfig(impl={"cuda": "pallas"}.get(impl, impl),
+                       interpret=interpret)
+        assert ({"pallas": "cuda"}.get(jcfg.scorer_impl(), "ref"),
+                jcfg.interpret_mode()) == got[:2]
+
+
+def test_interpret_runs_the_kernel_walk_plain_and_matches_jax(state):
+    """``impl="cuda"`` on the CPU is the kernel walk through its kernels'
+    plain versions, as the JAX ``impl="pallas"`` runs in interpret mode
+    there; ``interpret=True`` asks for it explicitly.  Both equal the
+    JAX interpret-mode service, and neither launches a kernel."""
+    kw = dict(KW, background_rebuild=False)
+    jsvc, tsvc = _services(state, True, dict(kw, impl="pallas",
+                                             interpret=True),
+                           dict(kw, impl="cuda"))
+    _, tsvc2 = _services(state, True, dict(kw, **JREF),
+                         dict(kw, impl="cuda", interpret=True))
+    before = (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES)
+    items = _assert_same_flushes(jsvc, tsvc, state[4])
+    np.testing.assert_array_equal(
+        np.concatenate([r[2] for r in _flushes(tsvc2, state[4])]), items)
+    assert (lsh_kernel.LAUNCHES, score_kernel.LAUNCHES) == before
+
+
 def test_legacy_impl_cuda_on_the_cpu_raises_through_the_flush(state):
+    """``impl="cuda", interpret=False`` asks for the kernels themselves:
+    on the CPU the scorer's wrapper refuses, and the flush raises."""
     _, tsvc = _services(state, False, dict(KW, **JREF),
-                        dict(KW, band_budget=0, impl="cuda"))
+                        dict(KW, band_budget=0, impl="cuda",
+                             interpret=False))
     with pytest.raises(KernelError, match="CUDA device"):
         tsvc.submit(np.arange(KW["micro_batch"], dtype=np.int32))
     assert tsvc.stats()["fallbacks"] == 0
@@ -165,7 +239,7 @@ def test_route_decision_matches_jax(state, mode, route, C):
 BRANCHES = {
     "full": (dict(mode="full"), dict(mode="full")),
     "plain walk": (dict(impl="ref"), dict(impl="ref")),
-    "kernel walk": (dict(impl="pallas", interpret=True), dict()),
+    "kernel walk": (dict(impl="pallas", interpret=True), dict(impl="cuda")),
     "legacy": (dict(band_budget=0, impl="ref"), dict(band_budget=0)),
 }
 
@@ -247,12 +321,12 @@ def test_loop_build_service_on_the_legacy_path_matches_jax(online_state):
 
 
 def test_config_takes_every_jax_field_but_two():
-    """The port's `ServeConfig` has the JAX package's fields less
-    ``interpret`` (the Pallas interpreter), and the same defaults (the
-    name is from before the sharded tier brought ``shard_budget``)."""
+    """The port's `ServeConfig` has every field of the JAX package's, with
+    the same defaults (the name is from before the sharded tier brought
+    ``shard_budget`` and the routing repair brought ``interpret``)."""
     j = {f.name: f.default for f in dataclasses.fields(JConfig)}
     t = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
-    assert set(t) == set(j) - {"interpret"}
-    assert t == {k: v for k, v in j.items() if k in t}
+    assert set(t) == set(j)
+    assert t == j
     assert ServeConfig(band_budget=0).resolved_pool_width() == 0
     assert ServeConfig(pool_width=96).resolved_pool_width() == 96

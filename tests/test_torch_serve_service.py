@@ -2,8 +2,9 @@
 
 From one planted catalog (N = 2,000) both services serve the same users
 from identical state: the JAX package's `RecsysService` with the Pallas
-kernels in interpret mode, the port's on the CPU (its kernels' plain
-versions).  Top-10 ids must be equal and scores within 1e-5.  The rest
+kernels in interpret mode (``impl="pallas", interpret=True``), the
+port's with ``impl="cuda"`` on the CPU (its kernels' plain versions, the
+interpret mode's counterpart).  Top-10 ids must be equal and scores within 1e-5.  The rest
 pins the service's request plane, the exact `full_topn` (tie order
 included) and ``shards`` on a CPU without logical devices.
 """
@@ -68,8 +69,8 @@ def test_service_top10_equals_jax_kernel_path(state, tail):
         np.int32)
     jsvc = JService(js["params"], jidx, js["sp"],
                     JConfig(impl="pallas", interpret=True, **KW))
-    tsvc = RecsysService(ts["params"], tidx, ts["sp"], ServeConfig(**KW),
-                         device="cpu")
+    tsvc = RecsysService(ts["params"], tidx, ts["sp"],
+                         ServeConfig(impl="cuda", **KW), device="cpu")
     ju, jscore, jitems = _serve(jsvc, users)
     tu, tscore, titems = _serve(tsvc, users)
     np.testing.assert_array_equal(tu, users)

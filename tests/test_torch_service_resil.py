@@ -4,8 +4,8 @@ quarantine and background rebuild (`tests/test_resil.py`'s service
 cases), each run on both services from `test_resil.py::serving`'s state.
 
 The JAX package's service runs its Pallas kernels in interpret mode (the
-kernel walk path the port ports); the port's runs on the CPU (its
-kernels' plain versions).  Each case installs the same fault plan in each
+kernel walk path the port ports); the port's runs with ``impl="cuda"``
+on the CPU (its kernels' plain versions).  Each case installs the same fault plan in each
 package's own `faults` module.  The counters must be equal, the served
 item ids exact and the scores within 1e-5; a background rebuild must
 swap in the same index, and a failed or corrupt one must never be served
@@ -85,7 +85,7 @@ def _services(serving, **kw):
                     JConfig(impl="pallas", interpret=True, **cfg))
     tsvc = RecsysService(tp, build_index(torch.tensor(sigs), tail_cap=8,
                                          device="cpu"), tsp,
-                         ServeConfig(**cfg), device="cpu")
+                         ServeConfig(impl="cuda", **cfg), device="cpu")
     return jsvc.warmup(), tsvc.warmup()
 
 
