@@ -200,9 +200,11 @@ Phases, in order; any failure raises and the script exits non-zero:
     Adam update of the same gradients 1e-6);
 22. examples — each `examples/torch_*.py` in a subprocess on the card at
     its default size (``torch_train_lshmf_100m --small``; the serving
-    example also with ``--online-loop --slices 3``): exit 0, its last
-    lines, and its ``--report`` line's launch counters (`culsh_sgd` in
-    every one; `lsh_retrieve` and `candidate_score` in the serving ones)
+    example also with ``--online-loop --slices 3``; the LM example in
+    both arms, 10 steps each): exit 0, its last lines, and its ``--report`` line's
+    launch counters (`culsh_sgd` in every LSH-MF one; `lsh_retrieve` and
+    `candidate_score` in the serving ones; `segment_add` in the LM
+    example's ``--lsh-softmax`` arm)
     and, for the serving example, its kernel walk held against the
     kernels' plain versions on one probe flush of its own shapes;
 23. dense LM serving — `repro_torch.launch.serve.serve` at llama3-8b's
@@ -213,11 +215,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     widths, prefill's last-position logits against a 64-step decode (the
     KV cache) and the card's bfloat16 prefill against the CPU's float32,
     each within a stated multiple of bfloat16's unit roundoff.
+24. LM training — on a 2-layer cut of qwen3-0.6b's widths (V = 151,936)
+    one float32 train step on the card against the CPU (loss 1e-5
+    relative, each gradient leaf within 1e-3 of its own max |g|, Adam of
+    the card's gradients 1e-6) and the card's bfloat16 loss within 4u of
+    the CPU's float32 one; `repro_torch.launch.train.train_loop` at full
+    width (5.96·10⁸ float32 parameters, batch 8 × seq 128, the reference
+    CLI's) for 20 steps in two calls, the second resuming from the first's
+    step-10 checkpoint (restored bit for bit; in a temp dir under
+    `build/`, removed): step seconds, tokens/s against a bound from the
+    shapes, resident and peak MB, the loss at steps 0, 10 and 19 (it must
+    fall), one step under the profiler; a microbatched step with
+    ``mb_mask`` [1, 0] whose loss is microbatch 0's; the simLSH softmax
+    (16,384 candidates, a refresh of the tied embedding every 10 steps)
+    for 20 steps, the `segment_add` counter zeroed just before (its
+    launches join phase 16's in the kernels line), its loss falling, the
+    full-cover loss equal to the full softmax's, two 3-step runs from one
+    state bit-equal, and `segment_add` at the candidate gradient's shape
+    bit-equal to the CPU's `index_add_`.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–23 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–24 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -242,6 +262,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 dense tensor-core rate
 BATCHES = 64                # phase 5 micro-batches
 PROFILED = 16               # flushes under the profiler
 PROBE = 1024                # phase 6 probe users
@@ -2834,6 +2855,7 @@ def table10_phase(args, dev, on_card: bool, power: str) -> dict:
     import dataclasses
 
     from repro_torch import prng
+    from repro_torch import tree as T
     from repro_torch.core import model, ncf, sgd
     from repro_torch.core.sgd import Hyper
     from repro_torch.core.simlsh import SimLSHConfig
@@ -2965,8 +2987,8 @@ def table10_phase(args, dev, on_card: bool, power: str) -> dict:
     for kind in ("gmf", "mlp", "neumf"):
         c = ncf.NCFConfig(M=M, N=N, F=16, mlp_layers=(32, 16), kind=kind)
         p = ncf.init(c, prng.PRNGKey(0), device=dev)
-        m = ncf.tree_map(torch.zeros_like, p)
-        v = ncf.tree_map(torch.zeros_like, p)
+        m = T.tree_map(torch.zeros_like, p)
+        v = T.tree_map(torch.zeros_like, p)
         if kind == "neumf":
             first_step_vs_cpu(p, c, i_all, j_all, y_all)
         with torch.no_grad():
@@ -3009,12 +3031,13 @@ def first_step_vs_cpu(p, c, i, j, y) -> None:
     * the Adam update of the *same* float32 gradients within 1e-6 (Adam's
       first step is ≈ lr·sign(g), so a gradient near 0 that flips sign
       between summation orders would move an entry by 2·lr)."""
+    from repro_torch import tree as T
     from repro_torch.core import ncf
 
     if p["gmf_u"].device.type != "cuda":
         return
-    host = lambda tree: ncf.tree_map(lambda a: a.cpu(), tree)
-    f64 = lambda tree: ncf.tree_map(lambda a: a.double(), tree)
+    host = lambda tree: T.tree_map(lambda a: a.cpu(), tree)
+    f64 = lambda tree: T.tree_map(lambda a: a.double(), tree)
     g_card = ncf.grads(p, c, i, j, y)
     g_cpu = ncf.grads(host(p), c, i.cpu(), j.cpu(), y.cpu())
     g64_card = ncf.grads(f64(p), c, i, j, y.double())
@@ -3025,7 +3048,7 @@ def first_step_vs_cpu(p, c, i, j, y) -> None:
     rel = lambda a, b, r: float((a.cpu().double() - b.double()).abs().max()
                                 / r.abs().max())
     rows, r32, r64 = [], 0.0, 0.0
-    for name, a, b, a64, b64 in zip(names, *map(ncf.leaves, (
+    for name, a, b, a64, b64 in zip(names, *map(T.leaves, (
             g_card, g_cpu, g64_card, g64_cpu))):
         if not float(b64.abs().max()) > 0:
             raise AssertionError(f"NeuMF's gradient leaf {name} is zero")
@@ -3033,14 +3056,14 @@ def first_step_vs_cpu(p, c, i, j, y) -> None:
         r32, r64 = max(r32, e32), max(r64, e64)
         rows.append(f"{name} {float(b64.abs().max()):.3g}: {e32:.3g} / "
                     f"{e64:.3g} (CPU f32 vs f64 {rel(b, b64, b64):.3g})")
-    zeros = lambda tree: ncf.tree_map(torch.zeros_like, tree)
+    zeros = lambda tree: T.tree_map(torch.zeros_like, tree)
     with torch.no_grad():
         card = ncf.adam_update(p, zeros(p), zeros(p), g_card, 1, lr=2e-2)
         cpu = ncf.adam_update(host(p), zeros(host(p)), zeros(host(p)),
                               host(g_card), 1, lr=2e-2)
     u_err = max(float((a.cpu() - b).abs().max())
                 for tc, th in zip(card, cpu)
-                for a, b in zip(ncf.leaves(tc), ncf.leaves(th)))
+                for a, b in zip(T.leaves(tc), T.leaves(th)))
     with torch.no_grad():
         l_card = float(ncf.bce_loss(card[0], c, i, j, y))
         l_cpu = float(ncf.bce_loss(ncf.adam_update(
@@ -3071,7 +3094,11 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
             ("torch_train_lshmf_100m", ["--small", "--ckpt-dir",
                                         os.path.join(build, "ckpt"),
                                         "--trace", os.path.join(
-                                            build, "train_trace.json")])]
+                                            build, "train_trace.json")]),
+            # cut from the example's 40 steps for time: phase 24 trains
+            # at full width
+            ("torch_train_lm", ["--steps", "10"]),
+            ("torch_train_lm", ["--lsh-softmax", "--steps", "10"])]
     small = ["--M", "600", "--N", "100", "--nnz", "12000", "--epochs", "2"]
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     t_phase = time.perf_counter()
@@ -3085,14 +3112,15 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
         if not on_card:                          # rehearsal: the CPU, tiny
             argv += ["--device", "cpu"] + (
                 ["--shape", "2000,300,16,8,20000,2"]
-                if name == "torch_train_lshmf_100m" else small)
+                if name == "torch_train_lshmf_100m" else ["--steps", "3"]
+                if name == "torch_train_lm" else small)
         t0 = time.perf_counter()
         done = subprocess.run(argv, env=env, capture_output=True, text=True,
                               timeout=600, cwd=build)
         wall = time.perf_counter() - t0
-        tag = name.replace("torch_", "") + (" --online-loop" if extra and
-                                            extra[0] == "--online-loop"
-                                            else "")
+        tag = " ".join([name.replace("torch_", ""), *extra[:1]]) if (
+            extra and extra[0] in ("--online-loop", "--lsh-softmax")) else \
+            name.replace("torch_", "")
         lines = done.stdout.strip().splitlines()
         print(f"[22 {tag}] exit {done.returncode} in {wall:.1f} s; last "
               f"lines:", flush=True)
@@ -3108,8 +3136,12 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
             raise AssertionError(f"{name}: no report line")
         launches = rep[0]["launches"]
         out[tag] = dict(wall=wall, **rep[0])
-        need = ["culsh_sgd"] + (["lsh_retrieve", "candidate_score"]
-                                if "serve_recsys" in name else [])
+        # the LM example's softmax arm adds its candidate rows'
+        # gradients through segment_add; its full arm runs no kernel
+        need = ((["segment_add"] if "--lsh-softmax" in extra else [])
+                if "train_lm" in name
+                else ["culsh_sgd"] + (["lsh_retrieve", "candidate_score"]
+                                      if "serve_recsys" in name else []))
         if on_card and not all(launches[k] > 0 for k in need):
             raise AssertionError(f"{tag}: launches {launches}: each of "
                                  f"{need} must run")
@@ -3259,6 +3291,378 @@ def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3):
           f"(profiled): {len(spans)} device activities, busy "
           f"{busy / 1e3:.1f} ms (share {busy / 1e6 / wall:.3f}); by kernel "
           f"ms: " + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
+          flush=True)
+
+
+def lm_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(bf16, float32) multiply-add FLOPs of one train step from the
+    shapes: the layers' projections and the one-hot embedding product
+    run in bfloat16; the logits and the attention scores in float32
+    (the reference's float32 products of bf16 operands).  Forward once,
+    the layers again under remat, backward twice each product (the
+    one-hot embedding product once: its one-hot takes no gradient)."""
+    D, Hq, Hk, hd, ff = (cfg.d_model, cfg.n_heads_padded, cfg.n_kv, cfg.hd,
+                         cfg.d_ff)
+    V, n = cfg.vocab_padded(1), B * S
+    proj = 2 * n * D * (2 * Hq * hd + 2 * Hk * hd + 3 * ff)   # per layer
+    attn = 2 * 2 * B * Hq * S * S * hd                       # per layer
+    emb = logits = 2 * n * V * D
+    bf16 = cfg.L * proj * 4 + emb * 2
+    f32 = cfg.L * attn * 4 + logits * 3
+    return float(bf16), float(f32)
+
+
+def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
+    """Phase 24: LM training (`repro_torch.launch.train.train_loop`) at
+    qwen3-0.6b's full width; the card against the CPU on a 2-layer cut;
+    the simLSH softmax; a straggler microbatch dropped.  → the
+    `segment_add` launches of its main path (the simLSH arm)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.core import scatter
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm, steps
+    from repro_torch.models import lsh_softmax as LS
+    from repro_torch.train import checkpoint as ckpt
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    full = CB.get("qwen3-0.6b")
+    if not on_card:
+        full = CB.reduced(full)                  # rehearsal size
+    u = 2.0 ** -8                                # bfloat16's unit roundoff
+    rng = np.random.default_rng(args.seed + 24)
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    on_dev = lambda b: {k: v.to(dev) for k, v in b.items()}
+
+    def tokens(cfg, B, S):
+        return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (
+            B, S)).astype(np.int32)) for k in ("tokens", "labels")}
+
+    # ---- (a) 2-layer cut of the full widths: the card against the CPU ----
+    cut = dataclasses.replace(full, L=2, dtype="float32")
+    p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+    hp = host(p)
+    b = tokens(cut, 2, 32)
+    # each leaf's gradient sums 64 tokens' terms, and the hidden states'
+    # sums 151,936 vocabulary rows (p_v − y_v)·E_v: float32 fixes such a
+    # sum to ~√n·2⁻²⁴ of its scale at random rounding (2.3e-5 for the
+    # vocabulary sum); the card read 2.46e-6 of a leaf's max |g| (PERF.md,
+    # PR 22 run 1), and TF32 products (2⁻¹¹ a product) read far above
+    # 1e-4 — each leaf within 1e-4 of its own max |g|, never an absolute
+    # bound
+    GRAD_REL = 1e-4
+
+    def leaf_errs(got, want):
+        """[(path, card vs CPU max abs over the leaf's max |g|)]."""
+        out = []
+        for (path, w), a in zip(T.leaves_with_paths(want), T.leaves(got)):
+            scale = float(w.abs().max())
+            err = float((a.cpu() - w).abs().max())
+            out.append((path, err / scale if scale > 0 else float("inf")))
+        return out
+
+    def card_vs_cpu(cfg, batch, tag):
+        """One `value_and_grad` on the card and on the CPU → (loss rel,
+        worst leaf, the card's gradients); raises past the bounds."""
+        lc, g_dev = steps.value_and_grad(cfg, p, on_dev(batch))
+        l0, g0 = steps.value_and_grad(cfg, hp, batch)
+        path, worst = max(leaf_errs(g_dev, g0), key=lambda pe: pe[1])
+        rel = abs(float(lc) - float(l0)) / abs(float(l0))
+        if not (rel <= 1e-5 and worst <= GRAD_REL):
+            raise AssertionError(f"[24 cpu] {tag}: loss card {float(lc)} vs "
+                                 f"CPU {float(l0)}; gradient leaf {path} off "
+                                 f"by {worst:.3g} of its max |g|")
+        return float(lc), float(l0), rel, worst, g_dev, g0
+
+    t0 = time.perf_counter()
+    lc, l0, loss_rel, worst, g_dev, g0 = card_vs_cpu(cut, b, "full softmax")
+    t_cpu = time.perf_counter() - t0
+    # the lower-precision control: the same gradients with TF32 products
+    tf_path, tf_worst = "-", float("nan")
+    if on_card:
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            _, g_tf = steps.value_and_grad(cut, p, on_dev(b))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        tf_path, tf_worst = max(leaf_errs(g_tf, g0), key=lambda pe: pe[1])
+        del g_tf
+    # the simLSH arm: zipf labels (they repeat) and the config's own
+    # candidates from a refresh of the cut's tied embedding, so both
+    # gathers' backward add colliding rows (`segment_add` on the card)
+    lcut = dataclasses.replace(cut, lsh_softmax=True)
+    sb = ltrain.synth_batch(np.random.default_rng(args.seed), lcut, 2, 32)
+    st = LS.refresh(lm.out_embedding(p, lcut), prng.PRNGKey(7))
+    sb["cands"] = LS.candidates_for(st, sb["labels"].to(dev), prng.PRNGKey(9),
+                                    n_cands=lcut.lsh_candidates).cpu()
+    del st
+    l_lsh, l0_lsh, lsh_rel, lsh_worst, *_ = card_vs_cpu(lcut, sb, "simLSH")
+    rep_lab = sb["labels"].numel() - sb["labels"].unique().numel()
+    rep_c = sb["cands"].numel() - sb["cands"].unique().numel()
+    grads = T.tree_map(lambda t: t.cpu(), g_dev)
+    upd_cpu = steps.adam_update(cut, T.tree_map(torch.clone, hp), grads,
+                                steps.init_opt(cut, hp))
+    upd_dev = steps.adam_update(cut, p, g_dev, steps.init_opt(cut, p))
+    adam_err = max(float((a.cpu().double() - w.double()).abs().max())
+                   for a, w in zip(T.leaves(upd_dev[:2]),
+                                   T.leaves(upd_cpu[:2])))
+    print(f"[24 cpu] {cut.name} cut to L=2 (d={cut.d_model}, ff={cut.d_ff}, "
+          f"V={cut.vocab_padded(1)}), float32, B=2 S=32: loss card "
+          f"{lc:.6f} vs CPU {l0:.6f} (rel {loss_rel:.3g}, limit 1e-5; CPU "
+          f"{t_cpu:.1f} s with the card's); worst gradient leaf {worst:.3g} "
+          f"of its max |g| (limit {GRAD_REL}); control, TF32 products on the "
+          f"card: worst leaf {tf_worst:.3g} ({tf_path}); Adam update of the "
+          f"card's gradients card vs CPU max abs {adam_err:.3g} (limit 1e-6)",
+          flush=True)
+    print(f"[24 cpu] simLSH arm, {lcut.lsh_candidates} candidates ({rep_c} "
+          f"repeats) and zipf labels ({rep_lab} repeats of 64): loss card "
+          f"{l_lsh:.6f} vs CPU {l0_lsh:.6f} (rel {lsh_rel:.3g}, limit 1e-5); "
+          f"worst gradient leaf {lsh_worst:.3g} of its max |g| (limit "
+          f"{GRAD_REL})", flush=True)
+    if on_card and not tf_worst > GRAD_REL:
+        raise AssertionError("the gradient bound passes TF32 products: it "
+                             "does not hold the card to float32")
+    if not adam_err <= 1e-6:
+        raise AssertionError("the card's Adam update disagrees with the "
+                             "CPU's")
+    # bfloat16 compute on the card against float32 on the CPU
+    bcut = dataclasses.replace(cut, dtype="bfloat16")
+    p = T.tree_map(lambda t: t.to(dev), hp)
+    with torch.no_grad():
+        lb = float(steps.lm_loss(bcut, p, on_dev(b)))
+        l32 = float(steps.lm_loss(cut, hp, b))
+    print(f"[24 cpu] the card at bfloat16: loss {lb:.6f} vs the CPU's "
+          f"float32 {l32:.6f}: |diff| {abs(lb - l32):.4g} (limit 4u·loss "
+          f"{4 * u * abs(l32):.4g}, u = 2^-8)", flush=True)
+    if not abs(lb - l32) <= 4 * u * abs(l32):
+        raise AssertionError("the card's bfloat16 loss disagrees with the "
+                             "CPU's float32 one")
+    del p, hp, g_dev, g0, grads, upd_cpu, upd_dev, sb
+    gc_collect(on_card)
+
+    # ---- (b) the trained model at full width ----
+    B, S, N_STEPS, N_TIMED = 8, 128, 20, 16
+    held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    d = os.path.join(ROOT, "build", "chip_smoke_lm_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    logs = []
+    t0 = time.perf_counter()
+    params, opt, losses = ltrain.train_loop(
+        full, steps_n=N_STEPS // 2, batch=B, seq=S, ckpt_dir=d,
+        log=logs.append, device=dev, seed=args.seed)
+    wall1 = time.perf_counter() - t0
+    nparam = sum(t.numel() for t in T.leaves(params))
+    peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    resident = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    saved = host((params, opt))
+    t0 = time.perf_counter()
+    got, step = ckpt.restore(d, (params, opt))
+    t_restore = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), w) and a.dtype == w.dtype
+               for a, w in zip(T.leaves(got), T.leaves(saved)))
+    del got, saved, params, opt
+    gc_collect(on_card)
+    t0 = time.perf_counter()
+    params, opt, more = ltrain.train_loop(
+        full, steps_n=N_STEPS, batch=B, seq=S, ckpt_dir=d,
+        log=logs.append, device=dev, seed=args.seed)
+    wall2 = time.perf_counter() - t0
+    # the step's own time: the loop's step function over batches drawn
+    # beforehand, each step synchronised (median of steps 3 on)
+    step_fn = steps.make_train_step(full)
+    trng = np.random.default_rng(args.seed + 1)
+    marks = []
+    for tb in [ltrain.synth_batch(trng, full, B, S, device=dev)
+               for _ in range(N_TIMED)]:
+        t = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, tb)
+        sync()
+        marks.append(time.perf_counter() - t)
+    losses += more
+    step_s = float(np.median(marks[3:]))
+    bf, f32 = lm_step_flops(full, B, S)
+    adam_bytes = 28 * nparam       # p, g, m, v read; p, m, v written: 7·4 B
+    b_peak = (bf + f32) / BF16_OPS_PER_S + adam_bytes / HBM_BYTES_PER_S
+    b_typed = (bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+               + adam_bytes / HBM_BYTES_PER_S)
+    print(f"[24 train] {full.name} ({nparam / 1e6:.2f}e6 float32 params, "
+          f"L={full.L} d={full.d_model} V={full.vocab_padded(1)}) batch {B} "
+          f"seq {S}, {N_STEPS} steps in two train_loop calls (a checkpoint "
+          f"at step 10, the second resumes from it): loop wall {wall1:.1f} "
+          f"(the parameters' draw included) + {wall2:.1f} s (checkpoint "
+          f"saves included); then {N_TIMED} steps of make_train_step, step "
+          f"s median of steps 3-{N_TIMED - 1} {step_s:.4f} (min "
+          f"{min(marks[3:]):.4f}, max {max(marks[3:]):.4f}), "
+          f"{B * S / step_s:.0f} tokens/s; loss step 0 "
+          f"{losses[0]:.4f}, step 10 {losses[10]:.4f}, step 19 "
+          f"{losses[19]:.4f}; "
+          + (f"after the first 10 steps resident {resident:.0f} MB, peak "
+             f"{peak:.0f} MB (phases before it held {held:.0f} MB) "
+             if on_card else "")
+          + f"(power limit {power})", flush=True)
+    print(f"[24 bound] {bf / 1e12:.3f} TFLOP in bf16 products + "
+          f"{f32 / 1e12:.3f} TFLOP in float32 products (logits, attention "
+          f"scores) a step, Adam {adam_bytes / 1e9:.2f} GB: all FLOPs at the "
+          f"bf16 peak {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s plus Adam's bytes "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s {1e3 * b_peak:.2f} ms; the "
+          f"float32 products at {F32_OPS_PER_S / 1e12:.0f} TFLOP/s instead "
+          f"{1e3 * b_typed:.2f} ms; the step took {1e3 * step_s:.2f} ms",
+          flush=True)
+    print(f"[24 ckpt] step {step} restored in {t_restore:.1f} s: every leaf "
+          f"equal to the state saved at step 10: {same}", flush=True)
+    if not (same and step == N_STEPS // 2
+            and f"resumed from step {N_STEPS // 2}" in logs):
+        raise AssertionError("the step-10 checkpoint did not restore bit "
+                             "for bit")
+    if not (np.isfinite(losses).all() and losses[19] < losses[10]
+            < losses[0]):
+        raise AssertionError(f"the full-width loss did not fall: {losses}")
+    b = on_dev(ltrain.synth_batch(np.random.default_rng(1), full, B, S))
+    if on_card:
+        profile_train_step(full, params, opt, b)
+    shutil.rmtree(d, ignore_errors=True)
+
+    # ---- (d) straggler: µ = 2, microbatch 1 dropped ----
+    mcfg = dataclasses.replace(full, microbatches=2)
+    with torch.no_grad():
+        loss0 = float(steps.lm_loss(full, params, {k: v[:B // 2]
+                                                   for k, v in b.items()}))
+    _, opt, aux = steps.make_train_step(mcfg)(params, opt, dict(
+        b, mb_mask=torch.tensor([1.0, 0.0], device=dev)))
+    rel = abs(float(aux["loss"]) - loss0) / abs(loss0)
+    print(f"[24 straggler] microbatches=2, mb_mask [1, 0]: step loss "
+          f"{float(aux['loss']):.6f} vs microbatch 0 alone {loss0:.6f} (rel "
+          f"{rel:.3g}, limit 1e-4)", flush=True)
+    if not rel <= 1e-4:
+        raise AssertionError("the straggler step's loss is not microbatch "
+                             "0's")
+    del params, opt, b
+    gc_collect(on_card)
+
+    # ---- (c) the simLSH softmax at full width ----
+    lcfg = dataclasses.replace(full, lsh_softmax=True)
+    C = lcfg.lsh_candidates
+    params = lm.init_params(lcfg, prng.PRNGKey(args.seed), model_shards=1,
+                            device=dev)
+    opt = steps.init_opt(lcfg, params)
+    step_fn = steps.make_train_step(lcfg)
+    brng = np.random.default_rng(args.seed)
+    batches = [ltrain.synth_batch(brng, lcfg, B, S, device=dev)
+               for _ in range(N_STEPS)]
+    # full cover: the candidates are the whole vocabulary
+    V = lcfg.vocab_padded(1)
+    with torch.no_grad():
+        cover = float(steps.lm_loss(lcfg, params, dict(
+            batches[0], cands=torch.arange(V, dtype=torch.int32,
+                                           device=dev))))
+        whole = float(steps.lm_loss(full, params, batches[0]))
+    print(f"[24 lsh] cands = all {V} ids: simLSH loss {cover:.6f} vs the "
+          f"full softmax {whole:.6f} (|diff| {abs(cover - whole):.3g}, "
+          f"limit 1e-3)", flush=True)
+    if not abs(cover - whole) < 1e-3:
+        raise AssertionError("the full-cover simLSH loss is not the full "
+                             "loss")
+    scatter.LAUNCHES = 0           # the main path: 20 simLSH steps
+    t0 = time.perf_counter()
+    lsh_losses, t_refresh = [], 0.0
+    for s_, b in enumerate(batches):
+        if s_ % 10 == 0:
+            t1 = time.perf_counter()
+            st = LS.refresh(lm.out_embedding(params, lcfg),
+                            prng.fold_in(prng.PRNGKey(7), s_))
+            sync()
+            t_refresh += time.perf_counter() - t1
+        b["cands"] = LS.candidates_for(st, b["labels"], prng.fold_in(
+            prng.PRNGKey(9), s_), n_cands=C)
+        params, opt, aux = step_fn(params, opt, b)
+        lsh_losses.append(float(aux["loss"]))
+    sync()
+    wall = time.perf_counter() - t0
+    seg = scatter.LAUNCHES
+    print(f"[24 lsh] {N_STEPS} steps with {C} candidates, refresh of the "
+          f"{V} x {lcfg.d_model} tied embedding every 10 steps ({t_refresh:.2f}"
+          f" s for 2): {wall:.2f} s, loss {lsh_losses[0]:.4f} -> "
+          f"{lsh_losses[10]:.4f} -> {lsh_losses[-1]:.4f}; segment_add "
+          f"launches {seg}", flush=True)
+    if not (np.isfinite(lsh_losses).all()
+            and lsh_losses[-1] < lsh_losses[0]):
+        raise AssertionError(f"the simLSH loss did not fall: {lsh_losses}")
+    if on_card and seg < 2 * N_STEPS:
+        raise AssertionError("segment_add did not launch on the simLSH path")
+    # bit-reproducible: 3 steps twice from the same state
+    runs = []
+    for _ in range(2):
+        pr, orun = T.tree_map(torch.clone, (params, opt))
+        for b in batches[:3]:
+            pr, orun, _ = step_fn(pr, orun, b)
+        runs.append(pr)
+    equal = all(torch.equal(a, w) for a, w in zip(*map(T.leaves, runs)))
+    print(f"[24 lsh] 3 steps run twice from one state: parameters "
+          f"bit-equal: {equal}", flush=True)
+    if not equal:
+        raise AssertionError("two simLSH runs from one state differ")
+    # segment_add at both of this path's shapes against its plain version:
+    # the candidate gather's backward and the label gather's (B·S zipf
+    # labels: long segments of the frequent tokens)
+    E = lm.out_embedding(params, lcfg)
+    gen = torch.Generator().manual_seed(0)
+    for what, ids in (("candidate", batches[0]["cands"]),
+                      ("label", batches[0]["labels"])):
+        ids = ids.reshape(-1).long()
+        gsrc = torch.randn((ids.numel(), E.shape[1]), generator=gen).to(dev)
+        got = scatter.index_add_det_(torch.zeros_like(E), ids, gsrc)
+        want = torch.zeros(E.shape).index_add_(0, ids.cpu(), gsrc.cpu())
+        run = int(torch.bincount(ids).max())
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"segment_add differs from index_add_ at "
+                                 f"the {what} gather's shape")
+        print(f"[24 lsh] segment_add at the {what} gradient's shape "
+              f"({ids.numel()} rows of {E.shape[1]} into {V}, longest "
+              f"segment {run}) bit-equal to the CPU's index_add_",
+              flush=True)
+    del params, opt, runs, batches, E, gsrc, got, want
+    gc_collect(on_card)
+    print(f"[24 done] phase 24 in {time.perf_counter() - t_phase:.1f} s "
+          f"(power limit {power})", flush=True)
+    return seg
+
+
+def gc_collect(on_card: bool) -> None:
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def profile_train_step(cfg, params, opt, batch) -> None:
+    """One full-width train step under `torch.profiler` (after the loop's
+    warm steps): the device's busy share of the window and its three
+    largest costs by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import steps
+
+    step_fn = steps.make_train_step(cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, busy, by_name = device_activity(prof)       # µs
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    print(f"[24 profile] one train step in {1e3 * wall:.1f} ms (profiled): "
+          f"{len(spans)} device activities, busy {busy / 1e3:.1f} ms (share "
+          f"{busy / 1e6 / wall:.3f}); largest device costs ms: "
+          + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
           flush=True)
 
 
@@ -3531,6 +3935,12 @@ def main(argv=None) -> int:
     table10_phase(args, dev, on_card, power)
     examples_phase(args, dev, on_card, power)
     lm_phase(args, dev, on_card, power)
+    seg24 = lm_train_phase(args, dev, on_card, power)
+    for k in kernels:                  # phase 16's main path and phase 24's
+        if k["name"] == "segment_add":
+            print(f"[24 kernels] segment_add launches: phase 16 "
+                  f"{k['launches']}, phase 24 {seg24}", flush=True)
+            k["launches"] += seg24
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

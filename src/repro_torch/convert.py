@@ -110,6 +110,27 @@ def lm_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
             else conv(v) for k, v in tree.items()}
 
 
+def lm_opt_from_numpy(tree: dict, device=None) -> dict:
+    """The JAX package's Adam state (``init_opt``'s dict of ``m``, ``v``
+    and ``count``, as numpy arrays) → the port's: the moments keep their
+    dtypes (a bfloat16 moment, ml_dtypes' type in numpy, stays
+    bfloat16), ``count`` is a 0-d int32 tensor."""
+    dev = resolve_device(device)
+
+    def conv(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.view(np.int16), device=dev).view(
+                torch.bfloat16)
+        return torch.tensor(a, device=dev)
+
+    tree_of = lambda t: {k: tree_of(v) if isinstance(v, dict) else conv(v)
+                         for k, v in t.items()}
+    return dict(m=tree_of(tree["m"]), v=tree_of(tree["v"]),
+                count=torch.tensor(np.asarray(tree["count"], np.int32),
+                                   device=dev))
+
+
 def to_numpy(x):
     """A tensor → ndarray; a dataclass of tensors → dict of its fields with
     every tensor as an ndarray (other fields unchanged)."""

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch import tree as T
 from repro_torch.device import resolve_device
 
 
@@ -62,27 +63,6 @@ def init(cfg: NCFConfig, key: torch.Tensor, device=None) -> dict:
     return p
 
 
-def tree_map(fn, *trees):
-    """``fn`` over the leaves of parameter dicts of one structure (a
-    list value is a list of leaves)."""
-    out = {}
-    for k, v in trees[0].items():
-        if isinstance(v, list):
-            out[k] = [fn(*(t[k][n] for t in trees)) for n in range(len(v))]
-        else:
-            out[k] = fn(*(t[k] for t in trees))
-    return out
-
-
-def leaves(p: dict) -> list:
-    """The tensors of a parameter dict in `jax.tree.leaves` order (keys
-    sorted, a list in its order)."""
-    out = []
-    for k in sorted(p):
-        out.extend(p[k] if isinstance(p[k], list) else [p[k]])
-    return out
-
-
 def logits(p: dict, cfg: NCFConfig, i, j) -> torch.Tensor:
     """The model's logit for each (user ``i``, item ``j``) pair; ``i`` and
     ``j`` may have any (equal) shape."""
@@ -111,24 +91,23 @@ def bce_loss(p: dict, cfg: NCFConfig, i, j, y) -> torch.Tensor:
 
 def grads(p: dict, cfg: NCFConfig, i, j, y) -> dict:
     """∂ `bce_loss` / ∂p by autograd, as a dict shaped like ``p``."""
-    q = tree_map(lambda a: a.detach().requires_grad_(True), p)
-    g = dict(zip(map(id, leaves(q)),
-                 torch.autograd.grad(bce_loss(q, cfg, i, j, y), leaves(q))))
-    return tree_map(lambda a: g[id(a)], q)
+    q = T.tree_map(lambda a: a.detach().requires_grad_(True), p)
+    return T.unflatten(q, list(torch.autograd.grad(
+        bce_loss(q, cfg, i, j, y), T.leaves(q))))
 
 
 def adam_update(p, m, v, g, t, lr=1e-3, b1=0.9, b2=0.999):
     """One Adam update of ``p`` from gradients ``g`` at step ``t`` (≥ 1),
     in float32 as the JAX package computes it → (p, m, v)."""
-    dev = leaves(p)[0].device
+    dev = T.leaves(p)[0].device
     t = _f32(float(t), dev)
     b1_, b2_ = _f32(b1, dev), _f32(b2, dev)
-    m = tree_map(lambda a, b: b1 * a + (1 - b1) * b, m, g)
-    v = tree_map(lambda a, b: b2 * a + (1 - b2) * b * b, v, g)
+    m = T.tree_map(lambda a, b: b1 * a + (1 - b1) * b, m, g)
+    v = T.tree_map(lambda a, b: b2 * a + (1 - b2) * b * b, v, g)
     c1, c2 = 1 - b1_ ** t, 1 - b2_ ** t
-    mh = tree_map(lambda a: a / c1, m)
-    vh = tree_map(lambda a: a / c2, v)
-    p = tree_map(lambda a, mm, vv: a - lr * mm / (torch.sqrt(vv) + 1e-8),
+    mh = T.tree_map(lambda a: a / c1, m)
+    vh = T.tree_map(lambda a: a / c2, v)
+    p = T.tree_map(lambda a, mm, vv: a - lr * mm / (torch.sqrt(vv) + 1e-8),
                  p, mh, vh)
     return p, m, v
 

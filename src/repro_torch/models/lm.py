@@ -6,7 +6,8 @@ serves.  The others raise `NotImplementedError` (ROADMAP Queue 1 item
 9).  Layer stacks are dicts of tensors with a leading L dim, applied
 layer by layer (the JAX package's `lax.scan`); on one device there is
 no sharding constraint and no scheduling barrier (`_opt_barrier` pins
-the FSDP gathers of training).
+the FSDP gathers of training).  Training remats each layer, as the
+reference does (`_scan_layers`).
 
 Weights are kept in ``cfg.param_dtype`` (float32) and cast to
 ``cfg.dtype`` (bfloat16) where they are used, as in the reference.
@@ -14,6 +15,7 @@ Weights are kept in ``cfg.param_dtype`` (float32) and cast to
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
@@ -161,13 +163,20 @@ def layer(stacked: dict, i: int) -> dict:
     return {k: v[i] for k, v in stacked.items()}
 
 
-def _scan_layers(body, x, stacked):
+def _scan_layers(body, x, stacked, remat: bool = False):
     """``body(pl, x) → x`` over a stacked layer dict, layer by layer (the
-    JAX package's scan; remat and the barriers concern training and
-    sharding only)."""
-    n = next(iter(stacked.values())).shape[0]
-    for i in range(n):
-        x = body(layer(stacked, i), x)
+    JAX package's scan).  With ``remat`` and grad enabled each layer runs
+    under `torch.utils.checkpoint` (the reference's `jax.checkpoint`):
+    only its input is kept, and its activations are recomputed in the
+    backward pass.  The layers are `unbind` views, so the backward
+    stacks each weight's per-layer gradients once."""
+    per_layer = [dict(zip(stacked, vs)) for vs in zip(
+        *(v.unbind(0) for v in stacked.values()))]
+    remat = remat and torch.is_grad_enabled()
+    for pl in per_layer:
+        x = (torch.utils.checkpoint.checkpoint(body, pl, x,
+                                               use_reentrant=False)
+             if remat else body(pl, x))
     return x
 
 
@@ -192,5 +201,5 @@ def forward(cfg: ArchConfig, p, batch):
     check_family(cfg)
     x = embed_tokens(p, cfg, batch["tokens"])
     body = lambda pl, h: _dense_block(pl, h, cfg)[0]
-    x = _scan_layers(body, x, p["layers"])
+    x = _scan_layers(body, x, p["layers"], cfg.remat)
     return L.rms_norm(x, p["final_norm"], cfg.norm_eps)

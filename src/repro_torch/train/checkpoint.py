@@ -3,16 +3,22 @@
 restores in the other bit for bit.
 
 A step directory ``step-{step:08d}`` holds one ``shard-0.npz`` with the
-leaves ``a0, a1, ...`` of a dataclass of tensors in field order (for
-`Params`: U, V, b, bh, W, C, mu), or of a dict in sorted key order (the
-order `jax.tree_util` flattens a dict in; `resil.wal.state_tree`), and a
-``manifest.json`` written **last**
+leaves ``a0, a1, ...`` of a tree in `jax.tree_util`'s order
+(`repro_torch.tree`: dict keys sorted, tuples in order, dataclass fields
+in order, recursively — `Params`: U, V, b, bh, W, C, mu;
+`resil.wal.state_tree`'s flat dict; `launch/train.py`'s
+``(params, opt)``), and a ``manifest.json`` written **last**
 (``{"step", "nleaves"}``); its presence certifies the step.  Each file
 is written to a temp name, fsynced and `os.replace`d, inside a staging
 dir ``.tmp-{step}`` whose rename to the step dir is the commit point;
 the newest 3 steps are kept.  The read side skips torn step dirs (no
 manifest, an unreadable one, a missing or unloadable shard) and falls
 back to the newest complete step.
+
+A bfloat16 leaf is written as the JAX package writes one: its raw
+2-byte words as a ``|V2`` array, which neither package can restore (the
+JAX `restore` raises `TypeError` on it; so does this one, naming the
+leaf).
 
 `save` copies every leaf to host memory before it returns and writes on
 a background thread; `wait` joins it.  The copies matter: the fit's
@@ -23,7 +29,6 @@ package's ``jax.process_index()`` is 0 here).
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -33,6 +38,7 @@ import zipfile
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.resil import faults
 
 SHARD = "shard-0.npz"
@@ -41,21 +47,12 @@ KEEP = 3
 _save_thread: threading.Thread | None = None
 
 
-def _names(tree) -> list:
-    if isinstance(tree, dict):
-        return sorted(tree)
-    return [f.name for f in dataclasses.fields(tree)]
-
-
-def _leaves(tree) -> list:
-    if isinstance(tree, dict):
-        return [tree[k] for k in _names(tree)]
-    return [getattr(tree, k) for k in _names(tree)]
-
-
 def _host_copy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy().copy()
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:        # the JAX package's raw words
+            return x.view(torch.int16).numpy().copy().view("V2")
+        return x.numpy().copy()
     return np.array(x)
 
 
@@ -79,11 +76,10 @@ def wait() -> None:
 
 
 def save(directory: str, tree, *, step: int, sync: bool = False) -> None:
-    """Save a dataclass of tensors, or a dict of tensors and arrays, as
-    step ``step`` on a background thread (joined first if one is pending;
-    ``sync`` joins this one too)."""
+    """Save a tree of tensors and arrays as step ``step`` on a background
+    thread (joined first if one is pending; ``sync`` joins this one too)."""
     wait()
-    host = [_host_copy(t) for t in _leaves(tree)]
+    host = [_host_copy(t) for t in T.leaves(tree)]
 
     def _write():
         tmp = os.path.join(directory, f".tmp-{step}")
@@ -160,12 +156,13 @@ def latest_step(directory: str) -> int | None:
 
 
 def restore(directory: str, tree_like, *, step: int | None = None):
-    """Restore into the structure of ``tree_like`` → (tree, step).  For a
-    dataclass of tensors each leaf lands on its counterpart's device, and
-    a leaf whose shape differs raises `ValueError`; a dict (whose values
-    only name the keys, as the JAX package's templates do) comes back as
-    a dict of host numpy arrays.  With ``step=None`` the newest complete
-    step wins; an explicit torn ``step`` raises."""
+    """Restore into the structure of ``tree_like`` → (tree, step).  A leaf
+    of ``tree_like`` that is a tensor comes back as a tensor on that
+    leaf's device, in the dtype it was saved in, and one whose shape
+    differs raises `ValueError`; any other leaf (a template's values only
+    name the structure, as the JAX package's do) comes back as a host
+    numpy array.  A bfloat16 leaf raises `TypeError`.  With ``step=None``
+    the newest complete step wins; an explicit torn ``step`` raises."""
     wait()
     if step is None:
         step = latest_step(directory)
@@ -178,22 +175,24 @@ def restore(directory: str, tree_like, *, step: int | None = None):
             f"(no manifest / unloadable shard) — pass step=None to fall "
             f"back to the newest complete step")
     path = os.path.join(directory, f"step-{step:08d}", SHARD)
-    out = {}
+    out = []
     with np.load(path, allow_pickle=False) as data:
-        for i, (name, like) in enumerate(zip(_names(tree_like),
-                                             _leaves(tree_like))):
+        for i, (name, like) in enumerate(T.leaves_with_paths(tree_like)):
             a = data[f"a{i}"]
-            if isinstance(tree_like, dict):
-                out[name] = a
+            if a.dtype.kind == "V":
+                raise TypeError(
+                    f"checkpoint step {step}: leaf {name} holds raw "
+                    f"{a.dtype.str} words (a bfloat16 leaf), which neither "
+                    f"package restores (ROADMAP.md Queue 3)")
+            if not isinstance(like, torch.Tensor):
+                out.append(a)
                 continue
             if a.shape != tuple(like.shape):
                 raise ValueError(f"checkpoint step {step}: leaf {name} "
                                  f"has shape {a.shape}, expected "
                                  f"{tuple(like.shape)}")
-            out[name] = torch.from_numpy(a).to(like.device)
-    if isinstance(tree_like, dict):
-        return out, step
-    return dataclasses.replace(tree_like, **out), step
+            out.append(torch.from_numpy(a).to(like.device))
+    return T.unflatten(tree_like, out), step
 
 
 def try_restore(directory: str, tree_like):

@@ -1534,6 +1534,7 @@ def _implicit(M=400, N=100, per_user=8, seed=0):
 def test_ncf_first_step_on_card_matches_cpu(cuda):
     """Each NCF model's gradients on the card within 1e-5 of the CPU's,
     relative to each leaf's largest entry, and the Adam update of the same gradients within 1e-6."""
+    from repro_torch import tree as T
     from repro_torch.core import ncf
     users, items, M, N = _implicit()
     negs = np.random.default_rng(1).integers(0, N, len(users))
@@ -1543,22 +1544,22 @@ def test_ncf_first_step_on_card_matches_cpu(cuda):
     for kind in ("gmf", "mlp", "neumf"):
         c = ncf.NCFConfig(M=M, N=N, F=16, mlp_layers=(32, 16), kind=kind)
         p = ncf.init(c, prng.PRNGKey(0), device="cpu")
-        pc = ncf.tree_map(lambda a: a.to(cuda), p)
+        pc = T.tree_map(lambda a: a.to(cuda), p)
         g = ncf.grads(p, c, i, j, y)
         gc = ncf.grads(pc, c, i.to(cuda), j.to(cuda), y.to(cuda))
-        for a, b in zip(ncf.leaves(gc), ncf.leaves(g)):
+        for a, b in zip(T.leaves(gc), T.leaves(g)):
             scale = float(b.abs().max())          # each leaf's own scale
             assert scale > 0
             assert float((a.cpu() - b).abs().max()) <= (
                 1e-5 * scale + 4 * float(np.spacing(np.float32(scale))))
-        z = lambda t: ncf.tree_map(torch.zeros_like, t)
+        z = lambda t: T.tree_map(torch.zeros_like, t)
         with torch.no_grad():
             up_c = ncf.adam_update(pc, z(pc), z(pc), gc, 1, lr=2e-2)
             up = ncf.adam_update(p, z(p), z(p),
-                                 ncf.tree_map(lambda a: a.cpu(), gc), 1,
+                                 T.tree_map(lambda a: a.cpu(), gc), 1,
                                  lr=2e-2)
         for tc, th in zip(up_c, up):
-            for a, b in zip(ncf.leaves(tc), ncf.leaves(th)):
+            for a, b in zip(T.leaves(tc), T.leaves(th)):
                 np.testing.assert_allclose(a.cpu().numpy(), b.numpy(),
                                            rtol=1e-6, atol=1e-6)
         users_t = torch.arange(M, dtype=torch.int32)
@@ -1652,3 +1653,84 @@ def test_lm_on_card_matches_cpu_and_its_cache(cuda):
         lg, cache = dec(pc, cache, toks[:, t:t + 1])
     rms = float(pre.pow(2).mean().sqrt())
     assert float((lg[:, 0] - pre).abs().max()) <= 16 * 2 ** -8 * rms
+
+
+def test_lm_train_step_on_card_matches_cpu(cuda):
+    """Reduced qwen3-0.6b at float32: the loss on the card within 1e-5 of
+    the CPU's, each gradient leaf within 1e-5 of its own max |g| (plus 4
+    ulp), and one Adam update of the same gradients within 1e-6."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.models import lm, steps
+    cfg = dataclasses.replace(CB.reduced(CB.get("qwen3-0.6b")),
+                              dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    g = torch.Generator().manual_seed(0)
+    b = {k: torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                          generator=g) for k in ("tokens", "labels")}
+    lc, gc = steps.value_and_grad(cfg, pc, {k: v.to(cuda)
+                                            for k, v in b.items()})
+    l0, g0 = steps.value_and_grad(cfg, p, b)
+    assert abs(float(lc) - float(l0)) <= 1e-5 * abs(float(l0))
+    for a, w in zip(T.leaves(gc), T.leaves(g0)):
+        scale = float(w.abs().max())
+        assert scale > 1e-4
+        assert float((a.cpu() - w).abs().max()) <= 1e-5 * scale + 4 * float(
+            np.spacing(np.float32(scale)))
+    grads = T.tree_map(lambda t: t.cpu(), gc)
+    on_cpu = steps.adam_update(cfg, T.tree_map(torch.clone, p), grads,
+                               steps.init_opt(cfg, p))
+    on_card = steps.adam_update(cfg, pc, T.tree_map(lambda t: t.to(cuda),
+                                                    grads),
+                                steps.init_opt(cfg, pc))
+    for a, w in zip(T.leaves(on_card[:2]), T.leaves(on_cpu[:2])):
+        assert float((a.cpu().double() - w.double()).abs().max()) <= 1e-6
+
+
+def test_lm_gather_gradient_is_bit_reproducible(cuda):
+    """The simLSH arm's candidate and label gathers, whose ids repeat,
+    backward through `segment_add`: two runs give bit-equal gradients,
+    and the kernel launched."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.core import scatter
+    from repro_torch.models import lm, steps
+    cfg = dataclasses.replace(CB.reduced(CB.get("qwen3-0.6b")),
+                              dtype="float32", lsh_softmax=True)
+    p = lm.init_params(cfg, prng.PRNGKey(1), model_shards=1, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    b = {k: torch.randint(0, 64, (4, 32), dtype=torch.int32,
+                          generator=g).to(cuda)
+         for k in ("tokens", "labels")}
+    b["cands"] = torch.randint(0, 96, (256,), dtype=torch.int32,
+                               generator=g).to(cuda)
+    before = scatter.LAUNCHES
+    runs = [steps.value_and_grad(cfg, p, b) for _ in range(2)]
+    assert scatter.LAUNCHES >= before + 4
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, w in zip(T.leaves(runs[0][1]), T.leaves(runs[1][1])):
+        assert torch.equal(a, w)
+
+
+def test_lm_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """`launch/train.py`'s ``(params, opt)`` tree saved from the card and
+    restored onto it, leaf for leaf; the loop resumes from it."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import checkpoint as ckpt
+    cfg = CB.reduced(CB.get("qwen1.5-0.5b"))
+    d = str(tmp_path)
+    p, opt, losses = train_loop(cfg, steps_n=3, batch=2, seq=16, ckpt_dir=d,
+                                device=cuda, log=lambda *_: None)
+    assert len(losses) == 3 and int(opt["count"]) == 3
+    got, step = ckpt.restore(d, (p, opt))
+    assert step == 3
+    for a, w in zip(T.leaves(got), T.leaves((p, opt))):
+        assert a.device.type == "cuda" and a.dtype == w.dtype
+        assert torch.equal(a, w)
+    logs = []
+    _, _, more = train_loop(cfg, steps_n=4, batch=2, seq=16, ckpt_dir=d,
+                            device=cuda, log=logs.append)
+    assert logs[0] == "resumed from step 3" and len(more) == 1

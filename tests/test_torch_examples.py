@@ -1,7 +1,7 @@
 """The port's examples (`examples/torch_*.py`) against the JAX package's
-(`examples/*.py`), on the CPU at a reduced size: the quickstart and
-online learning here, the serving example and the 100M training script in
-`test_torch_examples_serve.py`.
+(`examples/*.py`), on the CPU at a reduced size: the quickstart, online
+learning and LM training here, the serving example and the 100M training
+script in `test_torch_examples_serve.py`.
 
 Each port example's `main` runs with ``--device cpu`` (its kernels'
 plain versions; the serving example's service runs the plain walk there,
@@ -108,7 +108,7 @@ def test_online_learning_prints_the_jax_rmse(monkeypatch, capsys):
 def test_examples_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("torch_quickstart", "torch_online_learning",
-                 "torch_train_lshmf_100m"):
+                 "torch_train_lshmf_100m", "torch_train_lm"):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             _load(name).main([])
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -147,3 +147,22 @@ def test_fit_evaluates_ids_past_the_world_like_jax():
     legacy = float(model.rmse(got.params, sp, got.JK,
                               *(torch.from_numpy(np.asarray(a)) for a in te)))
     assert abs(legacy - got.history[-1][2]) < 1e-5
+
+
+@pytest.mark.parametrize("argv", [["--steps", "3"],
+                                  ["--steps", "11", "--lsh-softmax"]])
+def test_train_lm_prints_the_jax_losses(monkeypatch, capsys, argv):
+    """`examples/torch_train_lm.py` in both arms against the JAX example's
+    printed losses (the reduced config's bfloat16 compute: within 2⁻⁸ of
+    the loss, one bfloat16 unit roundoff)."""
+    pattern = r"(?:→|loss) (\d+\.\d+)"
+    monkeypatch.setattr(sys, "argv", ["train_lm", *argv])
+    capsys.readouterr()
+    _load("train_lm").main()
+    want = _floats(pattern, capsys.readouterr().out)
+    got = _load("torch_train_lm").main([*argv, "--device", "cpu"])
+    out = capsys.readouterr().out
+    printed = _floats(pattern, out)
+    assert len(want) == len(printed) >= 2
+    np.testing.assert_allclose(printed, want, rtol=2 ** -8)
+    assert printed[-1] == float(f"{got[-1]:.3f}") and len(got) == int(argv[1])

@@ -57,10 +57,14 @@ def test_the_port_has_its_files():
             "src/repro_torch/models/lm.py",
             "src/repro_torch/models/steps.py",
             "src/repro_torch/launch/serve.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/models/lsh_softmax.py",
+            "src/repro_torch/tree.py",
             "examples/torch_quickstart.py",
             "examples/torch_online_learning.py",
             "examples/torch_serve_recsys.py",
-            "examples/torch_train_lshmf_100m.py"} <= names
+            "examples/torch_train_lshmf_100m.py",
+            "examples/torch_train_lm.py"} <= names
     configs = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob(
         "*.py")}
     assert {f"src/repro_torch/configs/{c}.py" for c in configs} <= names

@@ -32,6 +32,7 @@ from repro.models import steps as jsteps
 from repro_torch import convert, prng
 from repro_torch.configs import base as CB
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 from repro_torch.models import lm, steps
 
 NAMES = JCB.names()
@@ -209,8 +210,11 @@ def test_other_families_raise(name):
                  lambda: steps.init_cache(cfg, 1, 4, device="cpu"),
                  lambda: steps.make_decode_step(cfg),
                  lambda: steps.make_prefill(cfg),
+                 lambda: steps.make_train_step(cfg),
                  lambda: tserve.serve(cfg, batch=1, prompt_len=2, gen=1,
-                                      device="cpu")):
+                                      device="cpu"),
+                 lambda: ttrain.train_loop(cfg, steps_n=1, batch=1, seq=2,
+                                           device="cpu")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
 

@@ -35,6 +35,7 @@ from repro.core.sgd import Hyper as JHyper
 from repro.core.simlsh import SimLSHConfig as JLSH
 from repro.train import trainer as jtrainer
 from repro_torch import convert, prng
+from repro_torch import tree as T
 from repro_torch.core import ncf
 from repro_torch.core.sgd import Hyper
 from repro_torch.core.simlsh import SimLSHConfig
@@ -103,7 +104,7 @@ def test_init_draws_the_jax_streams(kind):
     assert list(tp) == list(jp)
     for k in jp:
         assert isinstance(tp[k], list) == isinstance(jp[k], list), k
-    want, got = _leaves_np(jp), [t.numpy() for t in ncf.leaves(tp)]
+    want, got = _leaves_np(jp), [t.numpy() for t in T.leaves(tp)]
     assert [g.shape for g in got] == [w.shape for w in want]
     assert all(g.dtype == np.float32 for g in got)
     for g, w in zip(got, want):
@@ -115,7 +116,7 @@ def test_init_draws_the_jax_streams(kind):
     # another key draws another model
     other = ncf.init(tc, prng.PRNGKey(1), device="cpu")
     assert not any(torch.equal(a, b) and a.any() for a, b in zip(
-        ncf.leaves(other), ncf.leaves(tp)))
+        T.leaves(other), T.leaves(tp)))
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -131,7 +132,7 @@ def test_logits_loss_and_grads_match_jax(kind, implicit):
     g = ncf.grads(tp, tc, ti, tj, ty)
     jg = jax.grad(jncf.bce_loss)(jp, jc, i, j, y)
     assert list(g) == list(jg)
-    assert_grads_close([a.numpy() for a in ncf.leaves(g)], _leaves_np(jg))
+    assert_grads_close([a.numpy() for a in T.leaves(g)], _leaves_np(jg))
 
 
 @pytest.mark.parametrize("t", [1, 2, 7])
@@ -152,7 +153,7 @@ def test_one_adam_update_on_the_same_gradients(kind, t, implicit):
     got = ncf.adam_update(_port(jp), _port(jm), _port(jv), _port(jg), t,
                           lr=2e-2)
     for g_tree, w_tree in zip(got, want):
-        for a, b in zip(ncf.leaves(g_tree), _leaves_np(w_tree)):
+        for a, b in zip(T.leaves(g_tree), _leaves_np(w_tree)):
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, atol=1e-6)
 
 
@@ -164,8 +165,8 @@ def test_adam_steps_follow_the_jax_loss_trajectory(kind, implicit):
     jm = jax.tree.map(jnp.zeros_like, jp)
     jv = jax.tree.map(jnp.zeros_like, jp)
     tp = _port(jp)
-    tm = ncf.tree_map(torch.zeros_like, tp)
-    tv = ncf.tree_map(torch.zeros_like, tp)
+    tm = T.tree_map(torch.zeros_like, tp)
+    tv = T.tree_map(torch.zeros_like, tp)
     jl, tl = [], []
     for t in range(1, 11):
         jp, jm, jv = jncf.adam_step(jp, jm, jv, jnp.float32(t), jc, i, j, y)
@@ -216,8 +217,8 @@ def test_ncf_models_learn(implicit):
     for kind in KINDS:
         c = ncf.NCFConfig(M=M, N=N, F=8, mlp_layers=(16, 8), kind=kind)
         p = ncf.init(c, prng.PRNGKey(0), device="cpu")
-        m = ncf.tree_map(torch.zeros_like, p)
-        v = ncf.tree_map(torch.zeros_like, p)
+        m = T.tree_map(torch.zeros_like, p)
+        v = T.tree_map(torch.zeros_like, p)
         l0 = float(ncf.bce_loss(p, c, ti, tj, ty))
         for t in range(1, 300):
             p, m, v = ncf.adam_step(p, m, v, t, c, ti, tj, ty, lr=2e-2)
@@ -234,7 +235,7 @@ def test_ncf_params_from_numpy_round_trips():
     jp = jncf.init(jc, jax.random.PRNGKey(3))
     tp = _port(jp)
     assert isinstance(tp["mlp_w"], list) and len(tp["mlp_w"]) == 2
-    for a, b in zip(ncf.leaves(tp), _leaves_np(jp)):
+    for a, b in zip(T.leaves(tp), _leaves_np(jp)):
         assert a.dtype == torch.float32
         np.testing.assert_array_equal(a.numpy(), b)
 
