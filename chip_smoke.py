@@ -3,8 +3,9 @@
 fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
 online learning, its resilience layer, the always-on loop, the fit's
 neighbour comparators, the other serving paths, the multi-device tiers,
-the Table-10 comparison with the NCF models, the examples and dense LM
-serving — on one CUDA card.
+the Table-10 comparison with the NCF models, the examples, dense LM
+serving and training, and the ssm and hybrid LM families — on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -217,11 +218,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     each within a stated multiple of bfloat16's unit roundoff.
 24. LM training — on a 2-layer cut of qwen3-0.6b's widths (V = 151,936)
     one float32 train step on the card against the CPU (loss 1e-5
-    relative, each gradient leaf within 1e-3 of its own max |g|, Adam of
-    the card's gradients 1e-6) and the card's bfloat16 loss within 4u of
-    the CPU's float32 one; `repro_torch.launch.train.train_loop` at full
-    width (5.96·10⁸ float32 parameters, batch 8 × seq 128, the reference
-    CLI's) for 20 steps in two calls, the second resuming from the first's
+    relative, each gradient leaf within 1e-4 of its own max |g| and a
+    TF32 control above it, Adam of the card's gradients 1e-6) and the
+    card's bfloat16 loss within 4u of the CPU's float32 one;
+    `repro_torch.launch.train.train_loop` at full width cut to 14 of the
+    28 layers (3.76·10⁸ float32 parameters, batch 8 × seq 128, the
+    reference CLI's) for 20 steps in two calls, the second resuming from the first's
     step-10 checkpoint (restored bit for bit; in a temp dir under
     `build/`, removed): step seconds, tokens/s against a bound from the
     shapes, resident and peak MB, the loss at steps 0, 10 and 19 (it must
@@ -233,11 +235,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     full-cover loss equal to the full softmax's, two 3-step runs from one
     state bit-equal, and `segment_add` at the candidate gradient's shape
     bit-equal to the CPU's `index_add_`.
+25. the ssm and hybrid LM families — on 2-layer cuts of mamba2-370m's
+    and zamba2-7b's full widths: a 64-step bfloat16 decode against the
+    forward at every position and prefill's last-position logits (the
+    SSM and conv states), the card's bfloat16 forward against the CPU's
+    float32 one, `ssd_chunked` at chunk 64 against 256 (S = 256,
+    float32, the JAX test's 1e-4), each limit beside a control that must
+    read above it (the conv state dropped each step; each chunk alone);
+    `repro_torch.launch.serve.serve` at full width and depth (4.197·10⁸
+    and 6.7505·10⁹ float32 parameters; batch 4, a 64-token prompt
+    prefilled by sequential decode, 32 tokens): draw, prefill and decode
+    seconds, tokens/s beside the bound of reading the weights once a
+    step, resident and peak MB, a profiled decode step; mamba2-370m
+    trained at full width through `train_loop` (batch 8 × 128, lr 3e-4,
+    20 steps in two calls, the second resuming from a step-10
+    checkpoint restored bit for bit, the loss falling), the step timed
+    over batches drawn beforehand; zamba2-7b cut to L = 24 (µ = 2, lr
+    1e-4) for 5 steps, the loss falling, its peak MB; card-vs-CPU
+    gradients on each model's 2-layer cut (each leaf within 1e-4 of its
+    max |g|, a TF32 control above it).  None of the seven kernels
+    launches in this phase.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–24 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–25 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -3260,19 +3282,22 @@ def lm_phase(args, dev, on_card: bool, power: str) -> dict:
         d_max, d_mean), cpu=(c_max, c_mean))
 
 
-def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3):
+def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3,
+                   tag: str = "23 profile") -> float:
     """``steps_n`` decode steps of the served model under `torch.profiler`
-    (after a prefill and two warm steps): the device's busy share of the
-    window and its time by kernel."""
+    (after a prefill — for the ssm and hybrid families an empty cache —
+    and two warm steps): the device's busy share of the window and its
+    time by kernel → the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import steps
 
     toks = torch.zeros((B, S), dtype=torch.int32, device=dev)
     cache = steps.init_cache(cfg, B, S + 2 + steps_n, device=dev)
-    _, pc = steps.make_prefill(cfg)(params, {"tokens": toks})
-    cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
-    cache["pos"] = S
+    if cfg.family == "dense":
+        _, pc = steps.make_prefill(cfg)(params, {"tokens": toks})
+        cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
+        cache["pos"] = S
     dec = steps.make_decode_step(cfg)
     last = toks[:, -1:]
     for _ in range(2):
@@ -3287,11 +3312,12 @@ def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3):
         wall = time.perf_counter() - t0
     spans, busy, by_name = device_activity(prof)       # µs
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"[23 profile] {steps_n} decode steps in {1e3 * wall:.1f} ms "
+    print(f"[{tag}] {steps_n} decode steps in {1e3 * wall:.1f} ms "
           f"(profiled): {len(spans)} device activities, busy "
           f"{busy / 1e3:.1f} ms (share {busy / 1e6 / wall:.3f}); by kernel "
           f"ms: " + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
           flush=True)
+    return busy / 1e6 / wall
 
 
 def lm_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
@@ -3331,7 +3357,9 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
 
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t_phase = time.perf_counter()
-    full = CB.get("qwen3-0.6b")
+    # full width, 14 of the 28 layers: the depth is cut for the script's
+    # time limit (PERF.md §4)
+    full = dataclasses.replace(CB.get("qwen3-0.6b"), L=14)
     if not on_card:
         full = CB.reduced(full)                  # rehearsal size
     u = 2.0 ** -8                                # bfloat16's unit roundoff
@@ -3357,21 +3385,12 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
     # bound
     GRAD_REL = 1e-4
 
-    def leaf_errs(got, want):
-        """[(path, card vs CPU max abs over the leaf's max |g|)]."""
-        out = []
-        for (path, w), a in zip(T.leaves_with_paths(want), T.leaves(got)):
-            scale = float(w.abs().max())
-            err = float((a.cpu() - w).abs().max())
-            out.append((path, err / scale if scale > 0 else float("inf")))
-        return out
-
     def card_vs_cpu(cfg, batch, tag):
         """One `value_and_grad` on the card and on the CPU → (loss rel,
         worst leaf, the card's gradients); raises past the bounds."""
         lc, g_dev = steps.value_and_grad(cfg, p, on_dev(batch))
         l0, g0 = steps.value_and_grad(cfg, hp, batch)
-        path, worst = max(leaf_errs(g_dev, g0), key=lambda pe: pe[1])
+        worst, path = worst_leaf(g_dev, g0)
         rel = abs(float(lc) - float(l0)) / abs(float(l0))
         if not (rel <= 1e-5 and worst <= GRAD_REL):
             raise AssertionError(f"[24 cpu] {tag}: loss card {float(lc)} vs "
@@ -3385,14 +3404,7 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
     # the lower-precision control: the same gradients with TF32 products
     tf_path, tf_worst = "-", float("nan")
     if on_card:
-        tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            _, g_tf = steps.value_and_grad(cut, p, on_dev(b))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = tf32
-        tf_path, tf_worst = max(leaf_errs(g_tf, g0), key=lambda pe: pe[1])
-        del g_tf
+        tf_worst, tf_path = worst_leaf(tf32_grads(cut, p, on_dev(b)), g0)
     # the simLSH arm: zipf labels (they repeat) and the config's own
     # candidates from a refresh of the cut's tied embedding, so both
     # gathers' backward add colliding rows (`segment_add` on the card)
@@ -3635,6 +3647,32 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
     return seg
 
 
+def worst_leaf(got, want) -> tuple[float, str]:
+    """(the largest card-vs-CPU max abs over the leaf's own max |g|, that
+    leaf's path) of two gradient trees, ``want`` on the CPU."""
+    from repro_torch import tree as T
+
+    out = []
+    for (path, w), a in zip(T.leaves_with_paths(want), T.leaves(got)):
+        scale = float(w.abs().max())
+        err = float((a.cpu() - w).abs().max())
+        out.append((err / scale if scale > 0 else float("inf"), path))
+    return max(out)
+
+
+def tf32_grads(cfg, p, batch):
+    """`value_and_grad`'s gradients on the card with TF32 products: the
+    lower-precision control of a card-vs-CPU gradient check."""
+    from repro_torch.models import steps
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return steps.value_and_grad(cfg, p, batch)[1]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def gc_collect(on_card: bool) -> None:
     gc.collect()
     if on_card:
@@ -3663,6 +3701,385 @@ def profile_train_step(cfg, params, opt, batch) -> None:
           f"{len(spans)} device activities, busy {busy / 1e3:.1f} ms (share "
           f"{busy / 1e6 / wall:.3f}); largest device costs ms: "
           + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
+          flush=True)
+
+
+def ssm_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(bf16, float32) multiply-add FLOPs of one ssm or hybrid train step
+    from the shapes: the Mamba2 projections, the one-hot embedding
+    product and the hybrid's shared block in bfloat16; the SSD's products
+    (chunks of min(256, S)), the shared block's attention scores and the
+    logits in float32.  Forward once, the Mamba2 layers again under
+    remat, backward twice each product (the one-hot product once); the
+    shared block is not rematerialised."""
+    from repro_torch.models import ssm as SSM
+
+    D, di, N = cfg.d_model, SSM.d_inner(cfg), cfg.ssm_state
+    H, P = SSM.n_heads(cfg), cfg.ssm_headdim
+    V, n, Q = cfg.vocab_padded(1), B * S, min(256, S)
+    proj = 2 * n * D * (2 * di + 2 * N + H) + 2 * n * di * D   # per layer
+    ssd = 2 * n * Q * (N + H * P) + 4 * n * H * P * N          # per layer
+    emb = logits = 2 * n * V * D
+    bf16 = cfg.L * proj * 4 + emb * 2
+    f32 = cfg.L * ssd * 4 + logits * 3
+    if cfg.family == "hybrid":
+        uses = -(-cfg.L // cfg.attn_every)
+        Hq, Hk, hd, ff = cfg.n_heads_padded, cfg.n_kv, cfg.hd, cfg.d_ff
+        bf16 += uses * 3 * 2 * n * D * (2 * Hq * hd + 2 * Hk * hd + 3 * ff)
+        f32 += uses * 3 * 2 * 2 * B * Hq * S * S * hd
+    return float(bf16), float(f32)
+
+
+def ssm_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 25: the ssm and hybrid families (mamba2-370m, zamba2-7b) —
+    checks on 2-layer cuts of their full widths, serving at full width
+    and depth through `repro_torch.launch.serve.serve`, and training:
+    mamba2-370m at full width through `train_loop`, zamba2-7b at L = 24.
+    Launches none of the seven kernels (no `pallas_call` on this path,
+    and ``lsh_softmax`` is off in both configs)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as ltrain
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, steps
+    from repro_torch.models import ssm as SSM
+    from repro_torch.train import checkpoint as ckpt
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    fulls = [CB.get("mamba2-370m"), CB.get("zamba2-7b")]
+    if not on_card:
+        fulls = [CB.reduced(c) for c in fulls]   # rehearsal size
+    u = 2.0 ** -8                                # bfloat16's unit roundoff
+    B, S, GEN = 4, 64, 32
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    on_dev = lambda b: {k: v.to(dev) for k, v in b.items()}
+    nparams = lambda tree: sum(t.numel() for t in T.leaves(tree))
+    rng = np.random.default_rng(args.seed + 25)
+    # each gradient leaf within 1e-4 of its own max |g| (phase 24's limit:
+    # float32 reads ~1e-6 there, TF32 products ~1e-3)
+    GRAD_REL = 1e-4
+
+    def decode_all(cfg, p, toks, drop_conv=False):
+        """Token-by-token decode of ``toks`` → logits [B, S, V]; with
+        ``drop_conv`` the conv states are zeroed before every step (the
+        control: a decode that loses the causal conv's history)."""
+        dec = steps.make_decode_step(cfg)
+        cache = steps.init_cache(cfg, toks.shape[0], toks.shape[1],
+                                 device=dev)
+        out = []
+        for t in range(toks.shape[1]):
+            if drop_conv:
+                for n in ("conv_x", "conv_b", "conv_c"):
+                    cache[n].zero_()
+            lg, cache = dec(p, cache, toks[:, t:t + 1])
+            out.append(lg[:, 0])
+        return torch.stack(out, dim=1)
+
+    def err(a, b):
+        e = (a.float().cpu() - b.float().cpu()).abs()
+        return float(e.max()), float(e.mean())
+
+    def grads_vs_cpu(cut, tag):
+        """One float32 `value_and_grad` of the cut on the card and on the
+        CPU (B 2, S 32) and the card's again with TF32 products (the
+        control) → (loss rel, worst leaf, its path, TF32 worst, its
+        path)."""
+        cut = dataclasses.replace(cut, dtype="float32", microbatches=1)
+        p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+        hp = host(p)
+        b = {k: torch.from_numpy(rng.integers(0, cut.vocab, (2, 32)).astype(
+            np.int32)) for k in ("tokens", "labels")}
+        lc, g_dev = steps.value_and_grad(cut, p, on_dev(b))
+        l0, g0 = steps.value_and_grad(cut, hp, b)
+
+        w_err, w_path = worst_leaf(g_dev, g0)
+        tf_err, tf_path = float("nan"), "-"
+        if on_card:
+            tf_err, tf_path = worst_leaf(tf32_grads(cut, p, on_dev(b)), g0)
+        rel = abs(float(lc) - float(l0)) / abs(float(l0))
+        print(f"[25 grads] {tag} cut to L={cut.L} (d={cut.d_model}, "
+              f"V={cut.vocab_padded(1)}, {nparams(p) / 1e6:.1f}e6 params), "
+              f"float32, B=2 S=32: loss card {float(lc):.6f} vs CPU "
+              f"{float(l0):.6f} (rel {rel:.3g}, limit 1e-5); worst gradient "
+              f"leaf {w_err:.3g} of its max |g| ({w_path}; limit {GRAD_REL});"
+              f" control, TF32 products on the card: worst leaf {tf_err:.3g} "
+              f"({tf_path}) (power limit {power})", flush=True)
+        if not (rel <= 1e-5 and w_err <= GRAD_REL):
+            raise AssertionError(f"{tag}: the card's gradients disagree with "
+                                 f"the CPU's")
+        if on_card and not tf_err > GRAD_REL:
+            raise AssertionError("the gradient bound passes TF32 products: "
+                                 "it does not hold the card to float32")
+        del p, hp, g_dev, g0
+        gc_collect(on_card)
+
+    # ---- (a) 2-layer cuts of the full widths: cache, CPU, chunking ----
+    for full in fulls:
+        cut = dataclasses.replace(full, L=2)
+        p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+        toks = torch.from_numpy(rng.integers(0, cut.vocab, (B, S)).astype(
+            np.int32)).to(dev)
+        with torch.no_grad():
+            fwd = steps.logits_of(cut, p, lm.forward(cut, p, {
+                "tokens": toks}))                           # [B, S, V]
+        pre, pc = steps.make_prefill(cut)(p, {"tokens": toks})
+        dec = decode_all(cut, p, toks)
+        ctl = decode_all(cut, p, toks, drop_conv=True)
+        sync()
+        rms = float(fwd.pow(2).mean().sqrt())
+        a_max, a_mean = err(dec, fwd)
+        l_max, _ = err(dec[:, -1], pre)
+        c_max, c_mean = err(ctl, fwd)
+        # phase 23's limits: the card read max 1.9u·rms (mamba2) and
+        # 8.3u·rms (zamba2), mean ≤ 1.03u·rms (PERF.md §6)
+        lim = (16 * u * rms, 4 * u * rms)
+        print(f"[25 cache] {cut.name} cut to L=2 (d={cut.d_model}, "
+              f"V={cut.vocab_padded(1)}), bfloat16: a {S}-step decode vs "
+              f"the forward at every position max abs {a_max:.4g}, mean "
+              f"{a_mean:.4g}; its last step vs prefill's last-position "
+              f"logits max abs {l_max:.4g} (prefill's cache {sorted(pc)}; "
+              f"logit rms {rms:.4g}; limits 16u·rms {lim[0]:.4g}, 4u·rms "
+              f"{lim[1]:.4g}, u = 2^-8); control, the conv state dropped "
+              f"each step: max {c_max:.4g}, mean {c_mean:.4g}", flush=True)
+        if not (a_max <= lim[0] and a_mean <= lim[1] and l_max <= lim[0]):
+            raise AssertionError("the decode's SSM and conv states disagree "
+                                 "with the forward")
+        if not (c_max > lim[0] and c_mean > lim[1]):
+            raise AssertionError("the cache check passes a decode without "
+                                 "its conv state")
+        # the card's bfloat16 forward against the CPU's float32 one
+        hp = host(p)
+        t0 = time.perf_counter()
+        c32 = dataclasses.replace(cut, dtype="float32")
+        with torch.no_grad():
+            ref = steps.logits_of(c32, hp, lm.forward(c32, hp, {
+                "tokens": toks.cpu()}))
+        t_cpu = time.perf_counter() - t0
+        rms32 = float(ref.pow(2).mean().sqrt())
+        b_max, b_mean = err(fwd, ref)
+        k_max, k_mean = err(ctl, ref)
+        # the card read max 15u·rms (mamba2) and 25u·rms (zamba2: bf16
+        # attention and MLP beside the SSM), mean 2-4u·rms (PERF.md §6); the
+        # conv-dropped control reads ~1.1 rms
+        lim32 = (48 * u * rms32, 8 * u * rms32)
+        print(f"[25 cpu] the same forward on the CPU in float32 "
+              f"({t_cpu:.1f} s): card (bfloat16) within max abs {b_max:.4g},"
+              f" mean {b_mean:.4g} (logit rms {rms32:.4g}; limits 48u·rms "
+              f"{lim32[0]:.4g}, 8u·rms {lim32[1]:.4g}); control, the "
+              f"conv-dropped decode: max {k_max:.4g}, mean {k_mean:.4g}; "
+              f"greedy tokens equal at "
+              f"{float((fwd.cpu().argmax(-1) == ref.argmax(-1)).float().mean()):.3f}"
+              f" of the positions", flush=True)
+        if not (b_max <= lim32[0] and b_mean <= lim32[1]):
+            raise AssertionError("the card's forward disagrees with the CPU's")
+        if not (k_max > lim32[0] and k_mean > lim32[1]):
+            raise AssertionError("the card-vs-CPU check passes a decode "
+                                 "without its conv state")
+        del p, hp, fwd, pre, dec, ctl, ref
+        gc_collect(on_card)
+        # SSD chunk invariance at the block's widths, float32 on the card
+        H, Pd, N = SSM.n_heads(cut), cut.ssm_headdim, cut.ssm_state
+        f = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+        Sx = 256
+        xs, dt = f(rng.normal(size=(2, Sx, H, Pd))), f(rng.uniform(
+            0.01, 0.2, (2, Sx, H)))
+        A, D = -f(rng.uniform(0.1, 1.0, (H,))), f(rng.normal(size=(H,)))
+        Bm, Cm = f(rng.normal(size=(2, Sx, N))), f(rng.normal(size=(2, Sx, N)))
+        y256 = SSM.ssd_chunked(xs, dt, A, Bm, Cm, D, chunk=256)
+        y64 = SSM.ssd_chunked(xs, dt, A, Bm, Cm, D, chunk=64)
+        # the control: each 64-chunk alone, its carried state dropped
+        alone = torch.cat([SSM.ssd_chunked(
+            xs[:, i:i + 64], dt[:, i:i + 64], A, Bm[:, i:i + 64],
+            Cm[:, i:i + 64], D, chunk=64) for i in range(0, Sx, 64)], dim=1)
+        ratio = lambda a: float(((a - y256).abs() / (
+            1e-4 + 1e-4 * y256.abs())).max())
+        r, rc = ratio(y64), ratio(alone)
+        print(f"[25 chunk] ssd_chunked at H={H} P={Pd} N={N}, B=2 S={Sx}, "
+              f"float32: chunk 64 vs 256 max abs "
+              f"{float((y64 - y256).abs().max()):.3g} (|y| max "
+              f"{float(y256.abs().max()):.3g}), {r:.3g} of the JAX test's "
+              f"rtol = atol = 1e-4 (limit 1); control, each 64-chunk alone "
+              f"(the carried state dropped): {rc:.3g}", flush=True)
+        if not r <= 1.0:
+            raise AssertionError("ssd_chunked depends on the chunk size")
+        if not rc > 1.0:
+            raise AssertionError("the chunk check passes a dropped state")
+        del xs, dt, Bm, Cm, y256, y64, alone
+        gc_collect(on_card)
+
+    # ---- (b) serving at full width and depth ----
+    t_a = time.perf_counter() - t_phase
+    for full in fulls:
+        held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+        t0 = time.perf_counter()
+        params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
+                                device=dev)
+        sync()
+        t_init = time.perf_counter() - t0
+        logs = []
+        out, st = serve(full, batch=B, prompt_len=S, gen=GEN, seed=0,
+                        log=logs.append, device=dev, params=params)
+        nparam = nparams(params)
+        bound_s = 4 * nparam / HBM_BYTES_PER_S   # float32 weights, one read
+        o = out.cpu().numpy()
+        print(f"[25 serve] {full.name} (L={full.L}, {nparam / 1e9:.4f}e9 "
+              f"float32 params, {4 * nparam / 1e9:.2f} GB) batch {B}, prompt "
+              f"{S} (prefilled by {S} sequential decode steps), gen {GEN}: "
+              f"params drawn in {t_init:.2f} s, prefill "
+              f"{st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s, "
+              f"{st['tok_per_s']:.1f} tokens/s (bound {B / bound_s:.0f} "
+              f"tokens/s: the float32 weights read once a step, "
+              f"{1e3 * bound_s:.2f} ms) "
+              + (f"resident {st['resident_mb']:.0f} MB, peak "
+                 f"{st['peak_mb']:.0f} MB (phases before it held {held:.0f} "
+                 f"MB) " if on_card else "")
+              + f"(power limit {power})", flush=True)
+        if o.shape != (B, GEN + 1) or not ((o >= 0) & (o < full.vocab)).all():
+            raise AssertionError(f"served tokens {o.shape} out of range")
+        if on_card:
+            profile_decode(full, params, B, S, dev, tag="25 profile")
+        del params, out
+        gc_collect(on_card)
+
+    # ---- (c) training ----
+    t_b = time.perf_counter() - t_phase - t_a
+    # mamba2-370m at full width: card vs CPU on the cut, then train_loop
+    mamba, zamba = fulls
+    grads_vs_cpu(dataclasses.replace(mamba, L=2), mamba.name)
+    Bt, St, N_STEPS, N_TIMED = 8, 128, 20, 6
+    held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    d = os.path.join(ROOT, "build", "chip_smoke_ssm_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    logs = []
+    t0 = time.perf_counter()
+    params, opt, losses = ltrain.train_loop(
+        mamba, steps_n=N_STEPS // 2, batch=Bt, seq=St, ckpt_dir=d, lr=3e-4,
+        log=logs.append, device=dev, seed=args.seed)
+    wall1 = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    saved = host((params, opt))
+    t0 = time.perf_counter()
+    got, step = ckpt.restore(d, (params, opt))
+    t_restore = time.perf_counter() - t0
+    same = all(torch.equal(a.cpu(), w) and a.dtype == w.dtype
+               for a, w in zip(T.leaves(got), T.leaves(saved)))
+    del got, saved, params, opt
+    gc_collect(on_card)
+    t0 = time.perf_counter()
+    params, opt, more = ltrain.train_loop(
+        mamba, steps_n=N_STEPS, batch=Bt, seq=St, ckpt_dir=d, lr=3e-4,
+        log=logs.append, device=dev, seed=args.seed)
+    wall2 = time.perf_counter() - t0
+    shutil.rmtree(d, ignore_errors=True)
+    losses += more
+    step_fn = steps.make_train_step(mamba, lr=3e-4)
+    trng = np.random.default_rng(args.seed + 1)
+    marks = []
+    for tb in [ltrain.synth_batch(trng, mamba, Bt, St, device=dev)
+               for _ in range(N_TIMED)]:
+        t = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, tb)
+        sync()
+        marks.append(time.perf_counter() - t)
+    step_s = float(np.median(marks[3:]))
+    nparam = nparams(params)
+    bf, f32 = ssm_step_flops(mamba, Bt, St)
+    adam_bytes = 28 * nparam
+    bnd = (bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+           + adam_bytes / HBM_BYTES_PER_S)
+    print(f"[25 train] {mamba.name} (L={mamba.L}, {nparam / 1e6:.2f}e6 "
+          f"float32 params) batch {Bt} seq {St}, lr 3e-4, {N_STEPS} steps in "
+          f"two train_loop calls (a checkpoint at step 10, the second "
+          f"resumes from it): loop wall {wall1:.1f} + {wall2:.1f} s; then "
+          f"{N_TIMED} steps of make_train_step, step s median of steps "
+          f"3-{N_TIMED - 1} {step_s:.4f} (min {min(marks[3:]):.4f}, max "
+          f"{max(marks[3:]):.4f}), {Bt * St / step_s:.0f} tokens/s; bound "
+          f"{1e3 * bnd:.2f} ms ({bf / 1e12:.3f} TFLOP bf16 at "
+          f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {f32 / 1e12:.3f} TFLOP "
+          f"float32 at {F32_OPS_PER_S / 1e12:.0f}, Adam "
+          f"{adam_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s);"
+          f" loss step 0 {losses[0]:.4f}, step 10 {losses[10]:.4f}, step 19 "
+          f"{losses[19]:.4f}; "
+          + (f"peak over the first 10 steps {peak:.0f} MB (phases before "
+             f"it held {held:.0f} MB) " if on_card else "")
+          + f"(power limit {power})", flush=True)
+    print(f"[25 ckpt] step {step} restored in {t_restore:.1f} s: every leaf "
+          f"equal to the state saved at step 10: {same}", flush=True)
+    if not (same and step == N_STEPS // 2
+            and f"resumed from step {N_STEPS // 2}" in logs):
+        raise AssertionError("the step-10 checkpoint did not restore bit "
+                             "for bit")
+    if not (np.isfinite(losses).all() and losses[19] < losses[10]
+            < losses[0]):
+        raise AssertionError(f"the mamba2 loss did not fall: {losses}")
+    del params, opt
+    gc_collect(on_card)
+
+    # zamba2-7b: card vs CPU on its L = 2 cut, then L = 24 with µ = 2 at
+    # lr 1e-4, mamba2's 3e-4 scaled by the widths' ratio 1,024 / 3,584:
+    # Adam's first steps move every weight by ~lr, so a logit moves by
+    # ~lr·d, and at 3e-4 the loss rose from step 2 on (PERF.md §6)
+    grads_vs_cpu(dataclasses.replace(zamba, L=2), zamba.name)
+    z_lr = 1e-4
+    z24 = dataclasses.replace(zamba, L=24) if on_card else \
+        dataclasses.replace(zamba, microbatches=2)
+    held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, zl = ltrain.train_loop(z24, steps_n=5, batch=Bt, seq=St,
+                                        lr=z_lr, log=logs.append,
+                                        device=dev, seed=args.seed)
+    wall = time.perf_counter() - t0
+    step_fn = steps.make_train_step(z24, lr=z_lr)
+    marks = []
+    for tb in [ltrain.synth_batch(trng, z24, Bt, St, device=dev)
+               for _ in range(3)]:
+        t = time.perf_counter()
+        params, opt, _ = step_fn(params, opt, tb)
+        sync()
+        marks.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    nparam = nparams(params)
+    bf, f32 = ssm_step_flops(z24, Bt, St)
+    bnd = (bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+           + 28 * nparam / HBM_BYTES_PER_S)
+    print(f"[25 train] {z24.name} cut to L={z24.L} ({nparam / 1e9:.4f}e9 "
+          f"float32 params, {len(lm._hybrid_groups(z24))} uses of the shared "
+          f"block), microbatches {z24.microbatches}, batch {Bt} seq {St}, "
+          f"lr {z_lr:g}: "
+          f"5 steps of train_loop in {wall:.1f} s (the draw included), loss "
+          f"{' '.join(f'{x:.4f}' for x in zl)}; 3 more make_train_step "
+          f"steps, step s median {float(np.median(marks)):.3f} "
+          f"({Bt * St / float(np.median(marks)):.0f} tokens/s; bound "
+          f"{1e3 * bnd:.2f} ms); "
+          + (f"peak {peak:.0f} MB (phases before it held {held:.0f} MB) "
+             if on_card else "")
+          + f"(power limit {power})", flush=True)
+    if not (np.isfinite(zl).all() and zl[-1] < zl[0]):
+        raise AssertionError(f"the zamba2 loss did not fall: {zl}")
+    del params, opt
+    gc_collect(on_card)
+
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[25 kernels] launches in phase 25: {launched} (the SSD and the "
+          f"projections are plain torch products, as the JAX package's are "
+          f"plain XLA; lsh_softmax is off in both configs, so no "
+          f"segment_add)", flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 25 launched a kernel it should not")
+    t_all = time.perf_counter() - t_phase
+    print(f"[25 done] phase 25 in {t_all:.1f} s: (a) {t_a:.1f}, (b) "
+          f"{t_b:.1f}, (c) {t_all - t_a - t_b:.1f} s (power limit {power})",
           flush=True)
 
 
@@ -3936,6 +4353,7 @@ def main(argv=None) -> int:
     examples_phase(args, dev, on_card, power)
     lm_phase(args, dev, on_card, power)
     seg24 = lm_train_phase(args, dev, on_card, power)
+    ssm_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

@@ -4,9 +4,12 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       [--reduced] [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  At llama3-8b's full
-width the float32 weights are 8.0·10⁹ parameters (32 GB): they are drawn
-layer by layer on the card from the seed's key.
+Runs on ``cuda`` unless ``--device cpu`` is given.  The dense family is
+prefilled by one forward over the prompt; the ssm and hybrid families
+(``--arch mamba2-370m``, ``--arch zamba2-7b``) by sequential decode, as
+in the reference.  At llama3-8b's full width the float32 weights are
+8.0·10⁹ parameters (32 GB), at zamba2-7b's 6.75·10⁹ (27 GB): they are
+drawn layer by layer on the card from the seed's key.
 """
 from __future__ import annotations
 
@@ -52,12 +55,18 @@ def serve(cfg, *, batch, prompt_len, gen, seed=0, log=print, device=None,
     decode = steps.make_decode_step(cfg)
     cache = steps.init_cache(cfg, batch, T, device=dev)
 
+    # prefill by sequential decode for the non-dense families; one
+    # forward over the prompt for dense
     t0 = time.perf_counter()
-    prefill = steps.make_prefill(cfg)
-    logits, pc = prefill(params, {"tokens": toks})
-    cache["k"][:, :, :prompt_len] = pc["k"].to(cache["k"].dtype)
-    cache["v"][:, :, :prompt_len] = pc["v"].to(cache["v"].dtype)
-    cache["pos"] = prompt_len
+    if cfg.family == "dense":
+        logits, pc = steps.make_prefill(cfg)(params, {"tokens": toks})
+        cache["k"][:, :, :prompt_len] = pc["k"].to(cache["k"].dtype)
+        cache["v"][:, :, :prompt_len] = pc["v"].to(cache["v"].dtype)
+        cache["pos"] = prompt_len
+    else:
+        for t in range(prompt_len):
+            logits, cache = decode(params, cache, toks[:, t:t + 1])
+        logits = logits[:, -1]
     last = torch.argmax(logits, -1).to(torch.int32)[:, None]
     _sync(dev)
     t_prefill = time.perf_counter() - t0

@@ -6,11 +6,12 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
       [--reduced] [--steps 50 --batch 8 --seq 128] [--ckpt-dir DIR \
       --ckpt-every 10] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The batches are the
-JAX package's numpy draws for the seed, so both packages train on the
-same tokens.  As in the reference, a resumed run draws its batches from
-the seed's first batch again, not from where the interrupted run
-stopped.
+Runs on ``cuda`` unless ``--device cpu`` is given, for the dense, ssm
+and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``).
+The batches are the JAX package's numpy draws for the seed, so both
+packages train on the same tokens.  As in the reference, a resumed run
+draws its batches from the seed's first batch again, not from where the
+interrupted run stopped.
 """
 from __future__ import annotations
 
@@ -41,18 +42,15 @@ def synth_batch(rng, cfg, batch, seq, device="cpu"):
 
 
 def train_loop(cfg, *, steps_n, batch, seq, ckpt_dir=None, ckpt_every=0,
-               lr=3e-4, log=print, seed=0, device=None, params=None):
+               lr=3e-4, log=print, seed=0, device=None):
     """Train ``steps_n`` steps → (params, opt, losses of the steps run).
-    ``params`` replaces the seed's draw (another package's parameters,
-    through `convert.lm_params_from_numpy`).  With ``ckpt_dir`` it resumes
-    from the newest complete checkpoint there, saves every
-    ``ckpt_every`` steps and at the end."""
+    With ``ckpt_dir`` it resumes from the newest complete checkpoint
+    there, saves every ``ckpt_every`` steps and at the end."""
     lm.check_family(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    if params is None:
-        params = lm.init_params(cfg, prng.PRNGKey(seed), model_shards=1,
-                                device=dev)
+    params = lm.init_params(cfg, prng.PRNGKey(seed), model_shards=1,
+                            device=dev)
     opt = steps.init_opt(cfg, params)
     step_fn = steps.make_train_step(cfg, lr=lr)
 

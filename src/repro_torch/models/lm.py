@@ -1,18 +1,24 @@
-"""Model assembly for the dense family (`repro/models/lm.py`).
+"""Model assembly (`repro/models/lm.py`) for the dense, ssm and hybrid
+families.
 
 The JAX package assembles every family (dense | moe | ssm | hybrid |
-encdec | vlm); the port has the dense one, which `launch/serve.py`
-serves.  The others raise `NotImplementedError` (ROADMAP Queue 1 item
-9).  Layer stacks are dicts of tensors with a leading L dim, applied
-layer by layer (the JAX package's `lax.scan`); on one device there is
-no sharding constraint and no scheduling barrier (`_opt_barrier` pins
-the FSDP gathers of training).  Training remats each layer, as the
-reference does (`_scan_layers`).
+encdec | vlm).  The port runs three: dense (attention + MLP layers),
+ssm (Mamba2 layers, `models/ssm.py`) and hybrid (Mamba2 layers with one
+shared attention + MLP block run before each group of
+``cfg.attn_every``).  The moe, encdec and vlm families raise
+`NotImplementedError` (ROADMAP Queue 1 item 9).  Layer stacks are dicts
+of tensors with a leading L dim, applied layer by layer (the JAX
+package's `lax.scan`); on one device there is no sharding constraint
+and no scheduling barrier (`_opt_barrier` pins the FSDP gathers of
+training).  Training remats each stacked layer, as the reference does
+(`_scan_layers`); the hybrid's shared block is not rematerialised.
 
 Weights are kept in ``cfg.param_dtype`` (float32) and cast to
 ``cfg.dtype`` (bfloat16) where they are used, as in the reference.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.utils.checkpoint
@@ -21,8 +27,9 @@ from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -70,6 +77,31 @@ def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
     return p
 
 
+def _ssm_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
+    D, di, N = cfg.d_model, SSM.d_inner(cfg), cfg.ssm_state
+    H, K = SSM.n_heads(cfg), cfg.ssm_conv
+    ks = prng.split(key, 10)
+    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
+    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
+    nrm = lambda k, *s: _normal(k, s, scale, device)
+    return dict(
+        ln=ones(D),
+        z_proj=nrm(ks[0], D, di),
+        x_proj=nrm(ks[1], D, di),
+        b_proj=nrm(ks[2], D, N),
+        c_proj=nrm(ks[3], D, N),
+        dt_proj=nrm(ks[4], D, H),
+        conv_x=nrm(ks[5], K, di),
+        conv_b=nrm(ks[6], K, N),
+        conv_c=nrm(ks[7], K, N),
+        dt_bias=zeros(H),
+        A_log=zeros(H),
+        D=ones(H),
+        norm_w=ones(di),
+        out_proj=nrm(ks[8], di, D),
+    )
+
+
 def _stack_init(per_layer_fn, cfg, key, n, device="cpu"):
     """The JAX package's `vmap` of ``per_layer_fn`` over ``split(key, n)``:
     each layer is drawn from its own key into its slice of the stack, so
@@ -88,9 +120,10 @@ def _stack_init(per_layer_fn, cfg, key, n, device="cpu"):
 
 
 def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
-    """The JAX package's `init_params` for the dense family: the same keys
-    and draws (each float within a few ulp: `prng.normal`), on ``device``
-    (``cuda`` unless asked)."""
+    """The JAX package's `init_params` for the ported families: the same
+    keys and draws (each float within a few ulp: `prng.normal`), on
+    ``device`` (``cuda`` unless asked).  The hybrid's ``shared_attn`` is
+    one unstacked dense layer drawn from the fourth key."""
     check_family(cfg)
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
@@ -107,7 +140,13 @@ def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
     )
     if not cfg.tie_embeddings:
         p["out_embed"] = _normal(ks[1], (V, D), 0.02, dev)
-    p["layers"] = _stack_init(_dense_layer_init, cfg, ks[2], cfg.L, dev)
+    if cfg.family == "dense":
+        p["layers"] = _stack_init(_dense_layer_init, cfg, ks[2], cfg.L, dev)
+    else:
+        p["layers"] = _stack_init(_ssm_layer_init, cfg, ks[2], cfg.L, dev)
+    if cfg.family == "hybrid":
+        p["shared_attn"] = _dense_layer_init(
+            dataclasses.replace(cfg, family="dense"), ks[3], 0.02, dev)
     return p
 
 
@@ -163,15 +202,19 @@ def layer(stacked: dict, i: int) -> dict:
     return {k: v[i] for k, v in stacked.items()}
 
 
-def _scan_layers(body, x, stacked, remat: bool = False):
-    """``body(pl, x) → x`` over a stacked layer dict, layer by layer (the
+def unstack(stacked: dict) -> list:
+    """A stacked layer dict → one dict per layer of `unbind` views: the
+    backward stacks each weight's per-layer gradients once."""
+    return [dict(zip(stacked, vs)) for vs in zip(
+        *(v.unbind(0) for v in stacked.values()))]
+
+
+def _scan_layers(body, x, per_layer: list, remat: bool = False):
+    """``body(pl, x) → x`` over `unstack`'s layers, layer by layer (the
     JAX package's scan).  With ``remat`` and grad enabled each layer runs
     under `torch.utils.checkpoint` (the reference's `jax.checkpoint`):
     only its input is kept, and its activations are recomputed in the
-    backward pass.  The layers are `unbind` views, so the backward
-    stacks each weight's per-layer gradients once."""
-    per_layer = [dict(zip(stacked, vs)) for vs in zip(
-        *(v.unbind(0) for v in stacked.values()))]
+    backward pass."""
     remat = remat and torch.is_grad_enabled()
     for pl in per_layer:
         x = (torch.utils.checkpoint.checkpoint(body, pl, x,
@@ -196,10 +239,47 @@ def out_embedding(p, cfg):
     return p["embed"] if cfg.tie_embeddings else p["out_embed"]
 
 
+def _ssm_body(cfg: ArchConfig):
+    """One Mamba2 residual layer, ``(pl, h) → h``."""
+    def body(pl, h):
+        y = SSM.mamba_block(pl, L.rms_norm(h, pl["ln"], cfg.norm_eps),
+                            cfg)[0]
+        return h + y
+    return body
+
+
 def forward(cfg: ArchConfig, p, batch):
     """Token inputs → final hidden states [B, S, D] (normed)."""
     check_family(cfg)
     x = embed_tokens(p, cfg, batch["tokens"])
-    body = lambda pl, h: _dense_block(pl, h, cfg)[0]
-    x = _scan_layers(body, x, p["layers"], cfg.remat)
+    if cfg.family == "dense":
+        body = lambda pl, h: _dense_block(pl, h, cfg)[0]
+        x = _scan_layers(body, x, unstack(p["layers"]), cfg.remat)
+    elif cfg.family == "ssm":
+        x = _scan_layers(_ssm_body(cfg), x, unstack(p["layers"]), cfg.remat)
+    else:
+        x = _forward_hybrid(cfg, p, x)
     return L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+
+
+def _hybrid_groups(cfg: ArchConfig):
+    """[(start, size), ...] — the shared attention block runs before each
+    group."""
+    k = cfg.attn_every
+    out, s = [], 0
+    while s < cfg.L:
+        out.append((s, min(k, cfg.L - s)))
+        s += k
+    return out
+
+
+def _forward_hybrid(cfg, p, x):
+    """The shared block (with the hybrid ``cfg``), then the group's Mamba2
+    layers, for each group; the layers are unstacked once, so each
+    weight's gradient is stacked once over all the groups."""
+    per_layer = unstack(p["layers"])
+    body = _ssm_body(cfg)
+    for start, size in _hybrid_groups(cfg):
+        x, _ = _dense_block(p["shared_attn"], x, cfg, causal=True)
+        x = _scan_layers(body, x, per_layer[start:start + size], cfg.remat)
+    return x

@@ -1,6 +1,6 @@
-"""Training and serving steps for the dense family
-(`repro/models/steps.py`): the loss, Adam, the microbatched train step,
-KV caches, prefill and decode.
+"""Training and serving steps (`repro/models/steps.py`) for the dense,
+ssm and hybrid families: the loss, Adam, the microbatched train step,
+caches, prefill and decode.
 
 The JAX package's `make_*` factories close over the config and return
 functions for `jax.jit`; these return plain functions.  The other
@@ -9,8 +9,8 @@ families' caches and steps raise `NotImplementedError`.
 Differences from the JAX package's functional steps, each where the JAX
 launch scripts donate the buffers: `adam_update` (and so a train step)
 updates the parameters and moments it was given in place, and a decode
-step writes the new K/V into the cache it was given; the cache's
-``pos`` is a host int.
+step writes the new K/V, SSM and conv states into the cache it was
+given; the cache's ``pos`` is a host int.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.core import scatter
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import ssm as SSM
 
 # --------------------------------------------------------------------------
 # loss
@@ -204,13 +205,37 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
 
 def init_cache(cfg: ArchConfig, B: int, T: int, dtype=torch.bfloat16,
                device=None):
-    """Empty caches sized for total context T."""
+    """Empty caches sized for total context T: the dense family's K/V
+    [L, B, T, Hkv, hd]; the ssm family's float32 SSM states [L, B, H, P,
+    N] and conv states [L, B, K−1, ·] in ``dtype``; the hybrid's also one
+    K/V slot per group, a window of `_hybrid_window` positions at long
+    context (a ring buffer)."""
     lm.check_family(cfg)
     dev = resolve_device(device)
-    shape = (cfg.L, B, T, cfg.n_kv, cfg.hd)
-    return {"pos": 0,
-            "k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+    zeros = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=dev)
+    cache = {"pos": 0}
+    if cfg.family == "dense":
+        cache["k"] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
+        cache["v"] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
+        return cache
+    H, Pd, N = SSM.n_heads(cfg), cfg.ssm_headdim, cfg.ssm_state
+    K, di = cfg.ssm_conv, SSM.d_inner(cfg)
+    cache["ssm"] = zeros(cfg.L, B, H, Pd, N, dt=torch.float32)
+    cache["conv_x"] = zeros(cfg.L, B, K - 1, di)
+    cache["conv_b"] = zeros(cfg.L, B, K - 1, N)
+    cache["conv_c"] = zeros(cfg.L, B, K - 1, N)
+    if cfg.family == "hybrid":
+        napp = len(lm._hybrid_groups(cfg))
+        Tw = min(T, _hybrid_window(cfg, T) or T)
+        cache["k"] = zeros(napp, B, Tw, cfg.n_kv, cfg.hd)
+        cache["v"] = zeros(napp, B, Tw, cfg.n_kv, cfg.hd)
+    return cache
+
+
+def _hybrid_window(cfg: ArchConfig, T: int):
+    """Windowed attention for the shared blocks at extreme context
+    (long_500k) — the documented sub-quadratic adaptation."""
+    return 8192 if T >= 100_000 else 0
 
 
 def logits_of(cfg: ArchConfig, p, h):
@@ -219,6 +244,26 @@ def logits_of(cfg: ArchConfig, p, h):
     as the reference's ``preferred_element_type``)."""
     E = lm.out_embedding(p, cfg).to(L.torch_dtype(cfg.dtype))
     return h.float() @ E.float().T
+
+
+_SSM_LEAVES = ("ssm", "conv_x", "conv_b", "conv_c")
+
+
+def _decode_ssm_layer(pl, h, cfg, cache, i):
+    """Layer ``i``'s Mamba2 decode step from ``cache``'s states, which it
+    overwrites with the new ones.  A conv leaf in another dtype than the
+    step's first takes the step's (the reference's cache leaves are the
+    scan's outputs, so at float32 compute a bfloat16 conv cache becomes
+    float32 after one step); the SSM state is always float32."""
+    xn = L.rms_norm(h, pl["ln"], cfg.norm_eps)
+    y, (state, conv) = SSM.mamba_block(
+        pl, xn, cfg, state=cache["ssm"][i],
+        conv_state=tuple(cache[n][i] for n in _SSM_LEAVES[1:]))
+    for name, new in zip(_SSM_LEAVES, (state, *conv)):
+        if cache[name].dtype != new.dtype:
+            cache[name] = cache[name].to(new.dtype)
+        cache[name][i] = new
+    return h + y
 
 
 def make_decode_step(cfg: ArchConfig):
@@ -240,12 +285,47 @@ def make_decode_step(cfg: ArchConfig):
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         return logits_of(cfg, params, h), dict(cache, pos=pos + 1)
 
-    return decode_dense
+    @torch.no_grad()
+    def decode_ssm(params, cache, tokens):
+        h = lm.embed_tokens(params, cfg, tokens)
+        cache = dict(cache)
+        for i in range(cfg.L):
+            h = _decode_ssm_layer(lm.layer(params["layers"], i), h, cfg,
+                                  cache, i)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        cache["pos"] += 1
+        return logits_of(cfg, params, h), cache
+
+    @torch.no_grad()
+    def decode_hybrid(params, cache, tokens):
+        h = lm.embed_tokens(params, cfg, tokens)
+        cache = dict(cache)
+        pos = cache["pos"]
+        Tw = cache["k"].shape[2]
+        for gi, (start, size) in enumerate(lm._hybrid_groups(cfg)):
+            # the shared block, its K/V slot a ring buffer of Tw positions
+            h, _ = lm._attn_sublayer(
+                params["shared_attn"], h, cfg, causal=True, q_offset=pos,
+                kv_cache=(cache["k"][gi], cache["v"][gi]),
+                cache_pos=pos % Tw)
+            h = lm._ffn_sublayer(params["shared_attn"], h, cfg)
+            for i in range(start, start + size):
+                h = _decode_ssm_layer(lm.layer(params["layers"], i), h, cfg,
+                                      cache, i)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        cache["pos"] = pos + 1
+        return logits_of(cfg, params, h), cache
+
+    return {"dense": decode_dense, "ssm": decode_ssm,
+            "hybrid": decode_hybrid}[cfg.family]
 
 
 def make_prefill(cfg: ArchConfig):
-    """Forward over the prompt → (last-token logits [B, V] float32, cache
-    of the prompt's K/V in bfloat16)."""
+    """Forward over the prompt → (last-token logits [B, V] float32, cache).
+    The dense family's cache holds the prompt's K/V in bfloat16.  The ssm
+    and hybrid families' is ``{"pos"}`` alone, as in the reference: their
+    prefill is the forward, and it fills no cache (`launch/serve.py`
+    prefills them by sequential decode)."""
     lm.check_family(cfg)
 
     @torch.no_grad()
@@ -265,4 +345,10 @@ def make_prefill(cfg: ArchConfig):
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs),
                         "pos": T}
 
-    return prefill_dense
+    @torch.no_grad()
+    def prefill_generic(params, batch):
+        h = lm.forward(cfg, params, batch)
+        return (logits_of(cfg, params, h[:, -1]),
+                {"pos": batch["tokens"].shape[1]})
+
+    return prefill_dense if cfg.family == "dense" else prefill_generic

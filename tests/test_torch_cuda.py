@@ -21,7 +21,9 @@ order, and every product is exact); `neighbor_predict` within rtol/atol
 (``REPRO_TORCH_LOGICAL_DEVICES=4``): the sharded flush equal to the CPU's
 and launching neither serving kernel, its truncation-free answers equal
 to the one-device plain walk's, and the fit's mesh shard tier within
-1e-5 of its one-device replay.
+1e-5 of its one-device replay.  The LM side (no kernel of its own):
+the dense, ssm and hybrid families' forward, decode caches and train
+steps on the card against the CPU at float32.
 """
 import dataclasses
 import pathlib
@@ -1734,3 +1736,59 @@ def test_lm_checkpoint_round_trip_on_card(cuda, tmp_path):
     _, _, more = train_loop(cfg, steps_n=4, batch=2, seq=16, ckpt_dir=d,
                             device=cuda, log=logs.append)
     assert logs[0] == "resumed from step 3" and len(more) == 1
+
+
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-7b"])
+def test_ssm_families_on_card_match_cpu(cuda, name):
+    """Reduced mamba2-370m and zamba2-7b (two groups: the shared block
+    used twice) at float32, the card against the CPU: the forward's
+    hidden states within 1e-5, three decode steps' logits and every
+    cache leaf (dtype included: the conv states turn float32 after the
+    first step), and a train step's loss within 1e-5, each gradient leaf
+    within 1e-5 of its own max |g| (plus 4 ulp)."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.models import lm, steps
+    cfg = dataclasses.replace(CB.reduced(CB.get(name)), dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    g = torch.Generator().manual_seed(0)
+    b = {k: torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                          generator=g) for k in ("tokens", "labels")}
+    bc = {k: v.to(cuda) for k, v in b.items()}
+    with torch.no_grad():
+        h = lm.forward(cfg, pc, bc)
+        h0 = lm.forward(cfg, p, b)
+    torch.testing.assert_close(h.cpu(), h0, rtol=1e-5, atol=1e-5)
+    caches = [steps.init_cache(cfg, 2, 8, device=d) for d in (cuda, "cpu")]
+    dec = steps.make_decode_step(cfg)
+    for t in range(3):
+        lg, caches[0] = dec(pc, caches[0], bc["tokens"][:, t:t + 1])
+        lg0, caches[1] = dec(p, caches[1], b["tokens"][:, t:t + 1])
+        torch.testing.assert_close(lg.cpu(), lg0, rtol=1e-5, atol=1e-5)
+    assert caches[0]["pos"] == caches[1]["pos"] == 3
+    assert caches[0]["conv_x"].dtype == torch.float32
+    for k in sorted(set(caches[1]) - {"pos"}):
+        a, w = caches[0][k], caches[1][k]
+        assert a.device.type == "cuda" and a.dtype == w.dtype, k
+        tol = 1e-2 if k in ("k", "v") else 1e-5          # K/V in bfloat16
+        torch.testing.assert_close(a.cpu(), w, rtol=tol, atol=tol)
+    lc, gc = steps.value_and_grad(cfg, pc, bc)
+    l0, g0 = steps.value_and_grad(cfg, p, b)
+    assert abs(float(lc) - float(l0)) <= 1e-5 * abs(float(l0))
+    for a, w in zip(T.leaves(gc), T.leaves(g0)):
+        scale = float(w.abs().max())
+        assert scale > 1e-8
+        assert float((a.cpu() - w).abs().max()) <= 1e-5 * scale + 4 * float(
+            np.spacing(np.float32(scale)))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_ssm_families_serve_on_the_card_by_default(cuda, arch):
+    """``python -m repro_torch.launch.serve --arch <ssm or hybrid>`` with
+    no ``--device`` serves on the card (reduced here)."""
+    from repro_torch.launch import serve as lserve
+    toks, st = lserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                            "--prompt-len", "8", "--gen", "4"])
+    assert toks.device.type == "cuda" and toks.shape == (2, 5)
+    assert st["peak_mb"] > 0

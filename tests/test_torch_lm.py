@@ -1,21 +1,23 @@
-"""Port vs JAX package: the LM side's configs and its dense serving path
+"""Port vs JAX package: the LM side's configs and its serving path
 (`configs/`, `models/layers.py`, `models/lm.py`, `models/steps.py`'s
 serving half, `launch/serve.py`), on the CPU at the reduced configs.
 
 * Every registered config equals the JAX package's field for field, for
   all ten names, and so do `reduced`, `SHAPES`, `runnable` and `cells`.
-* On each reduced dense config (llama3-8b, llama3-405b, qwen1.5-0.5b,
-  qwen3-0.6b): `init_params` draws the JAX package's streams (the same
-  tree and shapes, each float within 4 ulp — `prng.normal`'s contract —
-  and ≥ 95 % bit-equal); from the JAX parameters
+* On each reduced config of a ported family (the dense llama3-8b,
+  llama3-405b, qwen1.5-0.5b and qwen3-0.6b, the ssm mamba2-370m, the
+  hybrid zamba2-7b): `init_params` draws the JAX package's streams (the
+  same tree and shapes, each float within 4 ulp — `prng.normal`'s
+  contract — and ≥ 95 % bit-equal); from the JAX parameters
   (`convert.lm_params_from_numpy`), `forward`, prefill and decode at
-  float32 within 1e-4 of the JAX package's.
+  float32 within 1e-4 of the JAX package's, every decode cache leaf
+  with its dtype.
 * `test_lm.py::test_dense_decode_matches_forward` on the port, in
   bfloat16 (the JAX test's 3e-2) and float32 (1e-4).
 * `serve`'s greedy tokens equal the JAX `repro.launch.serve.serve`'s
-  over 8 steps at float32, from the same parameters and prompts.
-* The moe, ssm, hybrid, encdec and vlm families raise
-  `NotImplementedError`.
+  over 8 steps at float32, from the same parameters and prompts (the ssm
+  and hybrid families prefilled by sequential decode).
+* The moe, encdec and vlm families raise `NotImplementedError`.
 """
 import dataclasses
 
@@ -37,8 +39,9 @@ from repro_torch.models import lm, steps
 
 NAMES = JCB.names()
 DENSE = ("llama3-8b", "llama3-405b", "qwen1.5-0.5b", "qwen3-0.6b")
-OTHER = ("arctic-480b", "dbrx-132b", "mamba2-370m", "zamba2-7b",
-         "seamless-m4t-large-v2", "llava-next-mistral-7b")
+PORTED = DENSE + ("mamba2-370m", "zamba2-7b")
+OTHER = ("arctic-480b", "dbrx-132b", "seamless-m4t-large-v2",
+         "llava-next-mistral-7b")
 F32 = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -99,7 +102,7 @@ def test_config_equals_jax_field_by_field(name):
         assert CB.runnable(t, CB.SHAPES[s.name]) == JCB.runnable(j, s)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_init_params_draws_the_jax_streams(name):
     jcfg, tcfg = _reduced(name)
     jp = _jax_params(jcfg, seed=3)
@@ -115,7 +118,7 @@ def test_init_params_draws_the_jax_streams(name):
     assert np.concatenate(same).mean() > 0.95
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", PORTED)
 def test_forward_prefill_and_decode_match_jax_at_float32(name):
     jcfg, tcfg = _reduced(name, "float32")
     jp = _jax_params(jcfg)
@@ -131,11 +134,15 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
                                                 {"tokens": jnp.asarray(toks)})
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **F32)
     assert cache["pos"] == int(jcache["pos"]) == 80
-    for k in ("k", "v"):
-        assert cache[k].dtype == torch.bfloat16
-        np.testing.assert_allclose(cache[k].float().numpy(),
-                                   np.asarray(jcache[k], np.float32),
-                                   rtol=1e-2, atol=1e-2)
+    assert sorted(cache) == sorted(jcache)
+    if tcfg.family == "dense":
+        for k in ("k", "v"):
+            assert cache[k].dtype == torch.bfloat16
+            np.testing.assert_allclose(cache[k].float().numpy(),
+                                       np.asarray(jcache[k], np.float32),
+                                       rtol=1e-2, atol=1e-2)
+    else:                                 # no cache: the forward alone
+        assert sorted(cache) == ["pos"]
     # three decode steps on a fresh cache
     tc = steps.init_cache(tcfg, 2, 8, device="cpu")
     jc = jsteps.init_cache(jcfg, 2, 8)
@@ -146,9 +153,18 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
         assert lg.shape == tuple(jlg.shape) == (2, 1, tcfg.vocab_padded(1))
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **F32)
     assert tc["pos"] == int(jc["pos"]) == 3
-    np.testing.assert_allclose(tc["k"].float().numpy(),
-                               np.asarray(jc["k"], np.float32), rtol=1e-2,
-                               atol=1e-2)
+    # every cache leaf and its dtype: at float32 compute the conv states
+    # become float32 after the first step (the reference's leaves are the
+    # scan's outputs); the K/V stay bfloat16 (rounded: 1e-2)
+    assert sorted(tc) == sorted(jc)
+    for k in sorted(set(jc) - {"pos"}):
+        want = np.asarray(jc[k])
+        assert str(tc[k].dtype) == f"torch.{want.dtype}", k
+        assert tuple(tc[k].shape) == want.shape, k
+        tol = dict(rtol=1e-2, atol=1e-2) if k in ("k", "v") else F32
+        np.testing.assert_allclose(tc[k].float().numpy(),
+                                   want.astype(np.float32), **tol,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("dtype,tol", [("bfloat16", 3e-2), ("float32", 1e-4)])
@@ -176,7 +192,8 @@ def test_dense_decode_matches_forward(dtype, tol):
                                rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-0.6b"])
+@pytest.mark.parametrize("name", ["llama3-8b", "qwen3-0.6b", "mamba2-370m",
+                                  "zamba2-7b"])
 def test_serve_greedy_tokens_equal_jax(name):
     jcfg, tcfg = _reduced(name, "float32")
     jp = _jax_params(jcfg, seed=1)
@@ -196,6 +213,15 @@ def test_serve_cli_runs_reduced_on_the_cpu(capsys):
     toks, stats = tserve.main(["--arch", "qwen1.5-0.5b", "--reduced",
                                "--batch", "2", "--prompt-len", "8",
                                "--gen", "4", "--device", "cpu"])
+    assert toks.shape == (2, 5) and stats["tok_per_s"] > 0
+    assert "tok/s batched" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_serve_cli_runs_the_ssm_families_on_the_cpu(arch, capsys):
+    toks, stats = tserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                               "--prompt-len", "8", "--gen", "4",
+                               "--device", "cpu"])
     assert toks.shape == (2, 5) and stats["tok_per_s"] > 0
     assert "tok/s batched" in capsys.readouterr().out
 
@@ -230,6 +256,23 @@ def test_lm_params_from_numpy_keeps_the_tree():
     half = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
                                         device="cpu", dtype="bfloat16")
     assert half["embed"].dtype == torch.bfloat16
+
+
+def test_lm_params_from_numpy_keeps_the_hybrid_tree():
+    """The hybrid's unstacked ``shared_attn`` dense layer beside the
+    stacked Mamba2 layers: every leaf carried across bit for bit."""
+    jcfg, _ = _reduced("zamba2-7b")
+    jp = _jax_params(jcfg)
+    tp = _port_params(jp)
+    assert sorted(tp) == sorted(jp) == ["embed", "final_norm", "layers",
+                                        "out_embed", "shared_attn"]
+    for k in ("layers", "shared_attn"):
+        assert sorted(tp[k]) == sorted(jp[k])
+        for n, v in jp[k].items():
+            assert tuple(tp[k][n].shape) == v.shape
+            np.testing.assert_array_equal(tp[k][n].numpy(), np.asarray(v))
+    assert tp["shared_attn"]["wq"].ndim == 3          # one layer, no L dim
+    assert tp["layers"]["z_proj"].shape[0] == jcfg.L
 
 
 def test_serve_defaults_to_the_card(monkeypatch):

@@ -1,8 +1,8 @@
 """Port vs JAX package: LM training (`models/steps.py`'s training half,
 `models/lsh_softmax.py`, `launch/train.py`, nested-tree checkpoints), on
-the CPU at the reduced dense configs, float32 unless a case says
-otherwise.  The oracle is always the JAX function at the installed
-version.
+the CPU at the reduced configs of the dense, ssm (mamba2-370m) and
+hybrid (zamba2-7b) families, float32 unless a case says otherwise.  The
+oracle is always the JAX function at the installed version.
 
 * `lm_loss` within 1e-5, with and without a mask, in both arms (the
   simLSH arm with a label among its candidates); autograd's gradients
@@ -22,6 +22,11 @@ version.
   with ``mb_mask`` [1, 1] and [1, 0], and in a bfloat16 accumulator
   within its rounding; the ``cands`` split of the simLSH arm; the
   straggler case (`test_lm.py::test_straggler_drop_microbatch`).
+* The ssm and hybrid families: `lm_loss` and its gradients as above, one
+  Adam update of shared gradients on their trees as above, and one
+  `make_train_step` (the hybrid also at µ = 2 with ``mb_mask`` [1, 1]
+  and [1, 0]) through its first moment, each leaf within 1e-5 of its
+  own max; their CLI and checkpoints.
 * `train_loop`: five steps' losses within 1e-4 of the JAX loop's; a
   checkpoint written by either package restores in the other bit for
   bit; a resumed run's losses equal the JAX resume's (both draw from
@@ -58,6 +63,7 @@ from repro_torch.models import lsh_softmax as LS
 from repro_torch.train import checkpoint as ckpt
 
 DENSE = ("llama3-8b", "llama3-405b", "qwen1.5-0.5b", "qwen3-0.6b")
+SSM_FAMILIES = ("mamba2-370m", "zamba2-7b")
 U = 2.0 ** -8                     # bfloat16's unit roundoff
 
 
@@ -104,6 +110,13 @@ def _both(b):
             {k: torch.from_numpy(np.asarray(v)) for k, v in b.items()})
 
 
+def _floor(cfg):
+    """A floor on each gradient leaf's max |g|: the reduced Mamba2 layers'
+    A_log, dt_bias and dt_proj gradients are ~1e-6 (dt = softplus(~0)
+    at the init's small weights)."""
+    return 1e-4 if cfg.family == "dense" else 1e-8
+
+
 def assert_grads_close(got, want, rel=1e-5, floor=1e-4):
     """Each gradient leaf within ``rel`` of its own max |g| (plus 4 ulp of
     it), and every leaf's max |g| above ``floor`` (far above the bound:
@@ -121,7 +134,7 @@ def assert_grads_close(got, want, rel=1e-5, floor=1e-4):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + SSM_FAMILIES)
 def test_lm_loss_matches_jax(name):
     jc, tc = _cfgs(name)
     jp = jlm.init_params(jc, jax.random.PRNGKey(0), model_shards=1)
@@ -170,7 +183,7 @@ def test_lsh_softmax_loss_close_to_full():
     assert float(steps.lm_loss(tc, tp, tb)) <= loss_full + 1e-4
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + SSM_FAMILIES)
 def test_grads_match_jax(name):
     jc, tc = _cfgs(name)
     jp = jlm.init_params(jc, jax.random.PRNGKey(1), model_shards=1)
@@ -181,7 +194,7 @@ def test_grads_match_jax(name):
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     assert [p for p, _ in T.leaves_with_paths(tg)] == [
         p for p, _ in T.leaves_with_paths(tp)]
-    assert_grads_close(_t_leaves(tg), _np_leaves(jg))
+    assert_grads_close(_t_leaves(tg), _np_leaves(jg), floor=_floor(tc))
 
 
 def test_simlsh_arm_grads_match_jax():
@@ -218,8 +231,8 @@ def test_remat_changes_no_gradient():
 # --------------------------------------------------------------------------
 
 
-def _adam_pair(md="float32", seed=0):
-    jc, tc = _cfgs("llama3-8b", moment_dtype=md)
+def _adam_pair(md="float32", seed=0, name="llama3-8b"):
+    jc, tc = _cfgs(name, moment_dtype=md)
     jp = jlm.init_params(jc, jax.random.PRNGKey(seed), model_shards=1)
     return jc, tc, jp
 
@@ -289,6 +302,22 @@ def test_adam_update_clip_inactive_equals_jax():
         np.testing.assert_allclose(tgn, jgn, rtol=1e-6)
         assert int(to["count"]) == int(jo1["count"]) == count
         assert to["count"].dtype == torch.int32
+        for k in ("m", "v"):
+            for a, b in zip(_t_leaves(to[k]), _np_leaves(jo1[k])):
+                np.testing.assert_array_equal(a, b)
+        _assert_params_2ulp(tp, jp1, jp0)
+
+
+@pytest.mark.parametrize("name", SSM_FAMILIES)
+def test_adam_update_on_the_ssm_trees(name):
+    """`test_adam_update_clip_inactive_equals_jax` on the Mamba2 and
+    hybrid trees (the global norm sums their leaves in the JAX order)."""
+    jc, tc, jp = _adam_pair(name=name)
+    g = _random_grads(jp, 1e-4)
+    for (jp0, jp1, jo1, jgn), (tp, to, tgn) in zip(*_two_updates(
+            jc, tc, jp, g)):
+        assert jgn < 1.0
+        np.testing.assert_allclose(tgn, jgn, rtol=1e-6)
         for k in ("m", "v"):
             for a, b in zip(_t_leaves(to[k]), _np_leaves(jo1[k])):
                 np.testing.assert_array_equal(a, b)
@@ -379,6 +408,29 @@ def test_microbatched_train_step_matches_jax(mb_mask, gd):
     # m = (1 − b1)·scale·g: the accumulated gradient itself
     assert_grads_close(_t_leaves(to1["m"]), _np_leaves(jo1["m"]),
                        rel=1e-5 if gd == "float32" else 2 * U, floor=1e-6)
+
+
+@pytest.mark.parametrize("name,mb_mask", [("mamba2-370m", None),
+                                          ("zamba2-7b", None),
+                                          ("zamba2-7b", [1.0, 1.0]),
+                                          ("zamba2-7b", [1.0, 0.0])])
+def test_ssm_train_step_matches_jax(name, mb_mask):
+    """One `make_train_step` of the ssm and hybrid families (the hybrid
+    also at µ = 2): loss and norm within 1e-5, the accumulated gradient
+    (the first moment) within 1e-5 of each leaf's max."""
+    cfgs = _cfgs(name, microbatches=1 if mb_mask is None else 2)
+    jp = jlm.init_params(cfgs[0], jax.random.PRNGKey(2), model_shards=1)
+    b = _batch(cfgs[1], B=4, S=16)
+    if mb_mask is not None:
+        b["mb_mask"] = np.asarray(mb_mask, np.float32)
+    (jaux, jo1), (taux, to1) = _step_pair(cfgs, jp, b)
+    np.testing.assert_allclose(float(taux["loss"]), float(jaux["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(taux["gnorm"]), float(jaux["gnorm"]),
+                               rtol=1e-5)
+    assert int(to1["count"]) == 1
+    assert_grads_close(_t_leaves(to1["m"]), _np_leaves(jo1["m"]),
+                       floor=_floor(cfgs[1]) / 10)
 
 
 def test_straggler_drop_microbatch():
@@ -481,21 +533,25 @@ def test_train_loop_checkpoints_and_resume_match_jax(tmp_path):
     assert ckpt.latest_step(td) == jckpt.latest_step(jd) == 7
 
 
-def test_train_loop_from_jax_params():
-    """``train_loop(params=)`` starts from another package's parameters:
-    the JAX package's draw for key 5, converted, trains as the JAX steps
-    composed by hand from that draw over the seed-0 batches."""
+def test_train_loop_from_jax_params(tmp_path):
+    """The port's loop starts from another package's parameters through a
+    checkpoint: the JAX draw for key 5 and its fresh Adam state saved by
+    the JAX package at step 0, resumed by the port's loop, train as the
+    JAX steps composed by hand from that draw over the seed-0 batches."""
     jc, tc = _cfgs("qwen3-0.6b")
     jp = jlm.init_params(jc, jax.random.PRNGKey(5), model_shards=1)
+    d = str(tmp_path)
+    jckpt.save(d, (jp, jsteps.init_opt(jc, jp)), step=0, sync=True)
     step = jax.jit(jsteps.make_train_step(jc, lr=3e-4))
     jo, rng, want = jsteps.init_opt(jc, jp), np.random.default_rng(0), []
     for _ in range(3):
         jp, jo, aux = step(jp, jo, jtrain.synth_batch(rng, jc, 4, 32))
         want.append(float(aux["loss"]))
-    start = _port(jlm.init_params(jc, jax.random.PRNGKey(5), model_shards=1))
+    logs = []
     _, opt, got = ttrain.train_loop(tc, steps_n=3, batch=4, seq=32,
-                                    log=lambda s: None, device="cpu",
-                                    params=start)
+                                    log=logs.append, device="cpu",
+                                    ckpt_dir=d)
+    assert logs[0] == "resumed from step 0"
     np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
     assert int(opt["count"]) == 3
@@ -511,6 +567,28 @@ def test_train_cli_runs_reduced_on_the_cpu(tmp_path, capsys):
                           "--ckpt-every", "1"])
     assert len(losses) == 2 and "final loss" in capsys.readouterr().out
     assert ckpt.latest_step(str(tmp_path)) == 2
+
+
+@pytest.mark.parametrize("arch", SSM_FAMILIES)
+def test_train_cli_and_checkpoints_of_the_ssm_families(arch, tmp_path,
+                                                      capsys):
+    """``--arch mamba2-370m`` / ``zamba2-7b`` train from the CLI, and a
+    Mamba2 (and hybrid) ``(params, opt)`` tree restores bit for bit."""
+    losses = ttrain.main(["--arch", arch, "--reduced", "--steps", "2",
+                          "--batch", "2", "--seq", "16", "--device", "cpu"])
+    assert len(losses) == 2 and "final loss" in capsys.readouterr().out
+    cfg = CB.reduced(CB.get(arch))
+    d = str(tmp_path)
+    p, opt, _ = ttrain.train_loop(cfg, steps_n=2, batch=2, seq=16,
+                                  ckpt_dir=d, device="cpu",
+                                  log=lambda s: None)
+    got, step = ckpt.restore(d, (p, opt))
+    assert step == 2
+    paths = [q for q, _ in T.leaves_with_paths(p)]
+    assert "layers/A_log" in paths
+    assert ("shared_attn/wq" in paths) == (arch == "zamba2-7b")
+    for a, w in zip(T.leaves(got), T.leaves((p, opt))):
+        assert a.dtype == w.dtype and torch.equal(a, w)
 
 
 def test_train_loop_defaults_to_the_card(monkeypatch):
