@@ -4,8 +4,8 @@ fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
 online learning, its resilience layer, the always-on loop, the fit's
 neighbour comparators, the other serving paths, the multi-device tiers,
 the Table-10 comparison with the NCF models, the examples, dense LM
-serving and training, and the ssm and hybrid LM families — on one CUDA
-card.
+serving and training, the ssm and hybrid LM families and moe LM
+serving — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -242,8 +242,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     float32 one, `ssd_chunked` at chunk 64 against 256 (S = 256,
     float32, the JAX test's 1e-4), each limit beside a control that must
     read above it (the conv state dropped each step; each chunk alone);
-    `repro_torch.launch.serve.serve` at full width and depth (4.197·10⁸
-    and 6.7505·10⁹ float32 parameters; batch 4, a 64-token prompt
+    `repro_torch.launch.serve.serve` at full width (mamba2-370m at its
+    depth, 4.197·10⁸ float32 parameters; zamba2-7b cut to 42 of its 81
+    layers, seven of its 14 groups; batch 4, a 64-token prompt
     prefilled by sequential decode, 32 tokens): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the weights once a
     step, resident and peak MB, a profiled decode step; mamba2-370m
@@ -255,11 +256,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     gradients on each model's 2-layer cut (each leaf within 1e-4 of its
     max |g|, a TF32 control above it).  None of the seven kernels
     launches in this phase.
+26. the moe LM family's serving half — on a 2-layer cut of dbrx-132b's
+    full widths (16 experts of d_ff 10,752, top 4; B 2, S 32), the
+    routes of every (token, layer) read from a layer loop composed of
+    the package's sub-layers, `moe.router` and `moe.moe_dense_ref` (and
+    held equal to `lm.forward`): at float32 the card's routes equal the
+    CPU's and its logits within 2e-4·rms (the smallest top-k gap
+    printed; a TF32 control above the limit); the card's bfloat16
+    forward routes first (the share of routes that agree, with a floor)
+    and its logits then against the CPU's float32 forward on the card's
+    routes (64u·rms / 8u·rms; the CPU's own routes the control);
+    prefill's last-position logits against a float32-cache decode (a
+    cache-zeroed control); reduced arctic-480b (top 2 of 4, the dense
+    residual MLP) card vs CPU; then dbrx-132b served at full width cut
+    to L = 4 (1.4269·10¹⁰ float32 parameters) through
+    `repro_torch.launch.serve.serve` (batch 4, prompt 64, 32 tokens):
+    draw, prefill and decode seconds, tokens/s beside the bound of
+    reading the weights of the routed experts, the attention and both
+    embedding tables once a step, the distinct experts a layer a step
+    (a replay of the served run), resident and peak MB, a profiled
+    decode step.  None of the seven kernels launches in this phase.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–25 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–26 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -3290,11 +3311,13 @@ def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3,
     time by kernel → the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.models import steps
+    from repro_torch.models import lm, steps
 
-    toks = torch.zeros((B, S), dtype=torch.int32, device=dev)
+    # distinct rows: identical ones would route to the same experts
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
     cache = steps.init_cache(cfg, B, S + 2 + steps_n, device=dev)
-    if cfg.family == "dense":
+    if cfg.family in lm.KV_FAMILIES:
         _, pc = steps.make_prefill(cfg)(params, {"tokens": toks})
         cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
         cache["pos"] = S
@@ -3914,9 +3937,12 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
         del xs, dt, Bm, Cm, y256, y64, alone
         gc_collect(on_card)
 
-    # ---- (b) serving at full width and depth ----
+    # ---- (b) serving at full width; zamba2-7b cut to 7 of its 14 groups
+    # (phase 26 takes the time it saves) ----
     t_a = time.perf_counter() - t_phase
     for full in fulls:
+        if on_card and full.family == "hybrid":
+            full = dataclasses.replace(full, L=42)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         t0 = time.perf_counter()
         params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
@@ -4081,6 +4107,315 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
     print(f"[25 done] phase 25 in {t_all:.1f} s: (a) {t_a:.1f}, (b) "
           f"{t_b:.1f}, (c) {t_all - t_a - t_b:.1f} s (power limit {power})",
           flush=True)
+
+
+def moe_routes(cfg, p, toks, force=None):
+    """`lm.forward` composed layer by layer from `lm.layer`, the attention
+    sub-layer, `moe.router` and `moe.moe_dense_ref`, with each layer's
+    routes read → (logits [B, S, V] float32, expert ids [L, B, S, k] and
+    the gap between the k-th and (k+1)-th router logit [L, B, S] (inf
+    when k = E), both on the CPU).  ``force`` (ids [L, B, S, k]) replaces
+    each layer's routes, the gates then the softmax of this run's router
+    logits at those experts."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+
+    x = lm.embed_tokens(p, cfg, toks)
+    eids, gaps = [], []
+    k = cfg.moe_top_k
+    for i in range(cfg.L):
+        pl = lm.layer(p["layers"], i)
+        x, _ = lm._attn_sublayer(pl, x, cfg, causal=True)
+        xn = L.rms_norm(x, pl["ln2"], cfg.norm_eps)
+        eid, gate = MOE.router(pl, xn, cfg)
+        logits = torch.einsum("bsd,de->bse", xn.float(), pl["router"].float())
+        if force is not None:
+            eid = force[i].to(x.device)
+            gate = torch.softmax(logits.gather(-1, eid.long()), dim=-1)
+        y = MOE.moe_dense_ref(pl, xn, eid, gate, cfg)
+        if cfg.moe_dense_ff:
+            y = y + L.mlp(dict(w1=pl["w1d"], w3=pl["w3d"], w2=pl["w2d"]), xn)
+        x = x + y
+        eids.append(eid.cpu())
+        lg = torch.sort(logits, dim=-1, descending=True).values
+        gaps.append((lg[..., k - 1] - lg[..., k]).cpu() if k < cfg.n_experts
+                    else torch.full(lg.shape[:-1], float("inf")))
+    h = L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    return steps.logits_of(cfg, p, h), torch.stack(eids), torch.stack(gaps)
+
+
+def moe_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 26: the moe family's serving path (`models/moe.py`'s router
+    and `moe_dense_ref` under `lm.py`, `steps.py` and `launch/serve.py`)
+    — checks on a 2-layer cut of dbrx-132b's full widths and on reduced
+    arctic-480b, each comparing the routes first and the values second;
+    then dbrx-132b served at full width, L = 4, through
+    `repro_torch.launch.serve.serve`.  Launches none of the seven
+    kernels (no `pallas_call` on this path)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    full = CB.get("dbrx-132b")
+    if not on_card:
+        full = CB.reduced(full)                  # rehearsal size
+    u = 2.0 ** -8                                # bfloat16's unit roundoff
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    nparams = lambda tree: sum(t.numel() for t in T.leaves(tree))
+    rng = np.random.default_rng(args.seed + 26)
+
+    def err(a, b):
+        e = (a.float().cpu() - b.float().cpu()).abs()
+        return float(e.max()), float(e.mean())
+
+    # ---- (a) a 2-layer cut of the full widths ----
+    cut = dataclasses.replace(full, L=2)
+    c32 = dataclasses.replace(cut, dtype="float32")
+    B2, S2 = 2, 32
+    p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+    toks = torch.from_numpy(rng.integers(0, cut.vocab, (B2, S2)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        lg32, e32, _ = moe_routes(c32, p, toks)
+        fwd = steps.logits_of(c32, p, lm.forward(c32, p, {"tokens": toks}))
+        lgbf, ebf, _ = moe_routes(cut, p, toks)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            lgtf, etf, _ = moe_routes(c32, p, toks)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    sync()
+    if not torch.equal(fwd, lg32):
+        raise AssertionError("the composed layer loop differs from "
+                             "lm.forward")
+    hp = host(p)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref, e0, gap0 = moe_routes(c32, hp, toks.cpu())
+        forced, _, _ = moe_routes(c32, hp, toks.cpu(), force=ebf)
+    t_cpu = time.perf_counter() - t0
+    rms = float(ref.pow(2).mean().sqrt())
+    same = bool(torch.equal(e32, e0))
+    f_max, f_mean = err(lg32, ref)
+    t_max, _ = err(lgtf, ref)
+    t_flip = float((etf != e0).any(-1).float().mean())
+    # the H100 read 3.5e-5·rms (PERF.md §6); TF32 products 1.8e-2·rms
+    lim = 2e-4 * rms
+    print(f"[26 cpu32] {cut.name} cut to L=2 (d={cut.d_model}, "
+          f"{cut.n_experts} experts of ff={cut.d_ff}, top {cut.moe_top_k}, "
+          f"V={cut.vocab_padded(1)}, {nparams(p) / 1e9:.4f}e9 params), B={B2}"
+          f" S={S2}, float32, card vs CPU (CPU {t_cpu:.1f} s for two "
+          f"forwards): routes equal on every (token, layer): {same} "
+          f"(smallest gap between the k-th and (k+1)-th router logit "
+          f"{float(gap0.min()):.4g}); logits max abs {f_max:.4g}, mean "
+          f"{f_mean:.4g} (logit rms {rms:.4g}; limit 2e-4·rms {lim:.4g}); "
+          f"control, TF32 products on the card: max abs {t_max:.4g}, routes "
+          f"differing on {t_flip:.4f} of the (token, layer) pairs (power "
+          f"limit {power})", flush=True)
+    if not same:
+        raise AssertionError("the card's float32 routes differ from the "
+                             "CPU's")
+    if not f_max <= lim:
+        raise AssertionError("the card's float32 logits disagree with the "
+                             "CPU's")
+    if on_card and not t_max > lim:
+        raise AssertionError("the logit limit passes TF32 products: it does "
+                             "not hold the card to float32")
+    # the card's bfloat16 forward against the CPU's float32 one, routes
+    # first: a route flips where the set of k experts differs (an order
+    # that differs only reorders the slot sum).  A flip moves its row by
+    # O(1), and attention carries that on to the later positions, so the
+    # values are held against the CPU's float32 forward run on the card's
+    # routes; the rows whose own routes agree in every layer are shown
+    # beside it, and the forward on the CPU's own routes is the control
+    flip = (ebf.sort(-1).values != e0.sort(-1).values).any(-1)   # [L, B, S]
+    agree = float(1 - flip.float().mean())
+    rows = ~flip.any(0)                                  # [B, S]
+    b_max, b_mean = err(lgbf, forced)
+    r_max, r_mean = err(lgbf.cpu()[rows], ref[rows])
+    k_max, _ = err(lgbf, ref)
+    # the card read max 41u·rms and mean 4.5u·rms over the 64 positions
+    # (phase 23 holds 4 positions: 24u·rms) and agreed on 0.9375 of the
+    # routes (PERF.md §6)
+    lim_b = (64 * u * rms, 8 * u * rms)
+    floor = 0.85
+    print(f"[26 cpu] the card's bfloat16 forward vs the CPU's float32: "
+          f"routes agree on {agree:.4f} of the (token, layer) pairs "
+          f"({int(flip.sum())} of {flip.numel()} flipped; floor {floor}); "
+          f"logits against the CPU's float32 forward on the card's routes "
+          f"max abs {b_max:.4g}, mean {b_mean:.4g} (limits 64u·rms "
+          f"{lim_b[0]:.4g}, 8u·rms {lim_b[1]:.4g}, u = 2^-8); on the "
+          f"{float(rows.float().mean()):.4f} of the rows whose own routes "
+          f"agree in every layer, against the CPU's own routes: max abs "
+          f"{r_max:.4g}, mean {r_mean:.4g}; control, every row against the "
+          f"CPU's own routes: max abs {k_max:.4g} (power limit {power})",
+          flush=True)
+    if not agree >= floor:
+        raise AssertionError("too many of the bfloat16 routes flipped")
+    if not (b_max <= lim_b[0] and b_mean <= lim_b[1]):
+        raise AssertionError("the card's bfloat16 logits disagree with the "
+                             "CPU's")
+    if bool(flip.any()) and not k_max > lim_b[0]:
+        raise AssertionError("the bfloat16 limit passes flipped routes")
+    del hp, ref, forced, lgbf, lgtf, fwd
+    gc_collect(on_card)
+    # the KV cache at float32: prefill's last-position logits against a
+    # token-by-token decode (a float32 cache), and a decode whose cache is
+    # zeroed before each step (the control)
+    pre, _ = steps.make_prefill(c32)(p, {"tokens": toks})
+    dec = steps.make_decode_step(c32)
+    outs = []
+    for drop in (False, True):
+        cache = steps.init_cache(c32, B2, S2, dtype=torch.float32, device=dev)
+        for t in range(S2):
+            if drop:
+                cache["k"].zero_()
+                cache["v"].zero_()
+            lg, cache = dec(p, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    sync()
+    rms_p = float(pre.pow(2).mean().sqrt())
+    d_max, d_mean = err(outs[0], pre)
+    k_max, k_mean = err(outs[1], pre)
+    lim_d = (16 * u * rms_p, 4 * u * rms_p)
+    print(f"[26 cache] float32, a {S2}-step decode (float32 cache) vs "
+          f"prefill's last-position logits: max abs {d_max:.4g}, mean "
+          f"{d_mean:.4g} (logit rms {rms_p:.4g}; limits 16u·rms "
+          f"{lim_d[0]:.4g}, 4u·rms {lim_d[1]:.4g}); control, the cache zeroed"
+          f" before each step: max {k_max:.4g}, mean {k_mean:.4g} (power "
+          f"limit {power})", flush=True)
+    if not (d_max <= lim_d[0] and d_mean <= lim_d[1]):
+        raise AssertionError("the decode's KV cache disagrees with prefill")
+    if not (k_max > lim_d[0] and k_mean > lim_d[1]):
+        raise AssertionError("the cache check passes a decode without its "
+                             "cache")
+    del p, pre, outs, cache
+    gc_collect(on_card)
+    # reduced arctic-480b: top 2 of 4 and the dense residual MLP
+    arc = dataclasses.replace(CB.reduced(CB.get("arctic-480b")),
+                              dtype="float32")
+    pa = lm.init_params(arc, prng.PRNGKey(0), model_shards=1, device=dev)
+    ta = torch.from_numpy(rng.integers(0, arc.vocab, (B2, S2)).astype(
+        np.int32)).to(dev)
+    with torch.no_grad():
+        lga, ea, _ = moe_routes(arc, pa, ta)
+        lga0, ea0, gapa = moe_routes(arc, host(pa), ta.cpu())
+    a_max, _ = err(lga, lga0)
+    print(f"[26 arctic] {arc.name} reduced (top {arc.moe_top_k} of "
+          f"{arc.n_experts}, dense residual ff {arc.moe_dense_ff}), float32, "
+          f"card vs CPU: routes equal {bool(torch.equal(ea, ea0))} (smallest "
+          f"gap {float(gapa.min()):.4g}); logits max abs {a_max:.4g} (limit "
+          f"1e-4) (power limit {power})", flush=True)
+    if not (torch.equal(ea, ea0) and a_max <= 1e-4):
+        raise AssertionError("reduced arctic-480b: the card disagrees with "
+                             "the CPU")
+    del pa, lga, lga0
+    gc_collect(on_card)
+
+    # ---- (b) dbrx-132b served at full width, L = 4 ----
+    t_a = time.perf_counter() - t_phase
+    served = dataclasses.replace(full, L=4)
+    B, S, GEN = 4, 64, 32
+    held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_params(served, prng.PRNGKey(0), model_shards=1,
+                            device=dev)
+    sync()
+    t_init = time.perf_counter() - t0
+    draw_peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    logs = []
+    out, st = serve(served, batch=B, prompt_len=S, gen=GEN, seed=0,
+                    log=logs.append, device=dev, params=params)
+    o = out.cpu().numpy()
+    if o.shape != (B, GEN + 1) or not ((o >= 0) & (o < served.vocab)).all():
+        raise AssertionError(f"served tokens {o.shape} out of range")
+    # the served run replayed (the same prompts, then the served tokens)
+    # with `moe_dense_ref` wrapped to count each call's distinct experts:
+    # one call, so one host sync, a layer
+    counts = []
+    orig = MOE.moe_dense_ref
+
+    def counted(pl, x, eid, gate, cfg):
+        counts.append(int(torch.unique(eid).numel()))
+        return orig(pl, x, eid, gate, cfg)
+
+    MOE.moe_dense_ref = counted
+    try:
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, served.vocab, (B, S)).astype(np.int32)).to(dev)
+        _, pc = steps.make_prefill(served)(params, {"tokens": prompts})
+        n_pre = len(counts)
+        cache = steps.init_cache(served, B, S + GEN, device=dev)
+        cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
+        cache["pos"] = S
+        dec = steps.make_decode_step(served)
+        replay = []
+        for i in range(GEN):
+            lg, cache = dec(params, cache, out[:, i:i + 1])
+            replay.append(torch.argmax(lg[:, -1], -1).to(torch.int32))
+    finally:
+        MOE.moe_dense_ref = orig
+    if not torch.equal(torch.stack(replay, 1).cpu(), out[:, 1:].cpu()):
+        raise AssertionError("the replay's tokens differ from the served run")
+    per_step = np.array(counts[n_pre:], dtype=np.float64).reshape(
+        GEN, served.L)
+    del pc, cache
+    # the decode bound: the float32 weights a step must read — every
+    # layer's attention, norms and router, the experts it routed to, both
+    # embedding tables (the embedding is a one-hot product) and the final
+    # norm — over the device memory's rate
+    lay = params["layers"]
+    expert = 4 * sum(lay[n][0, 0].numel() for n in ("w1", "w3", "w2"))
+    dense = 4 * sum(v[0].numel() for n, v in lay.items()
+                    if n not in ("w1", "w3", "w2"))
+    tables = 4 * sum(params[n].numel() for n in ("embed", "out_embed",
+                                                  "final_norm"))
+    step_bytes = (served.L * dense + expert * per_step.sum(1).mean()
+                  + tables)
+    bound_s = step_bytes / HBM_BYTES_PER_S
+    nparam = nparams(params)
+    print(f"[26 serve] {served.name} cut to L={served.L} of {full.L} (full "
+          f"widths: {nparam / 1e10:.4f}e10 float32 params, "
+          f"{4 * nparam / 1e9:.2f} GB) batch {B}, prompt {S} (one prefill "
+          f"forward), gen {GEN}: params drawn in {t_init:.2f} s, prefill "
+          f"{st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s, "
+          f"{st['tok_per_s']:.1f} tokens/s (bound {B / bound_s:.0f} "
+          f"tokens/s: {step_bytes / 1e9:.2f} GB of float32 weights a step, "
+          f"{1e3 * bound_s:.2f} ms); distinct experts a layer a decode step "
+          f"mean {per_step.mean():.2f} (min {per_step.min():.0f}, max "
+          f"{per_step.max():.0f}) of {served.n_experts}, prefill "
+          f"{counts[:n_pre]}; host syncs a step {served.L} (one a layer) "
+          + (f"resident {st['resident_mb']:.0f} MB, serve's peak "
+             f"{st['peak_mb']:.0f} MB, the draw's peak {draw_peak:.0f} MB "
+             f"(phases before it held {held:.0f} MB) " if on_card else "")
+          + f"(power limit {power})", flush=True)
+    if on_card:
+        profile_decode(served, params, B, S, dev, tag="26 profile")
+    del params, out
+    gc_collect(on_card)
+
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[26 kernels] launches in phase 26: {launched} (the router and "
+          f"the experts are plain torch products, as the JAX package's are "
+          f"plain XLA; no segment_add)", flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 26 launched a kernel it should not")
+    t_all = time.perf_counter() - t_phase
+    print(f"[26 done] phase 26 in {t_all:.1f} s: (a) {t_a:.1f}, (b) "
+          f"{t_all - t_a:.1f} s (power limit {power})", flush=True)
 
 
 def main(argv=None) -> int:
@@ -4354,6 +4689,7 @@ def main(argv=None) -> int:
     lm_phase(args, dev, on_card, power)
     seg24 = lm_train_phase(args, dev, on_card, power)
     ssm_phase(args, dev, on_card, power)
+    moe_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

@@ -4,12 +4,15 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       [--reduced] [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The dense family is
-prefilled by one forward over the prompt; the ssm and hybrid families
+Runs on ``cuda`` unless ``--device cpu`` is given.  The dense and moe
+families (``--arch dbrx-132b``) are prefilled by one forward over the
+prompt that writes its K/V into the cache; the ssm and hybrid families
 (``--arch mamba2-370m``, ``--arch zamba2-7b``) by sequential decode, as
 in the reference.  At llama3-8b's full width the float32 weights are
 8.0·10⁹ parameters (32 GB), at zamba2-7b's 6.75·10⁹ (27 GB): they are
-drawn layer by layer on the card from the seed's key.
+drawn layer by layer on the card from the seed's key.  dbrx-132b's 40
+layers (1.3·10¹¹ parameters) do not fit one card; its widths do at L ≤
+4 (1.43·10¹⁰, 57 GB).
 """
 from __future__ import annotations
 
@@ -55,10 +58,10 @@ def serve(cfg, *, batch, prompt_len, gen, seed=0, log=print, device=None,
     decode = steps.make_decode_step(cfg)
     cache = steps.init_cache(cfg, batch, T, device=dev)
 
-    # prefill by sequential decode for the non-dense families; one
-    # forward over the prompt for dense
+    # one forward over the prompt for dense and moe; sequential decode
+    # for the ssm and hybrid families
     t0 = time.perf_counter()
-    if cfg.family == "dense":
+    if cfg.family in lm.KV_FAMILIES:
         logits, pc = steps.make_prefill(cfg)(params, {"tokens": toks})
         cache["k"][:, :, :prompt_len] = pc["k"].to(cache["k"].dtype)
         cache["v"][:, :, :prompt_len] = pc["v"].to(cache["v"].dtype)

@@ -7,7 +7,8 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
       --ckpt-every 10] [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given, for the dense, ssm
-and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``).
+and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``); the
+moe family raises `NotImplementedError` (ROADMAP Queue 1 item 9.3b).
 The batches are the JAX package's numpy draws for the seed, so both
 packages train on the same tokens.  As in the reference, a resumed run
 draws its batches from the seed's first batch again, not from where the
@@ -46,7 +47,7 @@ def train_loop(cfg, *, steps_n, batch, seq, ckpt_dir=None, ckpt_every=0,
     """Train ``steps_n`` steps → (params, opt, losses of the steps run).
     With ``ckpt_dir`` it resumes from the newest complete checkpoint
     there, saves every ``ckpt_every`` steps and at the end."""
-    lm.check_family(cfg)
+    lm.check_trained(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     params = lm.init_params(cfg, prng.PRNGKey(seed), model_shards=1,

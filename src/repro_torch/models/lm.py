@@ -1,13 +1,16 @@
-"""Model assembly (`repro/models/lm.py`) for the dense, ssm and hybrid
-families.
+"""Model assembly (`repro/models/lm.py`) for the dense, moe, ssm and
+hybrid families.
 
 The JAX package assembles every family (dense | moe | ssm | hybrid |
-encdec | vlm).  The port runs three: dense (attention + MLP layers),
-ssm (Mamba2 layers, `models/ssm.py`) and hybrid (Mamba2 layers with one
-shared attention + MLP block run before each group of
-``cfg.attn_every``).  The moe, encdec and vlm families raise
-`NotImplementedError` (ROADMAP Queue 1 item 9).  Layer stacks are dicts
-of tensors with a leading L dim, applied layer by layer (the JAX
+encdec | vlm).  The port runs four: dense (attention + MLP layers), moe
+(attention + a routed mixture of experts, `models/moe.py`'s
+single-device path, plus arctic's dense residual MLP), ssm (Mamba2
+layers, `models/ssm.py`) and hybrid (Mamba2 layers with one shared
+attention + MLP block run before each group of ``cfg.attn_every``).
+The encdec and vlm families raise `NotImplementedError` (ROADMAP Queue
+1 item 9.5); the moe family serves but does not train yet (item 9.3b:
+`check_trained`).  Layer stacks are dicts of tensors with a leading L
+dim, applied layer by layer (the JAX
 package's `lax.scan`); on one device there is no sharding constraint
 and no scheduling barrier (`_opt_barrier` pins the FSDP gathers of
 training).  Training remats each stacked layer, as the reference does
@@ -27,9 +30,13 @@ from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
+# stacks of attention blocks: a K/V cache, prefilled by one forward
+KV_FAMILIES = ("dense", "moe")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -37,8 +44,18 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP.md, Queue 1 item 9); only "
+            f"repro_torch yet (ROADMAP.md, Queue 1 item 9.5); only "
             f"{PORTED_FAMILIES} runs")
+
+
+def check_trained(cfg: ArchConfig) -> None:
+    """Raise unless ``cfg``'s family is ported for training too."""
+    check_family(cfg)
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            f"to repro_torch yet (ROADMAP.md, Queue 1 item 9.3b); it "
+            f"serves only")
 
 
 # --------------------------------------------------------------------------
@@ -47,9 +64,10 @@ def check_family(cfg: ArchConfig) -> None:
 
 
 def _normal(key, shape, scale: float, device) -> torch.Tensor:
-    """``scale · jax.random.normal(key, shape, float32)``."""
+    """``scale · jax.random.normal(key, shape, float32)``, scaled in place
+    (an expert stack of dbrx-132b is 4.2 GB)."""
     s = torch.tensor(scale, dtype=torch.float32, device=device)
-    return s * prng.normal_chunked(key, shape, device=device)
+    return prng.normal_chunked(key, shape, device=device).mul_(s)
 
 
 def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
@@ -72,6 +90,16 @@ def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
                   bv=zeros(cfg.n_kv, hd))
     if cfg.qk_norm:
         p |= dict(q_norm=ones(hd), k_norm=ones(hd))
+    if cfg.family == "moe" and cfg.n_experts:
+        E = cfg.n_experts
+        p |= dict(router=nrm(ks[4], D, E), w1=nrm(ks[5], E, D, ff),
+                  w3=nrm(ks[6], E, D, ff), w2=nrm(ks[7], E, ff, D))
+        if cfg.moe_dense_ff:
+            fd = cfg.moe_dense_ff
+            p |= dict(w1d=nrm(prng.fold_in(key, 11), D, fd),
+                      w3d=nrm(prng.fold_in(key, 12), D, fd),
+                      w2d=nrm(prng.fold_in(key, 13), fd, D))
+        return p
     p |= dict(w1=nrm(ks[5], D, ff), w3=nrm(ks[6], D, ff),
               w2=nrm(ks[7], ff, D))
     return p
@@ -105,7 +133,8 @@ def _ssm_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
 def _stack_init(per_layer_fn, cfg, key, n, device="cpu"):
     """The JAX package's `vmap` of ``per_layer_fn`` over ``split(key, n)``:
     each layer is drawn from its own key into its slice of the stack, so
-    only one layer's draw is ever held beside the stack."""
+    only one layer's draw is ever held beside the stack (each leaf is
+    let go once copied)."""
     keys = prng.split(key, n)
     out = None
     for li in range(n):
@@ -113,9 +142,8 @@ def _stack_init(per_layer_fn, cfg, key, n, device="cpu"):
         if out is None:
             out = {k: torch.empty((n, *v.shape), dtype=v.dtype,
                                   device=device) for k, v in layer.items()}
-        for k, v in layer.items():
-            out[k][li] = v
-        del layer
+        for k in list(layer):
+            out[k][li] = layer.pop(k)
     return out
 
 
@@ -128,7 +156,7 @@ def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: drawing {cfg.param_dtype} parameters is not "
-            f"ported (ROADMAP.md, Queue 1 item 9); use param_dtype="
+            f"ported (ROADMAP.md, Queue 1 item 9.6); use param_dtype="
             f"'float32'")
     dev = resolve_device(device)
     ks = prng.split(key, 6)
@@ -140,7 +168,7 @@ def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
     )
     if not cfg.tie_embeddings:
         p["out_embed"] = _normal(ks[1], (V, D), 0.02, dev)
-    if cfg.family == "dense":
+    if cfg.family in KV_FAMILIES:
         p["layers"] = _stack_init(_dense_layer_init, cfg, ks[2], cfg.L, dev)
     else:
         p["layers"] = _stack_init(_ssm_layer_init, cfg, ks[2], cfg.L, dev)
@@ -185,7 +213,14 @@ def _attn_sublayer(pl, x, cfg, *, causal, q_offset=0, window=0,
 
 def _ffn_sublayer(pl, x, cfg):
     check_family(cfg)
-    return x + L.mlp(pl, x=L.rms_norm(x, pl["ln2"], cfg.norm_eps))
+    xn = L.rms_norm(x, pl["ln2"], cfg.norm_eps)
+    if cfg.family == "moe" and cfg.n_experts:
+        eid, gate = MOE.router(pl, xn, cfg)
+        y = MOE.moe_dense_ref(pl, xn, eid, gate, cfg)
+        if cfg.moe_dense_ff:
+            y = y + L.mlp(dict(w1=pl["w1d"], w3=pl["w3d"], w2=pl["w2d"]), xn)
+        return x + y
+    return x + L.mlp(pl, x=xn)
 
 
 def _dense_block(pl, x, cfg, *, causal=True, q_offset=0, window=0,
@@ -252,7 +287,7 @@ def forward(cfg: ArchConfig, p, batch):
     """Token inputs → final hidden states [B, S, D] (normed)."""
     check_family(cfg)
     x = embed_tokens(p, cfg, batch["tokens"])
-    if cfg.family == "dense":
+    if cfg.family in KV_FAMILIES:
         body = lambda pl, h: _dense_block(pl, h, cfg)[0]
         x = _scan_layers(body, x, unstack(p["layers"]), cfg.remat)
     elif cfg.family == "ssm":

@@ -1,10 +1,13 @@
-"""Training and serving steps (`repro/models/steps.py`) for the dense,
-ssm and hybrid families: the loss, Adam, the microbatched train step,
-caches, prefill and decode.
+"""Training and serving steps (`repro/models/steps.py`): for the dense,
+ssm and hybrid families the loss, Adam, the microbatched train step,
+caches, prefill and decode; for the moe family the serving half alone
+(caches, prefill and decode).
 
 The JAX package's `make_*` factories close over the config and return
 functions for `jax.jit`; these return plain functions.  The other
-families' caches and steps raise `NotImplementedError`.
+families' caches and steps raise `NotImplementedError`, and so do the
+moe family's loss, Adam state and train step (ROADMAP Queue 1 item
+9.3b).
 
 Differences from the JAX package's functional steps, each where the JAX
 launch scripts donate the buffers: `adam_update` (and so a train step)
@@ -62,6 +65,7 @@ def lm_loss(cfg: ArchConfig, p, batch):
     With ``cfg.lsh_softmax`` and ``batch["cands"]`` the normaliser runs
     over the candidates and the label (the paper's technique at the
     softmax, `models/lsh_softmax.py`), else over the whole vocabulary."""
+    lm.check_trained(cfg)
     h = lm.forward(cfg, p, batch)                            # [B, S_all, D]
     labels = batch["labels"]
     S_txt = labels.shape[1]
@@ -111,6 +115,7 @@ def value_and_grad(cfg: ArchConfig, params, batch):
 
 
 def init_opt(cfg: ArchConfig, params):
+    lm.check_trained(cfg)
     md = L.torch_dtype(cfg.moment_dtype)
     zeros = lambda x: torch.zeros(x.shape, dtype=md, device=x.device)
     dev = T.leaves(params)[0].device
@@ -158,7 +163,7 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
     split into µ microbatches whose gradients accumulate in
     ``cfg.grad_dtype``; ``batch["mb_mask"]`` [µ] weights them (a dropped
     straggler gets 0) and the sums renormalise over the survivors."""
-    lm.check_family(cfg)
+    lm.check_trained(cfg)
     nmicro = max(1, cfg.microbatches)
 
     def train_step(params, opt, batch):
@@ -205,16 +210,16 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
 
 def init_cache(cfg: ArchConfig, B: int, T: int, dtype=torch.bfloat16,
                device=None):
-    """Empty caches sized for total context T: the dense family's K/V
-    [L, B, T, Hkv, hd]; the ssm family's float32 SSM states [L, B, H, P,
-    N] and conv states [L, B, K−1, ·] in ``dtype``; the hybrid's also one
-    K/V slot per group, a window of `_hybrid_window` positions at long
-    context (a ring buffer)."""
+    """Empty caches sized for total context T: the dense and moe
+    families' K/V [L, B, T, Hkv, hd]; the ssm family's float32 SSM states
+    [L, B, H, P, N] and conv states [L, B, K−1, ·] in ``dtype``; the
+    hybrid's also one K/V slot per group, a window of `_hybrid_window`
+    positions at long context (a ring buffer)."""
     lm.check_family(cfg)
     dev = resolve_device(device)
     zeros = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=dev)
     cache = {"pos": 0}
-    if cfg.family == "dense":
+    if cfg.family in lm.KV_FAMILIES:
         cache["k"] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
         cache["v"] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
         return cache
@@ -316,16 +321,16 @@ def make_decode_step(cfg: ArchConfig):
         cache["pos"] = pos + 1
         return logits_of(cfg, params, h), cache
 
-    return {"dense": decode_dense, "ssm": decode_ssm,
+    return {"dense": decode_dense, "moe": decode_dense, "ssm": decode_ssm,
             "hybrid": decode_hybrid}[cfg.family]
 
 
 def make_prefill(cfg: ArchConfig):
     """Forward over the prompt → (last-token logits [B, V] float32, cache).
-    The dense family's cache holds the prompt's K/V in bfloat16.  The ssm
-    and hybrid families' is ``{"pos"}`` alone, as in the reference: their
-    prefill is the forward, and it fills no cache (`launch/serve.py`
-    prefills them by sequential decode)."""
+    The dense and moe families' cache holds the prompt's K/V in bfloat16.
+    The ssm and hybrid families' is ``{"pos"}`` alone, as in the
+    reference: their prefill is the forward, and it fills no cache
+    (`launch/serve.py` prefills them by sequential decode)."""
     lm.check_family(cfg)
 
     @torch.no_grad()
@@ -351,4 +356,4 @@ def make_prefill(cfg: ArchConfig):
         return (logits_of(cfg, params, h[:, -1]),
                 {"pos": batch["tokens"].shape[1]})
 
-    return prefill_dense if cfg.family == "dense" else prefill_generic
+    return prefill_dense if cfg.family in lm.KV_FAMILIES else prefill_generic

@@ -1792,3 +1792,60 @@ def test_ssm_families_serve_on_the_card_by_default(cuda, arch):
                             "--prompt-len", "8", "--gen", "4"])
     assert toks.device.type == "cuda" and toks.shape == (2, 5)
     assert st["peak_mb"] > 0
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "arctic-480b"])
+def test_moe_family_on_card_matches_cpu(cuda, name):
+    """Reduced dbrx-132b (every token to all 4 experts) and arctic-480b
+    (top 2 of 4, the dense residual MLP) at float32, the card against
+    the CPU: each layer's routes equal, the logits within 1e-4, and
+    `serve`'s greedy tokens equal."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+    cfg = dataclasses.replace(CB.reduced(CB.get(name)), dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    toks = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+
+    def routed(params, tk):
+        """The forward composed layer by layer → (logits, each layer's
+        expert ids)."""
+        x, eids = lm.embed_tokens(params, cfg, tk), []
+        for i in range(cfg.L):
+            pl = lm.layer(params["layers"], i)
+            x, _ = lm._attn_sublayer(pl, x, cfg, causal=True)
+            eids.append(MOE.router(pl, L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                                   cfg)[0].cpu())
+            x = lm._ffn_sublayer(pl, x, cfg)
+        h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return steps.logits_of(cfg, params, h).cpu(), eids
+
+    with torch.no_grad():
+        lg, e = routed(pc, toks.to(cuda))
+        lg0, e0 = routed(p, toks)
+        want = steps.logits_of(cfg, pc, lm.forward(cfg, pc, {
+            "tokens": toks.to(cuda)})).cpu()
+    assert torch.equal(lg, want)                 # the composed loop = forward
+    for a, w in zip(e, e0):
+        assert torch.equal(a, w)
+    torch.testing.assert_close(lg, lg0, rtol=1e-4, atol=1e-4)
+    got, st = serve(cfg, batch=2, prompt_len=16, gen=8, device=cuda,
+                    params=pc, log=lambda *_: None)
+    ref, _ = serve(cfg, batch=2, prompt_len=16, gen=8, device="cpu",
+                   params=p, log=lambda *_: None)
+    assert torch.equal(got.cpu(), ref) and st["peak_mb"] > 0
+
+
+def test_moe_family_serves_on_the_card_by_default(cuda):
+    """``python -m repro_torch.launch.serve --arch dbrx-132b --reduced``
+    with no ``--device`` serves on the card."""
+    from repro_torch.launch import serve as lserve
+    toks, st = lserve.main(["--arch", "dbrx-132b", "--reduced", "--batch",
+                            "2", "--prompt-len", "8", "--gen", "4"])
+    assert toks.device.type == "cuda" and toks.shape == (2, 5)
+    assert st["peak_mb"] > 0

@@ -57,6 +57,7 @@ def test_the_port_has_its_files():
             "src/repro_torch/models/lm.py",
             "src/repro_torch/models/steps.py",
             "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/moe.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/launch/train.py",
             "src/repro_torch/models/lsh_softmax.py",

@@ -6,8 +6,10 @@ serving half, `launch/serve.py`), on the CPU at the reduced configs.
   all ten names, and so do `reduced`, `SHAPES`, `runnable` and `cells`.
 * On each reduced config of a ported family (the dense llama3-8b,
   llama3-405b, qwen1.5-0.5b and qwen3-0.6b, the ssm mamba2-370m, the
-  hybrid zamba2-7b): `init_params` draws the JAX package's streams (the
-  same tree and shapes, each float within 4 ulp — `prng.normal`'s
+  hybrid zamba2-7b, the moe dbrx-132b — every token to all 4 experts —,
+  arctic-480b — top-2 of 4 and the dense residual MLP — and dbrx-132b
+  with 16 experts, top 4): `init_params` draws the JAX package's streams
+  (the same tree and shapes, each float within 4 ulp — `prng.normal`'s
   contract — and ≥ 95 % bit-equal); from the JAX parameters
   (`convert.lm_params_from_numpy`), `forward`, prefill and decode at
   float32 within 1e-4 of the JAX package's, every decode cache leaf
@@ -16,8 +18,10 @@ serving half, `launch/serve.py`), on the CPU at the reduced configs.
   bfloat16 (the JAX test's 3e-2) and float32 (1e-4).
 * `serve`'s greedy tokens equal the JAX `repro.launch.serve.serve`'s
   over 8 steps at float32, from the same parameters and prompts (the ssm
-  and hybrid families prefilled by sequential decode).
-* The moe, encdec and vlm families raise `NotImplementedError`.
+  and hybrid families prefilled by sequential decode, dense and moe by
+  one forward).
+* The encdec and vlm families raise `NotImplementedError`; so does
+  training a moe config, and drawing arctic-480b's bfloat16 parameters.
 """
 import dataclasses
 
@@ -35,13 +39,16 @@ from repro_torch import convert, prng
 from repro_torch.configs import base as CB
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
+from repro_torch.models import layers as L
 from repro_torch.models import lm, steps
 
 NAMES = JCB.names()
 DENSE = ("llama3-8b", "llama3-405b", "qwen1.5-0.5b", "qwen3-0.6b")
-PORTED = DENSE + ("mamba2-370m", "zamba2-7b")
-OTHER = ("arctic-480b", "dbrx-132b", "seamless-m4t-large-v2",
-         "llava-next-mistral-7b")
+# "dbrx-132b:16x4": reduced dbrx-132b with its 16 experts and top 4 (the
+# reduced config's 4 experts route every token to all of them)
+MOE = ("dbrx-132b", "arctic-480b", "dbrx-132b:16x4")
+PORTED = DENSE + ("mamba2-370m", "zamba2-7b") + MOE
+OTHER = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 F32 = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -54,10 +61,34 @@ def _threads():
 
 
 def _reduced(name, dtype=None):
+    name, _, experts = name.partition(":")
     j, t = JCB.reduced(JCB.get(name)), CB.reduced(CB.get(name))
+    if experts:
+        E, k = map(int, experts.split("x"))
+        j, t = (dataclasses.replace(c, n_experts=E, moe_top_k=k)
+                for c in (j, t))
     if dtype:
         j, t = (dataclasses.replace(c, dtype=dtype) for c in (j, t))
     return j, t
+
+
+def _min_router_margin(cfg, p, toks):
+    """The smallest gap between the k-th and (k+1)-th router logit over
+    the tokens and layers of the port's forward (inf when k = E): how
+    near the routes are to a flip."""
+    x = lm.embed_tokens(p, cfg, toks)
+    gaps = [torch.tensor([float("inf")])]
+    for i in range(cfg.L):
+        pl = lm.layer(p["layers"], i)
+        x, _ = lm._attn_sublayer(pl, x, cfg, causal=True)
+        xn = L.rms_norm(x, pl["ln2"], cfg.norm_eps)
+        lg = torch.sort(xn.float() @ pl["router"].float(), dim=-1,
+                        descending=True).values
+        k = cfg.moe_top_k
+        if k < cfg.n_experts:
+            gaps.append((lg[..., k - 1] - lg[..., k]).reshape(-1))
+        x = lm._ffn_sublayer(pl, x, cfg)
+    return float(torch.cat(gaps).min())
 
 
 def _jax_params(jcfg, seed=0):
@@ -127,7 +158,10 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
     h = lm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
     jh = jlm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
     assert h.dtype == torch.float32
-    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **F32)
+    margin = (_min_router_margin(tcfg, tp, torch.from_numpy(toks))
+              if tcfg.family == "moe" else None)
+    np.testing.assert_allclose(h.numpy(), np.asarray(jh), **F32,
+                               err_msg=f"smallest router margin {margin}")
     logits, cache = steps.make_prefill(tcfg)(
         tp, {"tokens": torch.from_numpy(toks)})
     jlogits, jcache = jsteps.make_prefill(jcfg)(jp,
@@ -135,7 +169,7 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **F32)
     assert cache["pos"] == int(jcache["pos"]) == 80
     assert sorted(cache) == sorted(jcache)
-    if tcfg.family == "dense":
+    if tcfg.family in ("dense", "moe"):
         for k in ("k", "v"):
             assert cache[k].dtype == torch.bfloat16
             np.testing.assert_allclose(cache[k].float().numpy(),
@@ -143,9 +177,15 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
                                        rtol=1e-2, atol=1e-2)
     else:                                 # no cache: the forward alone
         assert sorted(cache) == ["pos"]
-    # three decode steps on a fresh cache
-    tc = steps.init_cache(tcfg, 2, 8, device="cpu")
-    jc = jsteps.init_cache(jcfg, 2, 8)
+    # three decode steps on a fresh cache.  The moe configs' cache is
+    # float32: in bfloat16 one V entry of dbrx-132b:16x4 lies within
+    # float32 rounding of a bfloat16 midpoint and rounds to neighbouring
+    # values in the two packages (1 ulp, 2^-10), which moves the next
+    # step's logits by 1.3e-4; with a float32 cache they agree within
+    # 4e-7.  The bfloat16 cache path itself is the dense family's.
+    cdt = torch.float32 if tcfg.family == "moe" else torch.bfloat16
+    tc = steps.init_cache(tcfg, 2, 8, dtype=cdt, device="cpu")
+    jc = jsteps.init_cache(jcfg, 2, 8, dtype=getattr(jnp, str(cdt)[6:]))
     dec, jdec = steps.make_decode_step(tcfg), jsteps.make_decode_step(jcfg)
     for t in range(3):
         lg, tc = dec(tp, tc, torch.from_numpy(toks[:, t:t + 1]))
@@ -193,7 +233,7 @@ def test_dense_decode_matches_forward(dtype, tol):
 
 
 @pytest.mark.parametrize("name", ["llama3-8b", "qwen3-0.6b", "mamba2-370m",
-                                  "zamba2-7b"])
+                                  "zamba2-7b", *MOE])
 def test_serve_greedy_tokens_equal_jax(name):
     jcfg, tcfg = _reduced(name, "float32")
     jp = _jax_params(jcfg, seed=1)
@@ -226,6 +266,14 @@ def test_serve_cli_runs_the_ssm_families_on_the_cpu(arch, capsys):
     assert "tok/s batched" in capsys.readouterr().out
 
 
+def test_serve_cli_runs_the_moe_family_on_the_cpu(capsys):
+    toks, stats = tserve.main(["--arch", "dbrx-132b", "--reduced",
+                               "--batch", "2", "--prompt-len", "8",
+                               "--gen", "4", "--device", "cpu"])
+    assert toks.shape == (2, 5) and stats["tok_per_s"] > 0
+    assert "tok/s batched" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_raise(name):
     cfg = CB.reduced(CB.get(name))
@@ -245,17 +293,55 @@ def test_other_families_raise(name):
             call()
 
 
-def test_lm_params_from_numpy_keeps_the_tree():
-    jcfg, _ = _reduced("qwen1.5-0.5b")
+@pytest.mark.parametrize("name", ["qwen1.5-0.5b", "dbrx-132b",
+                                  "arctic-480b"])
+def test_lm_params_from_numpy_keeps_the_tree(name):
+    """Every leaf carried across bit for bit, the moe layers' [L, E, ...]
+    expert stacks, router and arctic's dense residual ``w*d`` too."""
+    jcfg, _ = _reduced(name)
     jp = _jax_params(jcfg)
     tp = _port_params(jp)
     assert sorted(tp) == sorted(jp) and sorted(tp["layers"]) == sorted(
         jp["layers"])
-    np.testing.assert_array_equal(tp["layers"]["wq"].numpy(),
-                                  np.asarray(jp["layers"]["wq"]))
+    for n, v in jp["layers"].items():
+        assert tuple(tp["layers"][n].shape) == v.shape, n
+        np.testing.assert_array_equal(tp["layers"][n].numpy(), np.asarray(v))
+    if jcfg.family == "moe":
+        E, D, ff = jcfg.n_experts, jcfg.d_model, jcfg.d_ff
+        assert tp["layers"]["w1"].shape == (jcfg.L, E, D, ff)
+        assert tp["layers"]["w2"].shape == (jcfg.L, E, ff, D)
+        assert tp["layers"]["router"].shape == (jcfg.L, D, E)
+        assert ("w1d" in tp["layers"]) == bool(jcfg.moe_dense_ff)
     half = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
                                         device="cpu", dtype="bfloat16")
     assert half["embed"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "arctic-480b"])
+def test_moe_training_raises(name):
+    """The moe family serves but does not train yet (ROADMAP item 9.3b):
+    every training entry point refuses it, before any draw."""
+    cfg = CB.reduced(CB.get(name))
+    p = lm.init_params(cfg, prng.PRNGKey(0), 1, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks}
+    for call in (lambda: steps.lm_loss(cfg, p, batch),
+                 lambda: steps.value_and_grad(cfg, p, batch),
+                 lambda: steps.init_opt(cfg, p),
+                 lambda: steps.make_train_step(cfg),
+                 lambda: ttrain.train_loop(cfg, steps_n=1, batch=1, seq=2,
+                                           device="cpu")):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*9.3b"):
+            call()
+
+
+def test_bfloat16_parameter_draw_raises():
+    """arctic-480b's full config draws bfloat16 parameters (ROADMAP item
+    9.6): refused before any draw; its reduced config draws float32."""
+    cfg = CB.get("arctic-480b")
+    assert cfg.param_dtype == "bfloat16"
+    with pytest.raises(NotImplementedError, match="ROADMAP.*9.6"):
+        lm.init_params(cfg, prng.PRNGKey(0), 1, device="cpu")
 
 
 def test_lm_params_from_numpy_keeps_the_hybrid_tree():
