@@ -5,7 +5,7 @@ online learning, its resilience layer, the always-on loop, the fit's
 neighbour comparators, the other serving paths, the multi-device tiers,
 the Table-10 comparison with the NCF models, the examples, dense LM
 serving and training, the ssm and hybrid LM families and moe LM
-serving — on one CUDA card.
+serving and training — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -276,11 +276,29 @@ Phases, in order; any failure raises and the script exits non-zero:
     embedding tables once a step, the distinct experts a layer a step
     (a replay of the served run), resident and peak MB, a profiled
     decode step.  None of the seven kernels launches in this phase.
+27. the moe LM family's training half — at dbrx-132b's d and d_ff, a
+    router and 4 experts, top 2 (random weights, 64 tokens) forward and
+    backward at float32, card vs CPU (routes equal, the output and each
+    gradient within 1e-4 of its own max, a TF32 control above it),
+    and the whole `lm_loss` on "dbrx-132b:16x4" at L = 1 (routes, loss
+    1e-5, gradients 1e-4 of each leaf's max with a TF32 control, an
+    Adam update 1e-6); then dbrx-132b trained at full width cut to L = 1
+    (4.49·10⁹ float32 parameters, its own µ = 4, bfloat16 moments,
+    float32 gradients) through `repro_torch.launch.train.train_loop`
+    for 10 steps at batch 8 × 128, the loss falling, 5 synchronised
+    `make_train_step` steps timed beside their bound, the distinct
+    experts a microbatch, resident and peak MB (≤ 70,000), a profiled
+    step, and the loop run again from the seed's draw with every loss
+    and each leaf's bit sums equal; a bfloat16-moment checkpoint of
+    reduced dbrx-132b at µ = 4 (step 5 of 10 under
+    ``build/chip_smoke_moe_ckpt``, removed) restored bit for bit and
+    resumed as the same state stepped in memory; reduced arctic-480b's
+    train step card vs CPU.  None of the seven kernels launches.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–26 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–27 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -3702,9 +3720,10 @@ def gc_collect(on_card: bool) -> None:
         torch.cuda.empty_cache()
 
 
-def profile_train_step(cfg, params, opt, batch) -> None:
+def profile_train_step(cfg, params, opt, batch, tag: str = "24 profile",
+                       n_top: int = 3) -> None:
     """One full-width train step under `torch.profiler` (after the loop's
-    warm steps): the device's busy share of the window and its three
+    warm steps): the device's busy share of the window and its ``n_top``
     largest costs by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3719,8 +3738,8 @@ def profile_train_step(cfg, params, opt, batch) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans, busy, by_name = device_activity(prof)       # µs
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    print(f"[24 profile] one train step in {1e3 * wall:.1f} ms (profiled): "
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    print(f"[{tag}] one train step in {1e3 * wall:.1f} ms (profiled): "
           f"{len(spans)} device activities, busy {busy / 1e3:.1f} ms (share "
           f"{busy / 1e6 / wall:.3f}); largest device costs ms: "
           + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
@@ -4418,6 +4437,387 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
           f"{t_all - t_a:.1f} s (power limit {power})", flush=True)
 
 
+def moe_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
+    """(bf16, float32) multiply-add FLOPs of one moe train step from the
+    shapes: the attention projections, each token's k experts' three
+    products, arctic's dense residual MLP and the one-hot embedding
+    product in bfloat16; the router, the attention scores and the logits
+    in float32.  Forward once, the layers again under remat, backward
+    twice each product (the one-hot product once)."""
+    D, Hq, Hk, hd = cfg.d_model, cfg.n_heads_padded, cfg.n_kv, cfg.hd
+    V, n, k = cfg.vocab_padded(1), B * S, cfg.moe_top_k
+    proj = 2 * n * D * (2 * Hq * hd + 2 * Hk * hd)              # per layer
+    experts = 2 * n * k * 3 * D * cfg.d_ff + 2 * n * 3 * D * cfg.moe_dense_ff
+    router = 2 * n * D * cfg.n_experts
+    attn = 2 * 2 * B * Hq * S * S * hd
+    emb = logits = 2 * n * V * D
+    bf16 = cfg.L * (proj + experts) * 4 + emb * 2
+    f32 = cfg.L * (attn + router) * 4 + logits * 3
+    return float(bf16), float(f32)
+
+
+def bit_sums(tree) -> list:
+    """Two checksums of each leaf's raw bits, Σ wᵢ·mᵢ mod p (p = 2³¹ − 1)
+    for two fixed multiplier streams mᵢ (never 0 mod p), summed exactly in
+    int64 on the leaf's device: one word that differs always changes
+    them unless its difference is a multiple of p.  Two states whose sums
+    differ are not bit-equal."""
+    from repro_torch import tree as T
+
+    P, CH = 2 ** 31 - 1, 1 << 26
+    out = []
+    for t in T.leaves(tree):
+        w = t.detach().reshape(-1)
+        w = w.view(torch.int16 if w.element_size() == 2 else torch.int32)
+        sums = [0, 0]
+        for lo in range(0, w.numel(), CH):
+            x = w[lo:lo + CH].to(torch.int64)
+            i = torch.arange(lo, lo + x.numel(), dtype=torch.int64,
+                             device=x.device)
+            for j, a in enumerate((48271, 69621)):
+                m = (i * a) % (P - 1) + 1
+                sums[j] += int(((x * m) % P).sum())
+        out.append((sums[0] % P, sums[1] % P))
+    return out
+
+
+def moe_train_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 27: the moe family's training (`models/moe.py`'s
+    differentiable `moe_dense_ref` under `lm_loss`, `make_train_step`'s
+    in-place microbatch sum, `adam_update` in slices, `launch/train.py::
+    train_loop`, bfloat16 moments through `train/checkpoint.py`) —
+    dbrx-132b at full width cut to L = 1 of 40, the one depth whose Adam
+    state one card holds: (a) the card against the CPU at float32, routes
+    first — a router and 4 experts at the full d and d_ff forward and
+    backward, then the whole loss, its gradients and an Adam update on
+    "dbrx-132b:16x4"; (b) `train_loop` with the config's own µ = 4 and
+    bfloat16 moments, the step's time, peak memory and profile, the loop
+    run twice bit-equal; (c) a bfloat16-moment checkpoint and resume on
+    reduced dbrx-132b; reduced arctic-480b's train step card vs CPU.
+    Launches none of the seven kernels."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+    from repro_torch.train import checkpoint as ckpt
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    base = CB.get("dbrx-132b")
+    own = dict(microbatches=base.microbatches, moment_dtype=base.moment_dtype,
+               grad_dtype=base.grad_dtype)
+    reduced = dataclasses.replace(CB.reduced(base), **own)
+    # full width, L = 1 of 40 (PERF.md §4); the CPU rehearses reduced
+    full = dataclasses.replace(base if on_card else reduced, L=1)
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    on_dev = lambda b: {k: v.to(dev) for k, v in b.items()}
+    nparams = lambda tree: sum(t.numel() for t in T.leaves(tree))
+    rng = np.random.default_rng(args.seed + 27)
+    mb = lambda: torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+
+    def tokens(cfg, B, S):
+        return {k: torch.from_numpy(rng.integers(0, cfg.vocab, (
+            B, S)).astype(np.int32)) for k in ("tokens", "labels")}
+
+    # ---- (a) the card against the CPU, float32, µ = 1, B 2 x S 32 ----
+    # each gradient leaf within 1e-4 of its own max |g| (phase 24's limit;
+    # a TF32 control must read above it)
+    GRAD_REL = 1e-4
+    t0 = time.perf_counter()
+    # (a') a router and experts at the full d and d_ff, forward and
+    # backward, card vs CPU, against a fixed cotangent: 4 experts, top 2
+    # (all 16 took 44.3–50.3 s, most of it 12.7 GB through the host and
+    # the CPU's backward)
+    e32 = dataclasses.replace(full, dtype="float32", n_experts=4,
+                              moe_top_k=2)
+    D, E, ff = e32.d_model, e32.n_experts, e32.d_ff
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    draw = lambda *shape: torch.randn(shape, generator=gen,
+                                      device=dev).mul_(0.02)
+    w = dict(router=draw(D, E), w1=draw(E, D, ff), w3=draw(E, D, ff),
+             w2=draw(E, ff, D))
+    x, R = draw(2, 32, D).mul_(50.0), draw(2, 32, D)
+
+    def expert_grads(w, x, R):
+        wt = {n: t.detach().requires_grad_(True) for n, t in w.items()}
+        xt = x.detach().requires_grad_(True)
+        eid, gate = MOE.router(wt, xt, e32)
+        y = MOE.moe_dense_ref(wt, xt, eid, gate, e32)
+        (y * R).sum().backward()
+        return eid, dict(y=y.detach(), x=xt.grad,
+                         **{n: wt[n].grad for n in w})
+
+    e_dev, got = expert_grads(w, x, R)
+    e_cpu, want = expert_grads(host(w), x.cpu(), R.cpu())
+    ff_worst, ff_path = worst_leaf(got, want)
+    tf_ff = float("nan")
+    if on_card:
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf_ff = worst_leaf(expert_grads(w, x, R)[1], want)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    same_ff = bool(torch.equal(e_dev.cpu(), e_cpu))
+    del w, got, want
+    gc_collect(on_card)
+    print(f"[27 cpu] moe.router + moe_dense_ref at {full.name}'s d and "
+          f"d_ff ({E} experts of {D} x {ff}, top {e32.moe_top_k}; "
+          f"random weights), float32, 64 tokens: routes card = CPU "
+          f"{same_ff}; the output and each gradient (x, router, w1, w3, "
+          f"w2) within {ff_worst:.3g} of its own max ({ff_path}; limit "
+          f"{GRAD_REL}); control, TF32 products: {tf_ff:.3g}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (same_ff and ff_worst <= GRAD_REL):
+        raise AssertionError("the full-width experts' backward: the card "
+                             "disagrees with the CPU")
+    if on_card and not tf_ff > GRAD_REL:
+        raise AssertionError("the experts' limit passes TF32 products")
+    # the whole loss on "dbrx-132b:16x4" (16 experts, top 4, the reduced
+    # widths): at full widths the CPU's half of this check took 215.4 s on
+    # the card's host (PERF.md §4), a fifth of the script's time
+    cut = dataclasses.replace(reduced, n_experts=16, moe_top_k=4, L=1,
+                              dtype="float32", microbatches=1)
+    p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+    hp = host(p)
+    b = tokens(cut, 2, 32)
+    with torch.no_grad():
+        _, e_dev, _ = moe_routes(cut, p, b["tokens"].to(dev))
+        _, e_cpu, gap = moe_routes(cut, hp, b["tokens"])
+    same = bool(torch.equal(e_dev, e_cpu))
+    print(f"[27 cpu] the reduced 'dbrx-132b:16x4' config at L = 1 "
+          f"(d={cut.d_model}, {cut.n_experts} experts of "
+          f"ff={cut.d_ff}, top {cut.moe_top_k}, V={cut.vocab_padded(1)}; "
+          f"{nparams(p) / 1e6:.3f}e6 params), float32 B=2 S=32, "
+          f"lm_loss: routes card = CPU on all "
+          f"{e_cpu.numel()} (token, slot) pairs: {same} (smallest gap "
+          f"between the k-th and (k+1)-th router logit "
+          f"{float(gap.min()):.4g})", flush=True)
+    if not same:
+        raise AssertionError("the card's routes differ from the CPU's")
+    lc, g_dev = steps.value_and_grad(cut, p, on_dev(b))
+    l0, g0 = steps.value_and_grad(cut, hp, b)
+    worst, path = worst_leaf(g_dev, g0)
+    rel = abs(float(lc) - float(l0)) / abs(float(l0))
+    tf_worst, tf_path = float("nan"), "-"
+    if on_card:
+        tf_worst, tf_path = worst_leaf(tf32_grads(cut, p, on_dev(b)), g0)
+    del g0
+    gc_collect(on_card)
+    upd_cpu = steps.adam_update(cut, hp, host(g_dev), steps.init_opt(cut, hp))
+    upd_dev = steps.adam_update(cut, p, g_dev, steps.init_opt(cut, p))
+    adam_err = max(float((a.cpu().float() - w.float()).abs().max())
+                   for a, w in zip(T.leaves(upd_dev[:2]),
+                                   T.leaves(upd_cpu[:2])))
+    print(f"[27 cpu] loss card {float(lc):.6f} vs CPU {float(l0):.6f} (rel "
+          f"{rel:.3g}, limit 1e-5); worst gradient leaf {worst:.3g} of its "
+          f"max |g| ({path}; limit {GRAD_REL}); control, TF32 products on "
+          f"the card: worst leaf {tf_worst:.3g} ({tf_path}); Adam update of "
+          f"the card's gradients ({cut.moment_dtype} moments) card vs CPU "
+          f"max abs {adam_err:.3g} (limit 1e-6) (power limit {power})",
+          flush=True)
+    if not (rel <= 1e-5 and worst <= GRAD_REL):
+        raise AssertionError("the card's loss or gradients disagree with "
+                             "the CPU's")
+    if on_card and not tf_worst > GRAD_REL:
+        raise AssertionError("the gradient bound passes TF32 products: it "
+                             "does not hold the card to float32")
+    if not adam_err <= 1e-6:
+        raise AssertionError("the card's Adam update disagrees with the "
+                             "CPU's")
+    del p, hp, g_dev, upd_cpu, upd_dev
+    gc_collect(on_card)
+    t_a = time.perf_counter() - t_phase
+
+    # ---- (b) dbrx-132b at full width, L = 1, its own training settings ----
+    B, S, N_STEPS, N_TIMED = 8, 128, 10, 5
+    held = mb()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    per_call, orig = [], MOE.moe_dense_ref
+
+    def counted(pl, x, eid, gate, cfg):
+        per_call.append(int(torch.unique(eid).numel()))
+        return orig(pl, x, eid, gate, cfg)
+
+    loop = lambda: ltrain.train_loop(full, steps_n=N_STEPS, batch=B, seq=S,
+                                     log=lambda *_: None, device=dev,
+                                     seed=args.seed)
+    MOE.moe_dense_ref = counted        # the loop's routes, one sync a call
+    try:
+        t0 = time.perf_counter()
+        params, opt, losses = loop()
+        wall = time.perf_counter() - t0
+    finally:
+        MOE.moe_dense_ref = orig
+    loop_peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    sums = bit_sums((params, opt))      # for the run again below
+    nparam, resident = nparams(params), mb()
+    # the step's own time: the loop's step function over batches drawn
+    # beforehand, each step synchronised (median of steps 1 on)
+    step_fn = steps.make_train_step(full)
+    trng = np.random.default_rng(args.seed + 1)
+    batches = [ltrain.synth_batch(trng, full, B, S, device=dev)
+               for _ in range(N_TIMED)]
+    marks = []
+    for tb in batches:
+        t = time.perf_counter()
+        params, opt, aux = step_fn(params, opt, tb)
+        sync()
+        marks.append(time.perf_counter() - t)
+    step_s = float(np.median(marks[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    per_call = np.asarray(per_call, dtype=np.float64)
+    # the bound: Adam reads p, g, m, v and writes p, m, v once (4 + 4 + 2
+    # + 2 + 4 + 2 + 2 B a parameter at bfloat16 moments); each microbatch's
+    # forward and backward read the float32 experts once each
+    md = torch.empty((), dtype=getattr(torch, full.moment_dtype))
+    adam_bytes = nparam * (3 * 4 + 4 * md.element_size())
+    expert_bytes = 4 * sum(params["layers"][n].numel()
+                           for n in ("w1", "w3", "w2"))
+    b_bytes = adam_bytes + full.microbatches * 2 * expert_bytes
+    bf, f32 = moe_step_flops(full, B, S)
+    t_bytes = b_bytes / HBM_BYTES_PER_S
+    t_ops = bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    print(f"[27 train] {full.name} at L={full.L} of {base.L}, full widths "
+          f"({nparam / 1e9:.4f}e9 float32 params, µ={full.microbatches}, "
+          f"{full.moment_dtype} moments, {full.grad_dtype} gradients, "
+          f"{full.dtype} compute) batch {B} seq {S}: {N_STEPS} train_loop "
+          f"steps in {wall:.1f} s (the draw included), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; then {N_TIMED} "
+          f"synchronised make_train_step steps, median of steps 1-"
+          f"{N_TIMED - 1} {step_s:.4f} s (min {min(marks[1:]):.4f}, max "
+          f"{max(marks[1:]):.4f}), {B * S / step_s:.0f} tokens/s; distinct "
+          f"experts a layer a microbatch (each of {len(per_call)} calls: "
+          f"µ x 2 a step under remat) mean {per_call.mean():.2f} (min "
+          f"{per_call.min():.0f}, max {per_call.max():.0f}) of "
+          f"{full.n_experts}; "
+          + (f"resident {resident:.0f} MB; the card's peak {peak:.0f} MB "
+             f"(the loop's {loop_peak:.0f} MB), of which phases before it "
+             f"held {held:.0f} MB: the training's own peak "
+             f"{peak - held:.0f} MB (limit 70000 MB) " if on_card else "")
+          + f"(power limit {power})", flush=True)
+    print(f"[27 bound] bytes: Adam {adam_bytes / 1e9:.2f} GB + {full.microbatches}"
+          f" x 2 reads of the {expert_bytes / 1e9:.2f} GB of float32 experts "
+          f"= {b_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"{1e3 * t_bytes:.2f} ms; operations: {bf / 1e12:.3f} TFLOP in "
+          f"bf16 products at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s + "
+          f"{f32 / 1e12:.3f} TFLOP in float32 products at "
+          f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s {1e3 * t_ops:.2f} ms; bound "
+          f"{1e3 * max(t_bytes, t_ops):.2f} ms (by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}); the step took "
+          f"{1e3 * step_s:.2f} ms", flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"the full-width loss did not fall: {losses}")
+    # the limit holds what the training itself allocates: the earlier
+    # phases' state (the serving catalog, ~2.6 GB) is not the step's
+    if on_card and not peak - held <= 70000:
+        raise AssertionError(f"the training's own peak {peak - held:.0f} MB "
+                             f"passed 70000 MB")
+    if on_card:
+        profile_train_step(full, params, opt, batches[0], tag="27 profile",
+                           n_top=6)
+    # the loop again from the seed's draw (two states do not fit on the
+    # card beside a step): every loss equal and each parameter and moment
+    # leaf's bit sums (`bit_sums`) equal after its 10 steps
+    t0 = time.perf_counter()
+    del params, opt, batches
+    gc_collect(on_card)
+    params, opt, again = loop()
+    equal = again == losses and bit_sums((params, opt)) == sums
+    print(f"[27 repro] train_loop run twice from the seed's draw: the "
+          f"{N_STEPS} losses equal {again == losses}, the {len(sums)} "
+          f"parameter and moment leaves' bit sums after step {N_STEPS} "
+          f"equal {equal} ({time.perf_counter() - t0:.1f} s)", flush=True)
+    if not equal:
+        raise AssertionError("two train_loop runs from one state differ")
+    del params, opt
+    gc_collect(on_card)
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # ---- (c) a bfloat16-moment checkpoint on the card, reduced dbrx ----
+    d = os.path.join(ROOT, "build", "chip_smoke_moe_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(batch=B, seq=S, device=dev, seed=args.seed)
+    p5, o5, first = ltrain.train_loop(reduced, steps_n=5, ckpt_dir=d,
+                                      ckpt_every=5, log=lambda *_: None, **kw)
+    got, step = ckpt.restore(d, (p5, o5))
+    bits = lambda t: t.reshape(-1).view(torch.uint8)
+    same = step == 5 and all(
+        a.dtype == w.dtype and a.device == w.device
+        and torch.equal(bits(a), bits(w))
+        for a, w in zip(T.leaves(got), T.leaves((p5, o5))))
+    del got
+    # the loop resumed from the checkpoint against the same state stepped
+    # on in memory (both draw the seed's first batches again)
+    logs = []
+    _, o10, resumed = ltrain.train_loop(reduced, steps_n=10, ckpt_dir=d,
+                                        log=logs.append, **kw)
+    step_fn = steps.make_train_step(reduced)
+    brng, in_mem = np.random.default_rng(args.seed), []
+    for _ in range(5):
+        p5, o5, aux = step_fn(p5, o5, ltrain.synth_batch(
+            brng, reduced, B, S, device=dev))
+        in_mem.append(float(aux["loss"]))
+    mdt = T.leaves(o10["m"])[0].dtype
+    print(f"[27 ckpt] reduced {reduced.name} (µ={reduced.microbatches}, "
+          f"{mdt} moments): the step-5 checkpoint restored every leaf bit "
+          f"for bit: {same}; resumed {logs[:1]}: losses {resumed} vs the "
+          f"state in memory {in_mem}: equal {resumed == in_mem} (first five "
+          f"{first[0]:.4f} -> {first[-1]:.4f})", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    if not (same and mdt == torch.bfloat16 and resumed == in_mem
+            and logs[:1] == ["resumed from step 5"]):
+        raise AssertionError("the bfloat16-moment checkpoint did not resume "
+                             "bit for bit")
+    # reduced arctic-480b: top 2 of 4 and the dense residual MLP
+    arc = dataclasses.replace(CB.reduced(CB.get("arctic-480b")),
+                              dtype="float32")
+    pa = lm.init_params(arc, prng.PRNGKey(0), model_shards=1, device=dev)
+    hpa = host(pa)
+    ba = tokens(arc, 2, 32)
+    with torch.no_grad():
+        _, ea, _ = moe_routes(arc, pa, ba["tokens"].to(dev))
+        _, ea0, gapa = moe_routes(arc, hpa, ba["tokens"])
+    step_a = steps.make_train_step(arc)
+    _, oa, auxa = step_a(pa, steps.init_opt(arc, pa), on_dev(ba))
+    _, oa0, auxa0 = step_a(hpa, steps.init_opt(arc, hpa), ba)
+    a_rel = abs(float(auxa["loss"]) - float(auxa0["loss"])) / abs(
+        float(auxa0["loss"]))
+    a_worst, a_path = worst_leaf(oa["m"], oa0["m"])
+    print(f"[27 arctic] {arc.name} reduced (top {arc.moe_top_k} of "
+          f"{arc.n_experts}, dense residual ff {arc.moe_dense_ff}), float32, "
+          f"one train step card vs CPU: routes equal "
+          f"{bool(torch.equal(ea, ea0))} (smallest gap {float(gapa.min()):.4g})"
+          f"; loss rel {a_rel:.3g} (limit 1e-5); the first moment's worst "
+          f"leaf {a_worst:.3g} of its max ({a_path}; limit {GRAD_REL}) "
+          f"(power limit {power})", flush=True)
+    if not (torch.equal(ea, ea0) and a_rel <= 1e-5 and a_worst <= GRAD_REL):
+        raise AssertionError("reduced arctic-480b's train step: the card "
+                             "disagrees with the CPU")
+    del pa, hpa, oa, oa0, p5, o5, o10
+    gc_collect(on_card)
+
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[27 kernels] launches in phase 27: {launched} (the experts, their"
+          f" backward and Adam are plain torch products and elementwise "
+          f"ops, as the JAX package's are plain XLA; no segment_add: the "
+          f"pairs move by permutations)", flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 27 launched a kernel it should not")
+    t_all = time.perf_counter() - t_phase
+    print(f"[27 done] phase 27 in {t_all:.1f} s: (a) {t_a:.1f}, (b) "
+          f"{t_b:.1f}, (c) {t_all - t_a - t_b:.1f} s (power limit {power})",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -4690,6 +5090,7 @@ def main(argv=None) -> int:
     seg24 = lm_train_phase(args, dev, on_card, power)
     ssm_phase(args, dev, on_card, power)
     moe_phase(args, dev, on_card, power)
+    moe_train_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

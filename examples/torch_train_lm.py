@@ -4,13 +4,15 @@ off (`examples/train_lm.py` through `repro_torch`).
 
     PYTHONPATH=src python examples/torch_train_lm.py --arch qwen3-0.6b \
         [--steps 40] [--lsh-softmax] [--device cpu]
+    PYTHONPATH=src python examples/torch_train_lm.py --arch dbrx-132b
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With
 ``--lsh-softmax`` the output-embedding rows are hashed with simLSH every
 10 steps, and each step's normaliser runs over the labels' bucket-mates
 and random negatives; on the card the candidate rows' gradients add in
-index order through the `segment_add` kernel.  The dense family runs;
-the others raise `NotImplementedError`.
+index order through the `segment_add` kernel.  The dense, moe (``--arch
+dbrx-132b``, ``arctic-480b``), ssm and hybrid families run; the encdec
+and vlm families raise `NotImplementedError`.
 """
 import argparse
 import dataclasses

@@ -6,13 +6,17 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
       [--reduced] [--steps 50 --batch 8 --seq 128] [--ckpt-dir DIR \
       --ckpt-every 10] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given, for the dense, ssm
-and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``); the
-moe family raises `NotImplementedError` (ROADMAP Queue 1 item 9.3b).
-The batches are the JAX package's numpy draws for the seed, so both
-packages train on the same tokens.  As in the reference, a resumed run
-draws its batches from the seed's first batch again, not from where the
-interrupted run stopped.
+Runs on ``cuda`` unless ``--device cpu`` is given, for the dense, moe
+(``--arch dbrx-132b``; ``--arch arctic-480b`` with ``--reduced``, its
+full config draws bfloat16 parameters, ROADMAP Queue 1 item 9.6a), ssm
+and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``).  At
+dbrx-132b's full width one 80 GB card holds the Adam state of one
+layer only (float32 parameters and gradients, bfloat16 moments: 54 GB
+at L = 1; `train_loop` on ``dataclasses.replace(cfg, L=1)``, as
+`chip_smoke.py`'s phase 27 runs it).  The batches are the JAX
+package's numpy draws for the seed, so both packages train on the same
+tokens.  As in the reference, a resumed run draws its batches from the
+seed's first batch again, not from where the interrupted run stopped.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ def train_loop(cfg, *, steps_n, batch, seq, ckpt_dir=None, ckpt_every=0,
     """Train ``steps_n`` steps → (params, opt, losses of the steps run).
     With ``ckpt_dir`` it resumes from the newest complete checkpoint
     there, saves every ``ckpt_every`` steps and at the end."""
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     params = lm.init_params(cfg, prng.PRNGKey(seed), model_shards=1,

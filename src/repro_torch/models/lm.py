@@ -2,19 +2,18 @@
 hybrid families.
 
 The JAX package assembles every family (dense | moe | ssm | hybrid |
-encdec | vlm).  The port runs four: dense (attention + MLP layers), moe
-(attention + a routed mixture of experts, `models/moe.py`'s
+encdec | vlm).  The port serves and trains four: dense (attention + MLP
+layers), moe (attention + a routed mixture of experts, `models/moe.py`'s
 single-device path, plus arctic's dense residual MLP), ssm (Mamba2
 layers, `models/ssm.py`) and hybrid (Mamba2 layers with one shared
 attention + MLP block run before each group of ``cfg.attn_every``).
 The encdec and vlm families raise `NotImplementedError` (ROADMAP Queue
-1 item 9.5); the moe family serves but does not train yet (item 9.3b:
-`check_trained`).  Layer stacks are dicts of tensors with a leading L
-dim, applied layer by layer (the JAX
-package's `lax.scan`); on one device there is no sharding constraint
-and no scheduling barrier (`_opt_barrier` pins the FSDP gathers of
-training).  Training remats each stacked layer, as the reference does
-(`_scan_layers`); the hybrid's shared block is not rematerialised.
+1 item 9.5: `check_family`).  Layer stacks are dicts of tensors with a
+leading L dim, applied layer by layer (the JAX package's `lax.scan`);
+on one device there is no sharding constraint and no scheduling barrier
+(`_opt_barrier` pins the FSDP gathers of training).  Training remats
+each stacked layer, as the reference does (`_scan_layers`); the
+hybrid's shared block is not rematerialised.
 
 Weights are kept in ``cfg.param_dtype`` (float32) and cast to
 ``cfg.dtype`` (bfloat16) where they are used, as in the reference.
@@ -34,7 +33,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 # stacks of attention blocks: a K/V cache, prefilled by one forward
 KV_FAMILIES = ("dense", "moe")
 
@@ -46,16 +44,6 @@ def check_family(cfg: ArchConfig) -> None:
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch yet (ROADMAP.md, Queue 1 item 9.5); only "
             f"{PORTED_FAMILIES} runs")
-
-
-def check_trained(cfg: ArchConfig) -> None:
-    """Raise unless ``cfg``'s family is ported for training too."""
-    check_family(cfg)
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"to repro_torch yet (ROADMAP.md, Queue 1 item 9.3b); it "
-            f"serves only")
 
 
 # --------------------------------------------------------------------------
@@ -239,7 +227,11 @@ def layer(stacked: dict, i: int) -> dict:
 
 def unstack(stacked: dict) -> list:
     """A stacked layer dict → one dict per layer of `unbind` views: the
-    backward stacks each weight's per-layer gradients once."""
+    backward stacks each weight's per-layer gradients once.  One layer's
+    views are `squeeze`s, whose backward is a view: its gradients are
+    never copied (an expert stack's is 4.2 GB at dbrx-132b)."""
+    if next(iter(stacked.values())).shape[0] == 1:
+        return [{k: v.squeeze(0) for k, v in stacked.items()}]
     return [dict(zip(stacked, vs)) for vs in zip(
         *(v.unbind(0) for v in stacked.values()))]
 

@@ -1,19 +1,18 @@
 """Training and serving steps (`repro/models/steps.py`): for the dense,
-ssm and hybrid families the loss, Adam, the microbatched train step,
-caches, prefill and decode; for the moe family the serving half alone
-(caches, prefill and decode).
+moe, ssm and hybrid families the loss, Adam, the microbatched train
+step, caches, prefill and decode.
 
 The JAX package's `make_*` factories close over the config and return
 functions for `jax.jit`; these return plain functions.  The other
-families' caches and steps raise `NotImplementedError`, and so do the
-moe family's loss, Adam state and train step (ROADMAP Queue 1 item
-9.3b).
+families' losses, caches and steps raise `NotImplementedError` (ROADMAP
+Queue 1 item 9.5).
 
 Differences from the JAX package's functional steps, each where the JAX
 launch scripts donate the buffers: `adam_update` (and so a train step)
 updates the parameters and moments it was given in place, and a decode
 step writes the new K/V, SSM and conv states into the cache it was
-given; the cache's ``pos`` is a host int.
+given; the cache's ``pos`` is a host int.  A float32 microbatched step
+accumulates its gradients in place (`_accumulate_in_place`).
 """
 from __future__ import annotations
 
@@ -65,7 +64,7 @@ def lm_loss(cfg: ArchConfig, p, batch):
     With ``cfg.lsh_softmax`` and ``batch["cands"]`` the normaliser runs
     over the candidates and the label (the paper's technique at the
     softmax, `models/lsh_softmax.py`), else over the whole vocabulary."""
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     h = lm.forward(cfg, p, batch)                            # [B, S_all, D]
     labels = batch["labels"]
     S_txt = labels.shape[1]
@@ -113,9 +112,13 @@ def value_and_grad(cfg: ArchConfig, params, batch):
 # Adam (moments in cfg.moment_dtype — bf16 = optimizer-state compression)
 # --------------------------------------------------------------------------
 
+# elements of a leaf that `adam_update` updates at once: its float32
+# temporaries stay ≤ 1 GB each (an expert stack of dbrx-132b is 1.06·10⁹)
+ADAM_SLICE = 1 << 28
+
 
 def init_opt(cfg: ArchConfig, params):
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     md = L.torch_dtype(cfg.moment_dtype)
     zeros = lambda x: torch.zeros(x.shape, dtype=md, device=x.device)
     dev = T.leaves(params)[0].device
@@ -139,15 +142,19 @@ def adam_update(cfg: ArchConfig, params, grads, opt, *, lr=3e-4, b1=0.9,
     count = opt["count"] + 1
     c1 = 1.0 - b1 ** count.float()
     c2 = 1.0 - b2 ** count.float()
-    for p_, g_, m_, v_ in zip(*(T.leaves(t) for t in (
-            params, grads, opt["m"], opt["v"]))):
-        g32 = g_.float() * scale
-        m32 = b1 * m_.float() + (1 - b1) * g32
-        v32 = b2 * v_.float() + (1 - b2) * g32 * g32
-        step = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
-        p_.copy_(p_.float() * (1 - lr * wd) - lr * step)
-        m_.copy_(m32)
-        v_.copy_(v32)
+    for ts in zip(*(T.leaves(t) for t in (params, grads, opt["m"],
+                                          opt["v"]))):
+        # elementwise, so slices of ADAM_SLICE give the same bits
+        parts = (zip(*(t.view(-1).split(ADAM_SLICE) for t in ts))
+                 if all(t.is_contiguous() for t in ts) else (ts,))
+        for p_, g_, m_, v_ in parts:
+            g32 = g_.float() * scale
+            m32 = b1 * m_.float() + (1 - b1) * g32
+            v32 = b2 * v_.float() + (1 - b2) * g32 * g32
+            step = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
+            p_.copy_(p_.float() * (1 - lr * wd) - lr * step)
+            m_.copy_(m32)
+            v_.copy_(v32)
     return params, dict(opt, count=count), gnorm
 
 
@@ -156,14 +163,38 @@ def adam_update(cfg: ArchConfig, params, grads, opt, *, lr=3e-4, b1=0.9,
 # --------------------------------------------------------------------------
 
 
+def _accumulate_in_place(cfg, params, mbs, rest, mb_mask):
+    """(Σ w_i·loss_i, Σ w_i·∂loss_i/∂params) over the microbatches, the
+    gradients summed into one float32 tree as the backward passes make
+    them: each leaf's ``.grad`` starts at zeros and autograd adds each
+    leaf's gradient into it the moment it is complete, so no second
+    gradient tree is ever held beside the sum.  Microbatch i's backward
+    is seeded with w_i in place of 1: for w_i ∈ {0, 1} the sum is the
+    reference's ``0 + w_0·g_0 + w_1·g_1 + …`` bit for bit."""
+    tp = T.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = T.leaves(tp)
+    for t in leaves:
+        t.grad = torch.zeros_like(t)
+    dev = leaves[0].device
+    loss = torch.zeros((), dtype=torch.float32, device=dev)
+    for i, w in enumerate(mb_mask.to(dev)):
+        l_i = lm_loss(cfg, tp, {k: v[i] for k, v in mbs.items()} | rest)
+        torch.autograd.backward(l_i, grad_tensors=w, inputs=leaves)
+        loss = loss + w * l_i.detach()
+    return loss, T.unflatten(params, [t.grad for t in leaves])
+
+
 def make_train_step(cfg: ArchConfig, lr=3e-4):
     """→ ``train_step(params, opt, batch) → (params, opt, {"loss",
     "gnorm"})``.  With ``cfg.microbatches`` µ > 1 every batch entry whose
     leading dim is a multiple of µ (``cands`` too, as in the reference) is
     split into µ microbatches whose gradients accumulate in
     ``cfg.grad_dtype``; ``batch["mb_mask"]`` [µ] weights them (a dropped
-    straggler gets 0) and the sums renormalise over the survivors."""
-    lm.check_trained(cfg)
+    straggler gets 0) and the sums renormalise over the survivors.  A
+    float32 accumulator over float32 parameters is summed in place
+    (`_accumulate_in_place`) and divided in place; a bfloat16 one rounds
+    each weighted gradient into it, as the reference does."""
+    lm.check_family(cfg)
     nmicro = max(1, cfg.microbatches)
 
     def train_step(params, opt, batch):
@@ -182,20 +213,29 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
                    and v.shape[0] % nmicro == 0}
             rest = {k: v for k, v in batch.items() if k not in mbs}
             gd = L.torch_dtype(cfg.grad_dtype)
-            grads = T.tree_map(lambda x: torch.zeros(
-                x.shape, dtype=gd, device=x.device), params)
-            loss = torch.zeros((), dtype=torch.float32, device=dev)
-            for i in range(nmicro):
-                w = mb_mask[i]
-                l_i, g = value_and_grad(
-                    cfg, params, {k: v[i] for k, v in mbs.items()} | rest)
-                grads = T.tree_map(lambda a, b: a + (w * b).to(a.dtype),
-                                   grads, g)
-                loss = loss + w * l_i
             denom = torch.clamp(mb_mask.sum(), min=1.0)
-            # a grad_dtype accumulator over a float32 denominator is a
-            # float32 quotient in the reference (JAX's type promotion)
-            grads = T.tree_map(lambda g: g.float() / denom, grads)
+            if gd == torch.float32 and all(
+                    t.dtype == gd for t in T.leaves(params)):
+                loss, grads = _accumulate_in_place(cfg, params, mbs, rest,
+                                                   mb_mask)
+                for g in T.leaves(grads):
+                    g.div_(denom)
+            else:
+                grads = T.tree_map(lambda x: torch.zeros(
+                    x.shape, dtype=gd, device=x.device), params)
+                loss = torch.zeros((), dtype=torch.float32, device=dev)
+                for i in range(nmicro):
+                    w = mb_mask[i]
+                    l_i, g = value_and_grad(
+                        cfg, params, {k: v[i] for k, v in mbs.items()}
+                        | rest)
+                    grads = T.tree_map(
+                        lambda a, b: a + (w * b).to(a.dtype), grads, g)
+                    loss = loss + w * l_i
+                # a grad_dtype accumulator over a float32 denominator is
+                # a float32 quotient in the reference (JAX's type
+                # promotion)
+                grads = T.tree_map(lambda g: g.float() / denom, grads)
             loss = loss / denom
         params, opt, gnorm = adam_update(cfg, params, grads, opt, lr=lr)
         return params, opt, dict(loss=loss, gnorm=gnorm)

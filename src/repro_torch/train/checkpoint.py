@@ -16,9 +16,10 @@ manifest, an unreadable one, a missing or unloadable shard) and falls
 back to the newest complete step.
 
 A bfloat16 leaf is written as the JAX package writes one: its raw
-2-byte words as a ``|V2`` array, which neither package can restore (the
-JAX `restore` raises `TypeError` on it; so does this one, naming the
-leaf).
+2-byte words as a ``|V2`` array.  `restore` reads such words back bit
+for bit where the template's leaf is a bfloat16 tensor, so a file that
+either package wrote restores here; the JAX `restore` raises `TypeError`
+on them (a declared divergence, ROADMAP.md Queue 3).
 
 `save` copies every leaf to host memory before it returns and writes on
 a background thread; `wait` joins it.  The copies matter: the fit's
@@ -161,8 +162,10 @@ def restore(directory: str, tree_like, *, step: int | None = None):
     leaf's device, in the dtype it was saved in, and one whose shape
     differs raises `ValueError`; any other leaf (a template's values only
     name the structure, as the JAX package's do) comes back as a host
-    numpy array.  A bfloat16 leaf raises `TypeError`.  With ``step=None``
-    the newest complete step wins; an explicit torn ``step`` raises."""
+    numpy array.  Raw ``|V2`` words restore as bfloat16, bit for bit,
+    under a bfloat16 tensor leaf and raise `TypeError` under any other.
+    With ``step=None`` the newest complete step wins; an explicit torn
+    ``step`` raises."""
     wait()
     if step is None:
         step = latest_step(directory)
@@ -179,11 +182,14 @@ def restore(directory: str, tree_like, *, step: int | None = None):
     with np.load(path, allow_pickle=False) as data:
         for i, (name, like) in enumerate(T.leaves_with_paths(tree_like)):
             a = data[f"a{i}"]
-            if a.dtype.kind == "V":
+            raw = a.dtype.kind == "V"
+            if raw and not (isinstance(like, torch.Tensor)
+                            and like.dtype == torch.bfloat16
+                            and a.dtype.itemsize == 2):
                 raise TypeError(
                     f"checkpoint step {step}: leaf {name} holds raw "
-                    f"{a.dtype.str} words (a bfloat16 leaf), which neither "
-                    f"package restores (ROADMAP.md Queue 3)")
+                    f"{a.dtype.str} words (a bfloat16 leaf), but its "
+                    f"template is not a bfloat16 tensor")
             if not isinstance(like, torch.Tensor):
                 out.append(a)
                 continue
@@ -191,7 +197,11 @@ def restore(directory: str, tree_like, *, step: int | None = None):
                 raise ValueError(f"checkpoint step {step}: leaf {name} "
                                  f"has shape {a.shape}, expected "
                                  f"{tuple(like.shape)}")
-            out.append(torch.from_numpy(a).to(like.device))
+            if raw:                  # the words, viewed as bfloat16
+                t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+            else:
+                t = torch.from_numpy(a)
+            out.append(t.to(like.device))
     return T.unflatten(tree_like, out), step
 
 

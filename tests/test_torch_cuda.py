@@ -1794,6 +1794,23 @@ def test_ssm_families_serve_on_the_card_by_default(cuda, arch):
     assert st["peak_mb"] > 0
 
 
+def _moe_routed(cfg, params, tk):
+    """The moe forward composed layer by layer → (logits on the CPU, each
+    layer's expert ids on the CPU)."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+    x, eids = lm.embed_tokens(params, cfg, tk), []
+    for i in range(cfg.L):
+        pl = lm.layer(params["layers"], i)
+        x, _ = lm._attn_sublayer(pl, x, cfg, causal=True)
+        eids.append(MOE.router(pl, L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                               cfg)[0].cpu())
+        x = lm._ffn_sublayer(pl, x, cfg)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return steps.logits_of(cfg, params, h).cpu(), eids
+
+
 @pytest.mark.parametrize("name", ["dbrx-132b", "arctic-480b"])
 def test_moe_family_on_card_matches_cpu(cuda, name):
     """Reduced dbrx-132b (every token to all 4 experts) and arctic-480b
@@ -1803,31 +1820,16 @@ def test_moe_family_on_card_matches_cpu(cuda, name):
     from repro_torch import tree as T
     from repro_torch.configs import base as CB
     from repro_torch.launch.serve import serve
-    from repro_torch.models import layers as L
     from repro_torch.models import lm, steps
-    from repro_torch.models import moe as MOE
     cfg = dataclasses.replace(CB.reduced(CB.get(name)), dtype="float32")
     p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
     pc = T.tree_map(lambda t: t.to(cuda), p)
     toks = torch.randint(0, cfg.vocab, (2, 32), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(0))
 
-    def routed(params, tk):
-        """The forward composed layer by layer → (logits, each layer's
-        expert ids)."""
-        x, eids = lm.embed_tokens(params, cfg, tk), []
-        for i in range(cfg.L):
-            pl = lm.layer(params["layers"], i)
-            x, _ = lm._attn_sublayer(pl, x, cfg, causal=True)
-            eids.append(MOE.router(pl, L.rms_norm(x, pl["ln2"], cfg.norm_eps),
-                                   cfg)[0].cpu())
-            x = lm._ffn_sublayer(pl, x, cfg)
-        h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return steps.logits_of(cfg, params, h).cpu(), eids
-
     with torch.no_grad():
-        lg, e = routed(pc, toks.to(cuda))
-        lg0, e0 = routed(p, toks)
+        lg, e = _moe_routed(cfg, pc, toks.to(cuda))
+        lg0, e0 = _moe_routed(cfg, p, toks)
         want = steps.logits_of(cfg, pc, lm.forward(cfg, pc, {
             "tokens": toks.to(cuda)})).cpu()
     assert torch.equal(lg, want)                 # the composed loop = forward
@@ -1849,3 +1851,144 @@ def test_moe_family_serves_on_the_card_by_default(cuda):
                             "2", "--prompt-len", "8", "--gen", "4"])
     assert toks.device.type == "cuda" and toks.shape == (2, 5)
     assert st["peak_mb"] > 0
+
+
+def _moe_cfg(name, **kw):
+    """A reduced moe config; "dbrx-132b:16x4" keeps dbrx's 16 experts and
+    top 4 (the reduced config's 4 experts take every token)."""
+    from repro_torch.configs import base as CB
+    name, _, experts = name.partition(":")
+    if experts:
+        E, k = map(int, experts.split("x"))
+        kw = dict(kw, n_experts=E, moe_top_k=k)
+    return dataclasses.replace(CB.reduced(CB.get(name)), **kw)
+
+
+@pytest.mark.parametrize("name", ["dbrx-132b", "arctic-480b",
+                                  "dbrx-132b:16x4"])
+def test_moe_train_step_on_card_matches_cpu(cuda, name):
+    """The moe family's training at float32, the card against the CPU,
+    routes first: each layer's routes equal; the loss within 1e-5 and
+    each gradient leaf (the router and the expert stacks too) within
+    1e-5 of its own max |g| (plus 4 ulp); one Adam update of the same
+    gradients within 1e-6; a µ = 2 train step's loss within 1e-5 and its
+    first moment within 1e-5 of each leaf's max."""
+    from repro_torch import tree as T
+    from repro_torch.models import lm, steps
+    cfg = _moe_cfg(name, dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    g = torch.Generator().manual_seed(0)
+    b = {k: torch.randint(0, cfg.vocab, (4, 32), dtype=torch.int32,
+                          generator=g) for k in ("tokens", "labels")}
+    bc = {k: v.to(cuda) for k, v in b.items()}
+    with torch.no_grad():
+        _, e = _moe_routed(cfg, pc, bc["tokens"])
+        _, e0 = _moe_routed(cfg, p, b["tokens"])
+    for a, w in zip(e, e0):
+        assert torch.equal(a, w)
+
+    def close(got, want, rel=1e-5):
+        for a, w in zip(T.leaves(got), T.leaves(want)):
+            scale = float(w.float().abs().max())
+            assert scale > 1e-9
+            assert float((a.cpu().float() - w.float()).abs().max()) <= (
+                rel * scale + 4 * float(np.spacing(np.float32(scale))))
+
+    lc, gc = steps.value_and_grad(cfg, pc, bc)
+    l0, g0 = steps.value_and_grad(cfg, p, b)
+    assert abs(float(lc) - float(l0)) <= 1e-5 * abs(float(l0))
+    close(gc, g0)
+    grads = T.tree_map(lambda t: t.cpu(), gc)
+    on_cpu = steps.adam_update(cfg, T.tree_map(torch.clone, p), grads,
+                               steps.init_opt(cfg, p))
+    on_card = steps.adam_update(cfg, T.tree_map(torch.clone, pc),
+                                T.tree_map(lambda t: t.to(cuda), grads),
+                                steps.init_opt(cfg, pc))
+    for a, w in zip(T.leaves(on_card[:2]), T.leaves(on_cpu[:2])):
+        assert float((a.cpu().double() - w.double()).abs().max()) <= 1e-6
+    mcfg = dataclasses.replace(cfg, microbatches=2)
+    step = steps.make_train_step(mcfg)
+    _, oc, auxc = step(T.tree_map(torch.clone, pc), steps.init_opt(mcfg, pc),
+                       bc)
+    _, o0, aux0 = step(T.tree_map(torch.clone, p), steps.init_opt(mcfg, p), b)
+    assert abs(float(auxc["loss"]) - float(aux0["loss"])) <= 1e-5 * abs(
+        float(aux0["loss"]))
+    close(oc["m"], o0["m"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_moe_backward_on_card_is_bit_reproducible(cuda, dtype):
+    """"dbrx-132b:16x4" on the card: two backward passes give bit-equal
+    gradients (no atomic add: the pairs move by permutations, each
+    expert's weight gradient is one product), and so do remat on and off
+    (the recomputed layer routes as its forward did); a µ = 2 train step
+    run twice from clones of one state gives bit-equal parameters and
+    moments."""
+    from repro_torch import tree as T
+    from repro_torch.models import lm, steps
+    cfg = _moe_cfg("dbrx-132b:16x4", dtype=dtype)
+    p = lm.init_params(cfg, prng.PRNGKey(1), model_shards=1, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    b = {k: torch.randint(0, cfg.vocab, (4, 32), dtype=torch.int32,
+                          generator=g).to(cuda)
+         for k in ("tokens", "labels")}
+    runs = [steps.value_and_grad(c, p, b) for c in (
+        cfg, cfg, dataclasses.replace(cfg, remat=False))]
+    for l_, gr in runs[1:]:
+        assert torch.equal(runs[0][0], l_)
+        for a, w in zip(T.leaves(runs[0][1]), T.leaves(gr)):
+            assert torch.equal(a, w)
+    mcfg = dataclasses.replace(cfg, microbatches=2, moment_dtype="bfloat16")
+    state = (p, steps.init_opt(mcfg, p))
+    outs = []
+    for _ in range(2):
+        pr, orun = T.tree_map(torch.clone, state)
+        for _ in range(2):
+            pr, orun, _ = steps.make_train_step(mcfg)(pr, orun, b)
+        outs.append(T.leaves((pr, orun)))
+    for a, w in zip(*outs):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def test_moe_bfloat16_moment_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """Reduced dbrx-132b with its own bfloat16 moments and µ = 2 on the
+    card: the step-2 checkpoint restores onto the card bit for bit, the
+    moments as bfloat16, and the resumed loop's losses equal a loop
+    continued from the same state in memory."""
+    from repro_torch import tree as T
+    from repro_torch.launch.train import synth_batch, train_loop
+    from repro_torch.models import steps
+    from repro_torch.train import checkpoint as ckpt
+    cfg = _moe_cfg("dbrx-132b", moment_dtype="bfloat16", microbatches=2)
+    d = str(tmp_path)
+    p, opt, _ = train_loop(cfg, steps_n=2, batch=4, seq=16, ckpt_dir=d,
+                           ckpt_every=2, device=cuda, log=lambda *_: None)
+    got, step = ckpt.restore(d, (p, opt))
+    assert step == 2 and T.leaves(got[1]["m"])[0].dtype == torch.bfloat16
+    for a, w in zip(T.leaves(got), T.leaves((p, opt))):
+        assert a.device.type == "cuda" and a.dtype == w.dtype
+        assert torch.equal(a, w)
+    step_fn = steps.make_train_step(cfg)
+    rng, want = np.random.default_rng(0), []
+    for _ in range(2):
+        p, opt, aux = step_fn(p, opt, synth_batch(rng, cfg, 4, 16,
+                                                  device=cuda))
+        want.append(float(aux["loss"]))
+    logs = []
+    _, _, more = train_loop(cfg, steps_n=4, batch=4, seq=16, ckpt_dir=d,
+                            device=cuda, log=logs.append)
+    assert logs[0] == "resumed from step 2" and more == want
+
+
+def test_moe_training_runs_on_the_card_by_default(cuda):
+    """``python -m repro_torch.launch.train --arch dbrx-132b --reduced``
+    with no ``--device`` trains on the card, and so does `train_loop`."""
+    from repro_torch import tree as T
+    from repro_torch.launch import train as ltrain
+    losses = ltrain.main(["--arch", "dbrx-132b", "--reduced", "--steps",
+                          "2", "--batch", "2", "--seq", "16"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    p, opt, _ = ltrain.train_loop(_moe_cfg("arctic-480b"), steps_n=1,
+                                  batch=2, seq=16, log=lambda *_: None)
+    assert all(t.device.type == "cuda" for t in T.leaves((p, opt)))

@@ -150,11 +150,13 @@ def test_fit_evaluates_ids_past_the_world_like_jax():
 
 
 @pytest.mark.parametrize("argv", [["--steps", "3"],
-                                  ["--steps", "11", "--lsh-softmax"]])
+                                  ["--steps", "11", "--lsh-softmax"],
+                                  ["--steps", "3", "--arch", "dbrx-132b"]])
 def test_train_lm_prints_the_jax_losses(monkeypatch, capsys, argv):
-    """`examples/torch_train_lm.py` in both arms against the JAX example's
-    printed losses (the reduced config's bfloat16 compute: within 2⁻⁸ of
-    the loss, one bfloat16 unit roundoff)."""
+    """`examples/torch_train_lm.py` in both arms, and for the moe family,
+    against the JAX example's printed losses (the reduced config's
+    bfloat16 compute: within 2⁻⁸ of the loss, one bfloat16 unit
+    roundoff)."""
     pattern = r"(?:→|loss) (\d+\.\d+)"
     monkeypatch.setattr(sys, "argv", ["train_lm", *argv])
     capsys.readouterr()

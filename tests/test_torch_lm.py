@@ -21,7 +21,9 @@ serving half, `launch/serve.py`), on the CPU at the reduced configs.
   and hybrid families prefilled by sequential decode, dense and moe by
   one forward).
 * The encdec and vlm families raise `NotImplementedError`; so does
-  training a moe config, and drawing arctic-480b's bfloat16 parameters.
+  drawing arctic-480b's bfloat16 parameters.  (Training every ported
+  family, moe included, is held against the JAX package in
+  `test_torch_lm_train.py`.)
 """
 import dataclasses
 
@@ -315,24 +317,6 @@ def test_lm_params_from_numpy_keeps_the_tree(name):
     half = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
                                         device="cpu", dtype="bfloat16")
     assert half["embed"].dtype == torch.bfloat16
-
-
-@pytest.mark.parametrize("name", ["dbrx-132b", "arctic-480b"])
-def test_moe_training_raises(name):
-    """The moe family serves but does not train yet (ROADMAP item 9.3b):
-    every training entry point refuses it, before any draw."""
-    cfg = CB.reduced(CB.get(name))
-    p = lm.init_params(cfg, prng.PRNGKey(0), 1, device="cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    batch = {"tokens": toks, "labels": toks}
-    for call in (lambda: steps.lm_loss(cfg, p, batch),
-                 lambda: steps.value_and_grad(cfg, p, batch),
-                 lambda: steps.init_opt(cfg, p),
-                 lambda: steps.make_train_step(cfg),
-                 lambda: ttrain.train_loop(cfg, steps_n=1, batch=1, seq=2,
-                                           device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*9.3b"):
-            call()
 
 
 def test_bfloat16_parameter_draw_raises():

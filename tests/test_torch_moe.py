@@ -12,9 +12,17 @@
   routes, a route that leaves an expert without a token (some tokens
   naming one expert in two slots), and one that sends every token to
   the same experts.
+* `moe_dense_ref`'s gradients in ``x``, the gates and the three expert
+  stacks against `jax.grad` of the JAX `moe_dense_ref` on the same
+  routes and cotangent, for the same three routes and configs: at
+  float32 each within 1e-5 of its own max |g|, at bfloat16 within 16u
+  (u = 2⁻⁸; read: 5.6u at most, the gate's), and an expert without a
+  token gets an all-zero gradient in both packages.  The output without
+  grad is bit-equal to the output with it.
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -161,3 +169,52 @@ def test_moe_dense_ref_refuses_ids_outside_the_experts():
         e[0, 3, 0] = bad
         with pytest.raises(ValueError, match="expert ids"):
             moe.moe_dense_ref(p, x, e, gate, tcfg)
+
+
+def _loss_grads_jax(p, x, eid, gate, R, jcfg, dtype):
+    """`jax.grad` of Σ moe_dense_ref(...)·R in (x, gate, w1, w3, w2)."""
+    def loss(x, gate, w1, w3, w2):
+        y = jmoe.moe_dense_ref(dict(w1=w1, w3=w3, w2=w2), x,
+                               jnp.asarray(eid), gate, jcfg)
+        return jnp.sum(y.astype(jnp.float32) * R)
+    g = jax.grad(loss, argnums=tuple(range(5)))(
+        jnp.asarray(x).astype(dtype), jnp.asarray(gate),
+        *(jnp.asarray(p[n]) for n in ("w1", "w3", "w2")))
+    return [np.asarray(a.astype(jnp.float32)) for a in g]
+
+
+def _loss_grads_torch(p, x, eid, gate, R, tcfg, dtype):
+    tx = torch.from_numpy(x).to(getattr(torch, dtype)).requires_grad_(True)
+    tg = torch.from_numpy(gate).requires_grad_(True)
+    tw = {n: torch.from_numpy(p[n]).requires_grad_(True)
+          for n in ("w1", "w3", "w2")}
+    y = moe.moe_dense_ref(tw, tx, torch.from_numpy(eid), tg, tcfg)
+    (y.float() * torch.from_numpy(R)).sum().backward()
+    with torch.no_grad():
+        y0 = moe.moe_dense_ref(tw, tx, torch.from_numpy(eid), tg, tcfg)
+    assert torch.equal(y0, y.detach())
+    return [t.grad.float().numpy() for t in (tx, tg, *tw.values())]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["router", "empty_expert", "same_experts"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_moe_dense_ref_grads_match_jax(name, case, dtype):
+    jcfg, tcfg = _cfgs(name)
+    p, x = _params(tcfg), _x(tcfg)
+    eid, gate = _routes(case, jcfg, p, x)
+    R = np.random.default_rng(11).normal(size=x.shape).astype(np.float32)
+    want = _loss_grads_jax(p, x, eid, gate, R, jcfg, dtype)
+    got = _loss_grads_torch(p, x, eid, gate, R, tcfg, dtype)
+    rel = 1e-5 if dtype == "float32" else 16 * 2.0 ** -8
+    for n, a, b in zip(("x", "gate", "w1", "w3", "w2"), got, want):
+        assert a.shape == b.shape, n
+        scale = float(np.abs(b).max())
+        assert scale > 0, n
+        err = float(np.abs(a - b).max())
+        assert err <= rel * scale, (n, err / scale)
+    unused = sorted(set(range(tcfg.n_experts)) - set(eid.ravel().tolist()))
+    assert (case == "empty_expert") <= (1 in unused)
+    for e in unused:                  # an expert without a token: all zero
+        for a, b in zip(got[2:], want[2:]):
+            assert not a[e].any() and not b[e].any()
