@@ -4,8 +4,8 @@ fit, the simLSH encoder, the legacy fit with checkpoints, batch scoring,
 online learning, its resilience layer, the always-on loop, the fit's
 neighbour comparators, the other serving paths, the multi-device tiers,
 the Table-10 comparison with the NCF models, the examples, dense LM
-serving and training, the ssm and hybrid LM families and moe LM
-serving and training — on one CUDA card.
+serving and training, the ssm and hybrid LM families, moe LM serving
+and training, and encdec and vlm LM serving — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -248,7 +248,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     prefilled by sequential decode, 32 tokens): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the weights once a
     step, resident and peak MB, a profiled decode step; mamba2-370m
-    trained at full width through `train_loop` (batch 8 × 128, lr 3e-4,
+    trained at full width cut to L = 24 of 48 (for the script's time)
+    through `train_loop` (batch 8 × 128, lr 3e-4,
     20 steps in two calls, the second resuming from a step-10
     checkpoint restored bit for bit, the loss falling), the step timed
     over batches drawn beforehand; zamba2-7b cut to L = 24 (µ = 2, lr
@@ -294,11 +295,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``build/chip_smoke_moe_ckpt``, removed) restored bit for bit and
     resumed as the same state stepped in memory; reduced arctic-480b's
     train step card vs CPU.  None of the seven kernels launches.
+28. the encdec and vlm LM families' serving half — on a 2-layer cut of
+    seamless-m4t-large-v2's full widths (2 encoder + 2 decoder layers,
+    B 2, 128 frame embeddings, 64 tokens) the forward's logits card vs
+    CPU at float32 (2e-4·rms, a TF32 control above it) and in bfloat16
+    against the CPU's float32 (32u·rms / 8u·rms, the cross-attention's
+    ``wo`` zeroed the control), 64 teacher-forced `decode_encdec` steps
+    on cross caches filled from the encoder's K/V card vs CPU, and
+    decode = forward on the card in bfloat16 (16u·rms / 4u·rms; zero
+    cross caches, what `serve` decodes on, the control); on a 2-layer
+    cut of llava-next-mistral-7b's (B 2, a 64-patch prefix, 64 tokens)
+    `prefill_dense` card vs CPU (logits, ``pos``, the K/V; the prefix
+    dropped the bfloat16 control); then both served at full width and
+    depth through `repro_torch.launch.serve.serve` (batch 4, prompt
+    64, 32 tokens; seamless prefilled by sequential decode on zero
+    cross caches, as the reference serves it): draw, prefill and decode
+    seconds, tokens/s beside the bound of reading the decoder side's
+    float32 weights once a step, resident and peak MB, a profiled
+    decode step; and llava behind `VLM_PATCHES` = 2,880 stub patches:
+    prefill and decode on a T = 2,976 cache, the last step against the
+    float32 forward on row 0 (the served bfloat16 decode within twice
+    the bfloat16 forward's distance, a float32 step within half of it,
+    each beside a control).  None of the seven kernels launches.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–27 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–28 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -338,6 +361,9 @@ SGD_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's (tests/test_kernels.py
 # 2·10⁶ took 79 s on the card's host; GSM's dense operands and products
 # depend on M × N only)
 GSM_NNZ = 1_000_000
+# phase 28: llava-next's stub image prefix, anyres at 5 tiles of 576
+# patches (the JAX package's `launch/specs.py` VLM_PATCHES)
+VLM_PATCHES = 2880
 # phase 21: Table 10 at MOVIELENS_LIKE's M × N, 15 interactions a user
 # (`benchmarks/bench_ncf.py`'s recipe), 200 full-batch Adam steps a model
 T10_M, T10_N, T10_PER_USER, T10_STEPS = 69_878, 10_677, 15, 200
@@ -3776,7 +3802,8 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
     """Phase 25: the ssm and hybrid families (mamba2-370m, zamba2-7b) —
     checks on 2-layer cuts of their full widths, serving at full width
     and depth through `repro_torch.launch.serve.serve`, and training:
-    mamba2-370m at full width through `train_loop`, zamba2-7b at L = 24.
+    mamba2-370m at full width cut to L = 24 through `train_loop`,
+    zamba2-7b at L = 24.
     Launches none of the seven kernels (no `pallas_call` on this path,
     and ``lsh_softmax`` is off in both configs)."""
     import dataclasses
@@ -3998,6 +4025,9 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
     # mamba2-370m at full width: card vs CPU on the cut, then train_loop
     mamba, zamba = fulls
     grads_vs_cpu(dataclasses.replace(mamba, L=2), mamba.name)
+    # trained cut to 24 of its 48 layers (the whole script's time: phase
+    # 28 came after it)
+    mamba = dataclasses.replace(mamba, L=24) if on_card else mamba
     Bt, St, N_STEPS, N_TIMED = 8, 128, 20, 6
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
@@ -4818,6 +4848,406 @@ def moe_train_phase(args, dev, on_card: bool, power: str) -> None:
           flush=True)
 
 
+def encdec_cross_fill(cfg, p, frontend_embeds, cache) -> None:
+    """Fill an encdec ``cache``'s ``cross_k`` / ``cross_v`` from the
+    encoder's output, each decoder layer's K/V projected as the
+    reference's `_forward_encdec` projects them (``wk`` / ``wv`` alone).
+    The package's `serve` leaves them zero, as the reference's does: no
+    entry point fills them."""
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        xe = lm._encode(cfg, p, frontend_embeds)
+        for n, w in (("cross_k", "wk"), ("cross_v", "wv")):
+            for i in range(cfg.L):
+                cache[n][i] = torch.einsum(
+                    "bsd,dhk->bshk", xe,
+                    p["dec_cross"][w][i].to(xe.dtype)).to(cache[n].dtype)
+
+
+def decode_all(cfg, p, toks, cache) -> torch.Tensor:
+    """``toks`` [B, S] decoded one by one (teacher-forced) from ``cache``
+    → each step's logits [B, S, V]."""
+    from repro_torch.models import steps
+
+    dec = steps.make_decode_step(cfg)
+    outs = []
+    for t in range(toks.shape[1]):
+        lg, cache = dec(p, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    return torch.stack(outs, 1)
+
+
+def encdec_vlm_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 28: the encdec and vlm families' serving half (`lm.py`'s
+    `_forward_encdec` and vlm branch, `steps.py`'s `decode_encdec`, the
+    cross caches and the prefix in `prefill_dense`) — card-vs-CPU checks
+    on 2-layer cuts of seamless-m4t-large-v2's and llava-next-mistral-
+    7b's full widths, decode = forward for encdec on the card, both
+    served at full width and depth through `repro_torch.launch.serve.
+    serve`, and llava behind a 2,880-patch image prefix.  Launches none
+    of the seven kernels (no `pallas_call` on this path)."""
+    import dataclasses
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, steps
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    sea, lla = CB.get("seamless-m4t-large-v2"), CB.get(
+        "llava-next-mistral-7b")
+    n_patch = VLM_PATCHES
+    if not on_card:                              # rehearsal size
+        sea, lla, n_patch = CB.reduced(sea), CB.reduced(lla), 16
+    u = 2.0 ** -8                                # bfloat16's unit roundoff
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    nparams = lambda tree: sum(t.numel() for t in T.leaves(tree))
+    rng = np.random.default_rng(args.seed + 28)
+    rms = lambda x: float(x.float().pow(2).mean().sqrt())
+
+    def err(a, b):
+        e = (a.float().cpu() - b.float().cpu()).abs()
+        return float(e.max()), float(e.mean())
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(0, 0.02, shape).astype(
+            np.float32)).to(dev)
+
+    def tokens(cfg, B, S):
+        return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32)).to(dev)
+
+    def tf32(fn):
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return fn()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+
+    # ---- (a) seamless-m4t-large-v2, 2 + 2 layers at full width ----
+    cut = dataclasses.replace(sea, L=2, enc_layers=2)
+    c32 = dataclasses.replace(cut, dtype="float32")
+    B2, F2, S2 = 2, 128, 64
+    p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+    b = {"tokens": tokens(cut, B2, S2),
+         "frontend_embeds": normal(B2, F2, cut.d_model)}
+    hp, hb = host(p), host(b)
+
+    def cache_of(cfg, q, batch, dt):
+        c = steps.init_cache(cfg, B2, F2, dtype=dt,
+                             device=batch["tokens"].device)
+        encdec_cross_fill(cfg, q, batch["frontend_embeds"], c)
+        return c
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = steps.logits_of(c32, hp, lm.forward(c32, hp, hb))
+        ref_dec = decode_all(c32, hp, hb["tokens"],
+                             cache_of(c32, hp, hb, torch.float32))
+    t_cpu = time.perf_counter() - t0
+    with torch.no_grad():
+        fwd = lambda cfg, q: steps.logits_of(cfg, q, lm.forward(cfg, q, b))
+        lg32 = fwd(c32, p)
+        lgtf = tf32(lambda: fwd(c32, p))
+        lgbf = fwd(cut, p)
+        # control: the cross-attention's output projection zeroed
+        nox = dict(p, dec_cross=dict(p["dec_cross"], wo=torch.zeros_like(
+            p["dec_cross"]["wo"])))
+        lgnx = fwd(cut, nox)
+        del nox
+    dec32 = decode_all(c32, p, b["tokens"], cache_of(c32, p, b,
+                                                     torch.float32))
+    decbf = decode_all(cut, p, b["tokens"], cache_of(cut, p, b,
+                                                     torch.bfloat16))
+    decz = decode_all(cut, p, b["tokens"], steps.init_cache(
+        cut, B2, F2, device=dev))                # zero cross caches (serve's)
+    sync()
+    r32, rbf = rms(ref), rms(lgbf)
+    f_max, f_mean = err(lg32, ref)
+    t_max, _ = err(lgtf, ref)
+    b_max, b_mean = err(lgbf, ref)
+    x_max, _ = err(lgnx, ref)
+    d_max, _ = err(dec32, ref_dec)
+    e_max, e_mean = err(decbf, lgbf)
+    z_max, z_mean = err(decz, lgbf)
+    lim32, limbf, limd = 2e-4 * r32, (32 * u * r32, 8 * u * r32), (
+        16 * u * rbf, 4 * u * rbf)
+    print(f"[28 encdec] {cut.name} cut to {cut.enc_layers} encoder + "
+          f"{cut.L} decoder layers (d={cut.d_model}, {cut.n_heads}/"
+          f"{cut.n_kv} heads of {cut.hd}, ff={cut.d_ff}, "
+          f"V={cut.vocab_padded(1)}, {nparams(p) / 1e9:.4f}e9 params), B="
+          f"{B2}, {F2} frames, {S2} tokens; CPU float32 forward and "
+          f"{S2}-step decode {t_cpu:.1f} s. float32 card vs CPU: logits max "
+          f"abs {f_max:.4g}, mean {f_mean:.4g} (logit rms {r32:.4g}; limit "
+          f"2e-4·rms {lim32:.4g}); control, TF32 products: max {t_max:.4g}; "
+          f"decode_encdec on encoder-filled cross caches, {S2} teacher-"
+          f"forced steps, card vs CPU: max abs {d_max:.4g} (limit "
+          f"{lim32:.4g}) (power limit {power})", flush=True)
+    print(f"[28 encdec] bfloat16 card vs the CPU's float32: max abs "
+          f"{b_max:.4g}, mean {b_mean:.4g} (limits 32u·rms {limbf[0]:.4g}, "
+          f"8u·rms {limbf[1]:.4g}, u = 2^-8); control, the cross-attention's "
+          f"wo zeroed: max {x_max:.4g}. decode = forward on the card "
+          f"(bfloat16, encoder-filled cross caches, T = {F2}): max abs "
+          f"{e_max:.4g}, mean {e_mean:.4g} (logit rms {rbf:.4g}; limits "
+          f"16u·rms {limd[0]:.4g}, 4u·rms {limd[1]:.4g}); control, zero "
+          f"cross caches (what serve decodes on): max {z_max:.4g}, mean "
+          f"{z_mean:.4g} (power limit {power})", flush=True)
+    if not (f_max <= lim32 and d_max <= lim32):
+        raise AssertionError("encdec: the card's float32 logits disagree "
+                             "with the CPU's")
+    if on_card and not t_max > lim32:
+        raise AssertionError("encdec: the float32 limit passes TF32 "
+                             "products")
+    if not (b_max <= limbf[0] and b_mean <= limbf[1]):
+        raise AssertionError("encdec: the card's bfloat16 logits disagree "
+                             "with the CPU's")
+    if not x_max > limbf[0]:
+        raise AssertionError("encdec: the bfloat16 limit passes a decoder "
+                             "without cross-attention")
+    if not (e_max <= limd[0] and e_mean <= limd[1]):
+        raise AssertionError("encdec: decode disagrees with the forward")
+    if not (z_max > limd[0] and z_mean > limd[1]):
+        raise AssertionError("encdec: decode = forward passes zero cross "
+                             "caches")
+    del p, hp, b, hb, ref, ref_dec, lg32, lgtf, lgbf, lgnx, dec32, decbf, decz
+    gc_collect(on_card)
+
+    # ---- (a) llava-next-mistral-7b, 2 layers at full width ----
+    cut = dataclasses.replace(lla, L=2)
+    c32 = dataclasses.replace(cut, dtype="float32")
+    P2 = 64
+    p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+    b = {"tokens": tokens(cut, B2, S2),
+         "frontend_embeds": normal(B2, P2, cut.d_model)}
+    hp, hb = host(p), host(b)
+    t0 = time.perf_counter()
+    ref, rc = steps.make_prefill(c32)(hp, hb)
+    t_cpu = time.perf_counter() - t0
+    lg32, cc = steps.make_prefill(c32)(p, b)
+    lgtf = tf32(lambda: steps.make_prefill(c32)(p, b)[0])
+    lgbf, cbf = steps.make_prefill(cut)(p, b)
+    lgnp, _ = steps.make_prefill(cut)(p, {"tokens": b["tokens"]})
+    sync()
+    r32 = rms(ref)
+    f_max, f_mean = err(lg32, ref)
+    t_max, _ = err(lgtf, ref)
+    b_max, b_mean = err(lgbf, ref)
+    n_max, _ = err(lgnp, ref)
+    kv = max(err(cc[k], rc[k])[0] / float(rc[k].float().abs().max())
+             for k in ("k", "v"))
+    lim32, limbf = 2e-4 * r32, (32 * u * r32, 8 * u * r32)
+    print(f"[28 vlm] {cut.name} cut to L={cut.L} (d={cut.d_model}, "
+          f"{cut.n_heads}/{cut.n_kv} heads of {cut.hd}, ff={cut.d_ff}, "
+          f"V={cut.vocab_padded(1)}, {nparams(p) / 1e9:.4f}e9 params), "
+          f"prefill of B={B2} × ({P2} patches + {S2} tokens), CPU float32 "
+          f"{t_cpu:.1f} s: pos {cc['pos']} (CPU {rc['pos']}), cache "
+          f"{tuple(cc['k'].shape)} {cc['k'].dtype}; float32 card vs CPU: "
+          f"last logits max abs {f_max:.4g}, mean {f_mean:.4g} (logit rms "
+          f"{r32:.4g}; limit 2e-4·rms {lim32:.4g}); control, TF32 "
+          f"products: max {t_max:.4g}; cache K/V max abs over the leaf's "
+          f"max {kv:.4g} (limit 2u); bfloat16 card vs the CPU's float32: "
+          f"max abs {b_max:.4g}, mean {b_mean:.4g} (limits 32u·rms "
+          f"{limbf[0]:.4g}, 8u·rms {limbf[1]:.4g}); control, the prefix "
+          f"dropped: max {n_max:.4g} (power limit {power})", flush=True)
+    if not (cc["pos"] == rc["pos"] == P2 + S2
+            and tuple(cc["k"].shape) == (cut.L, B2, P2 + S2, cut.n_kv,
+                                         cut.hd)):
+        raise AssertionError("vlm: the prefill cache's shape or pos")
+    if not (f_max <= lim32 and kv <= 2 * u):
+        raise AssertionError("vlm: the card's float32 prefill disagrees "
+                             "with the CPU's")
+    if on_card and not t_max > lim32:
+        raise AssertionError("vlm: the float32 limit passes TF32 products")
+    if not (b_max <= limbf[0] and b_mean <= limbf[1]):
+        raise AssertionError("vlm: the card's bfloat16 logits disagree with "
+                             "the CPU's")
+    if not n_max > limbf[0]:
+        raise AssertionError("vlm: the bfloat16 limit passes a prefill "
+                             "without its prefix")
+    del p, hp, b, hb, ref, rc, lg32, cc, lgtf, lgbf, cbf, lgnp
+    gc_collect(on_card)
+    t_a = time.perf_counter() - t_phase
+
+    # ---- (c) both served at full width and depth; (d) llava's prefix ----
+    B, S, GEN = 4, 64, 32
+    served = {}
+    for full in (sea, lla):
+        held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
+                                device=dev)
+        sync()
+        t_init = time.perf_counter() - t0
+        out, st = serve(full, batch=B, prompt_len=S, gen=GEN, seed=0,
+                        log=lambda *_: None, device=dev, params=params)
+        o = out.cpu().numpy()
+        if o.shape != (B, GEN + 1) or not ((o >= 0) & (o < full.vocab)).all():
+            raise AssertionError(f"{full.name}: served tokens {o.shape} out "
+                                 f"of range")
+        nparam = nparams(params)
+        # the float32 weights a decode step reads: the decoder side (the
+        # encoder does not run in serve), both embedding tables
+        step = 4 * (nparam - (nparams(params["enc"]) + params[
+            "enc_norm"].numel() if full.family == "encdec" else 0))
+        bound_s = step / HBM_BYTES_PER_S
+        how = ("64 sequential decode steps on zero cross caches"
+               if full.family == "encdec" else "one forward")
+        print(f"[28 serve] {full.name} ({nparam / 1e9:.4f}e9 float32 params,"
+              f" {4 * nparam / 1e9:.2f} GB) batch {B}, prompt {S} ({how}), "
+              f"gen {GEN}: params drawn in {t_init:.2f} s, prefill "
+              f"{st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s, "
+              f"{st['tok_per_s']:.1f} tokens/s (bound {B / bound_s:.0f} "
+              f"tokens/s: {step / 1e9:.2f} GB of float32 weights a step, "
+              f"{1e3 * bound_s:.2f} ms) "
+              + (f"resident {st['resident_mb']:.0f} MB, peak "
+                 f"{st['peak_mb']:.0f} MB (phases before it held {held:.0f}"
+                 f" MB) " if on_card else "")
+              + f"(power limit {power})", flush=True)
+        served[full.name] = st["tok_per_s"]
+        if on_card:
+            profile_decode(full, params, B, S, dev, tag="28 profile")
+        if full.family == "vlm":
+            vlm_prefix(full, params, B, S, GEN, n_patch, rng, dev, on_card,
+                       power)
+        del params, out
+        gc_collect(on_card)
+
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[28 kernels] launches in phase 28: {launched} (plain torch, as "
+          f"the JAX package's encdec and vlm paths are plain XLA)",
+          flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 28 launched a kernel it should not")
+    t_all = time.perf_counter() - t_phase
+    print(f"[28 done] phase 28 in {t_all:.1f} s: (a, b) {t_a:.1f}, (c, d) "
+          f"{t_all - t_a:.1f} s (power limit {power})", flush=True)
+
+
+def vlm_prefix(cfg, params, B, S, GEN, n_patch, rng, dev, on_card, power):
+    """Phase 28 (d): ``cfg`` (vlm) behind a stub image prefix of
+    ``n_patch`` patch embeddings: `make_prefill` over prefix + ``S``
+    tokens, ``GEN`` greedy decode steps on a cache of T = n_patch + S +
+    GEN, then the last step against a forward over the whole sequence.
+    At full depth and length two bfloat16 computations of one function
+    differ by their rounding (the card's GEMMs round a 4-row decode and
+    a 11,904-row forward differently), and 32 layers carry it.  So both
+    checks are held against the float32 forward on row 0, in units of
+    the bfloat16 forward's own distance from it: the served bfloat16
+    decode within twice that; the cache logic in float32 — a prefill of
+    the first T − 1 positions, its K/V rounded to bfloat16 as the
+    reference stores them, and one decode step — within half of it (the
+    stored K/V's rounding alone), the prefix's cache slots zeroed the
+    control."""
+    import dataclasses
+
+    from repro_torch.models import lm, steps
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    u = 2.0 ** -8
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    fe = torch.from_numpy(rng.normal(0, 0.02, (B, n_patch, cfg.d_model))
+                          .astype(np.float32)).to(dev)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)).to(dev)
+    T = n_patch + S + GEN
+    sync()
+    t0 = time.perf_counter()
+    logits, pc = steps.make_prefill(cfg)(params, {"tokens": toks,
+                                                  "frontend_embeds": fe})
+    sync()
+    t_pre = time.perf_counter() - t0
+    cache = steps.init_cache(cfg, B, T, device=dev)
+    for n in ("k", "v"):
+        cache[n][:, :, :pc["pos"]] = pc[n]
+    cache["pos"] = pc["pos"]
+    del pc
+    dec = steps.make_decode_step(cfg)
+    fed = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(GEN):
+        lg, cache = dec(params, cache, fed[-1])
+        fed.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None])
+    sync()
+    t_dec = time.perf_counter() - t0
+    kv_gb = 2 * cache["k"].numel() * cache["k"].element_size() / 1e9
+    del cache
+    lg = lg[:, 0]
+    seq = torch.cat([toks, *fed[:-1]], dim=1)            # [B, S + GEN]
+    last = lambda c, b: steps.logits_of(c, params, lm.forward(
+        c, params, b)[:, -1])
+    row = {"tokens": seq[:1], "frontend_embeds": fe[:1]}
+    with torch.no_grad():
+        fwd = last(cfg, {"tokens": seq, "frontend_embeds": fe})
+        ctl = last(cfg, {"tokens": seq})
+        w32 = last(c32, row)[0]
+    # float32 on row 0: prefill of the first T − 1 positions, one step
+    _, pc = steps.make_prefill(c32)(params, {"tokens": seq[:1, :-1],
+                                             "frontend_embeds": fe[:1]})
+    d32 = []
+    for drop in (False, True):
+        c1 = steps.init_cache(c32, 1, T, dtype=torch.float32, device=dev)
+        for n in ("k", "v"):
+            c1[n][:, :, :T - 1] = pc[n]
+            if drop:                             # the prefix's slots zeroed
+                c1[n][:, :, :n_patch] = 0
+        c1["pos"] = pc["pos"]
+        d32.append(steps.make_decode_step(c32)(params, c1,
+                                               seq[:1, -1:])[0][0, 0])
+    del pc, c1
+    sync()
+    r = float(w32.pow(2).mean().sqrt())
+    e = lambda a, b: (float((a - b).abs().max()), float((a - b).abs().mean()))
+    f_max, f_mean = e(d32[0], w32)
+    z_max, _ = e(d32[1], w32)
+    b_max, b_mean = e(fwd[0], w32)               # bfloat16's own distance
+    g_max, g_mean = e(lg[0], w32)
+    dd_max, dd_mean = e(lg, fwd)
+    c_max, _ = e(ctl[0], w32)
+    limbf = (2 * b_max, 2 * b_mean)
+    lim32 = (b_max / 2, b_mean / 2)
+    step_bytes = 4 * sum(t.numel() for v in params.values() for t in (
+        v.values() if isinstance(v, dict) else (v,))) + kv_gb * 1e9
+    print(f"[28 prefix] {cfg.name} behind {n_patch} stub patches, batch {B}"
+          f": prefill of {n_patch + S} positions {t_pre:.3f} s; {GEN} decode"
+          f" steps on a T = {T} cache ({kv_gb:.2f} GB of bfloat16 K/V) "
+          f"{t_dec:.3f} s, {B * GEN / t_dec:.1f} tokens/s (bound "
+          f"{B * HBM_BYTES_PER_S / step_bytes:.0f}: weights and cache read "
+          f"once a step) (power limit {power})", flush=True)
+    print(f"[28 prefix] position {T - 1}, row 0, against the float32 "
+          f"forward over the {T} positions (logit rms {r:.4g}): float32 "
+          f"prefill of {T - 1} + one decode step max abs {f_max:.4g}, mean "
+          f"{f_mean:.4g} (limits half the bfloat16 forward's, "
+          f"{lim32[0]:.4g} and {lim32[1]:.4g}; u·rms = {u * r:.4g}); "
+          f"control, the prefix's cache slots zeroed: max {z_max:.4g}. "
+          f"bfloat16: the forward max {b_max:.4g}, mean {b_mean:.4g}; the "
+          f"served decode's last step max {g_max:.4g}, "
+          f"mean {g_mean:.4g} (limits twice the forward's, {limbf[0]:.4g} "
+          f"and {limbf[1]:.4g}); control, the forward without the prefix: "
+          f"max {c_max:.4g}; the served decode against the bfloat16 forward"
+          f", all {B} rows: max {dd_max:.4g}, mean {dd_mean:.4g} (power "
+          f"limit {power})", flush=True)
+    if not (f_max <= lim32[0] and f_mean <= lim32[1]):
+        raise AssertionError("vlm: float32 decode behind the prefix "
+                             "disagrees with the forward")
+    if not z_max > lim32[0]:
+        raise AssertionError("vlm: the float32 check passes a cache "
+                             "without the prefix")
+    if not (g_max <= limbf[0] and g_mean <= limbf[1]):
+        raise AssertionError("vlm: the bfloat16 decode behind the prefix "
+                             "is further from float32 than its forward")
+    if not c_max > limbf[0]:
+        raise AssertionError("vlm: the bfloat16 limit passes a forward "
+                             "without the prefix")
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -5091,6 +5521,7 @@ def main(argv=None) -> int:
     ssm_phase(args, dev, on_card, power)
     moe_phase(args, dev, on_card, power)
     moe_train_phase(args, dev, on_card, power)
+    encdec_vlm_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

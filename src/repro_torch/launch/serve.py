@@ -4,15 +4,22 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \
       [--reduced] [--batch 4 --prompt-len 64 --gen 32] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  The dense and moe
-families (``--arch dbrx-132b``) are prefilled by one forward over the
-prompt that writes its K/V into the cache; the ssm and hybrid families
-(``--arch mamba2-370m``, ``--arch zamba2-7b``) by sequential decode, as
-in the reference.  At llama3-8b's full width the float32 weights are
-8.0·10⁹ parameters (32 GB), at zamba2-7b's 6.75·10⁹ (27 GB): they are
-drawn layer by layer on the card from the seed's key.  dbrx-132b's 40
-layers (1.3·10¹¹ parameters) do not fit one card; its widths do at L ≤
-4 (1.43·10¹⁰, 57 GB).
+Runs on ``cuda`` unless ``--device cpu`` is given.  The dense, moe and
+vlm families (``--arch dbrx-132b``, ``--arch llava-next-mistral-7b``)
+are prefilled by one forward over the prompt that writes its K/V into
+the cache — vlm's over the tokens alone, with no image prefix, as in
+the reference; the ssm, hybrid and encdec families (``--arch
+mamba2-370m``, ``--arch zamba2-7b``, ``--arch seamless-m4t-large-v2``)
+by sequential decode, as in the reference.  encdec's cross K/V caches
+stay `init_cache`'s zeros, as the reference's `serve` leaves them (the
+JAX package has no function that fills them): the cross-attention then
+adds exactly 0, and the served tokens depend on no source input.  At
+llama3-8b's full width the float32 weights are 8.0·10⁹ parameters (32
+GB), at llava-next-mistral-7b's 7.24·10⁹ (29 GB), at zamba2-7b's
+6.75·10⁹ (27 GB), at seamless-m4t-large-v2's 2.03·10⁹ (8.1 GB): they
+are drawn layer by layer on the card from the seed's key.  dbrx-132b's
+40 layers (1.3·10¹¹ parameters) do not fit one card; its widths do at
+L ≤ 4 (1.43·10¹⁰, 57 GB).
 """
 from __future__ import annotations
 
@@ -58,8 +65,8 @@ def serve(cfg, *, batch, prompt_len, gen, seed=0, log=print, device=None,
     decode = steps.make_decode_step(cfg)
     cache = steps.init_cache(cfg, batch, T, device=dev)
 
-    # one forward over the prompt for dense and moe; sequential decode
-    # for the ssm and hybrid families
+    # one forward over the prompt for dense, moe and vlm; sequential
+    # decode for the ssm, hybrid and encdec families
     t0 = time.perf_counter()
     if cfg.family in lm.KV_FAMILIES:
         logits, pc = steps.make_prefill(cfg)(params, {"tokens": toks})

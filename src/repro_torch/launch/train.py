@@ -9,7 +9,8 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
 Runs on ``cuda`` unless ``--device cpu`` is given, for the dense, moe
 (``--arch dbrx-132b``; ``--arch arctic-480b`` with ``--reduced``, its
 full config draws bfloat16 parameters, ROADMAP Queue 1 item 9.6a), ssm
-and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``).  At
+and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``);
+the encdec and vlm families serve but do not train yet (item 9.5b).  At
 dbrx-132b's full width one 80 GB card holds the Adam state of one
 layer only (float32 parameters and gradients, bfloat16 moments: 54 GB
 at L = 1; `train_loop` on ``dataclasses.replace(cfg, L=1)``, as
@@ -37,7 +38,8 @@ def synth_batch(rng, cfg, batch, seq, device="cpu"):
     """Zipf-distributed token ids over the vocab (padded ids never
     sampled) → {"tokens", "labels"} [batch, seq] int32 on ``device``.
     (The reference also draws stub frontend embeddings for the families
-    that have a frontend; none of them is ported.)"""
+    that have a frontend, encdec and vlm, whose training is not ported:
+    ROADMAP Queue 1 item 9.5b.)"""
     V = cfg.vocab
     p = 1.0 / np.arange(1, V + 1) ** 1.1
     p /= p.sum()
@@ -51,7 +53,7 @@ def train_loop(cfg, *, steps_n, batch, seq, ckpt_dir=None, ckpt_every=0,
     """Train ``steps_n`` steps → (params, opt, losses of the steps run).
     With ``ckpt_dir`` it resumes from the newest complete checkpoint
     there, saves every ``ckpt_every`` steps and at the end."""
-    lm.check_family(cfg)
+    lm.check_trained(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     params = lm.init_params(cfg, prng.PRNGKey(seed), model_shards=1,

@@ -104,19 +104,27 @@ def attention(q, k, v, *, q_offset, causal: bool, query_chunk: int,
     return out[:, :S]
 
 
+def q_proj(p, x, cfg: ArchConfig):
+    """x [B,S,D] → q [B,S,H,hd]: `qkv_proj`'s q alone (a cross-attention
+    takes its K/V from elsewhere)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(x.dtype)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    return q
+
+
 def qkv_proj(p, x, cfg: ArchConfig):
     """x [B,S,D] → q [B,S,H,hd], k/v [B,S,Hkv,hd] with RoPE-ready layout."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
     if cfg.qkv_bias:
-        q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+    return q_proj(p, x, cfg), k, v
 
 
 def attn_out(p, o, x_dtype):

@@ -1,14 +1,18 @@
-"""Model assembly (`repro/models/lm.py`) for the dense, moe, ssm and
-hybrid families.
+"""Model assembly (`repro/models/lm.py`) for every family: dense, moe,
+ssm, hybrid, encdec and vlm.
 
-The JAX package assembles every family (dense | moe | ssm | hybrid |
-encdec | vlm).  The port serves and trains four: dense (attention + MLP
+The port serves all six and trains four: dense (attention + MLP
 layers), moe (attention + a routed mixture of experts, `models/moe.py`'s
 single-device path, plus arctic's dense residual MLP), ssm (Mamba2
 layers, `models/ssm.py`) and hybrid (Mamba2 layers with one shared
 attention + MLP block run before each group of ``cfg.attn_every``).
-The encdec and vlm families raise `NotImplementedError` (ROADMAP Queue
-1 item 9.5: `check_family`).  Layer stacks are dicts of tensors with a
+vlm is a dense stack whose precomputed patch embeddings
+(``batch["frontend_embeds"]``, the reference's frontend stub) are
+prepended to the token embeddings; encdec runs a bidirectional encoder
+over precomputed frame embeddings and a decoder whose layers add a
+cross-attention sub-layer on the encoder's output (`_forward_encdec`).
+Training those two raises `NotImplementedError` (ROADMAP Queue 1 item
+9.5b: `check_trained`).  Layer stacks are dicts of tensors with a
 leading L dim, applied layer by layer (the JAX package's `lax.scan`);
 on one device there is no sharding constraint and no scheduling barrier
 (`_opt_barrier` pins the FSDP gathers of training).  Training remats
@@ -32,9 +36,10 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # stacks of attention blocks: a K/V cache, prefilled by one forward
-KV_FAMILIES = ("dense", "moe")
+KV_FAMILIES = ("dense", "moe", "vlm")
 
 
 def check_family(cfg: ArchConfig) -> None:
@@ -42,8 +47,17 @@ def check_family(cfg: ArchConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP.md, Queue 1 item 9.5); only "
-            f"{PORTED_FAMILIES} runs")
+            f"repro_torch; only {PORTED_FAMILIES} runs")
+
+
+def check_trained(cfg: ArchConfig) -> None:
+    """Raise unless the port trains ``cfg``'s family (the training entry
+    points call it; serving calls `check_family`)."""
+    if cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family!r} family is not ported "
+            f"to repro_torch yet (ROADMAP.md, Queue 1 item 9.5b); it "
+            f"serves, and {TRAINED_FAMILIES} train")
 
 
 # --------------------------------------------------------------------------
@@ -58,16 +72,18 @@ def _normal(key, shape, scale: float, device) -> torch.Tensor:
     return prng.normal_chunked(key, shape, device=device).mul_(s)
 
 
-def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
-    hd, D, ff = cfg.hd, cfg.d_model, cfg.d_ff
+def _attn_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
+    """A dense layer's attention leaves — ``ln1``, ``wq``/``wk``/``wv``/
+    ``wo`` from the first four of ``split(key, 8)``, the biases and q/k
+    norms where ``cfg`` sets them — each from its own key, so they equal
+    the same leaves of `_dense_layer_init`'s draw."""
+    hd, D, Hp = cfg.hd, cfg.d_model, cfg.n_heads_padded
     ks = prng.split(key, 8)
     ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
     zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
     nrm = lambda k, *s: _normal(k, s, scale, device)
-    Hp = cfg.n_heads_padded
     p = dict(
         ln1=ones(D),
-        ln2=ones(D),
         wq=nrm(ks[0], D, Hp, hd),
         wk=nrm(ks[1], D, cfg.n_kv, hd),
         wv=nrm(ks[2], D, cfg.n_kv, hd),
@@ -78,6 +94,15 @@ def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
                   bv=zeros(cfg.n_kv, hd))
     if cfg.qk_norm:
         p |= dict(q_norm=ones(hd), k_norm=ones(hd))
+    return p
+
+
+def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
+    D, ff = cfg.d_model, cfg.d_ff
+    ks = prng.split(key, 8)
+    nrm = lambda k, *s: _normal(k, s, scale, device)
+    p = _attn_layer_init(cfg, key, scale, device)
+    p["ln2"] = torch.ones((D,), dtype=torch.float32, device=device)
     if cfg.family == "moe" and cfg.n_experts:
         E = cfg.n_experts
         p |= dict(router=nrm(ks[4], D, E), w1=nrm(ks[5], E, D, ff),
@@ -136,10 +161,13 @@ def _stack_init(per_layer_fn, cfg, key, n, device="cpu"):
 
 
 def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
-    """The JAX package's `init_params` for the ported families: the same
-    keys and draws (each float within a few ulp: `prng.normal`), on
-    ``device`` (``cuda`` unless asked).  The hybrid's ``shared_attn`` is
-    one unstacked dense layer drawn from the fourth key."""
+    """The JAX package's `init_params`: the same keys and draws (each
+    float within a few ulp: `prng.normal`), on ``device`` (``cuda``
+    unless asked).  The hybrid's ``shared_attn`` is one unstacked dense
+    layer drawn from the fourth key; encdec's tree is ``enc`` (a dense
+    stack of ``cfg.enc_layers``), ``dec``, ``dec_cross`` (each decoder
+    layer's cross-attention leaves) and ``enc_norm``, with no
+    ``layers``."""
     check_family(cfg)
     if cfg.param_dtype != "float32":
         raise NotImplementedError(
@@ -156,7 +184,17 @@ def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
     )
     if not cfg.tie_embeddings:
         p["out_embed"] = _normal(ks[1], (V, D), 0.02, dev)
-    if cfg.family in KV_FAMILIES:
+    if cfg.family == "encdec":
+        p["enc"] = _stack_init(_dense_layer_init, cfg, ks[2],
+                               cfg.enc_layers, dev)
+        p["dec"] = _stack_init(_dense_layer_init, cfg, ks[3], cfg.L, dev)
+        # the decoder's cross-attention: the reference draws whole dense
+        # layers from ks[4] and keeps their attention leaves; only those
+        # are drawn here (the same floats: each leaf has its own key)
+        p["dec_cross"] = _stack_init(_attn_layer_init, cfg, ks[4], cfg.L,
+                                     dev)
+        p["enc_norm"] = torch.ones((D,), dtype=torch.float32, device=dev)
+    elif cfg.family in KV_FAMILIES:
         p["layers"] = _stack_init(_dense_layer_init, cfg, ks[2], cfg.L, dev)
     else:
         p["layers"] = _stack_init(_ssm_layer_init, cfg, ks[2], cfg.L, dev)
@@ -197,6 +235,24 @@ def _attn_sublayer(pl, x, cfg, *, causal, q_offset=0, window=0,
     o = L.attention(q, k, v, q_offset=q_offset, causal=causal,
                     query_chunk=cfg.query_chunk, window=window)
     return x + L.attn_out(pl, o, x.dtype), info
+
+
+def _cross_sublayer(plx, h, xk, xv, cfg):
+    """Cross-attention residual sub-layer: queries from ``h`` through
+    ``plx``'s ``ln1`` and ``wq`` (no RoPE), against the K/V ``xk``/``xv``
+    [B, T, Hkv, hd] of every encoder position (not causal)."""
+    q = L.q_proj(plx, L.rms_norm(h, plx["ln1"], cfg.norm_eps), cfg)
+    o = L.attention(q, xk, xv, q_offset=0, causal=False,
+                    query_chunk=cfg.query_chunk)
+    return h + L.attn_out(plx, o, h.dtype)
+
+
+def _cross_kv(plx, xe):
+    """The encoder output ``xe`` [B, T, D] → a decoder layer's cross K/V
+    [B, T, Hkv, hd] in ``xe``'s dtype: ``wk`` and ``wv`` alone — no
+    bias, no k-norm, no RoPE, as the reference projects them."""
+    return tuple(torch.einsum("bsd,dhk->bshk", xe, plx[n].to(xe.dtype))
+                 for n in ("wk", "wv"))
 
 
 def _ffn_sublayer(pl, x, cfg):
@@ -276,9 +332,19 @@ def _ssm_body(cfg: ArchConfig):
 
 
 def forward(cfg: ArchConfig, p, batch):
-    """Token inputs → final hidden states [B, S, D] (normed)."""
+    """Token inputs → final hidden states [B, S, D] (normed).  With a
+    frontend stub (vlm, or ``cfg.frontend == "embed_stub"`` outside
+    encdec) ``batch["frontend_embeds"]`` [B, P, D], when given, is cast
+    to ``cfg.dtype`` and prepended: the states are [B, P + S, D], causal
+    over the prefix too.  encdec encodes the frontend embeddings and
+    returns the decoder's states over the tokens (`_forward_encdec`)."""
     check_family(cfg)
+    if cfg.family == "encdec":
+        return _forward_encdec(cfg, p, batch)
     x = embed_tokens(p, cfg, batch["tokens"])
+    if ((cfg.family == "vlm" or cfg.frontend == "embed_stub")
+            and "frontend_embeds" in batch):
+        x = torch.cat([L.cast(batch["frontend_embeds"], cfg), x], dim=1)
     if cfg.family in KV_FAMILIES:
         body = lambda pl, h: _dense_block(pl, h, cfg)[0]
         x = _scan_layers(body, x, unstack(p["layers"]), cfg.remat)
@@ -310,3 +376,31 @@ def _forward_hybrid(cfg, p, x):
         x, _ = _dense_block(p["shared_attn"], x, cfg, causal=True)
         x = _scan_layers(body, x, per_layer[start:start + size], cfg.remat)
     return x
+
+
+def _encode(cfg: ArchConfig, p, frontend_embeds):
+    """encdec's encoder: the frame embeddings [B, T, D] in ``cfg.dtype``
+    through ``p["enc"]``'s dense layers, bidirectional (still roped, as
+    the reference's self-attention always is), then ``enc_norm``."""
+    body = lambda pl, h: _dense_block(pl, h, cfg, causal=False)[0]
+    xe = _scan_layers(body, L.cast(frontend_embeds, cfg), unstack(p["enc"]),
+                      cfg.remat)
+    return L.rms_norm(xe, p["enc_norm"], cfg.norm_eps)
+
+
+def _forward_encdec(cfg, p, batch):
+    """The encoder over ``batch["frontend_embeds"]``, then each decoder
+    layer: causal self-attention, cross-attention on the encoder's
+    output (`_cross_kv`), the MLP; then ``final_norm``."""
+    xe = _encode(cfg, p, batch["frontend_embeds"])
+
+    def body(pls, h):
+        pl, plx = pls
+        h, _ = _attn_sublayer(pl, h, cfg, causal=True)
+        h = _cross_sublayer(plx, h, *_cross_kv(plx, xe), cfg)
+        return _ffn_sublayer(pl, h, cfg)
+
+    x = _scan_layers(body, embed_tokens(p, cfg, batch["tokens"]),
+                     list(zip(unstack(p["dec"]), unstack(p["dec_cross"]))),
+                     cfg.remat)
+    return L.rms_norm(x, p["final_norm"], cfg.norm_eps)

@@ -1,11 +1,11 @@
-"""Training and serving steps (`repro/models/steps.py`): for the dense,
-moe, ssm and hybrid families the loss, Adam, the microbatched train
-step, caches, prefill and decode.
+"""Training and serving steps (`repro/models/steps.py`): the loss,
+Adam, the microbatched train step, caches, prefill and decode.
 
 The JAX package's `make_*` factories close over the config and return
-functions for `jax.jit`; these return plain functions.  The other
-families' losses, caches and steps raise `NotImplementedError` (ROADMAP
-Queue 1 item 9.5).
+functions for `jax.jit`; these return plain functions.  Every family
+serves; the encdec and vlm families' training entry points (`lm_loss`,
+`value_and_grad`, `init_opt`, `make_train_step`) raise
+`NotImplementedError` (ROADMAP Queue 1 item 9.5b).
 
 Differences from the JAX package's functional steps, each where the JAX
 launch scripts donate the buffers: `adam_update` (and so a train step)
@@ -64,7 +64,7 @@ def lm_loss(cfg: ArchConfig, p, batch):
     With ``cfg.lsh_softmax`` and ``batch["cands"]`` the normaliser runs
     over the candidates and the label (the paper's technique at the
     softmax, `models/lsh_softmax.py`), else over the whole vocabulary."""
-    lm.check_family(cfg)
+    lm.check_trained(cfg)
     h = lm.forward(cfg, p, batch)                            # [B, S_all, D]
     labels = batch["labels"]
     S_txt = labels.shape[1]
@@ -102,6 +102,7 @@ def lm_loss(cfg: ArchConfig, p, batch):
 def value_and_grad(cfg: ArchConfig, params, batch):
     """(`lm_loss`, ∂ `lm_loss` / ∂params as a tree shaped like
     ``params``) by autograd; ``params`` itself is left without grad."""
+    lm.check_trained(cfg)
     tp = T.tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss = lm_loss(cfg, tp, batch)
     g = torch.autograd.grad(loss, T.leaves(tp))
@@ -118,7 +119,7 @@ ADAM_SLICE = 1 << 28
 
 
 def init_opt(cfg: ArchConfig, params):
-    lm.check_family(cfg)
+    lm.check_trained(cfg)
     md = L.torch_dtype(cfg.moment_dtype)
     zeros = lambda x: torch.zeros(x.shape, dtype=md, device=x.device)
     dev = T.leaves(params)[0].device
@@ -194,7 +195,7 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
     float32 accumulator over float32 parameters is summed in place
     (`_accumulate_in_place`) and divided in place; a bfloat16 one rounds
     each weighted gradient into it, as the reference does."""
-    lm.check_family(cfg)
+    lm.check_trained(cfg)
     nmicro = max(1, cfg.microbatches)
 
     def train_step(params, opt, batch):
@@ -250,18 +251,22 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
 
 def init_cache(cfg: ArchConfig, B: int, T: int, dtype=torch.bfloat16,
                device=None):
-    """Empty caches sized for total context T: the dense and moe
-    families' K/V [L, B, T, Hkv, hd]; the ssm family's float32 SSM states
-    [L, B, H, P, N] and conv states [L, B, K−1, ·] in ``dtype``; the
-    hybrid's also one K/V slot per group, a window of `_hybrid_window`
-    positions at long context (a ring buffer)."""
+    """Empty caches sized for total context T: the dense, moe and vlm
+    families' K/V [L, B, T, Hkv, hd]; encdec's too, and its cross K/V
+    ``cross_k`` / ``cross_v`` of the same shape (zeros: nothing here
+    fills them, as in the reference); the ssm family's float32 SSM
+    states [L, B, H, P, N] and conv states [L, B, K−1, ·] in ``dtype``;
+    the hybrid's also one K/V slot per group, a window of
+    `_hybrid_window` positions at long context (a ring buffer)."""
     lm.check_family(cfg)
     dev = resolve_device(device)
     zeros = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=dev)
     cache = {"pos": 0}
-    if cfg.family in lm.KV_FAMILIES:
-        cache["k"] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
-        cache["v"] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
+    if cfg.family in lm.KV_FAMILIES or cfg.family == "encdec":
+        names = ("k", "v") + (("cross_k", "cross_v")
+                              if cfg.family == "encdec" else ())
+        for n in names:
+            cache[n] = zeros(cfg.L, B, T, cfg.n_kv, cfg.hd)
         return cache
     H, Pd, N = SSM.n_heads(cfg), cfg.ssm_headdim, cfg.ssm_state
     K, di = cfg.ssm_conv, SSM.d_inner(cfg)
@@ -313,7 +318,9 @@ def _decode_ssm_layer(pl, h, cfg, cache, i):
 
 def make_decode_step(cfg: ArchConfig):
     """→ ``decode(params, cache, tokens [B, 1]) → (logits [B, 1, V]
-    float32, cache)``."""
+    float32, cache)``.  encdec's step writes its self-attention K/V at
+    ``pos`` and reads the cross K/V (``cross_k`` / ``cross_v``, all T
+    slots) without changing them."""
     lm.check_family(cfg)
 
     @torch.no_grad()
@@ -361,21 +368,44 @@ def make_decode_step(cfg: ArchConfig):
         cache["pos"] = pos + 1
         return logits_of(cfg, params, h), cache
 
-    return {"dense": decode_dense, "moe": decode_dense, "ssm": decode_ssm,
-            "hybrid": decode_hybrid}[cfg.family]
+    @torch.no_grad()
+    def decode_encdec(params, cache, tokens):
+        h = lm.embed_tokens(params, cfg, tokens)
+        pos = cache["pos"]
+        for i in range(cfg.L):
+            pl = lm.layer(params["dec"], i)
+            h, _ = lm._attn_sublayer(
+                pl, h, cfg, causal=True, q_offset=pos,
+                kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+            # cross-attention on all T slots of the encoder's K/V
+            h = lm._cross_sublayer(
+                lm.layer(params["dec_cross"], i), h,
+                cache["cross_k"][i].to(h.dtype),
+                cache["cross_v"][i].to(h.dtype), cfg)
+            h = lm._ffn_sublayer(pl, h, cfg)
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return logits_of(cfg, params, h), dict(cache, pos=pos + 1)
+
+    return {"dense": decode_dense, "moe": decode_dense, "vlm": decode_dense,
+            "ssm": decode_ssm, "hybrid": decode_hybrid,
+            "encdec": decode_encdec}[cfg.family]
 
 
 def make_prefill(cfg: ArchConfig):
     """Forward over the prompt → (last-token logits [B, V] float32, cache).
-    The dense and moe families' cache holds the prompt's K/V in bfloat16.
-    The ssm and hybrid families' is ``{"pos"}`` alone, as in the
-    reference: their prefill is the forward, and it fills no cache
-    (`launch/serve.py` prefills them by sequential decode)."""
+    The dense, moe and vlm families' cache holds the K/V of the prompt —
+    behind ``batch["frontend_embeds"]`` [B, P, D] when given, so T = P +
+    S positions — in bfloat16, and ``pos`` = T.  The ssm, hybrid and
+    encdec families' is ``{"pos": S}`` alone, as in the reference: their
+    prefill is the forward, and it fills no cache (`launch/serve.py`
+    prefills them by sequential decode)."""
     lm.check_family(cfg)
 
     @torch.no_grad()
     def prefill_dense(params, batch):
         x = lm.embed_tokens(params, cfg, batch["tokens"])
+        if "frontend_embeds" in batch:
+            x = torch.cat([L.cast(batch["frontend_embeds"], cfg), x], dim=1)
         T = x.shape[1]
         h, ks, vs = x, [], []
         for i in range(cfg.L):

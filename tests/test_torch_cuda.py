@@ -22,8 +22,9 @@ order, and every product is exact); `neighbor_predict` within rtol/atol
 and launching neither serving kernel, its truncation-free answers equal
 to the one-device plain walk's, and the fit's mesh shard tier within
 1e-5 of its one-device replay.  The LM side (no kernel of its own):
-the dense, ssm and hybrid families' forward, decode caches and train
-steps on the card against the CPU at float32.
+the dense, ssm, hybrid and moe families' forward, decode caches and
+train steps, and the encdec and vlm families' forward, prefill and
+decode caches, on the card against the CPU at float32.
 """
 import dataclasses
 import pathlib
@@ -1786,6 +1787,74 @@ def test_ssm_families_on_card_match_cpu(cuda, name):
 @pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
 def test_ssm_families_serve_on_the_card_by_default(cuda, arch):
     """``python -m repro_torch.launch.serve --arch <ssm or hybrid>`` with
+    no ``--device`` serves on the card (reduced here)."""
+    from repro_torch.launch import serve as lserve
+    toks, st = lserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                            "--prompt-len", "8", "--gen", "4"])
+    assert toks.device.type == "cuda" and toks.shape == (2, 5)
+    assert st["peak_mb"] > 0
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_frontend_families_on_card_match_cpu(cuda, name):
+    """Reduced seamless-m4t-large-v2 (encdec: 24 frames) and
+    llava-next-mistral-7b (vlm: an 8-patch prefix) at float32, the card
+    against the CPU: the forward's hidden states and prefill's logits
+    within 1e-5, vlm's prefill K/V, three decode steps' logits — encdec
+    on seeded random cross caches — and every cache leaf, and `serve`'s
+    greedy tokens equal."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm, steps
+    cfg = dataclasses.replace(CB.reduced(CB.get(name)), dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    g = torch.Generator().manual_seed(0)
+    P = 24 if cfg.family == "encdec" else 8
+    b = {"tokens": torch.randint(0, cfg.vocab, (2, 24), dtype=torch.int32,
+                                 generator=g),
+         "frontend_embeds": 0.02 * torch.randn((2, P, cfg.d_model),
+                                               generator=g)}
+    bc = {k: v.to(cuda) for k, v in b.items()}
+    with torch.no_grad():
+        torch.testing.assert_close(lm.forward(cfg, pc, bc).cpu(),
+                                   lm.forward(cfg, p, b), rtol=1e-5,
+                                   atol=1e-5)
+    (lg, c), (lg0, c0) = (steps.make_prefill(cfg)(q, x)
+                          for q, x in ((pc, bc), (p, b)))
+    torch.testing.assert_close(lg.cpu(), lg0, rtol=1e-5, atol=1e-5)
+    assert sorted(c) == sorted(c0) and c["pos"] == c0["pos"]
+    for k in set(c) - {"pos"}:                    # bfloat16 K/V
+        torch.testing.assert_close(c[k].cpu(), c0[k], rtol=1e-2, atol=1e-2)
+    caches = [steps.init_cache(cfg, 2, 8, device=d) for d in (cuda, "cpu")]
+    if cfg.family == "encdec":
+        for n in ("cross_k", "cross_v"):
+            r = torch.randn(tuple(caches[1][n].shape),
+                            generator=g).to(torch.bfloat16)
+            caches[0][n], caches[1][n] = r.to(cuda), r
+    dec = steps.make_decode_step(cfg)
+    for t in range(3):
+        lg, caches[0] = dec(pc, caches[0], bc["tokens"][:, t:t + 1])
+        lg0, caches[1] = dec(p, caches[1], b["tokens"][:, t:t + 1])
+        torch.testing.assert_close(lg.cpu(), lg0, rtol=1e-5, atol=1e-5)
+    assert caches[0]["pos"] == caches[1]["pos"] == 3
+    for k in sorted(set(caches[1]) - {"pos"}):
+        a, w = caches[0][k], caches[1][k]
+        assert a.device.type == "cuda" and a.dtype == w.dtype, k
+        torch.testing.assert_close(a.cpu(), w, rtol=1e-2, atol=1e-2)
+    got, st = serve(cfg, batch=2, prompt_len=16, gen=8, device=cuda,
+                    params=pc, log=lambda *_: None)
+    ref, _ = serve(cfg, batch=2, prompt_len=16, gen=8, device="cpu",
+                   params=p, log=lambda *_: None)
+    assert torch.equal(got.cpu(), ref) and st["peak_mb"] > 0
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_frontend_families_serve_on_the_card_by_default(cuda, arch):
+    """``python -m repro_torch.launch.serve --arch <encdec or vlm>`` with
     no ``--device`` serves on the card (reduced here)."""
     from repro_torch.launch import serve as lserve
     toks, st = lserve.main(["--arch", arch, "--reduced", "--batch", "2",

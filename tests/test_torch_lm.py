@@ -4,26 +4,32 @@ serving half, `launch/serve.py`), on the CPU at the reduced configs.
 
 * Every registered config equals the JAX package's field for field, for
   all ten names, and so do `reduced`, `SHAPES`, `runnable` and `cells`.
-* On each reduced config of a ported family (the dense llama3-8b,
-  llama3-405b, qwen1.5-0.5b and qwen3-0.6b, the ssm mamba2-370m, the
-  hybrid zamba2-7b, the moe dbrx-132b — every token to all 4 experts —,
-  arctic-480b — top-2 of 4 and the dense residual MLP — and dbrx-132b
-  with 16 experts, top 4): `init_params` draws the JAX package's streams
-  (the same tree and shapes, each float within 4 ulp — `prng.normal`'s
-  contract — and ≥ 95 % bit-equal); from the JAX parameters
-  (`convert.lm_params_from_numpy`), `forward`, prefill and decode at
-  float32 within 1e-4 of the JAX package's, every decode cache leaf
-  with its dtype.
+* On each reduced config (the dense llama3-8b, llama3-405b, qwen1.5-0.5b
+  and qwen3-0.6b, the ssm mamba2-370m, the hybrid zamba2-7b, the moe
+  dbrx-132b — every token to all 4 experts —, arctic-480b — top-2 of 4
+  and the dense residual MLP — and dbrx-132b with 16 experts, top 4,
+  the encdec seamless-m4t-large-v2 and the vlm llava-next-mistral-7b):
+  `init_params` draws the JAX package's streams (the same tree and
+  shapes, each float within 4 ulp — `prng.normal`'s contract — and ≥
+  95 % bit-equal); from the JAX parameters (`convert.
+  lm_params_from_numpy`), `forward`, prefill and decode at float32
+  within 1e-4 of the JAX package's, every decode cache leaf with its
+  dtype — encdec behind frame embeddings, with seeded random cross
+  caches, vlm behind an 8-patch prefix.  In bfloat16 the two frontend
+  families' forward and prefill agree within 16u·rms (max) and 2u·rms
+  (mean), u = 2⁻⁸ (the dense family reads the same: rounding order).
 * `test_lm.py::test_dense_decode_matches_forward` on the port, in
-  bfloat16 (the JAX test's 3e-2) and float32 (1e-4).
+  bfloat16 (the JAX test's 3e-2) and float32 (1e-4); and for encdec,
+  its cross caches filled from the encoder's K/V.
 * `serve`'s greedy tokens equal the JAX `repro.launch.serve.serve`'s
-  over 8 steps at float32, from the same parameters and prompts (the ssm
-  and hybrid families prefilled by sequential decode, dense and moe by
-  one forward).
-* The encdec and vlm families raise `NotImplementedError`; so does
-  drawing arctic-480b's bfloat16 parameters.  (Training every ported
-  family, moe included, is held against the JAX package in
-  `test_torch_lm_train.py`.)
+  over 8 steps at float32, from the same parameters and prompts (the
+  ssm, hybrid and encdec families prefilled by sequential decode —
+  encdec on zero cross caches, as the reference serves it —, dense, moe
+  and vlm by one forward).
+* The encdec and vlm families' training entry points raise
+  `NotImplementedError`; so does drawing arctic-480b's bfloat16
+  parameters.  (Training the other families is held against the JAX
+  package in `test_torch_lm_train.py`.)
 """
 import dataclasses
 
@@ -49,9 +55,11 @@ DENSE = ("llama3-8b", "llama3-405b", "qwen1.5-0.5b", "qwen3-0.6b")
 # "dbrx-132b:16x4": reduced dbrx-132b with its 16 experts and top 4 (the
 # reduced config's 4 experts route every token to all of them)
 MOE = ("dbrx-132b", "arctic-480b", "dbrx-132b:16x4")
-PORTED = DENSE + ("mamba2-370m", "zamba2-7b") + MOE
+# the frontend-stub families: serving is ported, training is not
 OTHER = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
+PORTED = DENSE + ("mamba2-370m", "zamba2-7b") + MOE + OTHER
 F32 = dict(rtol=1e-4, atol=1e-4)
+U = 2.0 ** -8                            # bfloat16's unit roundoff
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -107,6 +115,32 @@ def _tokens(cfg, B=2, S=12, seed=0):
         np.int32)
 
 
+def _batches(cfg, toks, seed=0):
+    """(port batch, JAX batch) of ``toks``; with a frontend stub also
+    ``frontend_embeds`` drawn as `tests/test_lm.py::_batch` draws them:
+    one frame a token for encdec, an 8-patch prefix otherwise."""
+    b, jb = {"tokens": torch.from_numpy(toks)}, {"tokens": jnp.asarray(toks)}
+    if cfg.frontend == "embed_stub":
+        B, S = toks.shape
+        P = S if cfg.family == "encdec" else 8
+        fe = np.random.default_rng(seed + 1).normal(
+            0, 0.02, (B, P, cfg.d_model)).astype(np.float32)
+        b["frontend_embeds"] = torch.from_numpy(fe)
+        jb["frontend_embeds"] = jnp.asarray(fe)
+    return b, jb
+
+
+def _random_cross(tc, jc, seed=0):
+    """Seeded random ``cross_k`` / ``cross_v`` into both packages' encdec
+    caches, in each cache's dtype (the reference's `serve` leaves them
+    zero, and a zero cross cache adds exactly 0)."""
+    rng = np.random.default_rng(seed)
+    for n in ("cross_k", "cross_v"):
+        r = rng.normal(0, 1, tuple(tc[n].shape)).astype(np.float32)
+        tc[n] = torch.from_numpy(r).to(tc[n].dtype)
+        jc[n] = jnp.asarray(r, jc[n].dtype)
+
+
 def test_names_and_shapes_equal_jax():
     assert CB.names() == NAMES and len(NAMES) == 10
     assert CB.SHAPES == {k: CB.ShapeSpec(**dataclasses.asdict(v))
@@ -157,21 +191,22 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
     jp = _jax_params(jcfg)
     tp = _port_params(jp)
     toks = _tokens(tcfg, S=80)           # more than one query chunk (64)
-    h = lm.forward(tcfg, tp, {"tokens": torch.from_numpy(toks)})
-    jh = jlm.forward(jcfg, jp, {"tokens": jnp.asarray(toks)})
-    assert h.dtype == torch.float32
+    b, jb = _batches(tcfg, toks)
+    h = lm.forward(tcfg, tp, b)
+    jh = jlm.forward(jcfg, jp, jb)
+    assert h.dtype == torch.float32 and h.shape == jh.shape
     margin = (_min_router_margin(tcfg, tp, torch.from_numpy(toks))
               if tcfg.family == "moe" else None)
     np.testing.assert_allclose(h.numpy(), np.asarray(jh), **F32,
                                err_msg=f"smallest router margin {margin}")
-    logits, cache = steps.make_prefill(tcfg)(
-        tp, {"tokens": torch.from_numpy(toks)})
-    jlogits, jcache = jsteps.make_prefill(jcfg)(jp,
-                                                {"tokens": jnp.asarray(toks)})
+    logits, cache = steps.make_prefill(tcfg)(tp, b)
+    jlogits, jcache = jsteps.make_prefill(jcfg)(jp, jb)
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **F32)
-    assert cache["pos"] == int(jcache["pos"]) == 80
+    # vlm's cache holds the 8-patch prefix too; encdec's pos is the tokens'
+    assert cache["pos"] == int(jcache["pos"]) == (
+        88 if tcfg.family == "vlm" else 80)
     assert sorted(cache) == sorted(jcache)
-    if tcfg.family in ("dense", "moe"):
+    if tcfg.family in lm.KV_FAMILIES:
         for k in ("k", "v"):
             assert cache[k].dtype == torch.bfloat16
             np.testing.assert_allclose(cache[k].float().numpy(),
@@ -188,6 +223,8 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
     cdt = torch.float32 if tcfg.family == "moe" else torch.bfloat16
     tc = steps.init_cache(tcfg, 2, 8, dtype=cdt, device="cpu")
     jc = jsteps.init_cache(jcfg, 2, 8, dtype=getattr(jnp, str(cdt)[6:]))
+    if tcfg.family == "encdec":
+        _random_cross(tc, jc)
     dec, jdec = steps.make_decode_step(tcfg), jsteps.make_decode_step(jcfg)
     for t in range(3):
         lg, tc = dec(tp, tc, torch.from_numpy(toks[:, t:t + 1]))
@@ -197,13 +234,16 @@ def test_forward_prefill_and_decode_match_jax_at_float32(name):
     assert tc["pos"] == int(jc["pos"]) == 3
     # every cache leaf and its dtype: at float32 compute the conv states
     # become float32 after the first step (the reference's leaves are the
-    # scan's outputs); the K/V stay bfloat16 (rounded: 1e-2)
+    # scan's outputs); the K/V stay bfloat16 (rounded: 1e-2); encdec's
+    # cross K/V are read, never written
     assert sorted(tc) == sorted(jc)
     for k in sorted(set(jc) - {"pos"}):
         want = np.asarray(jc[k])
         assert str(tc[k].dtype) == f"torch.{want.dtype}", k
         assert tuple(tc[k].shape) == want.shape, k
         tol = dict(rtol=1e-2, atol=1e-2) if k in ("k", "v") else F32
+        if k.startswith("cross_"):
+            tol = dict(rtol=0, atol=0)
         np.testing.assert_allclose(tc[k].float().numpy(),
                                    want.astype(np.float32), **tol,
                                    err_msg=k)
@@ -234,8 +274,104 @@ def test_dense_decode_matches_forward(dtype, tol):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("name", OTHER)
+def test_frontend_families_match_jax_in_bfloat16(name):
+    """encdec's forward and `prefill_generic` (frame embeddings, S = 80 >
+    the 64-query chunk) and vlm's forward and `prefill_dense` (an
+    8-patch prefix) at the configs' own bfloat16 compute: hidden states
+    and last-position logits within 16u·rms (max) and 2u·rms (mean) of
+    the JAX package's, vlm's cache K/V within 1e-2, ``pos`` equal."""
+    jcfg, tcfg = _reduced(name)
+    assert tcfg.dtype == "bfloat16"
+    jp = _jax_params(jcfg)
+    tp = _port_params(jp)
+    b, jb = _batches(tcfg, _tokens(tcfg, S=80))
+
+    def close(got, want):
+        want = np.asarray(want, np.float32)
+        err = np.abs(got.float().numpy() - want)
+        rms = float(np.sqrt((want ** 2).mean()))
+        assert err.max() <= 16 * U * rms and err.mean() <= 2 * U * rms, (
+            err.max() / rms, err.mean() / rms)
+
+    h = lm.forward(tcfg, tp, b)
+    assert h.dtype == torch.bfloat16
+    close(h, jlm.forward(jcfg, jp, jb))
+    logits, cache = steps.make_prefill(tcfg)(tp, b)
+    jlogits, jcache = jsteps.make_prefill(jcfg)(jp, jb)
+    close(logits, jlogits)
+    assert sorted(cache) == sorted(jcache)
+    assert cache["pos"] == int(jcache["pos"]) == h.shape[1]
+    for k in set(cache) - {"pos"}:
+        assert cache[k].dtype == torch.bfloat16
+        np.testing.assert_allclose(cache[k].float().numpy(),
+                                   np.asarray(jcache[k], np.float32),
+                                   rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 3e-2), ("float32", 1e-4)])
+def test_encdec_decode_matches_forward(dtype, tol):
+    """The decode = forward check for encdec: the cross caches filled
+    with each decoder layer's K/V of the encoder's output (computed here
+    as the reference's `_forward_encdec` projects them), T = S frames,
+    then the tokens decoded one by one (teacher-forced): the logits of
+    each step equal the forward's at that position."""
+    _, cfg = _reduced("seamless-m4t-large-v2", dtype)
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    B, S = 2, 12
+    b, _ = _batches(cfg, _tokens(cfg, B, S))
+    toks = b["tokens"]
+    full_logits = steps.logits_of(cfg, p, lm.forward(cfg, p, b))
+    cdt = getattr(torch, dtype)
+    cache = steps.init_cache(cfg, B, S, dtype=cdt, device="cpu")
+    xe = lm._encode(cfg, p, b["frontend_embeds"])
+    for n, w in (("cross_k", "wk"), ("cross_v", "wv")):
+        cache[n] = torch.stack([
+            torch.einsum("bsd,dhk->bshk", xe, W.to(xe.dtype))
+            for W in p["dec_cross"][w]]).to(cdt)
+    dec = steps.make_decode_step(cfg)
+    outs = []
+    for t in range(S):
+        lg, cache = dec(p, cache, toks[:, t:t + 1])
+        outs.append(lg[:, 0])
+    got = torch.stack(outs, dim=1)
+    np.testing.assert_allclose(got.numpy(), full_logits.numpy(), rtol=tol,
+                               atol=tol)
+
+
+def test_vlm_decode_after_the_prefix_matches_forward():
+    """vlm at float32 behind an 8-patch prefix: prefill's cache (its K/V
+    in bfloat16, as the reference stores them) copied into a float32
+    cache, then 4 tokens decoded one by one from position P + S: each
+    step's logits within 2e-3 of the forward's over the whole sequence
+    (the K/V rounding; a decode that lost the prefix's slots reads
+    ~0.08)."""
+    _, cfg = _reduced("llava-next-mistral-7b", "float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    B, S, G = 2, 12, 4
+    b, _ = _batches(cfg, _tokens(cfg, B, S + G))
+    P = b["frontend_embeds"].shape[1]
+    full = steps.logits_of(cfg, p, lm.forward(cfg, p, b))    # [B, P+S+G, V]
+    _, pc = steps.make_prefill(cfg)(p, {"tokens": b["tokens"][:, :S],
+                                        "frontend_embeds":
+                                        b["frontend_embeds"]})
+    assert pc["pos"] == P + S and pc["k"].dtype == torch.bfloat16
+    cache = steps.init_cache(cfg, B, P + S + G, dtype=torch.float32,
+                             device="cpu")
+    for n in ("k", "v"):
+        cache[n][:, :, :P + S] = pc[n]
+    cache["pos"] = pc["pos"]
+    dec = steps.make_decode_step(cfg)
+    for t in range(S, S + G):
+        lg, cache = dec(p, cache, b["tokens"][:, t:t + 1])
+        np.testing.assert_allclose(lg[:, 0].numpy(),
+                                   full[:, P + t].detach().numpy(),
+                                   rtol=0, atol=2e-3)
+    assert cache["pos"] == P + S + G
+
+
 @pytest.mark.parametrize("name", ["llama3-8b", "qwen3-0.6b", "mamba2-370m",
-                                  "zamba2-7b", *MOE])
+                                  "zamba2-7b", *MOE, *OTHER])
 def test_serve_greedy_tokens_equal_jax(name):
     jcfg, tcfg = _reduced(name, "float32")
     jp = _jax_params(jcfg, seed=1)
@@ -276,38 +412,55 @@ def test_serve_cli_runs_the_moe_family_on_the_cpu(capsys):
     assert "tok/s batched" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("arch", OTHER)
+def test_serve_cli_runs_the_frontend_families_on_the_cpu(arch, capsys):
+    toks, stats = tserve.main(["--arch", arch, "--reduced", "--batch", "2",
+                               "--prompt-len", "8", "--gen", "4",
+                               "--device", "cpu"])
+    assert toks.shape == (2, 5) and stats["tok_per_s"] > 0
+    assert "tok/s batched" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("name", OTHER)
 def test_other_families_raise(name):
+    """encdec and vlm serve (the cases above) but do not train: every
+    training entry point raises, naming ROADMAP item 9.5b, before it
+    draws or computes anything."""
     cfg = CB.reduced(CB.get(name))
-    key = prng.PRNGKey(0)
-    for call in (lambda: lm.init_params(cfg, key, 1, device="cpu"),
-                 lambda: lm.forward(cfg, {}, {"tokens": torch.zeros(
-                     (1, 1), dtype=torch.int32)}),
-                 lambda: steps.init_cache(cfg, 1, 4, device="cpu"),
-                 lambda: steps.make_decode_step(cfg),
-                 lambda: steps.make_prefill(cfg),
+    p = lm.init_params(cfg, prng.PRNGKey(0), 1, device="cpu")
+    b = {"tokens": torch.zeros((1, 2), dtype=torch.int32),
+         "labels": torch.zeros((1, 2), dtype=torch.int32)}
+    for call in (lambda: steps.lm_loss(cfg, p, b),
+                 lambda: steps.value_and_grad(cfg, p, b),
+                 lambda: steps.init_opt(cfg, p),
                  lambda: steps.make_train_step(cfg),
-                 lambda: tserve.serve(cfg, batch=1, prompt_len=2, gen=1,
-                                      device="cpu"),
                  lambda: ttrain.train_loop(cfg, steps_n=1, batch=1, seq=2,
                                            device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*9.5b"):
             call()
 
 
 @pytest.mark.parametrize("name", ["qwen1.5-0.5b", "dbrx-132b",
-                                  "arctic-480b"])
+                                  "arctic-480b", *OTHER])
 def test_lm_params_from_numpy_keeps_the_tree(name):
-    """Every leaf carried across bit for bit, the moe layers' [L, E, ...]
-    expert stacks, router and arctic's dense residual ``w*d`` too."""
+    """Every leaf carried across bit for bit: the moe layers' [L, E, ...]
+    expert stacks, router and arctic's dense residual ``w*d`` too, and
+    encdec's nested ``enc`` / ``dec`` / ``dec_cross`` stacks."""
     jcfg, _ = _reduced(name)
     jp = _jax_params(jcfg)
     tp = _port_params(jp)
-    assert sorted(tp) == sorted(jp) and sorted(tp["layers"]) == sorted(
-        jp["layers"])
-    for n, v in jp["layers"].items():
-        assert tuple(tp["layers"][n].shape) == v.shape, n
-        np.testing.assert_array_equal(tp["layers"][n].numpy(), np.asarray(v))
+    assert sorted(tp) == sorted(jp)
+    stacks = sorted(k for k, v in jp.items() if isinstance(v, dict))
+    assert stacks == (["dec", "dec_cross", "enc"]
+                      if jcfg.family == "encdec" else ["layers"])
+    for k in stacks:
+        assert sorted(tp[k]) == sorted(jp[k])
+        for n, v in jp[k].items():
+            assert tuple(tp[k][n].shape) == v.shape, (k, n)
+            np.testing.assert_array_equal(tp[k][n].numpy(), np.asarray(v))
+    if jcfg.family == "encdec":
+        assert tp["enc"]["wq"].shape[0] == jcfg.enc_layers
+        assert sorted(tp["dec_cross"]) == ["ln1", "wk", "wo", "wq", "wv"]
     if jcfg.family == "moe":
         E, D, ff = jcfg.n_experts, jcfg.d_model, jcfg.d_ff
         assert tp["layers"]["w1"].shape == (jcfg.L, E, D, ff)
