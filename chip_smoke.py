@@ -5,7 +5,8 @@ online learning, its resilience layer, the always-on loop, the fit's
 neighbour comparators, the other serving paths, the multi-device tiers,
 the Table-10 comparison with the NCF models, the examples, dense LM
 serving and training, the ssm and hybrid LM families, moe LM serving
-and training, and encdec and vlm LM serving — on one CUDA card.
+and training, and encdec and vlm LM serving and training — on one CUDA
+card.
 
     python3 chip_smoke.py
 
@@ -125,7 +126,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     `ServeConfig` and a 1,024-item tail, `LoopConfig` defaults, a fixed
     20,000 of the held-out ratings as the drift probe; each slice
     submits 2 × 256 users (a quarter new ids) and even slices offer a ΔΩ
-    (phase 16's recipe).  A 6-slice reference arm, the counters zeroed
+    (phase 16's recipe; a sixth of the held-out ratings each).  A 6-slice reference arm, the counters zeroed
     just before (one `lsh_retrieve` and one `candidate_score` launch a
     scored flush or warm-up; each slice's first flush against the plain
     versions), its states' leaf SHA-256 kept by seq; a drift trip forced
@@ -176,9 +177,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     clean on the sharded index, the three ingest entry points refused
     with `ShardedIngestUnsupported` and `OnlineLoop` refusing the
     service; (c) phase 8's model scheduled with ``shards=4``: the shard
-    tier's cells, share of the ratings and MB; two epochs through the
-    mesh and through the one-device replay from one state (every leaf
-    and the test RMSE within 1e-5), each epoch's shard tier timed alone;
+    tier's cells, share of the ratings and MB; one epoch (two before
+    phase 29 took the script's time) through the mesh and through the
+    one-device replay from one state (every leaf and the test RMSE
+    within 1e-5), its shard tier timed alone;
     `fit(shards=4, use_kernels=True)` for 2 epochs, its `culsh_sgd`
     counter zeroed just before equal to the width tiers' steps × 2 and
     its RMSE falling, beside phase 10's epochs.  Phases 8–18 fit with
@@ -200,7 +202,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     within 1e-9 of its largest entry in float64 and 1e-3 in float32, the
     Adam update of the same gradients 1e-6);
 22. examples — each `examples/torch_*.py` in a subprocess on the card at
-    its default size (``torch_train_lshmf_100m --small``; the serving
+    its default size, the seven at once (``torch_train_lshmf_100m --small``; the serving
     example also with ``--online-loop --slices 3``; the LM example in
     both arms, 10 steps each): exit 0, its last lines, and its ``--report`` line's
     launch counters (`culsh_sgd` in every LSH-MF one; `lsh_retrieve` and
@@ -221,8 +223,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     relative, each gradient leaf within 1e-4 of its own max |g| and a
     TF32 control above it, Adam of the card's gradients 1e-6) and the
     card's bfloat16 loss within 4u of the CPU's float32 one;
-    `repro_torch.launch.train.train_loop` at full width cut to 14 of the
-    28 layers (3.76·10⁸ float32 parameters, batch 8 × seq 128, the
+    `repro_torch.launch.train.train_loop` at full width cut to 7 of the
+    28 layers (2.66·10⁸ float32 parameters, batch 8 × seq 128, the
     reference CLI's) for 20 steps in two calls, the second resuming from the first's
     step-10 checkpoint (restored bit for bit; in a temp dir under
     `build/`, removed): step seconds, tokens/s against a bound from the
@@ -243,12 +245,12 @@ Phases, in order; any failure raises and the script exits non-zero:
     float32, the JAX test's 1e-4), each limit beside a control that must
     read above it (the conv state dropped each step; each chunk alone);
     `repro_torch.launch.serve.serve` at full width (mamba2-370m at its
-    depth, 4.197·10⁸ float32 parameters; zamba2-7b cut to 42 of its 81
-    layers, seven of its 14 groups; batch 4, a 64-token prompt
+    depth, 4.197·10⁸ float32 parameters; zamba2-7b cut to 24 of its 81
+    layers, four of its 14 groups; batch 4, a 64-token prompt
     prefilled by sequential decode, 32 tokens): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the weights once a
     step, resident and peak MB, a profiled decode step; mamba2-370m
-    trained at full width cut to L = 24 of 48 (for the script's time)
+    trained at full width cut to L = 12 of 48 (for the script's time)
     through `train_loop` (batch 8 × 128, lr 3e-4,
     20 steps in two calls, the second resuming from a step-10
     checkpoint restored bit for bit, the loss falling), the step timed
@@ -270,7 +272,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     prefill's last-position logits against a float32-cache decode (a
     cache-zeroed control); reduced arctic-480b (top 2 of 4, the dense
     residual MLP) card vs CPU; then dbrx-132b served at full width cut
-    to L = 4 (1.4269·10¹⁰ float32 parameters) through
+    to L = 2 (7.75·10⁹ float32 parameters) through
     `repro_torch.launch.serve.serve` (batch 4, prompt 64, 32 tokens):
     draw, prefill and decode seconds, tokens/s beside the bound of
     reading the weights of the routed experts, the attention and both
@@ -317,11 +319,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     float32 forward on row 0 (the served bfloat16 decode within twice
     the bfloat16 forward's distance, a float32 step within half of it,
     each beside a control).  None of the seven kernels launches.
+29. the encdec and vlm LM families' training half — on the same
+    2-layer cuts at full width (B 2 × 16 tokens behind 16 frames or 16
+    patches), float32, the card against the CPU: seamless's
+    `value_and_grad` and llava's µ = 2 train step (its accumulated
+    gradient, ``frontend_embeds`` split with the tokens) — the loss
+    within 1e-5, each gradient leaf within 1e-4 of its own max with a
+    TF32 control above it —, on the seamless cut an Adam update of the
+    card's gradients over the tree without its embedding tables within
+    1e-6 and remat on = off bit for bit; then seamless-m4t-large-v2
+    trained at full width and depth (2.03·10⁹ float32 parameters)
+    through `repro_torch.launch.train.train_loop` for 10 steps at batch
+    8 × 128 behind 128 frames, the loss falling, 3 synchronised
+    `make_train_step` steps timed beside their bound; a checkpoint of
+    reduced seamless's nested tree (step 5 of 10 under
+    ``build/chip_smoke_encdec_ckpt``, removed) restored bit for bit and
+    resumed as the same state stepped in memory; llava-next-mistral-7b
+    trained at full width cut to L = 14 of 32 (3.32·10⁹ parameters, its
+    own µ = 2, 16 stub patches, lr 1e-4) for 10 steps, 3 timed steps
+    beside their bound, the training's own peak ≤ 70,000 MB, a profiled
+    step.  None of the seven kernels launches.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–28 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–29 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -2037,13 +2059,16 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
     up_kw = dict(K=K, epochs=3, batch=4096)
 
     # the stream, the same in every arm: a ΔΩ on slices 0, 2 and 4 (a
-    # third of the remaining held-out ratings each, plus new users rating
-    # 20 items and new items rated by 20 old users: phase 16's recipe),
-    # and 2 × B users a slice, a quarter of them new ids
+    # sixth of the remaining held-out ratings each — a third until phase
+    # 29 needed the script's time: each ΔΩ's micro schedule is rebuilt
+    # on the host, in the slice and again in each replay —, plus new
+    # users rating 20 items and new items rated by 20 old users: phase
+    # 16's recipe), and 2 × B users a slice, a quarter of them new ids
     deltas, M_, N_ = [], st0.M, st0.N
     n_u = max(1, round(100 * args.fit_scale))
     n_i = max(1, round(50 * args.fit_scale))
-    for k, part in enumerate(np.array_split(np.arange(rest[0].size), 3)):
+    for k, part in enumerate(np.array_split(
+            np.arange(rest[0].size // 2), 3)):
         M2, N2 = M_ + n_u, N_ + n_i
         r = np.concatenate([np.repeat(np.arange(M_, M2), 20),
                             rng.integers(0, M_, 20 * n_i)])
@@ -2855,7 +2880,9 @@ def shard_phase(args, serve: dict, ctx: dict, dev, on_card: bool,
     def epochs(meshed: bool):
         pp = model.pack_params(p0)
         tier_s, epoch_s = [], []
-        for ep in range(2):
+        # one epoch (two until phase 29 needed the script's time; the
+        # fit below runs two through the mesh)
+        for ep in range(1):
             key = prng.fold_in(k_ep, ep)
             start = dataclasses.replace(pp, row=pp.row.clone(),
                                         col=pp.col.clone())
@@ -2891,7 +2918,7 @@ def shard_phase(args, serve: dict, ctx: dict, dev, on_card: bool,
     diff = max(float((getattr(p_mesh, f) - getattr(p_rep, f)).abs().max())
                for f in ("U", "V", "b", "bh", "W", "C"))
     r_mesh, r_rep = float(r_mesh), float(r_rep)
-    print(f"[20 fit] two epochs through the mesh and through the replay: "
+    print(f"[20 fit] one epoch through the mesh and through the replay: "
           f"max leaf |diff| {diff:.3g} (limit 1e-5), test rmse {r_mesh:.6f} "
           f"/ {r_rep:.6f} (limit 1e-5); epoch s mesh "
           f"{[round(x, 3) for x in ep_mesh]}, replay "
@@ -3172,7 +3199,12 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
     """Phase 22: each `examples/torch_*.py` as a user runs it, in a
     subprocess on the card at its own default size (the 100M script
     with ``--small``: phases 8–10 run its full size), with ``--report``
-    printing the kernels' launch counters."""
+    printing the kernels' launch counters.  The seven run at once, one
+    host thread each (each spends most of its wall starting up and on
+    the host, and none writes where another does); their outputs are
+    read in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
     build = os.path.join(ROOT, "build", "chip_smoke_examples")
     runs = [("torch_quickstart", []), ("torch_online_learning", []),
             ("torch_serve_recsys", []),
@@ -3187,13 +3219,19 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
             ("torch_train_lm", ["--steps", "10"]),
             ("torch_train_lm", ["--lsh-softmax", "--steps", "10"])]
     small = ["--M", "600", "--N", "100", "--nnz", "12000", "--epochs", "2"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    # one host thread each: seven processes with a full pool of torch
+    # threads apiece oversubscribe the host's cores (the CPU rehearsal
+    # ran 10x slower)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
     t_phase = time.perf_counter()
     import shutil
     shutil.rmtree(build, ignore_errors=True)
     os.makedirs(build)
     out = {}
-    for name, extra in runs:
+
+    def run(name, extra):
+        """→ (the finished process, its wall seconds)."""
         argv = [sys.executable, os.path.join(ROOT, "examples", f"{name}.py"),
                 "--report", *extra]
         if not on_card:                          # rehearsal: the CPU, tiny
@@ -3204,7 +3242,13 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
         t0 = time.perf_counter()
         done = subprocess.run(argv, env=env, capture_output=True, text=True,
                               timeout=600, cwd=build)
-        wall = time.perf_counter() - t0
+        return done, time.perf_counter() - t0
+
+    # the pool's exit waits for every process, also when one fails
+    with ThreadPoolExecutor(max_workers=len(runs)) as pool:
+        futures = [pool.submit(run, name, extra) for name, extra in runs]
+        finished = [f.result() for f in futures]
+    for (name, extra), (done, wall) in zip(runs, finished):
         tag = " ".join([name.replace("torch_", ""), *extra[:1]]) if (
             extra and extra[0] in ("--online-loop", "--lsh-softmax")) else \
             name.replace("torch_", "")
@@ -3424,9 +3468,9 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
 
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t_phase = time.perf_counter()
-    # full width, 14 of the 28 layers: the depth is cut for the script's
+    # full width, 7 of the 28 layers: the depth is cut for the script's
     # time limit (PERF.md §4)
-    full = dataclasses.replace(CB.get("qwen3-0.6b"), L=14)
+    full = dataclasses.replace(CB.get("qwen3-0.6b"), L=7)
     if not on_card:
         full = CB.reduced(full)                  # rehearsal size
     u = 2.0 ** -8                                # bfloat16's unit roundoff
@@ -3716,28 +3760,34 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
 
 def worst_leaf(got, want) -> tuple[float, str]:
     """(the largest card-vs-CPU max abs over the leaf's own max |g|, that
-    leaf's path) of two gradient trees, ``want`` on the CPU."""
+    leaf's path) of two gradient trees, ``want`` the CPU's (on the CPU,
+    or moved to the card to compare there)."""
     from repro_torch import tree as T
 
     out = []
     for (path, w), a in zip(T.leaves_with_paths(want), T.leaves(got)):
         scale = float(w.abs().max())
-        err = float((a.cpu() - w).abs().max())
+        err = float((a.to(w.device) - w).abs().max())
         out.append((err / scale if scale > 0 else float("inf"), path))
     return max(out)
 
 
-def tf32_grads(cfg, p, batch):
-    """`value_and_grad`'s gradients on the card with TF32 products: the
-    lower-precision control of a card-vs-CPU gradient check."""
-    from repro_torch.models import steps
-
+def tf32(fn):
+    """``fn()`` with TF32 products on the card: the lower-precision
+    control of a card-vs-CPU check."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        return steps.value_and_grad(cfg, p, batch)[1]
+        return fn()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def tf32_grads(cfg, p, batch):
+    """`value_and_grad`'s gradients on the card with TF32 products."""
+    from repro_torch.models import steps
+
+    return tf32(lambda: steps.value_and_grad(cfg, p, batch)[1])
 
 
 def gc_collect(on_card: bool) -> None:
@@ -3983,12 +4033,12 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
         del xs, dt, Bm, Cm, y256, y64, alone
         gc_collect(on_card)
 
-    # ---- (b) serving at full width; zamba2-7b cut to 7 of its 14 groups
-    # (phase 26 takes the time it saves) ----
+    # ---- (b) serving at full width; zamba2-7b cut to 4 of its 14 groups
+    # (phases 26 and 29 take the time it saves) ----
     t_a = time.perf_counter() - t_phase
     for full in fulls:
         if on_card and full.family == "hybrid":
-            full = dataclasses.replace(full, L=42)
+            full = dataclasses.replace(full, L=24)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         t0 = time.perf_counter()
         params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
@@ -4025,9 +4075,9 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
     # mamba2-370m at full width: card vs CPU on the cut, then train_loop
     mamba, zamba = fulls
     grads_vs_cpu(dataclasses.replace(mamba, L=2), mamba.name)
-    # trained cut to 24 of its 48 layers (the whole script's time: phase
-    # 28 came after it)
-    mamba = dataclasses.replace(mamba, L=24) if on_card else mamba
+    # trained cut to 12 of its 48 layers (the whole script's time:
+    # phases 28 and 29 came after it)
+    mamba = dataclasses.replace(mamba, L=12) if on_card else mamba
     Bt, St, N_STEPS, N_TIMED = 8, 128, 20, 6
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
@@ -4199,7 +4249,7 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
     and `moe_dense_ref` under `lm.py`, `steps.py` and `launch/serve.py`)
     — checks on a 2-layer cut of dbrx-132b's full widths and on reduced
     arctic-480b, each comparing the routes first and the values second;
-    then dbrx-132b served at full width, L = 4, through
+    then dbrx-132b served at full width, L = 2, through
     `repro_torch.launch.serve.serve`.  Launches none of the seven
     kernels (no `pallas_call` on this path)."""
     import dataclasses
@@ -4372,9 +4422,10 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
     del pa, lga, lga0
     gc_collect(on_card)
 
-    # ---- (b) dbrx-132b served at full width, L = 4 ----
+    # ---- (b) dbrx-132b served at full width, L = 2 (L = 4 until phase
+    # 29 needed the script's time) ----
     t_a = time.perf_counter() - t_phase
-    served = dataclasses.replace(full, L=4)
+    served = dataclasses.replace(full, L=2)
     B, S, GEN = 4, 64, 32
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
@@ -4922,14 +4973,6 @@ def encdec_vlm_phase(args, dev, on_card: bool, power: str) -> None:
         return torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
             np.int32)).to(dev)
 
-    def tf32(fn):
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = True
-        try:
-            return fn()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
-
     # ---- (a) seamless-m4t-large-v2, 2 + 2 layers at full width ----
     cut = dataclasses.replace(sea, L=2, enc_layers=2)
     c32 = dataclasses.replace(cut, dtype="float32")
@@ -5248,6 +5291,365 @@ def vlm_prefix(cfg, params, B, S, GEN, n_patch, rng, dev, on_card, power):
         raise AssertionError("vlm: the bfloat16 limit passes a forward "
                              "without the prefix")
 
+def frontend_step_flops(cfg, B: int, S: int, P: int) -> tuple[float, float]:
+    """(bf16, float32) multiply-add FLOPs of one encdec or vlm train step
+    from the shapes, as `lm_step_flops` counts a dense one: the layers'
+    projections and the one-hot embedding product in bfloat16, the
+    attention scores and the logits (over the S text positions) in
+    float32; forward once, the layers again under remat, backward twice
+    each product (the one-hot product once).  vlm's layers run over
+    P + S positions; encdec's encoder over its P frames, and each
+    decoder layer adds the cross-attention's q / o projections over S
+    tokens, its K / V projections over the P frames and its S × P
+    scores."""
+    D, Hq, Hk, hd, ff = (cfg.d_model, cfg.n_heads_padded, cfg.n_kv, cfg.hd,
+                         cfg.d_ff)
+    V = cfg.vocab_padded(1)
+    dense = lambda n: 2 * n * D * (2 * Hq * hd + 2 * Hk * hd + 3 * ff)
+    scores = lambda q, k: 2 * 2 * B * Hq * q * k * hd
+    emb = logits = 2 * B * S * V * D
+    if cfg.family == "encdec":
+        nE, nD = B * P, B * S
+        cross = 2 * nD * D * 2 * Hq * hd + 2 * nE * D * 2 * Hk * hd
+        bf16 = (cfg.enc_layers * dense(nE) + cfg.L * (dense(nD) + cross))
+        f32 = (cfg.enc_layers * scores(P, P)
+               + cfg.L * (scores(S, S) + scores(S, P)))
+    else:
+        bf16, f32 = cfg.L * dense(B * (P + S)), cfg.L * scores(P + S, P + S)
+    return float(4 * bf16 + 2 * emb), float(4 * f32 + 3 * logits)
+
+
+def frontend_train_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 29: the encdec and vlm families' training half (`steps.
+    lm_loss` behind vlm's patch prefix, autograd through `_encode` and
+    `_forward_encdec` — the encoder's output read by every decoder
+    layer's cross K/V under remat —, the µ = 2 split of ``frontend_
+    embeds``, `launch/train.py::synth_batch`'s frontend draws and
+    `train_loop`, the nested ``enc`` / ``dec`` / ``dec_cross`` trees
+    through `train/checkpoint.py`): (a) the card against the CPU at
+    float32 on 2-layer cuts at full width — seamless-m4t-large-v2 (2 + 2
+    layers) by `value_and_grad`, llava-next-mistral-7b (2 layers) by a
+    µ = 2 train step's accumulated gradient —, each with a TF32 control,
+    seamless's with an Adam update; (d) remat on = off bit for bit on
+    the seamless cut; (b) seamless at full width and depth through `train_loop`, and
+    a checkpoint resumed on reduced seamless; (c) llava at full width
+    cut to L = 14 of 32 with its own µ = 2, peak memory, a profiled
+    step.  Launches none of the seven kernels (no `pallas_call` on this
+    path)."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm, steps
+    from repro_torch.train import checkpoint as ckpt
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    gc_collect(on_card)                  # phase 28's weights are gone
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    base_sea, base_lla = CB.get("seamless-m4t-large-v2"), CB.get(
+        "llava-next-mistral-7b")
+    sea, lla = base_sea, base_lla
+    if not on_card:                              # rehearsal size
+        sea = CB.reduced(sea)
+        lla = dataclasses.replace(CB.reduced(lla),
+                                  microbatches=lla.microbatches)
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    to_dev = lambda tree: T.tree_map(lambda t: t.to(dev), tree)
+    nparams = lambda tree: sum(t.numel() for t in T.leaves(tree))
+    mb = lambda: torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    rng = np.random.default_rng(args.seed + 29)
+    # the tree without its embedding tables (the Adam check's: the
+    # tables are 81 % of seamless's cut, and the card machine's CPU runs
+    # Adam at ~5·10⁷ parameters a second)
+    stacks = lambda tree: {k: v for k, v in tree.items()
+                           if k not in ("embed", "out_embed")}
+
+    def batch(cfg, B, S, P):
+        out = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+            np.int32)) for k in ("tokens", "labels")}
+        out["frontend_embeds"] = torch.from_numpy(rng.normal(
+            0, 0.02, (B, P, cfg.d_model)).astype(np.float32))
+        return out
+
+    def accumulated(cfg, params, b):
+        """A `make_train_step` step's loss and the gradient it hands to
+        Adam (µ microbatches summed in place, over Σ mb_mask); Adam is
+        not run."""
+        seen = {}
+
+        def capture(cfg_, params_, grads, opt, **kw):
+            seen["g"] = grads
+            return params_, opt, None
+
+        adam = steps.adam_update
+        steps.adam_update = capture
+        try:
+            _, _, aux = steps.make_train_step(cfg)(params, None, b)
+        finally:
+            steps.adam_update = adam
+        return aux["loss"], seen["g"]
+
+    # ---- (a) the card against the CPU, float32, 2-layer cuts ----
+    # each gradient leaf within 1e-4 of its own max |g| (phase 24's
+    # limit; a TF32 control must read above it)
+    GRAD_REL = 1e-4
+    B2, S2, P2 = 2, 16, 16
+    for full in (sea, lla):
+        t0 = time.perf_counter()
+        cut = dataclasses.replace(full, L=2, dtype="float32")
+        if cut.family == "encdec":
+            cut = dataclasses.replace(cut, enc_layers=2)
+        # vlm at its own µ = 2: frontend_embeds [2·B2, P, D] is split
+        # with the tokens and the labels
+        mu = max(1, cut.microbatches)
+        p = lm.init_params(cut, prng.PRNGKey(0), model_shards=1, device=dev)
+        hp = host(p)
+        b = batch(cut, mu * B2, S2, P2)
+        bd = to_dev(b)
+        if mu == 1:
+            grads = lambda q, x: steps.value_and_grad(cut, q, x)
+        else:
+            grads = lambda q, x: accumulated(cut, q, x)
+        t1 = time.perf_counter()
+        l0, g0 = grads(hp, b)
+        t_cpu = time.perf_counter() - t1
+        g0 = to_dev(g0)                  # compared on the card
+        lc, g_dev = grads(p, bd)
+        rel = abs(float(lc) - float(l0)) / abs(float(l0))
+        worst, path = worst_leaf(g_dev, g0)
+        tf_worst, tf_path = float("nan"), "-"
+        if on_card:
+            tf_worst, tf_path = worst_leaf(tf32(lambda: grads(p, bd))[1], g0)
+        del g0
+        remat = ""
+        if cut.family == "encdec":
+            # (d) remat on = off: the encoder output, captured by each
+            # rematerialised decoder layer, gets the same gradient sum
+            l_off, g_off = steps.value_and_grad(
+                dataclasses.replace(cut, remat=False), p, bd)
+            same = bool(torch.equal(l_off, lc)) and all(
+                torch.equal(a, w) for a, w in zip(T.leaves(g_off),
+                                                  T.leaves(g_dev)))
+            del g_off
+            remat = (f"; (d) remat on = off on the card, the loss and all "
+                     f"{len(T.leaves(g_dev))} gradient leaves bit for bit: "
+                     f"{same}")
+            if not same:
+                raise AssertionError("encdec: remat changes a gradient on "
+                                     "the card")
+        gc_collect(on_card)
+        adam = ""
+        if cut.family == "encdec":
+            # Adam on the nested enc / dec / dec_cross tree (llava's is
+            # phase 24's dense tree; its 4.4·10⁸ parameters outside the
+            # tables would take the CPU ~10 s)
+            sp, shp, sg = stacks(p), stacks(hp), stacks(g_dev)
+            upd_cpu = steps.adam_update(cut, shp, host(sg),
+                                        steps.init_opt(cut, shp))
+            upd_dev = steps.adam_update(cut, sp, sg, steps.init_opt(cut, sp))
+            adam_err = max(float((a.cpu() - w).abs().max()) for a, w in zip(
+                T.leaves(upd_dev[:2]), T.leaves(upd_cpu[:2])))
+            adam = (f"; Adam update of the card's gradients on the "
+                    f"{nparams(sp) / 1e9:.4f}e9 parameters outside the "
+                    f"embedding tables card vs CPU max abs {adam_err:.3g} "
+                    f"(limit 1e-6)")
+            del sp, shp, sg, upd_cpu, upd_dev
+            if not adam_err <= 1e-6:
+                raise AssertionError("encdec: the card's Adam update "
+                                     "disagrees with the CPU's")
+        frames = "frames" if cut.family == "encdec" else "patches"
+        how = ("value_and_grad" if mu == 1 else
+               f"a µ={mu} train step's accumulated gradient")
+        print(f"[29 cpu] {cut.name} cut to L={cut.L}"
+              + (f" + {cut.enc_layers} encoder layers"
+                 if cut.family == "encdec" else "")
+              + f" at full width (d={cut.d_model}, ff={cut.d_ff}, "
+              f"V={cut.vocab_padded(1)}; {nparams(p) / 1e9:.4f}e9 params), "
+              f"float32 B={mu * B2} S={S2} with {P2} {frames}, {how} (CPU "
+              f"{t_cpu:.1f} s): loss card {float(lc):.6f} vs CPU "
+              f"{float(l0):.6f} (rel {rel:.3g}, limit 1e-5); worst gradient "
+              f"leaf {worst:.3g} of its max |g| ({path}; limit {GRAD_REL}); "
+              f"control, TF32 products on the card: worst leaf "
+              f"{tf_worst:.3g} ({tf_path}){adam}{remat}; "
+              f"{time.perf_counter() - t0:.1f} s (power limit {power})",
+              flush=True)
+        if not (rel <= 1e-5 and worst <= GRAD_REL):
+            raise AssertionError(f"{cut.family}: the card's loss or "
+                                 f"gradients disagree with the CPU's")
+        if on_card and not tf_worst > GRAD_REL:
+            raise AssertionError(f"{cut.family}: the gradient bound passes "
+                                 f"TF32 products")
+        del p, hp, b, bd, g_dev
+        gc_collect(on_card)
+    t_a = time.perf_counter() - t_phase
+
+    # ---- (b) seamless-m4t-large-v2 at full width and depth ----
+    B, S, N_STEPS, N_TIMED = 8, 128, 10, 3
+
+    def timed_steps(cfg, params, opt):
+        """N_TIMED synchronised `make_train_step` steps over batches drawn
+        beforehand → (params, opt, median s, the first batch)."""
+        step_fn = steps.make_train_step(cfg)
+        trng = np.random.default_rng(args.seed + 1)
+        bs = [ltrain.synth_batch(trng, cfg, B, S, device=dev)
+              for _ in range(N_TIMED)]
+        marks = []
+        for tb in bs:
+            t = time.perf_counter()
+            params, opt, _ = step_fn(params, opt, tb)
+            sync()
+            marks.append(time.perf_counter() - t)
+        return params, opt, float(np.median(marks)), bs[0]
+
+    def bound_line(cfg, nparam, P, step_s):
+        """The step's bound: Adam reads p, g, m, v and writes p, m, v
+        (28 B a float32 parameter), each microbatch's forward reads the
+        float32 weights once; the operations of `frontend_step_flops`."""
+        bf, f32 = frontend_step_flops(cfg, B, S, P)
+        nbytes = nparam * (28 + 4 * max(1, cfg.microbatches))
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+        print(f"[29 bound] {cfg.name}: bytes, Adam and the weights' reads "
+              f"{nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+              f"{1e3 * t_bytes:.2f} ms; operations: {bf / 1e12:.3f} TFLOP "
+              f"in bf16 products at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s + "
+              f"{f32 / 1e12:.3f} TFLOP in float32 products at "
+              f"{F32_OPS_PER_S / 1e12:.0f} TFLOP/s {1e3 * t_ops:.2f} ms; "
+              f"bound {1e3 * max(t_bytes, t_ops):.2f} ms (by "
+              f"{'bytes' if t_bytes >= t_ops else 'operations'}); the step "
+              f"took {1e3 * step_s:.2f} ms", flush=True)
+
+    held = mb()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, losses = ltrain.train_loop(sea, steps_n=N_STEPS, batch=B,
+                                            seq=S, lr=3e-4,
+                                            log=lambda *_: None, device=dev,
+                                            seed=args.seed)
+    wall = time.perf_counter() - t0
+    loop_peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    nparam = nparams(params)
+    params, opt, step_s, _ = timed_steps(sea, params, opt)
+    print(f"[29 encdec] {sea.name} at full width and depth ({sea.enc_layers}"
+          f" + {sea.L} layers, {nparam / 1e9:.4f}e9 float32 params, "
+          f"{16 * nparam / 1e9:.2f} GB with the gradients and two moments) "
+          f"batch {B} x {S} tokens behind {S} frames, lr 3e-4: {N_STEPS} "
+          f"train_loop steps in {wall:.1f} s (the draw included), loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {N_TIMED} synchronised "
+          f"make_train_step steps, median {step_s:.4f} s, "
+          f"{B * S / step_s:.0f} tokens/s; "
+          + (f"the loop's peak {loop_peak:.0f} MB (phases before it held "
+             f"{held:.0f} MB) " if on_card else "")
+          + f"(power limit {power})", flush=True)
+    bound_line(sea, nparam, S, step_s)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"encdec: the full-depth loss did not fall: "
+                             f"{losses}")
+    del params, opt
+    gc_collect(on_card)
+    # the nested (params, opt) tree through a checkpoint on the card, on
+    # reduced seamless: at full width one save is 24.4 GB (16.3 of it
+    # the moments), and the loop saves again when it ends (PERF.md §4)
+    t0 = time.perf_counter()
+    red = CB.reduced(base_sea)
+    d = os.path.join(ROOT, "build", "chip_smoke_encdec_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(batch=B, seq=S, device=dev, seed=args.seed)
+    p5, o5, first = ltrain.train_loop(red, steps_n=5, ckpt_dir=d,
+                                      log=lambda *_: None, **kw)
+    got, step = ckpt.restore(d, (p5, o5))
+    bits = lambda t: t.reshape(-1).view(torch.uint8)
+    same = step == 5 and all(
+        a.dtype == w.dtype and a.device == w.device
+        and torch.equal(bits(a), bits(w))
+        for a, w in zip(T.leaves(got), T.leaves((p5, o5))))
+    del got
+    logs = []
+    _, _, resumed = ltrain.train_loop(red, steps_n=10, ckpt_dir=d,
+                                      log=logs.append, **kw)
+    step_fn = steps.make_train_step(red)
+    brng, in_mem = np.random.default_rng(args.seed), []
+    for _ in range(5):
+        p5, o5, aux = step_fn(p5, o5, ltrain.synth_batch(brng, red, B, S,
+                                                         device=dev))
+        in_mem.append(float(aux["loss"]))
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[29 ckpt] reduced {red.name} ({red.enc_layers} + {red.L} layers,"
+          f" d={red.d_model}): the step-5 checkpoint of the nested "
+          f"enc / dec / dec_cross tree and its moments restored every leaf "
+          f"bit for bit: {same}; resumed {logs[:1]}: losses {resumed} vs "
+          f"the state in memory {in_mem}: equal {resumed == in_mem} (first "
+          f"five {first[0]:.4f} -> {first[-1]:.4f}); "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if not (same and resumed == in_mem
+            and logs[:1] == ["resumed from step 5"]):
+        raise AssertionError("encdec: the checkpoint did not resume bit for "
+                             "bit")
+    del p5, o5
+    gc_collect(on_card)
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # ---- (c) llava-next-mistral-7b at full width, L = 14 of 32, µ = 2 ----
+    # its 32 layers' Adam state is 116 GB, 14 of them 53.06 GB; at L = 16
+    # (60.03 GB) the backward's per-layer gradients, held until each
+    # stack's gradient is assembled, took the peak to 75,108 MB (PERF.md
+    # §4); lr 1e-4, as phase 25 trains zamba2-7b (3e-4 diverged)
+    full = dataclasses.replace(lla, L=14 if on_card else lla.L)
+    held = mb()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt, losses = ltrain.train_loop(full, steps_n=N_STEPS, batch=B,
+                                            seq=S, lr=1e-4,
+                                            log=lambda *_: None, device=dev,
+                                            seed=args.seed)
+    wall = time.perf_counter() - t0
+    nparam, resident = nparams(params), mb()
+    params, opt, step_s, first_b = timed_steps(full, params, opt)
+    peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    print(f"[29 vlm] {full.name} at L={full.L} of {base_lla.L}, full widths "
+          f"({nparam / 1e9:.4f}e9 float32 params, {16 * nparam / 1e9:.2f} GB "
+          f"with the gradients and two moments; µ={full.microbatches}) "
+          f"batch {B} x ({ltrain.FRONTEND_PATCHES} stub patches + {S} "
+          f"tokens), lr 1e-4: {N_STEPS} train_loop steps in {wall:.1f} s "
+          f"(the draw included), loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+          f"{N_TIMED} synchronised make_train_step steps, median "
+          f"{step_s:.4f} s, {B * S / step_s:.0f} tokens/s; "
+          + (f"resident {resident:.0f} MB; the card's peak {peak:.0f} MB, of "
+             f"which phases before it held {held:.0f} MB: the training's own"
+             f" peak {peak - held:.0f} MB (limit 70000 MB) " if on_card
+             else "")
+          + f"(power limit {power})", flush=True)
+    bound_line(full, nparam, ltrain.FRONTEND_PATCHES, step_s)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"vlm: the loss did not fall: {losses}")
+    if on_card and not peak - held <= 70000:
+        raise AssertionError(f"vlm: the training's own peak {peak - held:.0f}"
+                             f" MB passed 70000 MB")
+    if on_card:
+        profile_train_step(full, params, opt, first_b, tag="29 profile",
+                           n_top=6)
+    del params, opt, first_b
+    gc_collect(on_card)
+
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[29 kernels] launches in phase 29: {launched} (plain torch, as "
+          f"the JAX package's encdec and vlm training is plain XLA)",
+          flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 29 launched a kernel it should not")
+    t_all = time.perf_counter() - t_phase
+    print(f"[29 done] phase 29 in {t_all:.1f} s: (a, d) {t_a:.1f}, (b) "
+          f"{t_b:.1f}, (c) {t_all - t_a - t_b:.1f} s (power limit {power})",
+          flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -5522,6 +5924,7 @@ def main(argv=None) -> int:
     moe_phase(args, dev, on_card, power)
     moe_train_phase(args, dev, on_card, power)
     encdec_vlm_phase(args, dev, on_card, power)
+    frontend_train_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

@@ -5,14 +5,17 @@ off (`examples/train_lm.py` through `repro_torch`).
     PYTHONPATH=src python examples/torch_train_lm.py --arch qwen3-0.6b \
         [--steps 40] [--lsh-softmax] [--device cpu]
     PYTHONPATH=src python examples/torch_train_lm.py --arch dbrx-132b
+    PYTHONPATH=src python examples/torch_train_lm.py --arch seamless-m4t-large-v2
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  With
 ``--lsh-softmax`` the output-embedding rows are hashed with simLSH every
 10 steps, and each step's normaliser runs over the labels' bucket-mates
 and random negatives; on the card the candidate rows' gradients add in
-index order through the `segment_add` kernel.  The dense, moe (``--arch
-dbrx-132b``, ``arctic-480b``), ssm and hybrid families run; the encdec
-and vlm families raise `NotImplementedError`.
+index order through the `segment_add` kernel.  Every family runs: dense,
+moe (``--arch dbrx-132b``, ``arctic-480b``), ssm, hybrid, encdec
+(``--arch seamless-m4t-large-v2``) and vlm (``--arch
+llava-next-mistral-7b``), the last two on the reference's stub frame
+or patch embeddings.
 """
 import argparse
 import dataclasses

@@ -6,18 +6,22 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
       [--reduced] [--steps 50 --batch 8 --seq 128] [--ckpt-dir DIR \
       --ckpt-every 10] [--device cpu]
 
-Runs on ``cuda`` unless ``--device cpu`` is given, for the dense, moe
-(``--arch dbrx-132b``; ``--arch arctic-480b`` with ``--reduced``, its
-full config draws bfloat16 parameters, ROADMAP Queue 1 item 9.6a), ssm
-and hybrid families (``--arch mamba2-370m``, ``--arch zamba2-7b``);
-the encdec and vlm families serve but do not train yet (item 9.5b).  At
-dbrx-132b's full width one 80 GB card holds the Adam state of one
-layer only (float32 parameters and gradients, bfloat16 moments: 54 GB
-at L = 1; `train_loop` on ``dataclasses.replace(cfg, L=1)``, as
-`chip_smoke.py`'s phase 27 runs it).  The batches are the JAX
-package's numpy draws for the seed, so both packages train on the same
-tokens.  As in the reference, a resumed run draws its batches from the
-seed's first batch again, not from where the interrupted run stopped.
+Runs on ``cuda`` unless ``--device cpu`` is given, for every family:
+dense, moe (``--arch dbrx-132b``; ``--arch arctic-480b`` with
+``--reduced``, its full config draws bfloat16 parameters, ROADMAP Queue
+1 item 9.6a), ssm and hybrid (``--arch mamba2-370m``, ``--arch
+zamba2-7b``), encdec and vlm (``--arch seamless-m4t-large-v2``,
+``--arch llava-next-mistral-7b``, whose batches carry the reference's
+stub frame or patch embeddings).  At dbrx-132b's full width one 80 GB
+card holds the Adam state of one layer only (float32 parameters and
+gradients, bfloat16 moments: 54 GB at L = 1; `train_loop` on
+``dataclasses.replace(cfg, L=1)``, as `chip_smoke.py`'s phase 27 runs
+it); llava-next-mistral-7b's float32 state is 116 GB at its 32 layers
+and 53 GB at 14 (phase 29).  The batches are the JAX package's numpy
+draws for the seed, so both packages train on the same tokens and
+embeddings.  As in the reference, a resumed run draws its batches from
+the seed's first batch again, not from where the interrupted run
+stopped.
 """
 from __future__ import annotations
 
@@ -33,19 +37,33 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm, steps
 from repro_torch.train import checkpoint as ckpt
 
+# the stub image prefix of a frontend batch (the reference's draw)
+FRONTEND_PATCHES = 16
+
 
 def synth_batch(rng, cfg, batch, seq, device="cpu"):
     """Zipf-distributed token ids over the vocab (padded ids never
-    sampled) → {"tokens", "labels"} [batch, seq] int32 on ``device``.
-    (The reference also draws stub frontend embeddings for the families
-    that have a frontend, encdec and vlm, whose training is not ported:
-    ROADMAP Queue 1 item 9.5b.)"""
+    sampled) → {"tokens", "labels"} [batch, seq] int32 on ``device``,
+    and with a frontend stub (``cfg.frontend == "embed_stub"``) the
+    reference's stub embeddings ``frontend_embeds``, float32 N(0, 0.02²):
+    `FRONTEND_PATCHES` patches [batch, 16, d_model], or for encdec frames
+    [batch, seq, d_model], drawn after the patches, which are dropped — the
+    generator advances as the reference's does, so both packages draw
+    the same batches step after step."""
     V = cfg.vocab
     p = 1.0 / np.arange(1, V + 1) ** 1.1
     p /= p.sum()
     toks = rng.choice(V, size=(batch, seq + 1), p=p).astype(np.int32)
     on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return {"tokens": on(toks[:, :-1]), "labels": on(toks[:, 1:])}
+    out = {"tokens": on(toks[:, :-1]), "labels": on(toks[:, 1:])}
+    if cfg.frontend == "embed_stub":
+        fe = rng.normal(0, 0.02, (batch, FRONTEND_PATCHES, cfg.d_model)
+                        ).astype(np.float32)
+        if cfg.family == "encdec":
+            fe = rng.normal(0, 0.02, (batch, seq, cfg.d_model)).astype(
+                np.float32)
+        out["frontend_embeds"] = on(fe)
+    return out
 
 
 def train_loop(cfg, *, steps_n, batch, seq, ckpt_dir=None, ckpt_every=0,
@@ -53,7 +71,7 @@ def train_loop(cfg, *, steps_n, batch, seq, ckpt_dir=None, ckpt_every=0,
     """Train ``steps_n`` steps → (params, opt, losses of the steps run).
     With ``ckpt_dir`` it resumes from the newest complete checkpoint
     there, saves every ``ckpt_every`` steps and at the end."""
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     params = lm.init_params(cfg, prng.PRNGKey(seed), model_shards=1,

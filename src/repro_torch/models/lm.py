@@ -1,23 +1,23 @@
 """Model assembly (`repro/models/lm.py`) for every family: dense, moe,
 ssm, hybrid, encdec and vlm.
 
-The port serves all six and trains four: dense (attention + MLP
-layers), moe (attention + a routed mixture of experts, `models/moe.py`'s
+The port serves and trains all six: dense (attention + MLP layers),
+moe (attention + a routed mixture of experts, `models/moe.py`'s
 single-device path, plus arctic's dense residual MLP), ssm (Mamba2
-layers, `models/ssm.py`) and hybrid (Mamba2 layers with one shared
-attention + MLP block run before each group of ``cfg.attn_every``).
-vlm is a dense stack whose precomputed patch embeddings
+layers, `models/ssm.py`), hybrid (Mamba2 layers with one shared
+attention + MLP block run before each group of ``cfg.attn_every``),
+vlm, a dense stack whose precomputed patch embeddings
 (``batch["frontend_embeds"]``, the reference's frontend stub) are
-prepended to the token embeddings; encdec runs a bidirectional encoder
+prepended to the token embeddings, and encdec, a bidirectional encoder
 over precomputed frame embeddings and a decoder whose layers add a
-cross-attention sub-layer on the encoder's output (`_forward_encdec`).
-Training those two raises `NotImplementedError` (ROADMAP Queue 1 item
-9.5b: `check_trained`).  Layer stacks are dicts of tensors with a
-leading L dim, applied layer by layer (the JAX package's `lax.scan`);
-on one device there is no sharding constraint and no scheduling barrier
-(`_opt_barrier` pins the FSDP gathers of training).  Training remats
-each stacked layer, as the reference does (`_scan_layers`); the
-hybrid's shared block is not rematerialised.
+cross-attention sub-layer on the encoder's output (`_forward_encdec`;
+the encoder's output reaches every decoder layer, so its gradient is
+the sum of the L layers' cross K/V products).  Layer stacks are dicts
+of tensors with a leading L dim, applied layer by layer (the JAX
+package's `lax.scan`); on one device there is no sharding constraint
+and no scheduling barrier (`_opt_barrier` pins the FSDP gathers of
+training).  Training remats each stacked layer, as the reference does
+(`_scan_layers`); the hybrid's shared block is not rematerialised.
 
 Weights are kept in ``cfg.param_dtype`` (float32) and cast to
 ``cfg.dtype`` (bfloat16) where they are used, as in the reference.
@@ -37,7 +37,6 @@ from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
-TRAINED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 # stacks of attention blocks: a K/V cache, prefilled by one forward
 KV_FAMILIES = ("dense", "moe", "vlm")
 
@@ -48,16 +47,6 @@ def check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch; only {PORTED_FAMILIES} runs")
-
-
-def check_trained(cfg: ArchConfig) -> None:
-    """Raise unless the port trains ``cfg``'s family (the training entry
-    points call it; serving calls `check_family`)."""
-    if cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family!r} family is not ported "
-            f"to repro_torch yet (ROADMAP.md, Queue 1 item 9.5b); it "
-            f"serves, and {TRAINED_FAMILIES} train")
 
 
 # --------------------------------------------------------------------------

@@ -3,9 +3,8 @@ Adam, the microbatched train step, caches, prefill and decode.
 
 The JAX package's `make_*` factories close over the config and return
 functions for `jax.jit`; these return plain functions.  Every family
-serves; the encdec and vlm families' training entry points (`lm_loss`,
-`value_and_grad`, `init_opt`, `make_train_step`) raise
-`NotImplementedError` (ROADMAP Queue 1 item 9.5b).
+serves and trains; the vlm family's loss runs over the text positions
+behind its patch prefix, and encdec's over the decoder's states.
 
 Differences from the JAX package's functional steps, each where the JAX
 launch scripts donate the buffers: `adam_update` (and so a train step)
@@ -64,7 +63,7 @@ def lm_loss(cfg: ArchConfig, p, batch):
     With ``cfg.lsh_softmax`` and ``batch["cands"]`` the normaliser runs
     over the candidates and the label (the paper's technique at the
     softmax, `models/lsh_softmax.py`), else over the whole vocabulary."""
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     h = lm.forward(cfg, p, batch)                            # [B, S_all, D]
     labels = batch["labels"]
     S_txt = labels.shape[1]
@@ -102,7 +101,7 @@ def lm_loss(cfg: ArchConfig, p, batch):
 def value_and_grad(cfg: ArchConfig, params, batch):
     """(`lm_loss`, ∂ `lm_loss` / ∂params as a tree shaped like
     ``params``) by autograd; ``params`` itself is left without grad."""
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     tp = T.tree_map(lambda t: t.detach().requires_grad_(True), params)
     loss = lm_loss(cfg, tp, batch)
     g = torch.autograd.grad(loss, T.leaves(tp))
@@ -119,7 +118,7 @@ ADAM_SLICE = 1 << 28
 
 
 def init_opt(cfg: ArchConfig, params):
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     md = L.torch_dtype(cfg.moment_dtype)
     zeros = lambda x: torch.zeros(x.shape, dtype=md, device=x.device)
     dev = T.leaves(params)[0].device
@@ -195,7 +194,7 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
     float32 accumulator over float32 parameters is summed in place
     (`_accumulate_in_place`) and divided in place; a bfloat16 one rounds
     each weighted gradient into it, as the reference does."""
-    lm.check_trained(cfg)
+    lm.check_family(cfg)
     nmicro = max(1, cfg.microbatches)
 
     def train_step(params, opt, batch):

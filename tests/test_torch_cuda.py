@@ -23,8 +23,8 @@ and launching neither serving kernel, its truncation-free answers equal
 to the one-device plain walk's, and the fit's mesh shard tier within
 1e-5 of its one-device replay.  The LM side (no kernel of its own):
 the dense, ssm, hybrid and moe families' forward, decode caches and
-train steps, and the encdec and vlm families' forward, prefill and
-decode caches, on the card against the CPU at float32.
+train steps, and the encdec and vlm families' forward, prefill, decode
+caches and train steps, on the card against the CPU at float32.
 """
 import dataclasses
 import pathlib
@@ -2061,3 +2061,81 @@ def test_moe_training_runs_on_the_card_by_default(cuda):
     p, opt, _ = ltrain.train_loop(_moe_cfg("arctic-480b"), steps_n=1,
                                   batch=2, seq=16, log=lambda *_: None)
     assert all(t.device.type == "cuda" for t in T.leaves((p, opt)))
+
+
+@pytest.mark.parametrize("name", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_frontend_train_step_on_card_matches_cpu(cuda, name):
+    """Reduced seamless-m4t-large-v2 (encdec: 16 frames) and
+    llava-next-mistral-7b (vlm: 16 patches) at float32, the card against
+    the CPU: the loss within 1e-5 and each gradient leaf within 1e-5 of
+    its own max |g| (plus 4 ulp); remat on = off bit for bit on the card;
+    one Adam update of the same gradients within 1e-6; a µ = 2 train
+    step (``frontend_embeds`` split with the tokens) — the loss within
+    1e-5 and its first moment within 1e-5 of each leaf's max."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.models import lm, steps
+    cfg = dataclasses.replace(CB.reduced(CB.get(name)), dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    g = torch.Generator().manual_seed(0)
+    b = {k: torch.randint(0, cfg.vocab, (4, 16), dtype=torch.int32,
+                          generator=g) for k in ("tokens", "labels")}
+    b["frontend_embeds"] = 0.02 * torch.randn((4, 16, cfg.d_model),
+                                              generator=g)
+    bc = {k: v.to(cuda) for k, v in b.items()}
+
+    def close(got, want, rel=1e-5):
+        for a, w in zip(T.leaves(got), T.leaves(want)):
+            scale = float(w.float().abs().max())
+            assert scale > 1e-9
+            assert float((a.cpu().float() - w.float()).abs().max()) <= (
+                rel * scale + 4 * float(np.spacing(np.float32(scale))))
+
+    lc, gc = steps.value_and_grad(cfg, pc, bc)
+    l0, g0 = steps.value_and_grad(cfg, p, b)
+    assert abs(float(lc) - float(l0)) <= 1e-5 * abs(float(l0))
+    close(gc, g0)
+    l_off, g_off = steps.value_and_grad(dataclasses.replace(cfg, remat=False),
+                                        pc, bc)
+    assert torch.equal(l_off, lc)
+    for a, w in zip(T.leaves(g_off), T.leaves(gc)):
+        assert torch.equal(a, w)
+    grads = T.tree_map(lambda t: t.cpu(), gc)
+    on_cpu = steps.adam_update(cfg, T.tree_map(torch.clone, p), grads,
+                               steps.init_opt(cfg, p))
+    on_card = steps.adam_update(cfg, T.tree_map(torch.clone, pc),
+                                T.tree_map(lambda t: t.to(cuda), grads),
+                                steps.init_opt(cfg, pc))
+    for a, w in zip(T.leaves(on_card[:2]), T.leaves(on_cpu[:2])):
+        assert float((a.cpu().double() - w.double()).abs().max()) <= 1e-6
+    mcfg = dataclasses.replace(cfg, microbatches=2)
+    step = steps.make_train_step(mcfg)
+    _, oc, auxc = step(T.tree_map(torch.clone, pc), steps.init_opt(mcfg, pc),
+                       bc)
+    _, o0, aux0 = step(T.tree_map(torch.clone, p), steps.init_opt(mcfg, p), b)
+    assert abs(float(auxc["loss"]) - float(aux0["loss"])) <= 1e-5 * abs(
+        float(aux0["loss"]))
+    close(oc["m"], o0["m"])
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2",
+                                  "llava-next-mistral-7b"])
+def test_frontend_families_train_on_the_card_by_default(cuda, arch):
+    """``python -m repro_torch.launch.train --arch <encdec or vlm>
+    --reduced`` with no ``--device`` trains on the card, and so does
+    `train_loop`, whose batches carry the stub frontend draws there."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import train as ltrain
+    losses = ltrain.main(["--arch", arch, "--reduced", "--steps", "2",
+                          "--batch", "2", "--seq", "16"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    cfg = CB.reduced(CB.get(arch))
+    p, opt, _ = ltrain.train_loop(cfg, steps_n=1, batch=2, seq=16,
+                                  log=lambda *_: None)
+    assert all(t.device.type == "cuda" for t in T.leaves((p, opt)))
+    b = ltrain.synth_batch(np.random.default_rng(0), cfg, 2, 16,
+                           device=p["embed"].device)
+    assert b["frontend_embeds"].device.type == "cuda"

@@ -149,13 +149,16 @@ def test_fit_evaluates_ids_past_the_world_like_jax():
     assert abs(legacy - got.history[-1][2]) < 1e-5
 
 
-@pytest.mark.parametrize("argv", [["--steps", "3"],
-                                  ["--steps", "11", "--lsh-softmax"],
-                                  ["--steps", "3", "--arch", "dbrx-132b"]])
+@pytest.mark.parametrize("argv", [
+    ["--steps", "3"], ["--steps", "11", "--lsh-softmax"],
+    ["--steps", "3", "--arch", "dbrx-132b"],
+    ["--steps", "3", "--arch", "seamless-m4t-large-v2"],
+    ["--steps", "3", "--arch", "llava-next-mistral-7b"]])
 def test_train_lm_prints_the_jax_losses(monkeypatch, capsys, argv):
-    """`examples/torch_train_lm.py` in both arms, and for the moe family,
-    against the JAX example's printed losses (the reduced config's
-    bfloat16 compute: within 2⁻⁸ of the loss, one bfloat16 unit
+    """`examples/torch_train_lm.py` in both arms, and for the moe, encdec
+    and vlm families (the last two on the reference's stub frame and
+    patch draws), against the JAX example's printed losses (the reduced
+    config's bfloat16 compute: within 2⁻⁸ of the loss, one bfloat16 unit
     roundoff)."""
     pattern = r"(?:→|loss) (\d+\.\d+)"
     monkeypatch.setattr(sys, "argv", ["train_lm", *argv])

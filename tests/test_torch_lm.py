@@ -26,10 +26,10 @@ serving half, `launch/serve.py`), on the CPU at the reduced configs.
   ssm, hybrid and encdec families prefilled by sequential decode —
   encdec on zero cross caches, as the reference serves it —, dense, moe
   and vlm by one forward).
-* The encdec and vlm families' training entry points raise
-  `NotImplementedError`; so does drawing arctic-480b's bfloat16
-  parameters.  (Training the other families is held against the JAX
-  package in `test_torch_lm_train.py`.)
+* Drawing arctic-480b's bfloat16 parameters raises
+  `NotImplementedError`.  (Training every family is held against the
+  JAX package in `test_torch_lm_train.py` and, for encdec and vlm,
+  `test_torch_frontend_train.py`.)
 """
 import dataclasses
 
@@ -46,7 +46,6 @@ from repro.models import steps as jsteps
 from repro_torch import convert, prng
 from repro_torch.configs import base as CB
 from repro_torch.launch import serve as tserve
-from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as L
 from repro_torch.models import lm, steps
 
@@ -419,25 +418,6 @@ def test_serve_cli_runs_the_frontend_families_on_the_cpu(arch, capsys):
                                "--device", "cpu"])
     assert toks.shape == (2, 5) and stats["tok_per_s"] > 0
     assert "tok/s batched" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("name", OTHER)
-def test_other_families_raise(name):
-    """encdec and vlm serve (the cases above) but do not train: every
-    training entry point raises, naming ROADMAP item 9.5b, before it
-    draws or computes anything."""
-    cfg = CB.reduced(CB.get(name))
-    p = lm.init_params(cfg, prng.PRNGKey(0), 1, device="cpu")
-    b = {"tokens": torch.zeros((1, 2), dtype=torch.int32),
-         "labels": torch.zeros((1, 2), dtype=torch.int32)}
-    for call in (lambda: steps.lm_loss(cfg, p, b),
-                 lambda: steps.value_and_grad(cfg, p, b),
-                 lambda: steps.init_opt(cfg, p),
-                 lambda: steps.make_train_step(cfg),
-                 lambda: ttrain.train_loop(cfg, steps_n=1, batch=1, seq=2,
-                                           device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*9.5b"):
-            call()
 
 
 @pytest.mark.parametrize("name", ["qwen1.5-0.5b", "dbrx-132b",

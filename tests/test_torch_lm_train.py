@@ -1,10 +1,14 @@
 """Port vs JAX package: LM training (`models/steps.py`'s training half,
 `models/lsh_softmax.py`, `launch/train.py`, nested-tree checkpoints), on
 the CPU at the reduced configs of the dense, ssm (mamba2-370m), hybrid
-(zamba2-7b) and moe (dbrx-132b — every token to all 4 experts —,
+(zamba2-7b), moe (dbrx-132b — every token to all 4 experts —,
 arctic-480b — top 2 of 4 and the dense residual MLP — and
-"dbrx-132b:16x4", 16 experts, top 4) families, float32 unless a case
-says otherwise.  The oracle is always the JAX function at the installed
+"dbrx-132b:16x4", 16 experts, top 4), encdec (seamless-m4t-large-v2)
+and vlm (llava-next-mistral-7b) families, float32 unless a case says
+otherwise; the last two on batches that carry ``frontend_embeds`` as
+`tests/test_lm.py::_batch` draws them (S frames, 8 patches), and their
+remat, train step, loop, checkpoints, batch draws and CLI in
+`test_torch_frontend_train.py`.  The oracle is always the JAX function at the installed
 version.
 
 * `lm_loss` within 1e-5, with and without a mask, in both arms (the
@@ -81,6 +85,7 @@ SSM_FAMILIES = ("mamba2-370m", "zamba2-7b")
 # "dbrx-132b:16x4": reduced dbrx-132b with its 16 experts and top 4 (the
 # reduced config's 4 experts route every token to all of them)
 MOE = ("dbrx-132b", "arctic-480b", "dbrx-132b:16x4")
+FRONTEND = ("seamless-m4t-large-v2", "llava-next-mistral-7b")
 U = 2.0 ** -8                     # bfloat16's unit roundoff
 
 
@@ -123,6 +128,10 @@ def _batch(cfg, B=2, S=16, seed=0, mask=False):
          "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
     if mask:
         b["mask"] = (rng.random((B, S)) < 0.7).astype(np.float32)
+    if cfg.frontend == "embed_stub":        # S frames, or an 8-patch prefix
+        P = S if cfg.family == "encdec" else 8
+        b["frontend_embeds"] = rng.normal(0, 0.02, (B, P, cfg.d_model)
+                                          ).astype(np.float32)
     return b
 
 
@@ -155,7 +164,7 @@ def assert_grads_close(got, want, rel=1e-5, floor=1e-4):
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", DENSE + SSM_FAMILIES + MOE)
+@pytest.mark.parametrize("name", DENSE + SSM_FAMILIES + MOE + FRONTEND)
 def test_lm_loss_matches_jax(name):
     jc, tc = _cfgs(name)
     jp = jlm.init_params(jc, jax.random.PRNGKey(0), model_shards=1)
@@ -204,7 +213,7 @@ def test_lsh_softmax_loss_close_to_full():
     assert float(steps.lm_loss(tc, tp, tb)) <= loss_full + 1e-4
 
 
-@pytest.mark.parametrize("name", DENSE + SSM_FAMILIES + MOE)
+@pytest.mark.parametrize("name", DENSE + SSM_FAMILIES + MOE + FRONTEND)
 def test_grads_match_jax(name):
     jc, tc = _cfgs(name)
     jp = jlm.init_params(jc, jax.random.PRNGKey(1), model_shards=1)
@@ -349,6 +358,23 @@ def test_adam_update_clip_inactive_equals_jax():
 def test_adam_update_on_the_ssm_trees(name):
     """`test_adam_update_clip_inactive_equals_jax` on the Mamba2 and
     hybrid trees (the global norm sums their leaves in the JAX order)."""
+    jc, tc, jp = _adam_pair(name=name)
+    g = _random_grads(jp, 1e-4)
+    for (jp0, jp1, jo1, jgn), (tp, to, tgn) in zip(*_two_updates(
+            jc, tc, jp, g)):
+        assert jgn < 1.0
+        np.testing.assert_allclose(tgn, jgn, rtol=1e-6)
+        for k in ("m", "v"):
+            for a, b in zip(_t_leaves(to[k]), _np_leaves(jo1[k])):
+                np.testing.assert_array_equal(a, b)
+        _assert_params_2ulp(tp, jp1, jp0)
+
+
+@pytest.mark.parametrize("name", FRONTEND)
+def test_adam_update_on_the_frontend_trees(name):
+    """`test_adam_update_clip_inactive_equals_jax` on encdec's nested
+    ``enc`` / ``dec`` / ``dec_cross`` tree and vlm's (the global norm
+    sums their leaves in the JAX order)."""
     jc, tc, jp = _adam_pair(name=name)
     g = _random_grads(jp, 1e-4)
     for (jp0, jp1, jo1, jgn), (tp, to, tgn) in zip(*_two_updates(
@@ -618,15 +644,18 @@ def test_cands_are_split_like_the_reference():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + FRONTEND)
 def test_arch_smoke_forward_train(name):
-    """`test_lm.py::test_arch_smoke_forward_train`'s dense cases on the
-    port (bfloat16 compute, as the reduced configs)."""
+    """`test_lm.py::test_arch_smoke_forward_train`'s dense, encdec and vlm
+    cases on the port (bfloat16 compute, as the reduced configs): vlm's
+    states run over its 8 patches and 32 tokens, encdec's over the
+    decoder's 32 tokens."""
     cfg = CB.reduced(CB.get(name))
     p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
     _, tb = _both(_batch(cfg, S=32))
     h = lm.forward(cfg, p, tb)
-    assert h.shape == (2, 32, cfg.d_model)
+    assert h.shape == (2, 32 + (8 if cfg.family == "vlm" else 0),
+                       cfg.d_model)
     assert bool(torch.isfinite(h.float()).all())
     before = T.tree_map(torch.clone, p)
     p2, opt2, aux = steps.make_train_step(cfg)(p, steps.init_opt(cfg, p), tb)
