@@ -5,8 +5,8 @@ online learning, its resilience layer, the always-on loop, the fit's
 neighbour comparators, the other serving paths, the multi-device tiers,
 the Table-10 comparison with the NCF models, the examples, dense LM
 serving and training, the ssm and hybrid LM families, moe LM serving
-and training, and encdec and vlm LM serving and training — on one CUDA
-card.
+and training, encdec and vlm LM serving and training, and bfloat16
+parameters serving llama3-405b and arctic-480b — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -140,7 +140,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 18. comparators — `fit(use_kernels=True)` with ``rand``, ``rp_cos`` and
     ``minhash`` beside ``simlsh`` on phase 8's data and model for 2
     epochs, and ``gsm`` beside ``simlsh`` at `MOVIELENS_LIKE`'s M × N
-    (69,878 × 10,677; 10⁶ ratings) with the paper's Table-7 settings
+    (69,878 × 10,677; 5·10⁵ ratings) with the paper's Table-7 settings
     (F = 16, K = 8, G = 8, p = 1, q = 20, band_cap 16, ψ 2.0) for 6
     epochs: the `culsh_sgd` counter equals conflict-free steps × epochs
     and the RMSE falls in each;
@@ -211,9 +211,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     and, for the serving example, its kernel walk held against the
     kernels' plain versions on one probe flush of its own shapes;
 23. dense LM serving — `repro_torch.launch.serve.serve` at llama3-8b's
-    full width (8.0·10⁹ float32 parameters drawn layer by layer on the
-    card), batch 4, prompt 64, 32 decoded tokens: prefill and decode
-    seconds, tokens/s beside the bound of reading the float32 weights
+    full width cut to 16 of its 32 layers (4.5·10⁹ float32 parameters
+    drawn on the card), batch 4, prompt 64, 32 decoded tokens: prefill
+    and decode seconds, tokens/s beside the bound of reading the float32 weights
     once a step, resident and peak MB; on a 2-layer cut of the same
     widths, prefill's last-position logits against a 64-step decode (the
     KV cache) and the card's bfloat16 prefill against the CPU's float32,
@@ -244,9 +244,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     float32 one, `ssd_chunked` at chunk 64 against 256 (S = 256,
     float32, the JAX test's 1e-4), each limit beside a control that must
     read above it (the conv state dropped each step; each chunk alone);
-    `repro_torch.launch.serve.serve` at full width (mamba2-370m at its
-    depth, 4.197·10⁸ float32 parameters; zamba2-7b cut to 24 of its 81
-    layers, four of its 14 groups; batch 4, a 64-token prompt
+    `repro_torch.launch.serve.serve` at full width (mamba2-370m cut to
+    24 of its 48 layers; zamba2-7b cut to 12 of its 81 layers, two of
+    its 14 groups; batch 4, a 64-token prompt
     prefilled by sequential decode, 32 tokens): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the weights once a
     step, resident and peak MB, a profiled decode step; mamba2-370m
@@ -272,7 +272,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     prefill's last-position logits against a float32-cache decode (a
     cache-zeroed control); reduced arctic-480b (top 2 of 4, the dense
     residual MLP) card vs CPU; then dbrx-132b served at full width cut
-    to L = 2 (7.75·10⁹ float32 parameters) through
+    to L = 1 (4.49·10⁹ float32 parameters) through
     `repro_torch.launch.serve.serve` (batch 4, prompt 64, 32 tokens):
     draw, prefill and decode seconds, tokens/s beside the bound of
     reading the weights of the routed experts, the attention and both
@@ -309,7 +309,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     cut of llava-next-mistral-7b's (B 2, a 64-patch prefix, 64 tokens)
     `prefill_dense` card vs CPU (logits, ``pos``, the K/V; the prefix
     dropped the bfloat16 control); then both served at full width and
-    depth through `repro_torch.launch.serve.serve` (batch 4, prompt
+    half their depth (seamless 12 + 12 layers, llava 16 of 32; full
+    depth until phase 30 took the script's time) through
+    `repro_torch.launch.serve.serve` (batch 4, prompt
     64, 32 tokens; seamless prefilled by sequential decode on zero
     cross caches, as the reference serves it): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the decoder side's
@@ -339,11 +341,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     own µ = 2, 16 stub patches, lr 1e-4) for 10 steps, 3 timed steps
     beside their bound, the training's own peak ≤ 70,000 MB, a profiled
     step.  None of the seven kernels launches.
+30. bfloat16 parameters — the card's 128-value table of bfloat16
+    normal draws against the CPU's; llama3-405b at full width cut to L
+    = 8 of 126 (2.97·10¹⁰ bfloat16 parameters, 59.41 GB) and
+    arctic-480b at full width cut to L = 2 of 35 (2.77·10¹⁰, 55.36 GB),
+    each drawn on the card by `lm.init_params` in its config's
+    bfloat16, one full-width leaf of layer 0 bit-equal to the CPU's draw
+    (llama's ``wk``; arctic's ``w1`` of expert 0 and its last 2²⁰
+    draws, past index 2³²), served through
+    `repro_torch.launch.serve.serve` (batch 4, prompt 64, 32 tokens):
+    draw seconds and rate, prefill and decode seconds, tokens/s beside
+    the bound of reading the bfloat16 weights once a step (arctic's
+    from the experts a replay counts), resident and own peak MB (≤
+    70,000), a profiled decode step's busy share and copy kernels; then
+    layer 0 of each served tree as a 1-layer model at full width (B 2 ×
+    S 8): the card's bfloat16 logits against the CPU's float32 forward
+    (arctic's routes first, its values on the card's routes; phase 23's
+    and 26's limits, layer 0's ``wo`` zeroed the control).  The CPU's
+    halves run in a worker thread beside the card's draws; nothing is
+    written to disk, and none of the seven kernels launches.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–29 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–30 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -378,11 +399,12 @@ N_ITEMS = 1_000_000         # the serving catalog (phases 3–7)
 FIT_M, FIT_N, FIT_NNZ, FIT_F, FIT_K, FIT_EPOCHS = (700_000, 30_000, 2_000_000,
                                                    128, 64, 3)
 SGD_TOL = dict(rtol=1e-5, atol=1e-6)  # the JAX package's (tests/test_kernels.py)
-# phase 18's GSM data: MOVIELENS_LIKE's M × N with 10⁶ of its 9,900,054
-# ratings (the host generator's oversampling grows faster than linearly:
-# 2·10⁶ took 79 s on the card's host; GSM's dense operands and products
-# depend on M × N only)
-GSM_NNZ = 1_000_000
+# phase 18's GSM data: MOVIELENS_LIKE's M × N with 5·10⁵ of its 9,900,054
+# ratings (10⁶ until phase 30 took the script's time; the host generator's
+# oversampling grows faster than linearly: 2·10⁶ took 79 s on the card's
+# host, 10⁶ 24.5–28.8 s; GSM's dense operands and products depend on M × N
+# only)
+GSM_NNZ = 500_000
 # phase 28: llava-next's stub image prefix, anyres at 5 tiles of 576
 # patches (the JAX package's `launch/specs.py` VLM_PATCHES)
 VLM_PATCHES = 2880
@@ -3294,7 +3316,7 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
 
 def lm_phase(args, dev, on_card: bool, power: str) -> dict:
     """Phase 23: dense LM serving (`repro_torch.launch.serve.serve`) at
-    llama3-8b's full width; its KV cache (prefill's last-position logits
+    llama3-8b's full width, L = 16; its KV cache (prefill's last-position logits
     against a token-by-token decode of the same prompt) and the card
     against the CPU (float32) on a 2-layer cut of the same widths."""
     import dataclasses
@@ -3356,22 +3378,25 @@ def lm_phase(args, dev, on_card: bool, power: str) -> dict:
     if on_card:
         torch.cuda.empty_cache()
 
-    # ---- (b) the served model at full width ----
+    # ---- (b) the served model at full width, cut to 16 of its 32
+    # layers since phase 30 took the script's time ----
+    served = dataclasses.replace(full, L=16) if on_card else full
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
+    params = lm.init_params(served, prng.PRNGKey(0), model_shards=1,
                             device=dev)
     sync()
     t_init = time.perf_counter() - t0
     logs = []
-    out, st = serve(full, batch=B, prompt_len=S, gen=32, seed=0,
+    out, st = serve(served, batch=B, prompt_len=S, gen=32, seed=0,
                     log=logs.append, device=dev, params=params)
     nparam = sum(t.numel() for v in params.values() for t in (
         v.values() if isinstance(v, dict) else (v,)))
     bound_s = 4 * nparam / HBM_BYTES_PER_S       # float32 weights, one read
-    print(f"[23 serve] {full.name} ({nparam / 1e9:.3f}e9 float32 params, "
+    print(f"[23 serve] {served.name} at L={served.L} ({nparam / 1e9:.3f}e9 "
+          f"float32 params, "
           f"{4 * nparam / 1e9:.1f} GB) batch {B}, prompt {S}, gen 32: "
           f"params drawn in {t_init:.1f} s, prefill "
           f"{st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s, "
@@ -3384,7 +3409,7 @@ def lm_phase(args, dev, on_card: bool, power: str) -> dict:
     if o.shape != (B, 33) or not ((o >= 0) & (o < full.vocab)).all():
         raise AssertionError(f"served tokens {o.shape} out of range")
     if on_card:
-        profile_decode(full, params, B, S, dev)
+        profile_decode(served, params, B, S, dev)
     print(f"[23 done] phase 23 in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return dict(st, nparam=nparam, bound_tok_s=B / bound_s, cache=(
@@ -3392,11 +3417,11 @@ def lm_phase(args, dev, on_card: bool, power: str) -> dict:
 
 
 def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3,
-                   tag: str = "23 profile") -> float:
+                   tag: str = "23 profile") -> tuple[float, dict]:
     """``steps_n`` decode steps of the served model under `torch.profiler`
     (after a prefill — for the ssm and hybrid families an empty cache —
     and two warm steps): the device's busy share of the window and its
-    time by kernel → the busy share."""
+    time by kernel → (the busy share, {kernel: ms a step})."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm, steps
@@ -3428,7 +3453,8 @@ def profile_decode(cfg, params, B: int, S: int, dev, steps_n: int = 3,
           f"{busy / 1e3:.1f} ms (share {busy / 1e6 / wall:.3f}); by kernel "
           f"ms: " + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
           flush=True)
-    return busy / 1e6 / wall
+    return busy / 1e6 / wall, {n: t / 1e3 / steps_n
+                               for n, t in by_name.items()}
 
 
 def lm_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
@@ -4033,12 +4059,14 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
         del xs, dt, Bm, Cm, y256, y64, alone
         gc_collect(on_card)
 
-    # ---- (b) serving at full width; zamba2-7b cut to 4 of its 14 groups
-    # (phases 26 and 29 take the time it saves) ----
+    # ---- (b) serving at full width; zamba2-7b cut to 2 of its 14 groups
+    # and mamba2-370m to 24 of its 48 layers (phases 26, 29 and 30 take
+    # the time it saves) ----
     t_a = time.perf_counter() - t_phase
     for full in fulls:
-        if on_card and full.family == "hybrid":
-            full = dataclasses.replace(full, L=24)
+        if on_card:
+            full = dataclasses.replace(
+                full, L=12 if full.family == "hybrid" else 24)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         t0 = time.perf_counter()
         params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
@@ -4244,6 +4272,61 @@ def moe_routes(cfg, p, toks, force=None):
     return steps.logits_of(cfg, p, h), torch.stack(eids), torch.stack(gaps)
 
 
+def replay_experts(cfg, params, out, B: int, S: int, dev):
+    """A served moe run replayed — the same prompts (`serve`'s seed-0
+    draw), then the served tokens ``out`` [B, GEN + 1] — with
+    `moe_dense_ref` wrapped to count each call's distinct experts (one
+    call, so one host sync, a layer) → (distinct experts [GEN, L] of each
+    decode step and layer, the prefill's per layer)."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import steps
+
+    GEN = out.shape[1] - 1
+    counts = []
+    orig = MOE.moe_dense_ref
+
+    def counted(pl, x, eid, gate, cfg):
+        counts.append(int(torch.unique(eid).numel()))
+        return orig(pl, x, eid, gate, cfg)
+
+    MOE.moe_dense_ref = counted
+    try:
+        prompts = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+        _, pc = steps.make_prefill(cfg)(params, {"tokens": prompts})
+        n_pre = len(counts)
+        cache = steps.init_cache(cfg, B, S + GEN, device=dev)
+        cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
+        cache["pos"] = S
+        dec = steps.make_decode_step(cfg)
+        replay = []
+        for i in range(GEN):
+            lg, cache = dec(params, cache, out[:, i:i + 1])
+            replay.append(torch.argmax(lg[:, -1], -1).to(torch.int32))
+    finally:
+        MOE.moe_dense_ref = orig
+    if not torch.equal(torch.stack(replay, 1).cpu(), out[:, 1:].cpu()):
+        raise AssertionError("the replay's tokens differ from the served run")
+    per_step = np.array(counts[n_pre:], dtype=np.float64).reshape(GEN, cfg.L)
+    return per_step, counts[:n_pre]
+
+
+def moe_step_bytes(cfg, params, per_step) -> float:
+    """The bytes a moe decode step must read, in the weights' own dtype:
+    every layer's attention, norms, router (and arctic's dense residual
+    MLP), the experts it routed to (``per_step`` [GEN, L], their mean
+    over the steps), both embedding tables (the embedding is a one-hot
+    product) and the final norm."""
+    lay = params["layers"]
+    size = lambda t: t.numel() * t.element_size()
+    expert = sum(size(lay[n][0, 0]) for n in ("w1", "w3", "w2"))
+    dense = sum(size(v[0]) for n, v in lay.items()
+                if n not in ("w1", "w3", "w2"))
+    tables = sum(size(params[n]) for n in ("embed", "out_embed",
+                                           "final_norm"))
+    return cfg.L * dense + expert * per_step.sum(1).mean() + tables
+
+
 def moe_phase(args, dev, on_card: bool, power: str) -> None:
     """Phase 26: the moe family's serving path (`models/moe.py`'s router
     and `moe_dense_ref` under `lm.py`, `steps.py` and `launch/serve.py`)
@@ -4260,7 +4343,6 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
     from repro_torch.kernels import launch_counts
     from repro_torch.launch.serve import serve
     from repro_torch.models import lm, steps
-    from repro_torch.models import moe as MOE
 
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t_phase = time.perf_counter()
@@ -4422,10 +4504,10 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
     del pa, lga, lga0
     gc_collect(on_card)
 
-    # ---- (b) dbrx-132b served at full width, L = 2 (L = 4 until phase
-    # 29 needed the script's time) ----
+    # ---- (b) dbrx-132b served at full width, L = 1 (L = 4 until phase
+    # 29 and L = 2 until phase 30 needed the script's time) ----
     t_a = time.perf_counter() - t_phase
-    served = dataclasses.replace(full, L=2)
+    served = dataclasses.replace(full, L=1)
     B, S, GEN = 4, 64, 32
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
@@ -4442,49 +4524,8 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
     o = out.cpu().numpy()
     if o.shape != (B, GEN + 1) or not ((o >= 0) & (o < served.vocab)).all():
         raise AssertionError(f"served tokens {o.shape} out of range")
-    # the served run replayed (the same prompts, then the served tokens)
-    # with `moe_dense_ref` wrapped to count each call's distinct experts:
-    # one call, so one host sync, a layer
-    counts = []
-    orig = MOE.moe_dense_ref
-
-    def counted(pl, x, eid, gate, cfg):
-        counts.append(int(torch.unique(eid).numel()))
-        return orig(pl, x, eid, gate, cfg)
-
-    MOE.moe_dense_ref = counted
-    try:
-        prompts = torch.from_numpy(np.random.default_rng(0).integers(
-            0, served.vocab, (B, S)).astype(np.int32)).to(dev)
-        _, pc = steps.make_prefill(served)(params, {"tokens": prompts})
-        n_pre = len(counts)
-        cache = steps.init_cache(served, B, S + GEN, device=dev)
-        cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
-        cache["pos"] = S
-        dec = steps.make_decode_step(served)
-        replay = []
-        for i in range(GEN):
-            lg, cache = dec(params, cache, out[:, i:i + 1])
-            replay.append(torch.argmax(lg[:, -1], -1).to(torch.int32))
-    finally:
-        MOE.moe_dense_ref = orig
-    if not torch.equal(torch.stack(replay, 1).cpu(), out[:, 1:].cpu()):
-        raise AssertionError("the replay's tokens differ from the served run")
-    per_step = np.array(counts[n_pre:], dtype=np.float64).reshape(
-        GEN, served.L)
-    del pc, cache
-    # the decode bound: the float32 weights a step must read — every
-    # layer's attention, norms and router, the experts it routed to, both
-    # embedding tables (the embedding is a one-hot product) and the final
-    # norm — over the device memory's rate
-    lay = params["layers"]
-    expert = 4 * sum(lay[n][0, 0].numel() for n in ("w1", "w3", "w2"))
-    dense = 4 * sum(v[0].numel() for n, v in lay.items()
-                    if n not in ("w1", "w3", "w2"))
-    tables = 4 * sum(params[n].numel() for n in ("embed", "out_embed",
-                                                  "final_norm"))
-    step_bytes = (served.L * dense + expert * per_step.sum(1).mean()
-                  + tables)
+    per_step, pre_counts = replay_experts(served, params, out, B, S, dev)
+    step_bytes = moe_step_bytes(served, params, per_step)
     bound_s = step_bytes / HBM_BYTES_PER_S
     nparam = nparams(params)
     print(f"[26 serve] {served.name} cut to L={served.L} of {full.L} (full "
@@ -4497,7 +4538,7 @@ def moe_phase(args, dev, on_card: bool, power: str) -> None:
           f"{1e3 * bound_s:.2f} ms); distinct experts a layer a decode step "
           f"mean {per_step.mean():.2f} (min {per_step.min():.0f}, max "
           f"{per_step.max():.0f}) of {served.n_experts}, prefill "
-          f"{counts[:n_pre]}; host syncs a step {served.L} (one a layer) "
+          f"{pre_counts}; host syncs a step {served.L} (one a layer) "
           + (f"resident {st['resident_mb']:.0f} MB, serve's peak "
              f"{st['peak_mb']:.0f} MB, the draw's peak {draw_peak:.0f} MB "
              f"(phases before it held {held:.0f} MB) " if on_card else "")
@@ -4935,8 +4976,9 @@ def encdec_vlm_phase(args, dev, on_card: bool, power: str) -> None:
     cross caches and the prefix in `prefill_dense`) — card-vs-CPU checks
     on 2-layer cuts of seamless-m4t-large-v2's and llava-next-mistral-
     7b's full widths, decode = forward for encdec on the card, both
-    served at full width and depth through `repro_torch.launch.serve.
-    serve`, and llava behind a 2,880-patch image prefix.  Launches none
+    served at full width and half their depth through
+    `repro_torch.launch.serve.serve`, and llava behind a 2,880-patch
+    image prefix.  Launches none
     of the seven kernels (no `pallas_call` on this path)."""
     import dataclasses
 
@@ -5117,10 +5159,14 @@ def encdec_vlm_phase(args, dev, on_card: bool, power: str) -> None:
     gc_collect(on_card)
     t_a = time.perf_counter() - t_phase
 
-    # ---- (c) both served at full width and depth; (d) llava's prefix ----
+    # ---- (c) both served at full width, cut to half their depth since
+    # phase 30 took the script's time; (d) llava's prefix ----
     B, S, GEN = 4, 64, 32
     served = {}
     for full in (sea, lla):
+        if on_card:
+            full = dataclasses.replace(full, L=full.L // 2,
+                                       enc_layers=full.enc_layers // 2)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -5143,7 +5189,10 @@ def encdec_vlm_phase(args, dev, on_card: bool, power: str) -> None:
         bound_s = step / HBM_BYTES_PER_S
         how = ("64 sequential decode steps on zero cross caches"
                if full.family == "encdec" else "one forward")
-        print(f"[28 serve] {full.name} ({nparam / 1e9:.4f}e9 float32 params,"
+        print(f"[28 serve] {full.name} at L={full.L}"
+              + (f" + {full.enc_layers} encoder layers"
+                 if full.family == "encdec" else "")
+              + f" ({nparam / 1e9:.4f}e9 float32 params,"
               f" {4 * nparam / 1e9:.2f} GB) batch {B}, prompt {S} ({how}), "
               f"gen {GEN}: params drawn in {t_init:.2f} s, prefill "
               f"{st['prefill_s']:.3f} s, decode {st['decode_s']:.3f} s, "
@@ -5650,6 +5699,317 @@ def frontend_train_phase(args, dev, on_card: bool, power: str) -> None:
           flush=True)
 
 
+# phase 30: the bfloat16-parameter configurations, each at its full
+# widths cut to the depth one 80 GB card holds beside serving (59.41 GB
+# and 55.36 GB of bfloat16 weights)
+BF16_SERVED = (("llama3-405b", 8), ("arctic-480b", 2))
+
+
+def bf16_draw_refs(cfg) -> tuple[list, float]:
+    """Phase 30 (a), the CPU's half: one full-width leaf of layer 0 drawn
+    on the CPU as `init_params` draws it — llama3-405b's ``wk``; arctic's
+    ``w1`` of expert 0 (the leaf's first d·d_ff draws) and the leaf's
+    last 2²⁰ (past index 2³², where the cipher's counter has a high
+    word) → ([(what, leaf, flat start, values)], CPU seconds)."""
+    from repro_torch import prng
+    from repro_torch.models import lm
+
+    t0 = time.perf_counter()
+    key = prng.split(prng.split(prng.PRNGKey(0), 6)[2], cfg.L)[0]
+    specs = lm._dense_layer_init(cfg, key)
+    bf = torch.bfloat16
+    if cfg.family == "moe":
+        spec = specs["w1"]
+        E, D, ff = spec.shape
+        n, m = E * D * ff, min(1 << 20, E * D * ff)
+        k1, k2 = spec.key.tolist()
+        tail = prng._bf16_table("cpu", normal=True)[prng._low7_i32(
+            k1, k2, n - m, m, "cpu")].mul_(torch.tensor(0.02, dtype=bf))
+        refs = [("w1 expert 0", "w1", 0, lm._draw(
+                    spec._replace(shape=(D * ff,)), 0.02, bf, "cpu")),
+                (f"w1 draws {n - m}..{n - 1}", "w1", n - m, tail)]
+    else:
+        refs = [("wk", "wk", 0, lm._draw(specs["wk"], 0.02, bf, "cpu"))]
+    return refs, time.perf_counter() - t0
+
+
+def bf16_draw_check(cfg, params, refs, t_cpu: float, card: str) -> None:
+    """Phase 30 (a): the card's leaves of `bf16_draw_refs`, bit for bit."""
+    bits = lambda t: t.detach().cpu().reshape(-1).view(torch.int16)
+    for what, name, start, want in refs:
+        got = params["layers"][name][0].reshape(-1)[start:start
+                                                    + want.numel()]
+        diff = int((bits(got) != bits(want)).sum())
+        print(f"[30 draw] {cfg.name} layer 0 {what} ({got.numel()} bfloat16 "
+              f"values): card vs CPU draw, {diff} differing bit patterns "
+              f"(must be 0; the CPU drew them in {t_cpu:.1f} s beside the "
+              f"card's draw) ({card})", flush=True)
+        if diff:
+            raise AssertionError(f"{cfg.name} {what}: the card's bfloat16 "
+                                 f"draw differs from the CPU's")
+
+
+def bf16_cut_card(cfg, params, dev, on_card: bool):
+    """Phase 30 (d), the card's half: layer 0 of the served tree (views)
+    as a 1-layer model at full width, B 2 × S 8 → a job for the CPU's
+    half (`bf16_cut_cpu`'s arguments): the card's bfloat16 logits at
+    every position (and moe routes), a control's (layer 0's ``wo``
+    zeroed), and the cut's weights copied to the host — for moe only the
+    experts the card's or the CPU's routes use, read from a router pass
+    on the host first (the stacks' other experts are never read)."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+
+    moe = cfg.family == "moe"
+    cut = dataclasses.replace(cfg, L=1)
+    c32 = dataclasses.replace(cut, dtype="float32")
+    p1 = {k: v for k, v in params.items() if k != "layers"}
+    p1["layers"] = {k: v[:1] for k, v in params["layers"].items()}
+    ctrl = dict(p1, layers=dict(p1["layers"], wo=torch.zeros_like(
+        p1["layers"]["wo"])))
+    toks = torch.from_numpy(np.random.default_rng(30).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        if moe:
+            lg, e, _ = moe_routes(cut, p1, toks)
+            lgc = moe_routes(cut, ctrl, toks)[0]
+        else:
+            lg, e = steps.logits_of(cut, p1, lm.forward(
+                cut, p1, {"tokens": toks})), None
+            lgc = steps.logits_of(cut, ctrl, lm.forward(
+                cut, ctrl, {"tokens": toks}))
+        lg, lgc = lg.cpu(), lgc.cpu()
+        del ctrl
+        t0 = time.perf_counter()
+        experts = ("w1", "w3", "w2") if moe else ()
+        hp = {k: v.cpu() for k, v in p1.items() if k != "layers"}
+        hp["layers"] = {k: v.cpu() for k, v in p1["layers"].items()
+                        if k not in experts}
+        n_bytes = sum(t.numel() * t.element_size() for t in T.leaves(hp))
+        used = []
+        if moe:
+            pl = lm.layer(hp["layers"], 0)
+            x, _ = lm._attn_sublayer(pl, lm.embed_tokens(hp, c32,
+                                                         toks.cpu()),
+                                     c32, causal=True)
+            e_cpu = MOE.router(pl, L.rms_norm(x, pl["ln2"], cfg.norm_eps),
+                               c32)[0]
+            used = torch.unique(torch.cat([e.cpu().reshape(-1),
+                                           e_cpu.reshape(-1)])).tolist()
+            for n in experts:
+                v = p1["layers"][n]
+                hp["layers"][n] = h = torch.empty(v.shape, dtype=v.dtype)
+                for i in used:
+                    h[0, i].copy_(v[0, i])
+                n_bytes += len(used) * v[0, 0].numel() * v.element_size()
+        t_copy = time.perf_counter() - t0
+    return cfg, hp, toks.cpu(), lg, None if e is None else e.cpu(), lgc, (
+        t_copy, n_bytes, len(used))
+
+
+def bf16_cut_cpu(cfg, hp, toks, lg, e, lgc, copied, card: str) -> None:
+    """Phase 30 (d), the CPU's half: the same cut's float32 forward on the
+    host — moe on its own routes, then on the card's — against the
+    card's bfloat16 logits: moe routes first (the share that agree, a
+    floor), then the values within phase 23's 32u·rms / 8u·rms (dense)
+    or phase 26's 64u·rms / 8u·rms (moe, on the card's routes); the
+    control must read above the max limit."""
+    import dataclasses
+
+    from repro_torch.models import lm, steps
+
+    u = 2.0 ** -8
+    moe = cfg.family == "moe"
+    c32 = dataclasses.replace(cfg, L=1, dtype="float32")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        if moe:
+            ref, e0, _ = moe_routes(c32, hp, toks)
+            # on the card's routes: the same run where they are the CPU's
+            forced = ref if torch.equal(e, e0) else moe_routes(
+                c32, hp, toks, force=e)[0]
+        else:
+            ref = forced = steps.logits_of(c32, hp, lm.forward(
+                c32, hp, {"tokens": toks}))
+    t_cpu = time.perf_counter() - t0
+    err = lambda a, b: ((a.float() - b.float()).abs().max().item(),
+                        (a.float() - b.float()).abs().mean().item())
+    rms = float(ref.pow(2).mean().sqrt())
+    lim = ((64 if moe else 32) * u * rms, 8 * u * rms)
+    c_max, c_mean = err(lg, forced)
+    k_max, _ = err(lgc, ref)
+    routes, agree, floor = "", 1.0, 0.85
+    if moe:
+        flip = (e.sort(-1).values != e0.sort(-1).values).any(-1)
+        agree = float(1 - flip.float().mean())
+        routes = (f"routes agree on {agree:.4f} of the {flip.numel()} (token,"
+                  f" layer) pairs (floor {floor}); values on the card's "
+                  f"routes: ")
+    t_copy, n_bytes, n_used = copied
+    print(f"[30 cpu] {cfg.name} cut to L=1 at full width (layer 0 of the "
+          f"served tree; {n_bytes / 1e9:.2f} GB of bfloat16 weights copied "
+          f"to the host in {t_copy:.1f} s"
+          + (f", the {n_used} experts either side routes to" if moe else "")
+          + f"; the CPU's float32 forward{'s' if moe else ''} {t_cpu:.1f} s,"
+          f" in a worker thread), B 2 x S 8, the card's bfloat16 "
+          f"logits vs the CPU's float32: {routes}max abs {c_max:.4g}, mean "
+          f"{c_mean:.4g} (logit rms {rms:.4g}; limits {lim[0] / u / rms:.0f}"
+          f"u·rms {lim[0]:.4g} and 8u·rms {lim[1]:.4g}, u = 2^-8); control,"
+          f" layer 0's wo zeroed on the card: max abs {k_max:.4g} ({card})",
+          flush=True)
+    if not agree >= floor:
+        raise AssertionError(f"{cfg.name}: too many bfloat16 routes flipped")
+    if not (c_max <= lim[0] and c_mean <= lim[1]):
+        raise AssertionError(f"{cfg.name}: the card's bfloat16 logits "
+                             f"disagree with the CPU's")
+    if not k_max > lim[0]:
+        raise AssertionError(f"{cfg.name}: the logit limit passes a layer "
+                             f"without its attention output")
+
+
+def bf16_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 30: bfloat16 parameters — the card's 128-value normal table
+    against the CPU's; llama3-405b at full width cut to L = 8 and
+    arctic-480b at full width cut to L = 2, each drawn on the card in
+    bfloat16 (`lm.init_params`), a full-width leaf checked bit for bit
+    against the CPU's draw, served through `repro_torch.launch.serve.
+    serve` (batch 4, prompt 64, 32 tokens) beside the bound of reading
+    its bfloat16 weights once a step (arctic: the routed experts'),
+    resident and own peak MB (≤ 70,000), a profiled decode step; and a
+    1-layer cut of each card vs CPU.  The CPU's reference work runs in a
+    worker thread beside the card's draws, never beside serving or the
+    profiler.  Writes nothing to disk and launches none of the seven
+    kernels."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import lm
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    card = (f"{torch.cuda.get_device_name(0)}, power limit {power}"
+            if on_card else power)
+    B, S, GEN = 4, 64, 32
+    # (a) the table every bfloat16 normal draw picks from
+    tab = prng._bf16_table(dev, normal=True).cpu().view(torch.int16)
+    tab0 = prng._bf16_table("cpu", normal=True).view(torch.int16)
+    print(f"[30 table] the 128 bfloat16 normal values built on the card "
+          f"equal the CPU's bit for bit: {torch.equal(tab, tab0)} ({card})",
+          flush=True)
+    if not torch.equal(tab, tab0):
+        raise AssertionError("the card's bfloat16 normal table differs")
+    configs = []
+    for name, depth in BF16_SERVED:
+        full = CB.get(name)
+        if not on_card:                          # rehearsal size
+            full = dataclasses.replace(CB.reduced(full),
+                                       param_dtype="bfloat16")
+        configs.append((full, dataclasses.replace(full, L=min(depth,
+                                                              full.L))))
+    parts, pending = [], None
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        refs = [pool.submit(bf16_draw_refs, served) for _, served in configs]
+        for (full, served), ref in zip(configs, refs):
+            t_sub = time.perf_counter()
+            gc_collect(on_card)
+            held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params = lm.init_params(served, prng.PRNGKey(0), model_shards=1,
+                                    device=dev)
+            sync()
+            t_init = time.perf_counter() - t0
+            draw_peak = (torch.cuda.max_memory_allocated() / 1e6 if on_card
+                         else 0.0)
+            # the CPU's work of the last model ends before serving starts
+            if pending is not None:
+                pending.result()
+            bf16_draw_check(served, params, *ref.result(), card)
+            leaves = T.leaves(params)
+            if any(t.dtype != torch.bfloat16 for t in leaves):
+                raise AssertionError(f"{served.name}: a leaf is not "
+                                     f"bfloat16")
+            nparam = sum(t.numel() for t in leaves)
+            out, st = serve(served, batch=B, prompt_len=S, gen=GEN, seed=0,
+                            log=lambda *_: None, device=dev, params=params)
+            o = out.cpu().numpy()
+            if o.shape != (B, GEN + 1) or not (
+                    (o >= 0) & (o < served.vocab)).all():
+                raise AssertionError(f"served tokens {o.shape} out of range")
+            experts = ""
+            if served.family == "moe":
+                per_step, pre = replay_experts(served, params, out, B, S,
+                                               dev)
+                step_bytes = moe_step_bytes(served, params, per_step)
+                experts = (f"; distinct experts a layer a decode step mean "
+                           f"{per_step.mean():.2f} (min {per_step.min():.0f}"
+                           f", max {per_step.max():.0f}) of "
+                           f"{served.n_experts}, prefill {pre}")
+            else:                # every weight, both tables (one-hot embed)
+                step_bytes = sum(t.numel() * t.element_size()
+                                 for t in leaves)
+            bound_s = step_bytes / HBM_BYTES_PER_S
+            own = st["peak_mb"] - held if on_card else 0.0
+            print(f"[30 serve] {served.name} cut to L={served.L} of "
+                  f"{full.L} (full widths: {nparam / 1e10:.4f}e10 bfloat16 "
+                  f"params, {2 * nparam / 1e9:.2f} GB) batch {B}, prompt {S}"
+                  f" (one prefill forward), gen {GEN}: params drawn in "
+                  f"{t_init:.2f} s ({nparam / max(t_init, 1e-9) / 1e9:.2f}e9"
+                  f" draws/s), prefill {st['prefill_s']:.3f} s, decode "
+                  f"{st['decode_s']:.3f} s, {st['tok_per_s']:.1f} tokens/s "
+                  f"(bound {B / bound_s:.1f} tokens/s: "
+                  f"{step_bytes / 1e9:.2f} GB of bfloat16 weights a step, "
+                  f"{1e3 * bound_s:.2f} ms){experts}"
+                  + (f"; resident {st['resident_mb']:.0f} MB, own peak "
+                     f"{own:.0f} MB (limit 70000; serve's peak "
+                     f"{st['peak_mb']:.0f} MB, the draw's {draw_peak:.0f} "
+                     f"MB, phases before it held {held:.0f} MB)"
+                     if on_card else "")
+                  + f" ({card})", flush=True)
+            if own > 70_000:
+                raise AssertionError(f"{served.name}: own peak {own:.0f} MB"
+                                     f" > 70000")
+            if on_card:
+                busy, by_name = profile_decode(served, params, B, S, dev,
+                                               tag="30 profile")
+                copy = {n: ms for n, ms in by_name.items()
+                        if "copy" in n.lower()}
+                print(f"[30 profile] {served.name}: busy share {busy:.3f}; "
+                      f"copy kernels {sum(copy.values()):.2f} ms a decode "
+                      f"step over {len(copy)} kernel names (the float32 "
+                      f"blocks of the output table among them; no weight "
+                      f"cast: bfloat16 weights at bfloat16 compute are used "
+                      f"as they are) ({card})", flush=True)
+            job = bf16_cut_card(served, params, dev, on_card)
+            del params, leaves, out
+            gc_collect(on_card)
+            pending = pool.submit(bf16_cut_cpu, *job, card)
+            del job
+            parts.append(f"{served.name} {time.perf_counter() - t_sub:.1f}")
+        t0 = time.perf_counter()
+        pending.result()
+        parts.append(f"the last CPU check {time.perf_counter() - t0:.1f}")
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[30 kernels] launches in phase 30: {launched} (plain torch "
+          f"products and draws, as the JAX package's are plain XLA)",
+          flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 30 launched a kernel it should not")
+    print(f"[30 done] phase 30 in {time.perf_counter() - t_phase:.1f} s: "
+          f"{', '.join(parts)} s ({card})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -5925,6 +6285,7 @@ def main(argv=None) -> int:
     moe_train_phase(args, dev, on_card, power)
     encdec_vlm_phase(args, dev, on_card, power)
     frontend_train_phase(args, dev, on_card, power)
+    bf16_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

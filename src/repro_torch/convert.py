@@ -96,16 +96,27 @@ def ncf_params_from_numpy(tree: dict, device=None) -> dict:
             for k, v in tree.items()}
 
 
+def _leaf_from_numpy(a, dev) -> torch.Tensor:
+    """An array → a tensor of its own dtype; a bfloat16 array (ml_dtypes'
+    type in numpy, which torch does not read) is carried bit for bit
+    through an int16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(a.view(np.int16), device=dev).view(torch.bfloat16)
+    return torch.tensor(a, device=dev)
+
+
 def lm_params_from_numpy(tree: dict, device=None, dtype=None) -> dict:
     """The JAX package's LM parameter tree (``init_params``'s nested dict
-    of arrays) → the port's dict of tensors, in ``dtype`` (a torch dtype
-    or its name; default float32)."""
+    of arrays) → the port's dict of tensors, each leaf in its own dtype
+    (bfloat16 bit for bit), or all cast to ``dtype`` (a torch dtype or its
+    name) when given."""
     dev = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
-    dtype = dtype or torch.float32
-    conv = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev,
-                                  dtype=dtype)
+    conv = lambda a: (_leaf_from_numpy(a, dev) if dtype is None else
+                      torch.tensor(np.asarray(a, np.float32), device=dev,
+                                   dtype=dtype))
     return {k: lm_params_from_numpy(v, dev, dtype) if isinstance(v, dict)
             else conv(v) for k, v in tree.items()}
 
@@ -116,16 +127,8 @@ def lm_opt_from_numpy(tree: dict, device=None) -> dict:
     dtypes (a bfloat16 moment, ml_dtypes' type in numpy, stays
     bfloat16), ``count`` is a 0-d int32 tensor."""
     dev = resolve_device(device)
-
-    def conv(a):
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            return torch.tensor(a.view(np.int16), device=dev).view(
-                torch.bfloat16)
-        return torch.tensor(a, device=dev)
-
-    tree_of = lambda t: {k: tree_of(v) if isinstance(v, dict) else conv(v)
-                         for k, v in t.items()}
+    tree_of = lambda t: {k: tree_of(v) if isinstance(v, dict)
+                         else _leaf_from_numpy(v, dev) for k, v in t.items()}
     return dict(m=tree_of(tree["m"]), v=tree_of(tree["v"]),
                 count=torch.tensor(np.asarray(tree["count"], np.int32),
                                    device=dev))

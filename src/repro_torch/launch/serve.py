@@ -13,13 +13,19 @@ mamba2-370m``, ``--arch zamba2-7b``, ``--arch seamless-m4t-large-v2``)
 by sequential decode, as in the reference.  encdec's cross K/V caches
 stay `init_cache`'s zeros, as the reference's `serve` leaves them (the
 JAX package has no function that fills them): the cross-attention then
-adds exactly 0, and the served tokens depend on no source input.  At
-llama3-8b's full width the float32 weights are 8.0·10⁹ parameters (32
-GB), at llava-next-mistral-7b's 7.24·10⁹ (29 GB), at zamba2-7b's
-6.75·10⁹ (27 GB), at seamless-m4t-large-v2's 2.03·10⁹ (8.1 GB): they
-are drawn layer by layer on the card from the seed's key.  dbrx-132b's
-40 layers (1.3·10¹¹ parameters) do not fit one card; its widths do at
-L ≤ 4 (1.43·10¹⁰, 57 GB).
+adds exactly 0, and the served tokens depend on no source input.  The
+weights are drawn on the card from the seed's key in the config's
+``param_dtype``, one leaf at a time into their layer stacks.  In
+float32: llama3-8b's 8.0·10⁹ parameters (32 GB), llava-next-mistral-7b's
+7.24·10⁹ (29 GB), zamba2-7b's 6.75·10⁹ (27 GB), seamless-m4t-large-v2's
+2.03·10⁹ (8.1 GB); dbrx-132b's 40 layers (1.3·10¹¹) do not fit one card,
+its widths do at L ≤ 4 (1.43·10¹⁰, 57 GB).  In bfloat16, used at
+bfloat16 compute without a copy: llama3-405b is 3.19·10⁹ parameters a
+layer (6.38 GB) plus 8.41 GB of untied embeddings, so one card holds L =
+8 of its 126 (2.97·10¹⁰, 59.41 GB); arctic-480b is 1.36·10¹⁰ a layer
+(27.22 GB) plus 0.92 GB, so L = 2 of its 35 (2.77·10¹⁰, 55.36 GB).  The
+logits never hold a float32 copy of a bfloat16 output table
+(`steps.logits_of`).
 """
 from __future__ import annotations
 

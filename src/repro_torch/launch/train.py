@@ -8,8 +8,8 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
 
 Runs on ``cuda`` unless ``--device cpu`` is given, for every family:
 dense, moe (``--arch dbrx-132b``; ``--arch arctic-480b`` with
-``--reduced``, its full config draws bfloat16 parameters, ROADMAP Queue
-1 item 9.6a), ssm and hybrid (``--arch mamba2-370m``, ``--arch
+``--reduced``: its full config trains bfloat16 parameters, ROADMAP
+Queue 1 item 9.6a-train), ssm and hybrid (``--arch mamba2-370m``, ``--arch
 zamba2-7b``), encdec and vlm (``--arch seamless-m4t-large-v2``,
 ``--arch llava-next-mistral-7b``, whose batches carry the reference's
 stub frame or patch embeddings).  At dbrx-132b's full width one 80 GB

@@ -19,12 +19,16 @@ and no scheduling barrier (`_opt_barrier` pins the FSDP gathers of
 training).  Training remats each stacked layer, as the reference does
 (`_scan_layers`); the hybrid's shared block is not rematerialised.
 
-Weights are kept in ``cfg.param_dtype`` (float32) and cast to
-``cfg.dtype`` (bfloat16) where they are used, as in the reference.
+Weights are kept in ``cfg.param_dtype`` (float32, or bfloat16 for
+llama3-405b and arctic-480b) and cast to ``cfg.dtype`` (bfloat16) where
+they are used, as in the reference; a cast to the weight's own dtype is
+the weight itself, so bfloat16 weights at bfloat16 compute are never
+copied.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 import torch.utils.checkpoint
@@ -54,142 +58,161 @@ def check_family(cfg: ArchConfig) -> None:
 # --------------------------------------------------------------------------
 
 
-def _normal(key, shape, scale: float, device) -> torch.Tensor:
-    """``scale · jax.random.normal(key, shape, float32)``, scaled in place
-    (an expert stack of dbrx-132b is 4.2 GB)."""
-    s = torch.tensor(scale, dtype=torch.float32, device=device)
-    return prng.normal_chunked(key, shape, device=device).mul_(s)
+class _Leaf(NamedTuple):
+    """A parameter leaf to draw: ``scale · normal(key, shape)`` or, with
+    no key, ``shape`` filled with ``fill`` (the reference's `jnp.ones` /
+    `jnp.zeros`)."""
+    shape: tuple
+    key: Optional[torch.Tensor] = None
+    fill: float = 0.0
 
 
-def _attn_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
+def _nrm(key, *shape) -> _Leaf:
+    return _Leaf(shape, key)
+
+
+def _ones(*shape) -> _Leaf:
+    return _Leaf(shape, fill=1.0)
+
+
+def _zeros(*shape) -> _Leaf:
+    return _Leaf(shape, fill=0.0)
+
+
+def _draw(leaf: _Leaf, scale: float, dtype, device, out=None):
+    """``leaf`` in ``dtype``, into ``out`` (a contiguous slice of a stack)
+    when given.  A normal leaf is ``scale · jax.random.normal(key, shape,
+    dtype)``: the draw, then its product with ``dtype(scale)`` rounded
+    once (the reference's weakly typed Python scale), in place (an expert
+    stack of dbrx-132b is 4.2 GB)."""
+    if out is None:
+        out = torch.empty(leaf.shape, dtype=dtype, device=device)
+    if leaf.key is None:
+        return out.fill_(leaf.fill)
+    prng.normal_chunked(leaf.key, leaf.shape, device=device, dtype=dtype,
+                        out=out)
+    return out.mul_(torch.tensor(scale, dtype=dtype, device=device))
+
+
+def _attn_layer_init(cfg: ArchConfig, key):
     """A dense layer's attention leaves — ``ln1``, ``wq``/``wk``/``wv``/
     ``wo`` from the first four of ``split(key, 8)``, the biases and q/k
     norms where ``cfg`` sets them — each from its own key, so they equal
     the same leaves of `_dense_layer_init`'s draw."""
     hd, D, Hp = cfg.hd, cfg.d_model, cfg.n_heads_padded
     ks = prng.split(key, 8)
-    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
-    nrm = lambda k, *s: _normal(k, s, scale, device)
     p = dict(
-        ln1=ones(D),
-        wq=nrm(ks[0], D, Hp, hd),
-        wk=nrm(ks[1], D, cfg.n_kv, hd),
-        wv=nrm(ks[2], D, cfg.n_kv, hd),
-        wo=nrm(ks[3], Hp, hd, D),
+        ln1=_ones(D),
+        wq=_nrm(ks[0], D, Hp, hd),
+        wk=_nrm(ks[1], D, cfg.n_kv, hd),
+        wv=_nrm(ks[2], D, cfg.n_kv, hd),
+        wo=_nrm(ks[3], Hp, hd, D),
     )
     if cfg.qkv_bias:
-        p |= dict(bq=zeros(Hp, hd), bk=zeros(cfg.n_kv, hd),
-                  bv=zeros(cfg.n_kv, hd))
+        p |= dict(bq=_zeros(Hp, hd), bk=_zeros(cfg.n_kv, hd),
+                  bv=_zeros(cfg.n_kv, hd))
     if cfg.qk_norm:
-        p |= dict(q_norm=ones(hd), k_norm=ones(hd))
+        p |= dict(q_norm=_ones(hd), k_norm=_ones(hd))
     return p
 
 
-def _dense_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
+def _dense_layer_init(cfg: ArchConfig, key):
     D, ff = cfg.d_model, cfg.d_ff
     ks = prng.split(key, 8)
-    nrm = lambda k, *s: _normal(k, s, scale, device)
-    p = _attn_layer_init(cfg, key, scale, device)
-    p["ln2"] = torch.ones((D,), dtype=torch.float32, device=device)
+    p = _attn_layer_init(cfg, key)
+    p["ln2"] = _ones(D)
     if cfg.family == "moe" and cfg.n_experts:
         E = cfg.n_experts
-        p |= dict(router=nrm(ks[4], D, E), w1=nrm(ks[5], E, D, ff),
-                  w3=nrm(ks[6], E, D, ff), w2=nrm(ks[7], E, ff, D))
+        p |= dict(router=_nrm(ks[4], D, E), w1=_nrm(ks[5], E, D, ff),
+                  w3=_nrm(ks[6], E, D, ff), w2=_nrm(ks[7], E, ff, D))
         if cfg.moe_dense_ff:
             fd = cfg.moe_dense_ff
-            p |= dict(w1d=nrm(prng.fold_in(key, 11), D, fd),
-                      w3d=nrm(prng.fold_in(key, 12), D, fd),
-                      w2d=nrm(prng.fold_in(key, 13), fd, D))
+            p |= dict(w1d=_nrm(prng.fold_in(key, 11), D, fd),
+                      w3d=_nrm(prng.fold_in(key, 12), D, fd),
+                      w2d=_nrm(prng.fold_in(key, 13), fd, D))
         return p
-    p |= dict(w1=nrm(ks[5], D, ff), w3=nrm(ks[6], D, ff),
-              w2=nrm(ks[7], ff, D))
+    p |= dict(w1=_nrm(ks[5], D, ff), w3=_nrm(ks[6], D, ff),
+              w2=_nrm(ks[7], ff, D))
     return p
 
 
-def _ssm_layer_init(cfg: ArchConfig, key, scale, device="cpu"):
+def _ssm_layer_init(cfg: ArchConfig, key):
     D, di, N = cfg.d_model, SSM.d_inner(cfg), cfg.ssm_state
     H, K = SSM.n_heads(cfg), cfg.ssm_conv
     ks = prng.split(key, 10)
-    ones = lambda *s: torch.ones(s, dtype=torch.float32, device=device)
-    zeros = lambda *s: torch.zeros(s, dtype=torch.float32, device=device)
-    nrm = lambda k, *s: _normal(k, s, scale, device)
     return dict(
-        ln=ones(D),
-        z_proj=nrm(ks[0], D, di),
-        x_proj=nrm(ks[1], D, di),
-        b_proj=nrm(ks[2], D, N),
-        c_proj=nrm(ks[3], D, N),
-        dt_proj=nrm(ks[4], D, H),
-        conv_x=nrm(ks[5], K, di),
-        conv_b=nrm(ks[6], K, N),
-        conv_c=nrm(ks[7], K, N),
-        dt_bias=zeros(H),
-        A_log=zeros(H),
-        D=ones(H),
-        norm_w=ones(di),
-        out_proj=nrm(ks[8], di, D),
+        ln=_ones(D),
+        z_proj=_nrm(ks[0], D, di),
+        x_proj=_nrm(ks[1], D, di),
+        b_proj=_nrm(ks[2], D, N),
+        c_proj=_nrm(ks[3], D, N),
+        dt_proj=_nrm(ks[4], D, H),
+        conv_x=_nrm(ks[5], K, di),
+        conv_b=_nrm(ks[6], K, N),
+        conv_c=_nrm(ks[7], K, N),
+        dt_bias=_zeros(H),
+        A_log=_zeros(H),
+        D=_ones(H),
+        norm_w=_ones(di),
+        out_proj=_nrm(ks[8], di, D),
     )
 
 
-def _stack_init(per_layer_fn, cfg, key, n, device="cpu"):
+def _stack_init(per_layer_fn, cfg, key, n, dtype, device="cpu"):
     """The JAX package's `vmap` of ``per_layer_fn`` over ``split(key, n)``:
-    each layer is drawn from its own key into its slice of the stack, so
-    only one layer's draw is ever held beside the stack (each leaf is
-    let go once copied)."""
+    each layer's leaves are drawn from its own key straight into their
+    slices of the stack, one leaf at a time (a layer of arctic-480b is 27
+    GB in bfloat16: it is never held beside the stack)."""
     keys = prng.split(key, n)
     out = None
     for li in range(n):
-        layer = per_layer_fn(cfg, keys[li], 0.02, device)
+        layer = per_layer_fn(cfg, keys[li])
         if out is None:
-            out = {k: torch.empty((n, *v.shape), dtype=v.dtype,
-                                  device=device) for k, v in layer.items()}
-        for k in list(layer):
-            out[k][li] = layer.pop(k)
+            out = {k: torch.empty((n, *v.shape), dtype=dtype, device=device)
+                   for k, v in layer.items()}
+        for k, leaf in layer.items():
+            _draw(leaf, 0.02, dtype, device, out=out[k][li])
     return out
 
 
 def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
-    """The JAX package's `init_params`: the same keys and draws (each
-    float within a few ulp: `prng.normal`), on ``device`` (``cuda``
-    unless asked).  The hybrid's ``shared_attn`` is one unstacked dense
-    layer drawn from the fourth key; encdec's tree is ``enc`` (a dense
-    stack of ``cfg.enc_layers``), ``dec``, ``dec_cross`` (each decoder
-    layer's cross-attention leaves) and ``enc_norm``, with no
-    ``layers``."""
+    """The JAX package's `init_params`: the same keys and draws, in
+    ``cfg.param_dtype`` (float32: each float within a few ulp,
+    `prng.normal`; bfloat16: bit for bit), on ``device`` (``cuda`` unless
+    asked).  The hybrid's ``shared_attn`` is one unstacked dense layer
+    drawn from the fourth key; encdec's tree is ``enc`` (a dense stack of
+    ``cfg.enc_layers``), ``dec``, ``dec_cross`` (each decoder layer's
+    cross-attention leaves) and ``enc_norm``, with no ``layers``."""
     check_family(cfg)
-    if cfg.param_dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name}: drawing {cfg.param_dtype} parameters is not "
-            f"ported (ROADMAP.md, Queue 1 item 9.6); use param_dtype="
-            f"'float32'")
+    dt = L.torch_dtype(cfg.param_dtype)
     dev = resolve_device(device)
     ks = prng.split(key, 6)
     V = cfg.vocab_padded(model_shards)
     D = cfg.d_model
-    p = dict(
-        embed=_normal(ks[0], (V, D), 0.02, dev),
-        final_norm=torch.ones((D,), dtype=torch.float32, device=dev),
-    )
+    leaf = lambda spec: _draw(spec, 0.02, dt, dev)
+    p = dict(embed=leaf(_nrm(ks[0], V, D)), final_norm=leaf(_ones(D)))
     if not cfg.tie_embeddings:
-        p["out_embed"] = _normal(ks[1], (V, D), 0.02, dev)
+        p["out_embed"] = leaf(_nrm(ks[1], V, D))
     if cfg.family == "encdec":
         p["enc"] = _stack_init(_dense_layer_init, cfg, ks[2],
-                               cfg.enc_layers, dev)
-        p["dec"] = _stack_init(_dense_layer_init, cfg, ks[3], cfg.L, dev)
+                               cfg.enc_layers, dt, dev)
+        p["dec"] = _stack_init(_dense_layer_init, cfg, ks[3], cfg.L, dt, dev)
         # the decoder's cross-attention: the reference draws whole dense
         # layers from ks[4] and keeps their attention leaves; only those
         # are drawn here (the same floats: each leaf has its own key)
         p["dec_cross"] = _stack_init(_attn_layer_init, cfg, ks[4], cfg.L,
-                                     dev)
-        p["enc_norm"] = torch.ones((D,), dtype=torch.float32, device=dev)
+                                     dt, dev)
+        p["enc_norm"] = leaf(_ones(D))
     elif cfg.family in KV_FAMILIES:
-        p["layers"] = _stack_init(_dense_layer_init, cfg, ks[2], cfg.L, dev)
+        p["layers"] = _stack_init(_dense_layer_init, cfg, ks[2], cfg.L, dt,
+                                  dev)
     else:
-        p["layers"] = _stack_init(_ssm_layer_init, cfg, ks[2], cfg.L, dev)
+        p["layers"] = _stack_init(_ssm_layer_init, cfg, ks[2], cfg.L, dt,
+                                  dev)
     if cfg.family == "hybrid":
-        p["shared_attn"] = _dense_layer_init(
-            dataclasses.replace(cfg, family="dense"), ks[3], 0.02, dev)
+        shared = _dense_layer_init(dataclasses.replace(cfg, family="dense"),
+                                   ks[3])
+        p["shared_attn"] = {k: leaf(v) for k, v in shared.items()}
     return p
 
 

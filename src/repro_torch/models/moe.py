@@ -8,7 +8,7 @@ kernel, so the port computes them with plain `torch` products.
 Not ported yet: the expert-parallel paths `moe_ffn`, `moe_ffn_ep2d` and
 their `_group_and_ffn` (`shard_map` all-to-alls over an LM mesh, with
 capacity drops).  They wait for `models/sharding.py` and the LM meshes
-(ROADMAP Queue 1 item 9.6).
+(ROADMAP Queue 1 item 9.6c).
 """
 from __future__ import annotations
 

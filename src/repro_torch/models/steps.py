@@ -287,12 +287,27 @@ def _hybrid_window(cfg: ArchConfig, T: int):
     return 8192 if T >= 100_000 else 0
 
 
+LOGITS_CHUNK = 1 << 28      # elements of the output table upcast at once
+
+
 def logits_of(cfg: ArchConfig, p, h):
     """h [..., D] against the output embedding in ``cfg.dtype`` → float32
     logits (the products of ``cfg.dtype`` operands are exact in float32,
-    as the reference's ``preferred_element_type``)."""
-    E = lm.out_embedding(p, cfg).to(L.torch_dtype(cfg.dtype))
-    return h.float() @ E.float().T
+    as the reference's ``preferred_element_type``).  A table that is not
+    float32 is cast and upcast `LOGITS_CHUNK` elements of rows at a time,
+    each block's product written into its columns of the logits:
+    llama3-405b's bfloat16 ``out_embed`` would be an 8.4 GB float32 copy
+    at once."""
+    E, dt = lm.out_embedding(p, cfg), L.torch_dtype(cfg.dtype)
+    h32 = h.float()
+    if E.dtype == torch.float32 or E.numel() <= LOGITS_CHUNK:
+        return h32 @ E.to(dt).float().T
+    V, D = E.shape
+    rows = max(1, LOGITS_CHUNK // D)
+    out = h32.new_empty((*h32.shape[:-1], V))
+    for r in range(0, V, rows):
+        out[..., r:r + rows] = h32 @ E[r:r + rows].to(dt).float().T
+    return out
 
 
 _SSM_LEAVES = ("ssm", "conv_x", "conv_b", "conv_c")

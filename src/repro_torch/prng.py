@@ -15,8 +15,15 @@ A key is an int64 tensor of shape ``[..., 2]`` holding two uint32 words,
 the layout of JAX's legacy ``uint32[2]`` keys.  Every uint32 operation is
 done on int64 tensors and masked to 32 bits, so nothing relies on
 unsigned tensor types.  Integer draws (keys, bits, `randint`,
-`permutation`, `rademacher`) equal JAX's exactly; `normal` goes through
-`torch.erfinv`, which may differ from XLA's by a few ulp.
+`permutation`, `rademacher`) equal JAX's exactly; the float32 `normal`
+goes through `log1p`, which may differ from XLA's by a few ulp.
+
+A bfloat16 draw (``dtype=torch.bfloat16``) is exact: `jax.random.uniform`
+takes 8 random bits for a float of fewer than 8 mantissa bits, so a
+bfloat16 `uniform` or `normal` is one of 128 values picked by bits 1–7 of
+each 32-bit draw.  The 128 values are computed once a draw, rounded to
+bfloat16 after every step as XLA rounds them (`_bf16_table`), and each
+element gathers its own.
 """
 from __future__ import annotations
 
@@ -109,10 +116,23 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(x, dtype=torch.float32)
 
 
-def uniform(key, shape, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
+def uniform(key, shape, minval=0.0, maxval=1.0, device=None,
+            dtype=torch.float32) -> torch.Tensor:
     """`jax.random.uniform` in float32: the top 23 bits become the
-    mantissa of a float in [1, 2), shifted and scaled to [minval, maxval)."""
-    return _uniform_bits(random_bits(key, shape, device), minval, maxval)
+    mantissa of a float in [1, 2), shifted and scaled to [minval, maxval).
+    In bfloat16 bits 1–7 of each draw pick one of `_bf16_table`'s 128
+    values."""
+    bits = random_bits(key, shape, device)
+    if dtype == torch.bfloat16:
+        return _bf16_pick(_bf16_table(bits.device, minval, maxval), bits)
+    _check_dtype(dtype)
+    return _uniform_bits(bits, minval, maxval)
+
+
+def _check_dtype(dtype) -> None:
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            f"draws in {dtype}: only float32 and bfloat16 are ported")
 
 
 def _uniform_bits(bits: torch.Tensor, minval, maxval) -> torch.Tensor:
@@ -149,11 +169,16 @@ def _erfinv(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def normal(key, shape, device=None) -> torch.Tensor:
+def normal(key, shape, device=None, dtype=torch.float32) -> torch.Tensor:
     """`jax.random.normal` in float32: √2·erfinv(u), u uniform in
     (−1, 1).  `log1p` differs between libraries, so a draw may differ
-    from JAX's by a few ulp (at most 3 measured; 99 % are equal)."""
-    return _normal_bits(random_bits(key, shape, device))
+    from JAX's by a few ulp (at most 3 measured; 99 % are equal).  In
+    bfloat16 the draw equals JAX's bit for bit (`_bf16_table`)."""
+    bits = random_bits(key, shape, device)
+    if dtype == torch.bfloat16:
+        return _bf16_pick(_bf16_table(bits.device, normal=True), bits)
+    _check_dtype(dtype)
+    return _normal_bits(bits)
 
 
 def _normal_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -163,23 +188,121 @@ def _normal_bits(bits: torch.Tensor) -> torch.Tensor:
     return _f32(np.sqrt(2)).to(u.device) * _erfinv(u)
 
 
-def normal_chunked(key, shape, device=None,
-                   chunk: int = 1 << 24) -> torch.Tensor:
-    """`normal(key, shape)` drawn ``chunk`` elements at a time into one
-    float32 tensor: in the partitionable mode element i depends on its
-    flat index alone, so the chunks are the whole draw's slices and the
-    int64 working set stays ``chunk`` wide (a 128k × 4096 embedding
-    table would need tens of GB of it at once)."""
+def normal_chunked(key, shape, device=None, chunk: int = 1 << 24,
+                   dtype=torch.float32, out=None) -> torch.Tensor:
+    """`normal(key, shape, dtype=dtype)` drawn ``chunk`` elements at a
+    time into one tensor (``out``, contiguous, when given): in the
+    partitionable mode element i depends on its flat index alone, so the
+    chunks are the whole draw's slices and the int64 working set stays
+    ``chunk`` wide (a 128k × 4096 embedding table would need tens of GB
+    of it at once).  A bfloat16 draw runs the cipher on int32 words
+    (`_threefry_bits_i32`) and writes each chunk's picks straight into
+    ``out``: no float32 or int64 buffer wider than a chunk."""
     shape = (shape,) if isinstance(shape, int) else tuple(shape)
     device = key.device if device is None else torch.device(device)
     n = math.prod(shape)
-    out = torch.empty(n, dtype=torch.float32, device=device)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    if tuple(out.shape) != shape or out.dtype != dtype or (
+            not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous {dtype} tensor of "
+                         f"shape {shape}")
+    flat = out.view(-1)
+    if dtype == torch.bfloat16:
+        table = _bf16_table(device, normal=True)
+        k1, k2 = (int(w) for w in key.reshape(2).tolist())
+        for s in range(0, n, chunk):
+            c = min(chunk, n - s)
+            torch.index_select(table, 0, _low7_i32(k1, k2, s, c, device),
+                               out=flat[s:s + c])
+        return out
+    _check_dtype(dtype)
     k1, k2 = _words(key, device)
     for s in range(0, n, chunk):
         c = min(chunk, n - s)
         b1, b2 = threefry2x32(k1, k2, *_counter(c, device, start=s))
-        out[s:s + c] = _normal_bits(b1 ^ b2)
-    return out.reshape(shape)
+        flat[s:s + c] = _normal_bits(b1 ^ b2)
+    return out
+
+
+# --------------------------------------------------------------------------
+# bfloat16 draws: 128 values, picked by 7 bits
+# --------------------------------------------------------------------------
+
+
+def _to_bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round float32 values to bfloat16 (and hold them in float32): one
+    step of XLA's bfloat16 arithmetic, which computes each operation in
+    float32 and rounds its result."""
+    return x.to(torch.bfloat16).float()
+
+
+def _bf16_table(device, minval=0.0, maxval=1.0, normal: bool = False):
+    """The 128 values of `jax.random.uniform(key, shape, bfloat16,
+    minval, maxval)` — or, with ``normal``, of `jax.random.normal(key,
+    shape, bfloat16)` — indexed by the 7 mantissa bits (bits 1–7 of each
+    32-bit draw; JAX draws 8 and shifts one out) → bfloat16 [128].
+
+    Every step is rounded to bfloat16 as XLA rounds it: the mantissa's
+    float in [1, 2) minus 1 (exact), times bf16(maxval − minval), plus
+    minval, clamped below at minval; for `normal`, minval = the bfloat16
+    just above −1 and maxval 1, then XLA's float32 erfinv (`_erfinv`) and
+    the product with bf16(√2).  Rounding once at the end instead gives
+    37 of the 128 normal values wrong."""
+    if normal:
+        minval, maxval = -1.0 + 2.0 ** -8, 1.0   # the bfloat16 above −1
+    m = torch.arange(128, dtype=torch.int32, device=device)
+    f = ((m | 0x3F80) << 16).view(torch.float32) - 1.0
+    lo = _to_bf16(_f32(minval).to(device))
+    hi = _to_bf16(_f32(maxval).to(device))
+    u = torch.maximum(lo, _to_bf16(_to_bf16(f * _to_bf16(hi - lo)) + lo))
+    if normal:
+        root2 = _to_bf16(_f32(np.sqrt(2)).to(device))
+        u = _to_bf16(root2 * _to_bf16(_erfinv(u)))
+    return u.to(torch.bfloat16)
+
+
+def _bf16_pick(table: torch.Tensor, bits: torch.Tensor) -> torch.Tensor:
+    """``table``'s entry for each 32-bit draw's bits 1–7."""
+    return table[(bits >> 1) & 0x7F]
+
+
+def _i32(x: int) -> int:
+    """A uint32 word as the int32 with its bits."""
+    x &= M32
+    return x - (1 << 32) if x >> 31 else x
+
+
+def _rotl_i32(x: torch.Tensor, r: int) -> torch.Tensor:
+    """32-bit rotate left on int32 words (`>>` is arithmetic: the bits
+    shifted in from the sign are masked off)."""
+    return (x << r) | ((x >> (32 - r)) & ((1 << r) - 1))
+
+
+def _threefry_bits_i32(k1: int, k2: int, x1, x2) -> torch.Tensor:
+    """`threefry2x32` for one key (``k1``, ``k2`` as Python ints) on
+    int32 tensors whose additions wrap in two's complement → b1 ^ b2 as
+    int32 words.  Half the bytes of the int64 form a pass, for the large
+    draws (`normal_chunked` in bfloat16)."""
+    ks = (_i32(k1), _i32(k2), _i32(k1 ^ k2 ^ _KS_PARITY))
+    x1 = x1 + ks[0]
+    x2 = x2 + ks[1]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 += x2
+            x2 = _rotl_i32(x2, r).bitwise_xor_(x1)
+        x1 += ks[(i + 1) % 3]
+        x2 += _i32(ks[(i + 2) % 3] + i + 1)
+    return x1.bitwise_xor_(x2)
+
+
+def _low7_i32(k1: int, k2: int, start: int, n: int, device) -> torch.Tensor:
+    """Bits 1–7 of the 32-bit draws start..start+n-1 of key (k1, k2), as
+    int32 in [0, 128): the index of a bfloat16 draw's value."""
+    idx = torch.arange(start, start + n, dtype=torch.int64, device=device)
+    hi, lo = (idx >> 32).to(torch.int32), idx.to(torch.int32)
+    del idx
+    return (_threefry_bits_i32(k1, k2, hi, lo) >> 1).bitwise_and_(0x7F)
 
 
 def _mul32(x, c: int):

@@ -24,7 +24,10 @@ to the one-device plain walk's, and the fit's mesh shard tier within
 1e-5 of its one-device replay.  The LM side (no kernel of its own):
 the dense, ssm, hybrid and moe families' forward, decode caches and
 train steps, and the encdec and vlm families' forward, prefill, decode
-caches and train steps, on the card against the CPU at float32.
+caches and train steps, on the card against the CPU at float32; with
+bfloat16 parameters the card's draws bit for bit the CPU's, `logits_of`
+without a float32 copy of its output table, and reduced llama3-405b and
+arctic-480b's greedy tokens equal to the CPU's.
 """
 import dataclasses
 import pathlib
@@ -2139,3 +2142,84 @@ def test_frontend_families_train_on_the_card_by_default(cuda, arch):
     b = ltrain.synth_batch(np.random.default_rng(0), cfg, 2, 16,
                            device=p["embed"].device)
     assert b["frontend_embeds"].device.type == "cuda"
+
+
+def test_bfloat16_draw_on_card_equals_cpu(cuda):
+    """The bfloat16 normal draw on the card, bit for bit the CPU's: the
+    128-value table, a leaf in chunks of 2²⁰ and in one, a draw into a
+    slice of a stack, and reduced llama3-405b's and arctic-480b's whole
+    bfloat16 `init_params` trees."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.models import lm
+    bits = lambda t: t.cpu().view(torch.int16)
+    assert torch.equal(bits(prng._bf16_table(cuda, normal=True)),
+                       bits(prng._bf16_table("cpu", normal=True)))
+    key = prng.split(prng.PRNGKey(4))[1]
+    shape = (3, 1000, 777)
+    want = prng.normal_chunked(key, shape, dtype=torch.bfloat16)
+    for chunk in (1 << 20, 1 << 24):
+        got = prng.normal_chunked(key, shape, device=cuda, chunk=chunk,
+                                  dtype=torch.bfloat16)
+        assert got.device.type == "cuda" and torch.equal(bits(got),
+                                                         bits(want))
+    stack = torch.zeros((2, *shape), dtype=torch.bfloat16, device=cuda)
+    prng.normal_chunked(key, shape, device=cuda, dtype=torch.bfloat16,
+                        out=stack[1])
+    assert torch.equal(bits(stack[1]), bits(want))
+    assert not bool(stack[0].any())
+    for name in ("llama3-405b", "arctic-480b"):
+        cfg = dataclasses.replace(CB.reduced(CB.get(name)),
+                                  param_dtype="bfloat16")
+        pc = lm.init_params(cfg, prng.PRNGKey(1), model_shards=1,
+                            device=cuda)
+        p = lm.init_params(cfg, prng.PRNGKey(1), model_shards=1,
+                           device="cpu")
+        for a, w in zip(T.leaves(pc), T.leaves(p)):
+            assert a.dtype == torch.bfloat16 and torch.equal(bits(a), bits(w))
+
+
+def test_logits_of_a_bfloat16_table_makes_no_float32_copy_on_card(
+        cuda, monkeypatch):
+    """`steps.logits_of` on a bfloat16 [V, D] output table raises
+    `max_memory_allocated` by less than V·D·4 bytes (a float32 copy of
+    the table), and its logits are within float32 rounding of the
+    unchunked float32 product, TF32 off."""
+    from repro_torch.configs import base as CB
+    from repro_torch.models import steps
+    cfg = dataclasses.replace(CB.get("llama3-405b"), L=1)
+    V, D = 65536, 4096
+    g = torch.Generator(device=cuda).manual_seed(0)
+    E = torch.randn((V, D), generator=g, device=cuda).to(torch.bfloat16)
+    h = torch.randn((4, 1, D), generator=g, device=cuda).to(torch.bfloat16)
+    p = {"embed": E, "out_embed": E}
+    assert not torch.backends.cuda.matmul.allow_tf32
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    monkeypatch.setattr(steps, "LOGITS_CHUNK", 1 << 24)
+    got = steps.logits_of(cfg, p, h)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert rise < V * D * 4, rise
+    want = h.float().cpu() @ E.float().cpu().T
+    bound = 2 * D * 2.0 ** -24 * (h.float().abs().cpu()
+                                  @ E.float().abs().cpu().T)
+    assert got.dtype == torch.float32
+    assert bool(((got.cpu() - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("name", ["llama3-405b", "arctic-480b"])
+def test_bfloat16_parameters_serve_on_card_as_on_cpu(cuda, name):
+    """Reduced llama3-405b and arctic-480b with bfloat16 parameters, drawn
+    by `serve` itself on each device at float32 compute: the greedy
+    tokens equal."""
+    from repro_torch.configs import base as CB
+    from repro_torch.launch.serve import serve
+    cfg = dataclasses.replace(CB.reduced(CB.get(name)),
+                              param_dtype="bfloat16", dtype="float32")
+    got, st = serve(cfg, batch=2, prompt_len=16, gen=8, device=cuda,
+                    log=lambda *_: None)
+    ref, _ = serve(cfg, batch=2, prompt_len=16, gen=8, device="cpu",
+                   log=lambda *_: None)
+    assert torch.equal(got.cpu(), ref) and st["peak_mb"] > 0

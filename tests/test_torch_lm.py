@@ -26,10 +26,10 @@ serving half, `launch/serve.py`), on the CPU at the reduced configs.
   ssm, hybrid and encdec families prefilled by sequential decode —
   encdec on zero cross caches, as the reference serves it —, dense, moe
   and vlm by one forward).
-* Drawing arctic-480b's bfloat16 parameters raises
-  `NotImplementedError`.  (Training every family is held against the
-  JAX package in `test_torch_lm_train.py` and, for encdec and vlm,
-  `test_torch_frontend_train.py`.)
+* (Training every family is held against the JAX package in
+  `test_torch_lm_train.py` and, for encdec and vlm,
+  `test_torch_frontend_train.py`; bfloat16 parameters — their draw, the
+  served llama3-405b and arctic-480b — in `test_torch_bf16.py`.)
 """
 import dataclasses
 
@@ -450,15 +450,6 @@ def test_lm_params_from_numpy_keeps_the_tree(name):
     half = convert.lm_params_from_numpy(jax.tree.map(np.asarray, jp),
                                         device="cpu", dtype="bfloat16")
     assert half["embed"].dtype == torch.bfloat16
-
-
-def test_bfloat16_parameter_draw_raises():
-    """arctic-480b's full config draws bfloat16 parameters (ROADMAP item
-    9.6): refused before any draw; its reduced config draws float32."""
-    cfg = CB.get("arctic-480b")
-    assert cfg.param_dtype == "bfloat16"
-    with pytest.raises(NotImplementedError, match="ROADMAP.*9.6"):
-        lm.init_params(cfg, prng.PRNGKey(0), 1, device="cpu")
 
 
 def test_lm_params_from_numpy_keeps_the_hybrid_tree():
