@@ -6,7 +6,8 @@ neighbour comparators, the other serving paths, the multi-device tiers,
 the Table-10 comparison with the NCF models, the examples, dense LM
 serving and training, the ssm and hybrid LM families, moe LM serving
 and training, encdec and vlm LM serving and training, and bfloat16
-parameters serving llama3-405b and arctic-480b — on one CUDA card.
+parameters serving llama3-405b and arctic-480b and training them in
+bfloat16 parameters, gradients and moments — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -211,7 +212,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     and, for the serving example, its kernel walk held against the
     kernels' plain versions on one probe flush of its own shapes;
 23. dense LM serving — `repro_torch.launch.serve.serve` at llama3-8b's
-    full width cut to 16 of its 32 layers (4.5·10⁹ float32 parameters
+    full width cut to 8 of its 32 layers (16 until phase 31; 2.8·10⁹
+    float32 parameters
     drawn on the card), batch 4, prompt 64, 32 decoded tokens: prefill
     and decode seconds, tokens/s beside the bound of reading the float32 weights
     once a step, resident and peak MB; on a 2-layer cut of the same
@@ -245,7 +247,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     float32, the JAX test's 1e-4), each limit beside a control that must
     read above it (the conv state dropped each step; each chunk alone);
     `repro_torch.launch.serve.serve` at full width (mamba2-370m cut to
-    24 of its 48 layers; zamba2-7b cut to 12 of its 81 layers, two of
+    12 of its 48 layers, 24 until phase 31; zamba2-7b cut to 12 of its 81 layers, two of
     its 14 groups; batch 4, a 64-token prompt
     prefilled by sequential decode, 32 tokens): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the weights once a
@@ -288,8 +290,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     Adam update 1e-6); then dbrx-132b trained at full width cut to L = 1
     (4.49·10⁹ float32 parameters, its own µ = 4, bfloat16 moments,
     float32 gradients) through `repro_torch.launch.train.train_loop`
-    for 10 steps at batch 8 × 128, the loss falling, 5 synchronised
-    `make_train_step` steps timed beside their bound, the distinct
+    for 10 steps at batch 8 × 128, the loss falling, 3 synchronised
+    `make_train_step` steps (5 until phase 31) timed beside their
+    bound, the distinct
     experts a microbatch, resident and peak MB (≤ 70,000), a profiled
     step, and the loop run again from the seed's draw with every loss
     and each leaf's bit sums equal; a bfloat16-moment checkpoint of
@@ -309,8 +312,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     cut of llava-next-mistral-7b's (B 2, a 64-patch prefix, 64 tokens)
     `prefill_dense` card vs CPU (logits, ``pos``, the K/V; the prefix
     dropped the bfloat16 control); then both served at full width and
-    half their depth (seamless 12 + 12 layers, llava 16 of 32; full
-    depth until phase 30 took the script's time) through
+    half their depth (seamless 12 + 12 layers; full depth until phase 30
+    took the script's time), llava at 8 of 32 (16 until phase 31) through
     `repro_torch.launch.serve.serve` (batch 4, prompt
     64, 32 tokens; seamless prefilled by sequential decode on zero
     cross caches, as the reference serves it): draw, prefill and decode
@@ -343,8 +346,10 @@ Phases, in order; any failure raises and the script exits non-zero:
     step.  None of the seven kernels launches.
 30. bfloat16 parameters — the card's 128-value table of bfloat16
     normal draws against the CPU's; llama3-405b at full width cut to L
-    = 8 of 126 (2.97·10¹⁰ bfloat16 parameters, 59.41 GB) and
-    arctic-480b at full width cut to L = 2 of 35 (2.77·10¹⁰, 55.36 GB),
+    = 4 of 126 (1.69·10¹⁰ bfloat16 parameters, 33.9 GB) and arctic-480b
+    at full width cut to L = 1 of 35 (1.41·10¹⁰, 28.1 GB) — L = 8 and L
+    = 2, the depths one card holds beside serving (59.41 and 55.36 GB),
+    until phase 31 took the script's time —,
     each drawn on the card by `lm.init_params` in its config's
     bfloat16, one full-width leaf of layer 0 bit-equal to the CPU's draw
     (llama's ``wk``; arctic's ``w1`` of expert 0 and its last 2²⁰
@@ -360,11 +365,33 @@ Phases, in order; any failure raises and the script exits non-zero:
     and 26's limits, layer 0's ``wo`` zeroed the control).  The CPU's
     halves run in a worker thread beside the card's draws; nothing is
     written to disk, and none of the seven kernels launches.
+31. training with bfloat16 parameters, gradients and moments — (a) on
+    one-layer cuts at float32 compute, µ = 2 (`bf16_train_cuts`:
+    llama3-405b's d_model with 16 of its heads, d_ff 4,096 and a 4,096
+    vocabulary; arctic-480b's d_model, 4 experts of its full d_ff, its
+    dense residual MLP, 8 heads and a 4,096 vocabulary), the card
+    against the CPU from the same state: arctic's routes first, the loss
+    within 1e-5, each leaf of the bfloat16 gradient sum within 8u of
+    its max (a dropped microbatch the control), and the CPU's Adam of
+    the card's sum against the card's update, word for word; the CPU's
+    halves in a worker thread beside (b)–(d); (b) llama3-405b at full
+    width cut to L = 1 of 126 (7.39·10⁹ parameters, 59.12 GB of
+    parameters, gradient sum and moments) and (c) arctic-480b at full
+    width cut to L = 1 of 35 with 64 of its 128 experts (7.38·10⁹, 59.00
+    GB), each in its own bfloat16 dtypes and µ = 8, through
+    `repro_torch.launch.train.train_loop` (3 steps, batch 8 × 128), then
+    3 synchronised `make_train_step` steps: init s, step s and tokens/s
+    beside the bound, the loss falling, resident and own peak MB (≤
+    75,000), a profiled step, arctic's distinct experts a microbatch; (d)
+    a checkpoint of reduced arctic-480b in bfloat16 throughout (step 2
+    of 4 under ``build/chip_smoke_bf16_ckpt``, removed) restored bit for
+    bit and resumed as the same state stepped in memory.  None of the
+    seven kernels launches.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–30 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–31 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -3316,7 +3343,7 @@ def examples_phase(args, dev, on_card: bool, power: str) -> dict:
 
 def lm_phase(args, dev, on_card: bool, power: str) -> dict:
     """Phase 23: dense LM serving (`repro_torch.launch.serve.serve`) at
-    llama3-8b's full width, L = 16; its KV cache (prefill's last-position logits
+    llama3-8b's full width, L = 8; its KV cache (prefill's last-position logits
     against a token-by-token decode of the same prompt) and the card
     against the CPU (float32) on a 2-layer cut of the same widths."""
     import dataclasses
@@ -3378,9 +3405,9 @@ def lm_phase(args, dev, on_card: bool, power: str) -> dict:
     if on_card:
         torch.cuda.empty_cache()
 
-    # ---- (b) the served model at full width, cut to 16 of its 32
-    # layers since phase 30 took the script's time ----
-    served = dataclasses.replace(full, L=16) if on_card else full
+    # ---- (b) the served model at full width, cut to 8 of its 32 layers
+    # since phase 31 took the script's time (16 since phase 30) ----
+    served = dataclasses.replace(full, L=8) if on_card else full
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3784,16 +3811,18 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
     return seg
 
 
-def worst_leaf(got, want) -> tuple[float, str]:
+def worst_leaf(got, want, denoms=(1.0, 1.0)) -> tuple[float, str]:
     """(the largest card-vs-CPU max abs over the leaf's own max |g|, that
     leaf's path) of two gradient trees, ``want`` the CPU's (on the CPU,
-    or moved to the card to compare there)."""
+    or moved to the card to compare there), in float32, each tree
+    divided by its ``denoms`` entry (a bfloat16 sum by its Σw)."""
     from repro_torch import tree as T
 
     out = []
     for (path, w), a in zip(T.leaves_with_paths(want), T.leaves(got)):
-        scale = float(w.abs().max())
-        err = float((a.to(w.device) - w).abs().max())
+        w32 = w.float() / denoms[1]
+        scale = float(w32.abs().max())
+        err = float((a.to(w.device).float() / denoms[0] - w32).abs().max())
         out.append((err / scale if scale > 0 else float("inf"), path))
     return max(out)
 
@@ -3823,10 +3852,11 @@ def gc_collect(on_card: bool) -> None:
 
 
 def profile_train_step(cfg, params, opt, batch, tag: str = "24 profile",
-                       n_top: int = 3) -> None:
+                       n_top: int = 3, card: str = "") -> float:
     """One full-width train step under `torch.profiler` (after the loop's
-    warm steps): the device's busy share of the window and its ``n_top``
-    largest costs by kernel."""
+    warm steps): the device's busy share of the window (returned) and its
+    ``n_top`` largest costs by kernel (``card``, if given, printed
+    beside them)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import steps
@@ -3844,8 +3874,9 @@ def profile_train_step(cfg, params, opt, batch, tag: str = "24 profile",
     print(f"[{tag}] one train step in {1e3 * wall:.1f} ms (profiled): "
           f"{len(spans)} device activities, busy {busy / 1e3:.1f} ms (share "
           f"{busy / 1e6 / wall:.3f}); largest device costs ms: "
-          + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top),
-          flush=True)
+          + "; ".join(f"{n[:70]} {t / 1e3:.2f}" for n, t in top)
+          + (f" ({card})" if card else ""), flush=True)
+    return busy / 1e6 / wall
 
 
 def ssm_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
@@ -4060,13 +4091,12 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
         gc_collect(on_card)
 
     # ---- (b) serving at full width; zamba2-7b cut to 2 of its 14 groups
-    # and mamba2-370m to 24 of its 48 layers (phases 26, 29 and 30 take
-    # the time it saves) ----
+    # and mamba2-370m to 12 of its 48 layers (24 until phase 31; phases
+    # 26 and 29–31 take the time it saves) ----
     t_a = time.perf_counter() - t_phase
     for full in fulls:
         if on_card:
-            full = dataclasses.replace(
-                full, L=12 if full.family == "hybrid" else 24)
+            full = dataclasses.replace(full, L=12)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         t0 = time.perf_counter()
         params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
@@ -4759,7 +4789,9 @@ def moe_train_phase(args, dev, on_card: bool, power: str) -> None:
     t_a = time.perf_counter() - t_phase
 
     # ---- (b) dbrx-132b at full width, L = 1, its own training settings ----
-    B, S, N_STEPS, N_TIMED = 8, 128, 10, 5
+    # 3 timed steps (5 until phase 31 took the script's time); 10 loop
+    # steps: after 4 the loss had not fallen (12.65 -> 15.11 -> 12.96)
+    B, S, N_STEPS, N_TIMED = 8, 128, 10, 3
     held = mb()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -4848,7 +4880,7 @@ def moe_train_phase(args, dev, on_card: bool, power: str) -> None:
                            n_top=6)
     # the loop again from the seed's draw (two states do not fit on the
     # card beside a step): every loss equal and each parameter and moment
-    # leaf's bit sums (`bit_sums`) equal after its 10 steps
+    # leaf's bit sums (`bit_sums`) equal after its steps
     t0 = time.perf_counter()
     del params, opt, batches
     gc_collect(on_card)
@@ -5160,13 +5192,15 @@ def encdec_vlm_phase(args, dev, on_card: bool, power: str) -> None:
     t_a = time.perf_counter() - t_phase
 
     # ---- (c) both served at full width, cut to half their depth since
-    # phase 30 took the script's time; (d) llava's prefix ----
+    # phase 30 took the script's time (llava to a quarter since phase
+    # 31); (d) llava's prefix ----
     B, S, GEN = 4, 64, 32
     served = {}
     for full in (sea, lla):
         if on_card:
-            full = dataclasses.replace(full, L=full.L // 2,
-                                       enc_layers=full.enc_layers // 2)
+            full = dataclasses.replace(
+                full, L=full.L // (2 if full.family == "encdec" else 4),
+                enc_layers=full.enc_layers // 2)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         if on_card:
             torch.cuda.reset_peak_memory_stats()
@@ -5700,9 +5734,10 @@ def frontend_train_phase(args, dev, on_card: bool, power: str) -> None:
 
 
 # phase 30: the bfloat16-parameter configurations, each at its full
-# widths cut to the depth one 80 GB card holds beside serving (59.41 GB
-# and 55.36 GB of bfloat16 weights)
-BF16_SERVED = (("llama3-405b", 8), ("arctic-480b", 2))
+# widths cut in depth: L = 8 and L = 2, the depths one 80 GB card holds
+# beside serving (59.41 GB and 55.36 GB of bfloat16 weights), until phase
+# 31 took the script's time (each layer's draw is ~1.9 and ~6.9 s)
+BF16_SERVED = (("llama3-405b", 4), ("arctic-480b", 1))
 
 
 def bf16_draw_refs(cfg) -> tuple[list, float]:
@@ -5873,8 +5908,9 @@ def bf16_cut_cpu(cfg, hp, toks, lg, e, lgc, copied, card: str) -> None:
 
 def bf16_phase(args, dev, on_card: bool, power: str) -> None:
     """Phase 30: bfloat16 parameters — the card's 128-value normal table
-    against the CPU's; llama3-405b at full width cut to L = 8 and
-    arctic-480b at full width cut to L = 2, each drawn on the card in
+    against the CPU's; llama3-405b at full width cut to L = 4 and
+    arctic-480b at full width cut to L = 1 (`BF16_SERVED`), each drawn on
+    the card in
     bfloat16 (`lm.init_params`), a full-width leaf checked bit for bit
     against the CPU's draw, served through `repro_torch.launch.serve.
     serve` (batch 4, prompt 64, 32 tokens) beside the bound of reading
@@ -6008,6 +6044,506 @@ def bf16_phase(args, dev, on_card: bool, power: str) -> None:
         raise AssertionError("phase 30 launched a kernel it should not")
     print(f"[30 done] phase 30 in {time.perf_counter() - t_phase:.1f} s: "
           f"{', '.join(parts)} s ({card})", flush=True)
+
+
+# phase 31: llama3-405b and arctic-480b trained in their own bfloat16
+# parameters, gradients and moments and their own µ = 8, at full width cut
+# to the one layer whose state (8 bytes a parameter) one 80 GB card holds:
+# llama3-405b's layer and untied tables, 59.12 GB; arctic-480b's layer
+# with 64 of its 128 experts, 59.00 GB (all 128 are 112.6 GB)
+BF16_TRAINED = (("llama3-405b", {}), ("arctic-480b", {"n_experts": 64}))
+BF16_OWN_PEAK_MB = 75_000
+# their learning rate: at 3e-4 (the reference CLI's) llama3-405b's loss
+# rose from 15.11 to 38.17 in one step (PERF.md §4): a first Adam
+# step of about lr·sign(g) moves each of its logits by ~lr·Σ|h| ≈ 4 at
+# d = 16,384.  At 3e-5 both losses fall step after step.
+BF16_LR = 3e-5
+BF16_DTYPES = dict(param_dtype="bfloat16", moment_dtype="bfloat16",
+                   grad_dtype="bfloat16")
+
+
+def bf16_train_cuts(on_card: bool) -> list:
+    """Phase 31 (a)'s cuts, each one layer at float32 compute with its
+    config's bfloat16 parameters, gradients and moments, µ = 2, sized so
+    that the CPU's halves take ~30 s on an 8-core H100 host (a
+    llama3-405b layer at full d_model and d_ff with a 8,192 vocabulary,
+    3.46·10⁹ parameters, took 218.5 s there): llama3-405b's d_model
+    16,384 with 8 of its 128 heads, d_ff 4,096 and a 2,048 vocabulary
+    (0.34·10⁹); arctic-480b's d_model 7,168 with 4 of its experts at
+    their full d_ff 4,864, top 2, its dense residual MLP, 8 of its 56
+    heads and a 2,048 vocabulary (0.58·10⁹) — and (llama3-405b's) whether
+    the Adam update is held word for word.  Reduced configs in the CPU
+    rehearsal."""
+    import dataclasses
+
+    from repro_torch.configs import base as CB
+
+    cuts = []
+    for name, kw in (("llama3-405b", dict(n_heads=8, d_ff=4096,
+                                          vocab=2048)),
+                     ("arctic-480b", dict(n_experts=4, n_heads=8,
+                                          vocab=2048))):
+        base = CB.get(name)
+        if not on_card:
+            base, kw = dataclasses.replace(CB.reduced(base),
+                                           **BF16_DTYPES), {}
+        cuts.append((dataclasses.replace(base, L=1, dtype="float32",
+                                         microbatches=2, **kw),
+                     name == "llama3-405b"))
+    return cuts
+
+
+_CAPTURE = threading.local()
+
+
+def captured_step(cfg, params, opt, batch, update: bool = True):
+    """One `make_train_step` step → (the gradient sum it hands Adam, its
+    ``denom`` (1 where the step divided in place), the step's aux); with
+    ``update`` False Adam is skipped, the parameters and moments left as
+    they were.  Adam reads the sum and writes nothing into it.
+
+    `steps.adam_update` is wrapped once (the wrapper stays): it captures
+    for the thread that asked and is the plain update for every other
+    call.  Patched and restored around each call instead, a CPU half's
+    capture in the worker thread took the card's steps beside it: their
+    gradient sums, and with ``update`` False their Adam updates."""
+    from repro_torch.models import steps
+
+    if not hasattr(steps.adam_update, "plain"):
+        adam = steps.adam_update
+
+        def capturing(cfg_, params_, grads, opt_, **kw):
+            slot = getattr(_CAPTURE, "slot", None)
+            if slot is None:
+                return adam(cfg_, params_, grads, opt_, **kw)
+            slot["g"], slot["denom"] = grads, kw.get("denom")
+            if slot["update"]:
+                return adam(cfg_, params_, grads, opt_, **kw)
+            return params_, opt_, torch.zeros(())
+
+        capturing.plain = adam
+        steps.adam_update = capturing
+    _CAPTURE.slot = slot = {"update": update}
+    try:
+        _, _, aux = steps.make_train_step(cfg)(params, opt, batch)
+    finally:
+        _CAPTURE.slot = None
+    denom = slot["denom"]
+    return slot["g"], 1.0 if denom is None else float(denom), aux
+
+
+def bf16_train_cut_card(cut, adam: bool, dev, seed: int) -> dict:
+    """Phase 31 (a), the card's half on one cut (B 2 × S 16, µ = 2): the
+    parameters drawn on the card and kept as they were before the step;
+    moe routes of each microbatch; the gradient sum of ``mb_mask`` [1, 0]
+    (the control, Adam skipped) against [1, 1]'s on the card; then the
+    [1, 1] step, with its Adam update in place if ``adam``.  → the job's
+    card tensors (to be copied to the host) and what the card measured."""
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.models import lm, steps
+
+    t0 = time.perf_counter()
+    p = lm.init_params(cut, prng.PRNGKey(31), model_shards=1, device=dev)
+    p0 = T.tree_map(torch.clone, p)
+    opt = steps.init_opt(cut, p)
+    rng = np.random.default_rng(seed + 31)
+    b = {k: torch.from_numpy(rng.integers(0, cut.vocab, (2, 16)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    on_dev = {k: v.to(dev) for k, v in b.items()}
+    eids = []
+    if cut.family == "moe":
+        with torch.no_grad():
+            for i in range(2):
+                eids.append(moe_routes(cut, p, on_dev["tokens"][i:i + 1])[1])
+    ones = torch.ones(2, device=dev)
+    g_ctrl, d_ctrl, _ = captured_step(cut, p, opt, dict(
+        on_dev, mb_mask=torch.tensor([1.0, 0.0], device=dev)), update=False)
+    g_ctrl = T.tree_map(torch.clone, g_ctrl)
+    g, denom, aux = captured_step(cut, p, opt, dict(on_dev, mb_mask=ones),
+                                  update=adam)
+    ctrl = worst_leaf(g_ctrl, g, (d_ctrl, denom))
+    del g_ctrl
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return dict(cut=cut, batch=b, eids=eids, loss=float(aux["loss"]),
+                gnorm=float(aux["gnorm"]), denom=denom, ctrl=ctrl,
+                card=dict(p0=p0, g=g) | (dict(after=(p, opt)) if adam
+                                         else {}),
+                t_card=time.perf_counter() - t0)
+
+
+def bf16_train_cut_copy(job: dict) -> dict:
+    """Phase 31 (a): the card's tensors of a job to the host (a worker
+    thread; the card's copies are dropped after)."""
+    from repro_torch import tree as T
+
+    t0 = time.perf_counter()
+    host = lambda tree: T.tree_map(lambda t: t.to("cpu", copy=True), tree)
+    card = job.pop("card")
+    job["host"] = {k: host(v) for k, v in card.items()}
+    job["t_copy"] = time.perf_counter() - t0
+    job["copied_gb"] = sum(t.numel() * t.element_size() for t in T.leaves(
+        job["host"])) / 1e9
+    return job
+
+
+def bf16_train_cut_cpu(job: dict, card: str) -> None:
+    """Phase 31 (a), the CPU's half: the same step on the host from the
+    card's state before it — moe routes equal first, the loss within
+    1e-5, each gradient sum's leaf within 8u of its max (u = 2⁻⁸: each
+    microbatch's float32 gradient, summed in another order, rounds to
+    one bfloat16 ulp (2u) apart at most, and their sum once more); the
+    control above 8u; an Adam update on the CPU from the card's gradient
+    sum, the card's parameters and moments after its update against it:
+    bit-equal, each difference counted and one bfloat16 ulp at most (the
+    cut that holds it)."""
+    from repro_torch import tree as T
+    from repro_torch.models import steps
+
+    u = 2.0 ** -8
+    cut, hst = job["cut"], job["host"]
+    t0 = time.perf_counter()
+    routes = ""
+    if job["eids"]:
+        with torch.no_grad():
+            got = [moe_routes(cut, hst["p0"], job["batch"]["tokens"][i:i + 1])
+                   for i in range(2)]
+        same = all(torch.equal(e, w[1]) for e, w in zip(job["eids"], got))
+        gap = min(float(w[2].min()) for w in got)
+        routes = (f"routes of both microbatches card = CPU {same} (smallest "
+                  f"top-2 gap {gap:.4g}); ")
+        if not same:
+            raise AssertionError(f"{cut.name}: the card's routes differ "
+                                 f"from the CPU's")
+    marks = [time.perf_counter()]
+    p = T.tree_map(torch.clone, hst["p0"])
+    g, denom, aux = captured_step(cut, p, steps.init_opt(cut, p), dict(
+        job["batch"], mb_mask=torch.ones(2)), update=False)
+    marks.append(time.perf_counter())
+    rel = abs(job["loss"] - float(aux["loss"])) / abs(float(aux["loss"]))
+    worst, path = worst_leaf(hst["g"], g, (job["denom"], denom))
+    ctrl, cpath = job["ctrl"]
+    del g, p
+    marks.append(time.perf_counter())
+    # Adam from the card's gradient sum, from the state before the step
+    n_diff = n_all = ulp = 0
+    adam = "after" in hst
+    if adam:
+        p, opt, gn = steps.adam_update(cut, hst["p0"], hst["g"],
+                                       steps.init_opt(cut, hst["p0"]),
+                                       denom=torch.tensor(job["denom"]))
+    marks.append(time.perf_counter())
+    if adam:
+        after_p, after_o = hst["after"]
+        for a, w in zip(T.leaves((p, opt["m"], opt["v"])),
+                        T.leaves((after_p, after_o["m"], after_o["v"]))):
+            n_all += a.numel()
+            if torch.equal(a, w):
+                continue
+            for ai, wi in zip(
+                    a.reshape(-1).view(torch.int16).split(1 << 26),
+                    w.reshape(-1).view(torch.int16).split(1 << 26)):
+                d = (ai.to(torch.int32) - wi.to(torch.int32)).abs()
+                n_diff += int((d != 0).sum())
+                ulp = max(ulp, int(d.max()))
+    marks.append(time.perf_counter())
+    t_cpu = time.perf_counter() - t0
+    split = ", ".join(f"{w} {b - a:.1f}" for w, a, b in zip(
+        ("routes", "step", "distance", "Adam", "compare"),
+        [t0] + marks[:-1], marks))
+    nparam = sum(t.numel() for t in T.leaves(hst["p0"]))
+    print(f"[31 cpu] {cut.name} cut (L=1, d={cut.d_model}, ff={cut.d_ff}, "
+          f"V={cut.vocab}"
+          + (f", {cut.n_experts} experts of ff {cut.d_ff}, top "
+             f"{cut.moe_top_k}, dense ff {cut.moe_dense_ff}"
+             if cut.family == "moe" else "")
+          + f"; {nparam / 1e9:.3f}e9 bfloat16 params, grad and moment "
+          f"dtypes bfloat16, float32 compute), µ=2 B 2 x S 16, card vs CPU:"
+          f" {routes}loss {job['loss']:.6f} vs {float(aux['loss']):.6f} (rel "
+          f"{rel:.3g}, limit 1e-5); the gradient sum's worst leaf "
+          f"{worst / u:.3f}u of its max ({path}; limit 8u); control, "
+          f"mb_mask [1, 0] against [1, 1] on the card: {ctrl / u:.1f}u "
+          f"({cpath}); "
+          + (f"Adam of the card's gradient sum on the CPU (gnorm "
+             f"{float(gn):.6g}, the card's {job['gnorm']:.6g}): {n_diff} of "
+             f"{n_all} parameter and moment words differ from the card's, "
+             f"by at most {ulp} bfloat16 ulp (limit 1); " if adam else "")
+          + f"card {job['t_card']:.1f} "
+          f"s, copies to the host {job['copied_gb']:.1f} GB in "
+          f"{job['t_copy']:.1f} s, the CPU {t_cpu:.1f} s ({split}) in a "
+          f"worker thread ({card})", flush=True)
+    if not (rel <= 1e-5 and worst <= 8 * u):
+        raise AssertionError(f"{cut.name}: the card's bfloat16 train step "
+                             f"disagrees with the CPU's")
+    if not ctrl > 8 * u:
+        raise AssertionError(f"{cut.name}: the gradient limit passes a "
+                             f"dropped microbatch")
+    if ulp > 1:
+        raise AssertionError(f"{cut.name}: the card's Adam update is more "
+                             f"than one bfloat16 ulp from the CPU's")
+
+
+def bf16_train_full(name: str, kw: dict, args, dev, on_card: bool,
+                    card: str) -> str:
+    """Phase 31 (b) / (c): ``name`` at full width cut to L = 1 (and ``kw``)
+    in its own bfloat16 dtypes and µ through `train_loop` (3 steps at
+    batch 8 × seq 128, lr `BF16_LR`; the draw timed inside it), then 3
+    synchronised `make_train_step` steps over batches drawn before: init
+    s, step s and tokens/s beside the bound, the loss from first to last
+    (it must fall), resident and own peak MB (≤ `BF16_OWN_PEAK_MB`), a
+    profiled step's busy share; moe: the distinct experts a microbatch.
+    → a summary for the done line."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm, steps
+    from repro_torch.models import moe as MOE
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    base = CB.get(name)
+    full = dataclasses.replace(base, L=1, **kw)
+    if not on_card:                                  # rehearsal size
+        full = dataclasses.replace(CB.reduced(base), **BF16_DTYPES,
+                                   microbatches=base.microbatches)
+    B, S, N_LOOP, N_TIMED = 8, 128, 3, 3
+    gc_collect(on_card)
+    held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t_init, per_call = [], []
+    draw, route = lm.init_params, MOE.moe_dense_ref
+
+    def timed_draw(*a, **k):
+        t0 = time.perf_counter()
+        out = draw(*a, **k)
+        sync()
+        t_init.append(time.perf_counter() - t0)
+        return out
+
+    owner = threading.get_ident()      # not the CPU checks' worker
+
+    def counted(pl, x, eid, gate, cfg):
+        if threading.get_ident() == owner:
+            per_call.append(int(torch.unique(eid).numel()))
+        return route(pl, x, eid, gate, cfg)
+
+    lm.init_params, MOE.moe_dense_ref = timed_draw, counted
+    try:
+        t0 = time.perf_counter()
+        params, opt, losses = ltrain.train_loop(
+            full, steps_n=N_LOOP, batch=B, seq=S, lr=BF16_LR, device=dev,
+            seed=args.seed, log=lambda *_: None)
+        sync()
+        wall = time.perf_counter() - t0
+        resident = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+        step_fn = steps.make_train_step(full, lr=BF16_LR)
+        trng = np.random.default_rng(args.seed + 31)
+        batches = [ltrain.synth_batch(trng, full, B, S, device=dev)
+                   for _ in range(N_TIMED)]
+        marks = []
+        for tb in batches:
+            t = time.perf_counter()
+            params, opt, aux = step_fn(params, opt, tb)
+            sync()
+            marks.append(time.perf_counter() - t)
+            losses.append(float(aux["loss"]))
+    finally:
+        lm.init_params, MOE.moe_dense_ref = draw, route
+    peak = torch.cuda.max_memory_allocated() / 1e6 if on_card else 0.0
+    own = peak - held
+    leaves = T.leaves((params, opt["m"], opt["v"]))
+    nparam = sum(t.numel() for t in T.leaves(params))
+    step_s = float(np.median(marks))
+    # the bound: the larger of the operations over the bfloat16 rate
+    # (every product's operands are bfloat16: the logits' float32 product
+    # of bfloat16 operands included) and the bytes over the memory rate
+    if full.family == "moe":
+        bf, f32 = moe_step_flops(full, B, S)
+    else:
+        bf, f32 = lm_step_flops(full, B, S)
+    lay = params["layers"]
+    size = lambda t: t.numel() * t.element_size()
+    experts = ("w1", "w3", "w2") if full.family == "moe" else ()
+    dense = sum(size(v) for n, v in lay.items() if n not in experts)
+    tables = sum(size(params[n]) for n in ("embed", "out_embed"))
+    moe_txt = ""
+    if experts:
+        per_call = np.asarray(per_call, dtype=np.float64)
+        one = sum(size(lay[n][0, 0]) for n in experts)
+        # each microbatch reads the experts it routes to: forward, the
+        # rematerialised forward and the backward (2 calls a microbatch)
+        dense += one * per_call.mean()
+        moe_txt = (f"; distinct experts a microbatch (each of "
+                   f"{len(per_call)} calls, 2 a microbatch) mean "
+                   f"{per_call.mean():.2f} (min {per_call.min():.0f}, max "
+                   f"{per_call.max():.0f}) of {full.n_experts}")
+    tree = 2 * nparam
+    mu = full.microbatches
+    b_bytes = (mu * (3 * dense + 2 * tables) + mu * 2 * tree
+               + 14 * nparam)
+    t_bytes = b_bytes / HBM_BYTES_PER_S
+    t_ops = (bf + f32) / BF16_OPS_PER_S
+    bound = max(t_bytes, t_ops)
+    print(f"[31 train] {full.name} cut to L={full.L} of {base.L}"
+          + (f" with {full.n_experts} of {base.n_experts} experts"
+             if experts else "")
+          + f", full widths ({nparam / 1e9:.4f}e9 params; parameters, "
+          f"gradient sum and moments {full.param_dtype}/{full.grad_dtype}/"
+          f"{full.moment_dtype}, {full.dtype} compute, µ={mu}), batch {B} "
+          f"seq {S}, lr {BF16_LR:g}: init (the draw) {t_init[0]:.2f} s; "
+          f"{N_LOOP} train_loop steps in {wall:.1f} s (the draw included); "
+          f"{N_TIMED} synchronised make_train_step steps, median "
+          f"{step_s:.4f} s (min {min(marks):.4f}, max {max(marks):.4f}), "
+          f"{B * S / step_s:.0f} tokens/s; loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f} over {len(losses)} steps{moe_txt}"
+          + (f"; resident {resident:.0f} MB, the card's peak {peak:.0f} MB "
+             f"of which phases before held {held:.0f} MB: own peak "
+             f"{own:.0f} MB (limit {BF16_OWN_PEAK_MB})" if on_card else "")
+          + f" ({card})", flush=True)
+    print(f"[31 bound] {full.name}: bytes — µ={mu} x (3 reads of the "
+          f"layer's {dense / 1e9:.2f} GB of weights read a microbatch + 2 of"
+          f" the {tables / 1e9:.2f} GB of tables) + µ x 2 x the "
+          f"{tree / 1e9:.2f} GB accumulator + Adam's 14 B x {nparam:.4g} = "
+          f"{b_bytes / 1e9:.1f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"{1e3 * t_bytes:.1f} ms; operations {(bf + f32) / 1e12:.2f} "
+          f"TFLOP at {BF16_OPS_PER_S / 1e12:.0f} TFLOP/s {1e3 * t_ops:.1f} "
+          f"ms; bound {1e3 * bound:.1f} ms (by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}); the step took "
+          f"{1e3 * step_s:.1f} ms, {step_s / bound:.1f}x ({card})",
+          flush=True)
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{full.name}: the loss did not fall: {losses}")
+    if any(t.dtype != torch.bfloat16 for t in leaves):
+        raise AssertionError(f"{full.name}: a leaf left bfloat16")
+    if on_card and not own <= BF16_OWN_PEAK_MB:
+        raise AssertionError(f"{full.name}: own peak {own:.0f} MB > "
+                             f"{BF16_OWN_PEAK_MB}")
+    busy = float("nan")
+    if on_card:
+        busy = profile_train_step(full, params, opt, batches[0],
+                                  tag="31 profile", n_top=6, card=card)
+    del params, opt, batches, leaves
+    gc_collect(on_card)
+    return (f"{full.name} step {step_s:.3f} s (bound {bound:.3f}), own peak "
+            f"{own:.0f} MB, busy {busy:.3f}")
+
+
+def bf16_train_ckpt(args, dev, card: str) -> None:
+    """Phase 31 (d): reduced arctic-480b in bfloat16 parameters, gradient
+    sum and moments at µ = 2: the step-2 checkpoint (under
+    ``build/chip_smoke_bf16_ckpt``, removed) restored bit for bit, and
+    the loop resumed from it to step 4 against the same state stepped in
+    memory — losses and every leaf bit-equal."""
+    import dataclasses
+    import shutil
+
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import steps
+    from repro_torch.train import checkpoint as ckpt
+
+    red = dataclasses.replace(CB.reduced(CB.get("arctic-480b")),
+                              **BF16_DTYPES, microbatches=2)
+    d = os.path.join(ROOT, "build", "chip_smoke_bf16_ckpt")
+    shutil.rmtree(d, ignore_errors=True)
+    kw = dict(batch=8, seq=32, device=dev, seed=args.seed)
+    p2, o2, first = ltrain.train_loop(red, steps_n=2, ckpt_dir=d,
+                                      ckpt_every=2, log=lambda *_: None, **kw)
+    got, step = ckpt.restore(d, (p2, o2))
+    bits = lambda t: t.reshape(-1).view(torch.uint8)
+    same = step == 2 and all(
+        a.dtype == w.dtype and a.device == w.device
+        and torch.equal(bits(a), bits(w))
+        for a, w in zip(T.leaves(got), T.leaves((p2, o2))))
+    del got
+    logs = []
+    p4, o4, resumed = ltrain.train_loop(red, steps_n=4, ckpt_dir=d,
+                                        log=logs.append, **kw)
+    step_fn = steps.make_train_step(red)
+    brng, in_mem = np.random.default_rng(args.seed), []
+    for _ in range(2):
+        p2, o2, aux = step_fn(p2, o2, ltrain.synth_batch(brng, red, 8, 32,
+                                                         device=dev))
+        in_mem.append(float(aux["loss"]))
+    equal = all(torch.equal(bits(a), bits(w)) for a, w in zip(
+        T.leaves((p4, o4)), T.leaves((p2, o2))))
+    dts = {t.dtype for t in T.leaves((p4, o4["m"], o4["v"]))}
+    print(f"[31 ckpt] reduced {red.name} (µ={red.microbatches}; parameters,"
+          f" gradient sum and moments bfloat16: {dts}): the step-2 "
+          f"checkpoint restored every leaf bit for bit: {same}; resumed "
+          f"{logs[:1]}: losses {resumed} vs the state in memory {in_mem}, "
+          f"every leaf bit-equal after step 4: {equal} (first two {first}) "
+          f"({card})", flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    if not (same and equal and dts == {torch.bfloat16} and resumed == in_mem
+            and logs[:1] == ["resumed from step 2"]):
+        raise AssertionError("the bfloat16 checkpoint did not resume bit for "
+                             "bit")
+
+
+def bf16_train_phase(args, dev, on_card: bool, power: str) -> None:
+    """Phase 31: training with bfloat16 parameters, gradients and moments
+    (`steps.make_train_step`'s in-place bfloat16 sum, `adam_update`'s
+    folded division and sliced norm, `logits_of`'s blocked backward,
+    `moe._ExpertFFN` on bfloat16 stacks, `launch/train.py::train_loop`,
+    bfloat16 leaves through `train/checkpoint.py`): (a) the card against
+    the CPU on one-layer cuts (`bf16_train_cuts`), the CPU's halves in a
+    worker thread beside (b)–(d); (b) llama3-405b and (c) arctic-480b
+    (64 of 128 experts) trained at full width, L = 1, µ = 8
+    (`bf16_train_full`); (d) reduced arctic-480b's bfloat16 checkpoint
+    resumed bit for bit (`bf16_train_ckpt`).  Launches none of the seven
+    kernels."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import launch_counts
+
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    card = (f"{torch.cuda.get_device_name(0)}, power limit {power}"
+            if on_card else power)
+    parts = []
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        # (a) the card's halves; each job's tensors go to the host in the
+        # worker while the card runs on, and the CPU's halves follow there
+        copies, checks = [], []
+        for cut, adam in bf16_train_cuts(on_card):
+            gc_collect(on_card)
+            copies.append(pool.submit(bf16_train_cut_copy,
+                                      bf16_train_cut_card(cut, adam, dev,
+                                                          args.seed)))
+        for f in copies:
+            checks.append(pool.submit(bf16_train_cut_cpu, f.result(), card))
+        del copies
+        parts.append(f"(a) card {time.perf_counter() - t_phase:.1f}")
+        t0 = time.perf_counter()
+        bf16_train_ckpt(args, dev, card)
+        parts.append(f"(d) {time.perf_counter() - t0:.1f}")
+
+        # (b), (c) beside the CPU's halves: a full-width step is
+        # device-paced (busy 0.99; a CPU kept busy beside it moved it by
+        # under 1 %: PERF.md §5)
+        for name, kw in BF16_TRAINED:
+            t0 = time.perf_counter()
+            parts.append(bf16_train_full(name, kw, args, dev, on_card, card)
+                         + f" in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        for f in checks:
+            f.result()
+        parts.append(f"waiting for the CPU's halves "
+                     f"{time.perf_counter() - t0:.1f}")
+    gc_collect(on_card)
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    print(f"[31 kernels] launches in phase 31: {launched} (plain torch "
+          f"products and elementwise ops, as the JAX package's are plain "
+          f"XLA) ({card})", flush=True)
+    if any(launched.values()):
+        raise AssertionError("phase 31 launched a kernel it should not")
+    print(f"[31 done] phase 31 in {time.perf_counter() - t_phase:.1f} s: "
+          f"{'; '.join(parts)} s ({card})", flush=True)
 
 
 def main(argv=None) -> int:
@@ -6286,6 +6822,7 @@ def main(argv=None) -> int:
     encdec_vlm_phase(args, dev, on_card, power)
     frontend_train_phase(args, dev, on_card, power)
     bf16_phase(args, dev, on_card, power)
+    bf16_train_phase(args, dev, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

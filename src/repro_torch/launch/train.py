@@ -7,17 +7,21 @@ stream → `make_train_step(cfg)` → Adam, with crash-atomic checkpoints
       --ckpt-every 10] [--device cpu]
 
 Runs on ``cuda`` unless ``--device cpu`` is given, for every family:
-dense, moe (``--arch dbrx-132b``; ``--arch arctic-480b`` with
-``--reduced``: its full config trains bfloat16 parameters, ROADMAP
-Queue 1 item 9.6a-train), ssm and hybrid (``--arch mamba2-370m``, ``--arch
-zamba2-7b``), encdec and vlm (``--arch seamless-m4t-large-v2``,
-``--arch llava-next-mistral-7b``, whose batches carry the reference's
-stub frame or patch embeddings).  At dbrx-132b's full width one 80 GB
-card holds the Adam state of one layer only (float32 parameters and
-gradients, bfloat16 moments: 54 GB at L = 1; `train_loop` on
-``dataclasses.replace(cfg, L=1)``, as `chip_smoke.py`'s phase 27 runs
-it); llava-next-mistral-7b's float32 state is 116 GB at its 32 layers
-and 53 GB at 14 (phase 29).  The batches are the JAX package's numpy
+dense, moe (``--arch dbrx-132b``, ``--arch arctic-480b``), ssm and
+hybrid (``--arch mamba2-370m``, ``--arch zamba2-7b``), encdec and vlm
+(``--arch seamless-m4t-large-v2``, ``--arch llava-next-mistral-7b``,
+whose batches carry the reference's stub frame or patch embeddings).
+At dbrx-132b's full width one 80 GB card holds the Adam state of one
+layer only (float32 parameters and gradients, bfloat16 moments: 54 GB
+at L = 1; `train_loop` on ``dataclasses.replace(cfg, L=1)``, as
+`chip_smoke.py`'s phase 27 runs it); llava-next-mistral-7b's float32
+state is 116 GB at its 32 layers and 53 GB at 14 (phase 29).
+llama3-405b and arctic-480b train in their configs' bfloat16
+parameters, gradients and moments, 8 bytes a parameter: llama3-405b at
+L = 1 (its layer's 3.19·10⁹ parameters and 4.20·10⁹ of untied
+embeddings, 59.12 GB), arctic-480b at L = 1 with 64 of its 128
+experts (7.3754·10⁹ parameters, 59.00 GB; all 128 are 112.6 GB), both
+at their own µ = 8 (phase 31).  The batches are the JAX package's numpy
 draws for the seed, so both packages train on the same tokens and
 embeddings.  As in the reference, a resumed run draws its batches from
 the seed's first batch again, not from where the interrupted run

@@ -41,9 +41,19 @@ class _ExpertFFN(torch.autograd.Function):
 
     The backward recomputes each routed expert's two input products and
     writes its weight gradients into its slices of one [E, ·, ·] tensor a
-    weight (zeros for an expert without rows, as `jax.grad` gives them).
+    weight in the stack's dtype (zeros for an expert without rows, as
+    `jax.grad` gives them); with bfloat16 stacks at bfloat16 compute the
+    casts are no copies, and no float32 copy of a stack is made.
     Autograd's backward of per-expert views would hold the E slices'
-    gradients beside their stack: 4.2 GB more a weight at dbrx-132b."""
+    gradients beside their stack: 4.2 GB more a weight at dbrx-132b.
+
+    A declared difference from the reference with bfloat16 stacks: the
+    reference gathers each token's expert weights, so its gradient is a
+    scatter-add into the bfloat16 stack, rounded after every token's
+    outer product; here an expert's tokens are summed in one GEMM
+    (float32 accumulation) and rounded once, nearer the exact sum.  The
+    two differ by up to the rounding of a bfloat16 sum over the tokens
+    routed to the expert."""
 
     @staticmethod
     def forward(ctx, xs, w1, w3, w2, bounds):

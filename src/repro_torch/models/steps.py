@@ -10,8 +10,10 @@ Differences from the JAX package's functional steps, each where the JAX
 launch scripts donate the buffers: `adam_update` (and so a train step)
 updates the parameters and moments it was given in place, and a decode
 step writes the new K/V, SSM and conv states into the cache it was
-given; the cache's ``pos`` is a host int.  A float32 microbatched step
-accumulates its gradients in place (`_accumulate_in_place`).
+given; the cache's ``pos`` is a host int.  A microbatched step whose
+parameters are all in ``cfg.grad_dtype`` accumulates its gradients in
+place (`_accumulate_in_place`), and `adam_update` divides a bfloat16
+sum slice by slice.
 """
 from __future__ import annotations
 
@@ -126,18 +128,40 @@ def init_opt(cfg: ArchConfig, params):
                 count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _slices(*ts):
+    """Aligned slices of `ADAM_SLICE` elements of same-shape leaves (the
+    leaves whole where one is not contiguous)."""
+    if all(t.is_contiguous() for t in ts):
+        return zip(*(t.view(-1).split(ADAM_SLICE) for t in ts))
+    return (ts,)
+
+
 @torch.no_grad()
 def adam_update(cfg: ArchConfig, params, grads, opt, *, lr=3e-4, b1=0.9,
-                b2=0.95, eps=1e-8, wd=0.0, clip=1.0):
+                b2=0.95, eps=1e-8, wd=0.0, clip=1.0, denom=None):
     """One Adam step with global-norm clipping → (params, opt, gnorm), in
     float32 as the reference computes it (its moments in
     ``cfg.moment_dtype``, rounded to nearest even).  The parameters and
     moments are updated in place (the JAX train loop donates them) and
-    returned."""
-    gnorm = torch.zeros((), dtype=torch.float32, device=opt["count"].device)
+    returned.
+
+    Every leaf is read in slices of `ADAM_SLICE` elements, the global
+    norm's squares too, so no float32 copy of a whole leaf is made; the
+    squares are float32 as in the reference, summed in float64, so the
+    slicing changes no bit of the norm.  With ``denom`` the gradients
+    are ``grads / denom``, each slice upcast and divided as it is read:
+    the float32 quotient tree the reference makes of a bfloat16
+    accumulator (`make_train_step`) never exists, and its elements are
+    the same."""
+    if denom is None:
+        quot = lambda g: g.float()
+    else:
+        quot = lambda g: g.float() / denom
+    sq = torch.zeros((), dtype=torch.float64, device=opt["count"].device)
     for g in T.leaves(grads):
-        gnorm = gnorm + torch.sum(g.float() ** 2)
-    gnorm = torch.sqrt(gnorm)
+        for g_, in _slices(g):
+            sq += torch.sum(quot(g_) ** 2, dtype=torch.float64)
+    gnorm = torch.sqrt(sq.float())
     scale = torch.clamp(clip / torch.clamp(gnorm, min=1e-12), max=1.0)
     count = opt["count"] + 1
     c1 = 1.0 - b1 ** count.float()
@@ -145,10 +169,8 @@ def adam_update(cfg: ArchConfig, params, grads, opt, *, lr=3e-4, b1=0.9,
     for ts in zip(*(T.leaves(t) for t in (params, grads, opt["m"],
                                           opt["v"]))):
         # elementwise, so slices of ADAM_SLICE give the same bits
-        parts = (zip(*(t.view(-1).split(ADAM_SLICE) for t in ts))
-                 if all(t.is_contiguous() for t in ts) else (ts,))
-        for p_, g_, m_, v_ in parts:
-            g32 = g_.float() * scale
+        for p_, g_, m_, v_ in _slices(*ts):
+            g32 = quot(g_) * scale
             m32 = b1 * m_.float() + (1 - b1) * g32
             v32 = b2 * v_.float() + (1 - b2) * g32 * g32
             step = (m32 / c1) / (torch.sqrt(v32 / c2) + eps)
@@ -165,12 +187,14 @@ def adam_update(cfg: ArchConfig, params, grads, opt, *, lr=3e-4, b1=0.9,
 
 def _accumulate_in_place(cfg, params, mbs, rest, mb_mask):
     """(Σ w_i·loss_i, Σ w_i·∂loss_i/∂params) over the microbatches, the
-    gradients summed into one float32 tree as the backward passes make
-    them: each leaf's ``.grad`` starts at zeros and autograd adds each
-    leaf's gradient into it the moment it is complete, so no second
+    gradients summed into one tree in the parameters' dtype as the
+    backward passes make them: each leaf's ``.grad`` starts at zeros and
+    autograd adds each leaf's gradient into it (``grad += g``, rounded
+    once an addend in bfloat16) the moment it is complete, so no second
     gradient tree is ever held beside the sum.  Microbatch i's backward
     is seeded with w_i in place of 1: for w_i ∈ {0, 1} the sum is the
-    reference's ``0 + w_0·g_0 + w_1·g_1 + …`` bit for bit."""
+    reference's ``0 + (w_0·g_0).astype(gd) + (w_1·g_1).astype(gd) + …``
+    bit for bit."""
     tp = T.tree_map(lambda t: t.detach().requires_grad_(True), params)
     leaves = T.leaves(tp)
     for t in leaves:
@@ -190,14 +214,21 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
     leading dim is a multiple of µ (``cands`` too, as in the reference) is
     split into µ microbatches whose gradients accumulate in
     ``cfg.grad_dtype``; ``batch["mb_mask"]`` [µ] weights them (a dropped
-    straggler gets 0) and the sums renormalise over the survivors.  A
-    float32 accumulator over float32 parameters is summed in place
-    (`_accumulate_in_place`) and divided in place; a bfloat16 one rounds
-    each weighted gradient into it, as the reference does."""
+    straggler gets 0) and the sums renormalise over the survivors.
+
+    Where every parameter leaf is in ``cfg.grad_dtype`` (float32, or
+    llama3-405b's and arctic-480b's bfloat16 throughout) the sum is made
+    in place in the leaves' ``.grad`` (`_accumulate_in_place`); otherwise
+    (float32 parameters under a bfloat16 accumulator) each weighted
+    microbatch gradient is rounded into a ``grad_dtype`` tree, as the
+    reference does.  A float32 sum is divided by Σw in place; a bfloat16
+    one, whose quotient is float32 in the reference (JAX's type
+    promotion), is divided slice by slice inside `adam_update`."""
     lm.check_family(cfg)
     nmicro = max(1, cfg.microbatches)
 
     def train_step(params, opt, batch):
+        denom = None
         if nmicro == 1:
             loss, grads = value_and_grad(cfg, params, batch)
         else:
@@ -214,12 +245,9 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
             rest = {k: v for k, v in batch.items() if k not in mbs}
             gd = L.torch_dtype(cfg.grad_dtype)
             denom = torch.clamp(mb_mask.sum(), min=1.0)
-            if gd == torch.float32 and all(
-                    t.dtype == gd for t in T.leaves(params)):
+            if all(t.dtype == gd for t in T.leaves(params)):
                 loss, grads = _accumulate_in_place(cfg, params, mbs, rest,
                                                    mb_mask)
-                for g in T.leaves(grads):
-                    g.div_(denom)
             else:
                 grads = T.tree_map(lambda x: torch.zeros(
                     x.shape, dtype=gd, device=x.device), params)
@@ -232,12 +260,13 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
                     grads = T.tree_map(
                         lambda a, b: a + (w * b).to(a.dtype), grads, g)
                     loss = loss + w * l_i
-                # a grad_dtype accumulator over a float32 denominator is
-                # a float32 quotient in the reference (JAX's type
-                # promotion)
-                grads = T.tree_map(lambda g: g.float() / denom, grads)
             loss = loss / denom
-        params, opt, gnorm = adam_update(cfg, params, grads, opt, lr=lr)
+            if gd == torch.float32:
+                for g in T.leaves(grads):
+                    g.div_(denom)
+                denom = None
+        params, opt, gnorm = adam_update(cfg, params, grads, opt, lr=lr,
+                                         denom=denom)
         return params, opt, dict(loss=loss, gnorm=gnorm)
 
     return train_step
@@ -290,24 +319,53 @@ def _hybrid_window(cfg: ArchConfig, T: int):
 LOGITS_CHUNK = 1 << 28      # elements of the output table upcast at once
 
 
+class _BlockedLogits(torch.autograd.Function):
+    """``h32 @ E.to(dt).float().T`` with ``E`` read in blocks of ``rows``
+    rows, each block cast, upcast and multiplied on its own, its product
+    written into its columns of the logits.  The backward upcasts each
+    block again and writes its gradient, rounded to ``E``'s dtype as
+    autograd's two casts round it, into its rows of one ``E``-shaped
+    gradient, and sums ``h32``'s over the blocks.  Autograd's own
+    backward of the blocks' slices would make an ``E``-sized zero tensor
+    for each block: 8 of 4.2 GB a microbatch at llama3-405b."""
+
+    @staticmethod
+    def forward(ctx, h32, E, dt, rows):
+        out = h32.new_empty((*h32.shape[:-1], E.shape[0]))
+        for r in range(0, E.shape[0], rows):
+            out[..., r:r + rows] = h32 @ E[r:r + rows].to(dt).float().T
+        ctx.save_for_backward(h32, E)
+        ctx.dt, ctx.rows = dt, rows
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        h32, E = ctx.saved_tensors
+        dt, rows = ctx.dt, ctx.rows
+        h2 = h32.reshape(-1, h32.shape[-1])
+        g2 = g.reshape(-1, g.shape[-1])
+        gh = torch.zeros_like(h2)
+        gE = torch.empty_like(E)
+        for r in range(0, E.shape[0], rows):
+            gb = g2[:, r:r + rows]
+            gh += gb @ E[r:r + rows].to(dt).float()
+            gE[r:r + rows] = (gb.T @ h2).to(dt).to(E.dtype)
+        return gh.reshape(h32.shape), gE, None, None
+
+
 def logits_of(cfg: ArchConfig, p, h):
     """h [..., D] against the output embedding in ``cfg.dtype`` → float32
     logits (the products of ``cfg.dtype`` operands are exact in float32,
     as the reference's ``preferred_element_type``).  A table that is not
-    float32 is cast and upcast `LOGITS_CHUNK` elements of rows at a time,
-    each block's product written into its columns of the logits:
-    llama3-405b's bfloat16 ``out_embed`` would be an 8.4 GB float32 copy
-    at once."""
+    float32 is cast and upcast `LOGITS_CHUNK` elements of rows at a time
+    (`_BlockedLogits`): llama3-405b's bfloat16 ``out_embed`` would be an
+    8.4 GB float32 copy at once."""
     E, dt = lm.out_embedding(p, cfg), L.torch_dtype(cfg.dtype)
     h32 = h.float()
     if E.dtype == torch.float32 or E.numel() <= LOGITS_CHUNK:
         return h32 @ E.to(dt).float().T
-    V, D = E.shape
-    rows = max(1, LOGITS_CHUNK // D)
-    out = h32.new_empty((*h32.shape[:-1], V))
-    for r in range(0, V, rows):
-        out[..., r:r + rows] = h32 @ E[r:r + rows].to(dt).float().T
-    return out
+    return _BlockedLogits.apply(h32, E, dt,
+                                max(1, LOGITS_CHUNK // E.shape[1]))
 
 
 _SSM_LEAVES = ("ssm", "conv_x", "conv_b", "conv_c")

@@ -27,7 +27,10 @@ train steps, and the encdec and vlm families' forward, prefill, decode
 caches and train steps, on the card against the CPU at float32; with
 bfloat16 parameters the card's draws bit for bit the CPU's, `logits_of`
 without a float32 copy of its output table, and reduced llama3-405b and
-arctic-480b's greedy tokens equal to the CPU's.
+arctic-480b's greedy tokens equal to the CPU's; with bfloat16
+parameters, gradient sum and moments their µ = 2 step equal to the
+CPU's, and a step whose memory rises by one table's gradient, not one a
+block.
 """
 import dataclasses
 import pathlib
@@ -2223,3 +2226,124 @@ def test_bfloat16_parameters_serve_on_card_as_on_cpu(cuda, name):
     ref, _ = serve(cfg, batch=2, prompt_len=16, gen=8, device="cpu",
                    log=lambda *_: None)
     assert torch.equal(got.cpu(), ref) and st["peak_mb"] > 0
+
+
+def _bf16_train_cfg(name, **kw):
+    """Reduced ``name`` with bfloat16 parameters, gradient sum and moments
+    at µ = 2."""
+    from repro_torch.configs import base as CB
+    return dataclasses.replace(
+        CB.reduced(CB.get(name)), param_dtype="bfloat16",
+        moment_dtype="bfloat16", grad_dtype="bfloat16", microbatches=2,
+        **kw)
+
+
+@pytest.mark.parametrize("name", ["llama3-405b", "arctic-480b"])
+def test_bfloat16_train_step_on_card_equals_cpu(cuda, name, monkeypatch):
+    """Reduced llama3-405b and arctic-480b in bfloat16 parameters,
+    gradient sum and moments, a µ = 2 step at float32 compute (TF32 off)
+    on the card and on the CPU from the same state: arctic's routes of
+    each microbatch equal first; the loss within 1e-5; each leaf of the
+    gradient sum handed to Adam within 8u of its max (u = 2⁻⁸: each
+    microbatch's float32 gradient rounds to bfloat16 at most one ulp, 2u,
+    apart, and their sum once more), a dropped microbatch above it; the
+    CPU's Adam of the card's sum against the card's: every parameter and
+    moment word within one bfloat16 ulp."""
+    from chip_smoke import captured_step, moe_routes, worst_leaf
+    from repro_torch import tree as T
+    from repro_torch.models import lm, steps
+    # `captured_step` wraps it: the plain update again after the test
+    monkeypatch.setattr(steps, "adam_update", steps.adam_update)
+    u = 2.0 ** -8
+    cfg = _bf16_train_cfg(name, dtype="float32")
+    p = lm.init_params(cfg, prng.PRNGKey(3), model_shards=1, device="cpu")
+    rng = np.random.default_rng(3)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (4, 16)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    assert not torch.backends.cuda.matmul.allow_tf32
+    if cfg.family == "moe":
+        with torch.no_grad():
+            for i in range(2):
+                toks = b["tokens"][2 * i:2 * i + 2]
+                assert torch.equal(moe_routes(cfg, p, toks)[1], moe_routes(
+                    cfg, T.tree_map(lambda t: t.to(cuda), p),
+                    toks.to(cuda))[1])
+    runs = {}
+    for dev, mask in (("cpu", [1.0, 1.0]), (cuda, [1.0, 1.0]),
+                      (cuda, [1.0, 0.0])):
+        pd = T.tree_map(lambda t: t.to(dev, copy=True), p)
+        od = steps.init_opt(cfg, pd)
+        batch = {k: v.to(dev) for k, v in b.items()}
+        g, denom, aux = captured_step(cfg, pd, od, dict(
+            batch, mb_mask=torch.tensor(mask, device=dev)),
+            update=mask == [1.0, 1.0])
+        runs[(str(dev), mask[1])] = (g, denom, float(aux["loss"]), pd, od)
+    g0, d0, l0, _, _ = runs[("cpu", 1.0)]
+    g1, d1, l1, p1, o1 = runs[("cuda", 1.0)]
+    gc, dc, _, _, _ = runs[("cuda", 0.0)]
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    assert d0 == d1 == 2.0 and dc == 1.0
+    assert worst_leaf(g1, g0, (d1, d0))[0] <= 8 * u
+    assert worst_leaf(gc, g0, (dc, d0))[0] > 8 * u
+    pc, oc, _ = steps.adam_update(
+        cfg, T.tree_map(torch.clone, p), T.tree_map(lambda t: t.cpu(), g1),
+        steps.init_opt(cfg, p), denom=torch.tensor(d1))
+    words = lambda t: t.cpu().reshape(-1).view(torch.int16).to(torch.int32)
+    for a, w in zip(T.leaves((pc, oc["m"], oc["v"])),
+                    T.leaves((p1, o1["m"], o1["v"]))):
+        assert a.dtype == w.dtype == torch.bfloat16
+        assert int((words(a) - words(w)).abs().max()) <= 1
+
+
+def test_bfloat16_step_memory_on_card(cuda, monkeypatch):
+    """A µ = 2 bfloat16 step of reduced llama3-405b at L = 1 with a
+    262,144 × 256 bfloat16 output table (134 MB, 16 blocks of
+    `LOGITS_CHUNK` = 2²²), after a warm step: `max_memory_allocated`
+    rises above the parameters and moments by less than the gradient
+    sum plus its largest leaf's gradient (the table's, made once by
+    `steps._BlockedLogits`), two blocks' float32 temporaries and four
+    microbatches' float32 logits — 172 MB above the sum read on the CPU's
+    allocations.  The control, autograd's backward of the blocks'
+    slices, makes a table-sized zero tensor a block and reads above it
+    (650 MB on the CPU)."""
+    from repro_torch import tree as T
+    from repro_torch.models import lm, steps
+
+    class Sliced:               # the blocks as autograd's slices
+        @staticmethod
+        def apply(h32, E, dt, rows):
+            out = h32.new_empty((*h32.shape[:-1], E.shape[0]))
+            for r in range(0, E.shape[0], rows):
+                out[..., r:r + rows] = h32 @ E[r:r + rows].to(dt).float().T
+            return out
+
+    monkeypatch.setattr(steps, "LOGITS_CHUNK", 1 << 22)
+    monkeypatch.setattr(steps, "ADAM_SLICE", 1 << 22)
+    cfg = _bf16_train_cfg("llama3-405b", L=1, vocab=262144, d_model=256)
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device=cuda)
+    opt = steps.init_opt(cfg, p)
+    rng = np.random.default_rng(0)
+    b = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8)).astype(
+        np.int32)).to(cuda) for k in ("tokens", "labels")}
+    leaves = T.leaves(p)
+    tree = sum(t.numel() * 2 for t in leaves)
+    biggest = max(t.numel() * 2 for t in leaves)
+    assert p["out_embed"].numel() > steps.LOGITS_CHUNK
+    limit = (tree + biggest + 2 * steps.LOGITS_CHUNK * 4
+             + 4 * (2 // cfg.microbatches) * 8 * cfg.vocab * 4)
+    step = steps.make_train_step(cfg)
+    step(p, opt, b)                                       # warm
+
+    def rise():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(p, opt, b)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    got = rise()
+    assert got < limit, (got, limit)
+    monkeypatch.setattr(steps, "_BlockedLogits", Sliced)
+    ctrl = rise()
+    assert ctrl > limit, (ctrl, limit)
