@@ -7,7 +7,8 @@ the Table-10 comparison with the NCF models, the examples, dense LM
 serving and training, the ssm and hybrid LM families, moe LM serving
 and training, encdec and vlm LM serving and training, and bfloat16
 parameters serving llama3-405b and arctic-480b and training them in
-bfloat16 parameters, gradients and moments — on one CUDA card.
+bfloat16 parameters, gradients and moments, and the analytic roofline
+of every config × shape cell on meta tensors — on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -387,11 +388,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     of 4 under ``build/chip_smoke_bf16_ckpt``, removed) restored bit for
     bit and resumed as the same state stepped in memory.  None of the
     seven kernels launches.
+32. the analytic roofline on meta tensors (`launch/specs.py`,
+    `launch/roofline.py`), a few seconds, no kernel and nothing
+    allocated on the card: (a) the ten configs' parameter trees at full
+    depth on the meta device at ``model_shards`` 1 and 16, each timed;
+    (b) every runnable config × `SHAPES` cell at one card's axes
+    (``ndp = ntp = 1``): `model_flops`, `analytic_hbm_bytes` and the
+    H100 roofline's compute, memory and step times and its bound; (c)
+    every tree phases 23–31 drew (`lm.init_params`, logged with its
+    phase, config cut and ``model_shards``): `param_counts` of that cut
+    must equal the drawn tree's parameters exactly; (d) the six timed
+    training cells (phases 24, 27, 29 × 2, 31 × 2): the roofline's step
+    time at the phase's own cut and shape beside the phase's own bound
+    and its measured step; (e) llama3-8b's full-width dense forward and
+    logits counted by `FlopCounterMode` on meta tensors at B 1 × S 128
+    and at the prefill_32k cell, beside `model_flops` and the count's
+    derivation (`dense_forward_flops`).
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–31 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–32 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -435,6 +452,8 @@ GSM_NNZ = 500_000
 # phase 28: llava-next's stub image prefix, anyres at 5 tiles of 576
 # patches (the JAX package's `launch/specs.py` VLM_PATCHES)
 VLM_PATCHES = 2880
+# phase 32 reads the timed training cells of phases 24, 27, 29 and 31
+TIMED_CELLS: list = []
 # phase 21: Table 10 at MOVIELENS_LIKE's M × N, 15 interactions a user
 # (`benchmarks/bench_ncf.py`'s recipe), 200 full-batch Adam steps a model
 T10_M, T10_N, T10_PER_USER, T10_STEPS = 69_878, 10_677, 15, 200
@@ -3669,6 +3688,7 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
     b_peak = (bf + f32) / BF16_OPS_PER_S + adam_bytes / HBM_BYTES_PER_S
     b_typed = (bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
                + adam_bytes / HBM_BYTES_PER_S)
+    timed_cell("24", full, B, S, b_typed, step_s)
     print(f"[24 train] {full.name} ({nparam / 1e6:.2f}e6 float32 params, "
           f"L={full.L} d={full.d_model} V={full.vocab_padded(1)}) batch {B} "
           f"seq {S}, {N_STEPS} steps in two train_loop calls (a checkpoint "
@@ -4840,6 +4860,7 @@ def moe_train_phase(args, dev, on_card: bool, power: str) -> None:
     bf, f32 = moe_step_flops(full, B, S)
     t_bytes = b_bytes / HBM_BYTES_PER_S
     t_ops = bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+    timed_cell("27", full, B, S, max(t_bytes, t_ops), step_s)
     print(f"[27 train] {full.name} at L={full.L} of {base.L}, full widths "
           f"({nparam / 1e9:.4f}e9 float32 params, µ={full.microbatches}, "
           f"{full.moment_dtype} moments, {full.grad_dtype} gradients, "
@@ -5597,6 +5618,10 @@ def frontend_train_phase(args, dev, on_card: bool, power: str) -> None:
         nbytes = nparam * (28 + 4 * max(1, cfg.microbatches))
         t_bytes = nbytes / HBM_BYTES_PER_S
         t_ops = bf / BF16_OPS_PER_S + f32 / F32_OPS_PER_S
+        # the positions a sequence: encdec's S frames and S tokens are the
+        # reference's train cell of S; vlm's prefix comes before the text
+        timed_cell("29", cfg, B, S if cfg.family == "encdec" else P + S,
+                   max(t_bytes, t_ops), step_s)
         print(f"[29 bound] {cfg.name}: bytes, Adam and the weights' reads "
               f"{nbytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s "
               f"{1e3 * t_bytes:.2f} ms; operations: {bf / 1e12:.3f} TFLOP "
@@ -6387,6 +6412,7 @@ def bf16_train_full(name: str, kw: dict, args, dev, on_card: bool,
     t_bytes = b_bytes / HBM_BYTES_PER_S
     t_ops = (bf + f32) / BF16_OPS_PER_S
     bound = max(t_bytes, t_ops)
+    timed_cell("31", full, B, S, bound, step_s)
     print(f"[31 train] {full.name} cut to L={full.L} of {base.L}"
           + (f" with {full.n_experts} of {base.n_experts} experts"
              if experts else "")
@@ -6544,6 +6570,140 @@ def bf16_train_phase(args, dev, on_card: bool, power: str) -> None:
         raise AssertionError("phase 31 launched a kernel it should not")
     print(f"[31 done] phase 31 in {time.perf_counter() - t_phase:.1f} s: "
           f"{'; '.join(parts)} s ({card})", flush=True)
+
+
+class DrawLog:
+    """Logs every parameter tree `lm.init_params` draws while installed
+    (the entry points' draws inside `serve` and `train_loop` too): the
+    phase, the config cut, ``model_shards`` and the tree's parameter
+    count."""
+
+    def __init__(self):
+        self.phase, self.rows, self._draw = "", [], None
+
+    def install(self) -> None:
+        from repro_torch import tree as T
+        from repro_torch.models import lm
+        self._draw = draw = lm.init_params
+
+        def logged(cfg, key, model_shards=16, device=None):
+            p = draw(cfg, key, model_shards=model_shards, device=device)
+            self.rows.append((self.phase, cfg, model_shards,
+                              sum(t.numel() for t in T.leaves(p))))
+            return p
+
+        lm.init_params = logged
+
+    def uninstall(self) -> None:
+        from repro_torch.models import lm
+        lm.init_params = self._draw
+
+
+def timed_cell(phase: str, cfg, B: int, S: int, bound_s: float,
+               step_s: float) -> None:
+    """A timed training cell for phase 32: the cut as trained (its own
+    µ), batch B, S positions a sequence, the phase's bound, the step."""
+    TIMED_CELLS.append(dict(phase=phase, cfg=cfg, B=B, S=S,
+                            bound_ms=1e3 * bound_s, step_ms=1e3 * step_s))
+
+
+def cut_name(cfg) -> str:
+    """``cfg.name`` and every field it changes from the registered
+    config."""
+    import dataclasses
+    from repro_torch.configs import base as CB
+    full = CB.get(cfg.name)
+    diff = [f"{f.name}={getattr(cfg, f.name)}"
+            for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(full, f.name)]
+    return cfg.name + (f"[{', '.join(diff)}]" if diff else "")
+
+
+def roofline_phase(draws: DrawLog, on_card: bool, power: str) -> None:
+    """Phase 32: the analytic roofline on meta tensors (module docstring).
+    Launches no kernel and allocates nothing on the card."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import specs as SP
+
+    t_phase = time.perf_counter()
+    card = (f"{torch.cuda.get_device_name(0)}, {power}" if on_card
+            else "cpu rehearsal")
+    # (a) the ten meta trees at full depth
+    for name in CB.names():
+        line = []
+        for ms in (1, 16):
+            t0 = time.perf_counter()
+            p = SP.param_specs(CB.get(name), ms)
+            dt = time.perf_counter() - t0
+            n = sum(t.numel() for t in T.leaves(p))
+            if any(not t.is_meta for t in T.leaves(p)):
+                raise AssertionError(f"{name}: a leaf left the meta device")
+            line.append(f"model_shards {ms}: {n:,} parameters in "
+                        f"{1e3 * dt:.2f} ms")
+        print(f"[32 meta] {name} (L={CB.get(name).L}): " + "; ".join(line),
+              flush=True)
+    # (b) every runnable cell at one card's axes
+    for arch, shape, ok, why in CB.cells(include_skips=True):
+        if not ok:
+            print(f"[32 roofline] {arch} x {shape}: skipped ({why})",
+                  flush=True)
+            continue
+        r = R.analytic_cell(CB.get(arch), CB.SHAPES[shape])
+        print(f"[32 roofline] {arch} x {shape}: model_flops "
+              f"{r['model_flops']:.6g}, analytic_hbm_bytes "
+              f"{r['hbm_bytes']:.6g}, t_compute {1e3 * r['t_compute']:.4f} "
+              f"ms, t_memory {1e3 * r['t_memory']:.4f} ms, bound "
+              f"{r['bound']}, t_step {1e3 * r['t_step']:.4f} ms ({card})",
+              flush=True)
+    # (c) every tree phases 23-31 drew against param_counts of its cut
+    seen = {}
+    for phase, cfg, ms, n in draws.rows:
+        want = R.param_counts(cfg, ms)[0]
+        if want != n:
+            raise AssertionError(f"phase {phase}: {cut_name(cfg)} at "
+                                 f"model_shards {ms} drew {n} parameters, "
+                                 f"param_counts says {want}")
+        seen.setdefault((phase, cut_name(cfg), ms, n), 0)
+        seen[(phase, cut_name(cfg), ms, n)] += 1
+    for (phase, name, ms, n), k in seen.items():
+        print(f"[32 counts] phase {phase}: {name} model_shards {ms}: drawn "
+              f"{n:,} = param_counts ({k} draw{'s' if k > 1 else ''})",
+              flush=True)
+    if not draws.rows:
+        raise AssertionError("phases 23-31 logged no draw")
+    # (d) the timed training cells: roofline, phase bound, measured step
+    for c in TIMED_CELLS:
+        shape = CB.ShapeSpec(f"phase {c['phase']}", c["S"], c["B"], "train")
+        r = R.analytic_cell(c["cfg"], shape)
+        print(f"[32 cells] phase {c['phase']}: {cut_name(c['cfg'])} batch "
+              f"{c['B']} x {c['S']}: roofline t_step "
+              f"{1e3 * r['t_step']:.2f} ms ({r['bound']}: compute "
+              f"{1e3 * r['t_compute']:.2f}, memory {1e3 * r['t_memory']:.2f}"
+              f" ms), the phase's bound {c['bound_ms']:.2f} ms, measured "
+              f"step {c['step_ms']:.2f} ms ({card})", flush=True)
+    # (e) llama3-8b's dense forward counted on meta tensors
+    cfg = CB.get("llama3-8b")
+    for B, S in ((1, 128), (CB.SHAPES["prefill_32k"].global_batch,
+                            CB.SHAPES["prefill_32k"].seq_len)):
+        t0 = time.perf_counter()
+        n = R.forward_flops(cfg, {"tokens": SP.meta((B, S), torch.int32)},
+                            model_shards=1)
+        dt = time.perf_counter() - t0
+        d = R.dense_forward_flops(cfg, B, S, model_shards=1)
+        mf = R.model_flops(cfg, CB.ShapeSpec("prefill", S, B, "prefill"), 1)
+        print(f"[32 flops] llama3-8b forward + logits at B {B} x S {S}: "
+              f"FlopCounterMode {n:.6g} in {dt:.2f} s, model_flops "
+              f"{mf:.6g}; count - model_flops = tied table "
+              f"{d['tied_table']:.4g} + vector params "
+              f"{d['vector_params']:.4g} + attention {d['attention']:.4g}",
+              flush=True)
+        if n != d["total"] or mf + d["tied_table"] + d["vector_params"] \
+                + d["attention"] != n:
+            raise AssertionError(f"the forward count {n} is not its "
+                                 f"derivation {d}")
+    print(f"[32 done] {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
 def main(argv=None) -> int:
@@ -6814,15 +6974,30 @@ def main(argv=None) -> int:
     shard_phase(args, serve, ctx, dev, on_card, power)
     table10_phase(args, dev, on_card, power)
     examples_phase(args, dev, on_card, power)
-    lm_phase(args, dev, on_card, power)
-    seg24 = lm_train_phase(args, dev, on_card, power)
-    ssm_phase(args, dev, on_card, power)
-    moe_phase(args, dev, on_card, power)
-    moe_train_phase(args, dev, on_card, power)
-    encdec_vlm_phase(args, dev, on_card, power)
-    frontend_train_phase(args, dev, on_card, power)
-    bf16_phase(args, dev, on_card, power)
-    bf16_train_phase(args, dev, on_card, power)
+    draws = DrawLog()
+    draws.install()
+    try:
+        draws.phase = "23"
+        lm_phase(args, dev, on_card, power)
+        draws.phase = "24"
+        seg24 = lm_train_phase(args, dev, on_card, power)
+        draws.phase = "25"
+        ssm_phase(args, dev, on_card, power)
+        draws.phase = "26"
+        moe_phase(args, dev, on_card, power)
+        draws.phase = "27"
+        moe_train_phase(args, dev, on_card, power)
+        draws.phase = "28"
+        encdec_vlm_phase(args, dev, on_card, power)
+        draws.phase = "29"
+        frontend_train_phase(args, dev, on_card, power)
+        draws.phase = "30"
+        bf16_phase(args, dev, on_card, power)
+        draws.phase = "31"
+        bf16_train_phase(args, dev, on_card, power)
+    finally:
+        draws.uninstall()
+    roofline_phase(draws, on_card, power)
     for k in kernels:                  # phase 16's main path and phase 24's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

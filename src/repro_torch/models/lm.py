@@ -84,9 +84,12 @@ def _draw(leaf: _Leaf, scale: float, dtype, device, out=None):
     when given.  A normal leaf is ``scale · jax.random.normal(key, shape,
     dtype)``: the draw, then its product with ``dtype(scale)`` rounded
     once (the reference's weakly typed Python scale), in place (an expert
-    stack of dbrx-132b is 4.2 GB)."""
+    stack of dbrx-132b is 4.2 GB).  On the ``meta`` device nothing is
+    drawn: the leaf is its shape and dtype alone."""
     if out is None:
         out = torch.empty(leaf.shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     if leaf.key is None:
         return out.fill_(leaf.fill)
     prng.normal_chunked(leaf.key, leaf.shape, device=device, dtype=dtype,
@@ -162,7 +165,12 @@ def _stack_init(per_layer_fn, cfg, key, n, dtype, device="cpu"):
     """The JAX package's `vmap` of ``per_layer_fn`` over ``split(key, n)``:
     each layer's leaves are drawn from its own key straight into their
     slices of the stack, one leaf at a time (a layer of arctic-480b is 27
-    GB in bfloat16: it is never held beside the stack)."""
+    GB in bfloat16: it is never held beside the stack).  On the ``meta``
+    device the stack is allocated from one layer's specs and nothing is
+    drawn (the counterpart of `jax.eval_shape`)."""
+    if torch.device(device).type == "meta":
+        return {k: torch.empty((n, *v.shape), dtype=dtype, device="meta")
+                for k, v in per_layer_fn(cfg, key).items()}
     keys = prng.split(key, n)
     out = None
     for li in range(n):
@@ -182,7 +190,9 @@ def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
     asked).  The hybrid's ``shared_attn`` is one unstacked dense layer
     drawn from the fourth key; encdec's tree is ``enc`` (a dense stack of
     ``cfg.enc_layers``), ``dec``, ``dec_cross`` (each decoder layer's
-    cross-attention leaves) and ``enc_norm``, with no ``layers``."""
+    cross-attention leaves) and ``enc_norm``, with no ``layers``.
+    ``device="meta"`` gives the same tree of shapes and dtypes without
+    drawing (the reference's ``jax.eval_shape(init_params)``)."""
     check_family(cfg)
     dt = L.torch_dtype(cfg.param_dtype)
     dev = resolve_device(device)

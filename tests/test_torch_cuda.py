@@ -24,8 +24,9 @@ to the one-device plain walk's, and the fit's mesh shard tier within
 1e-5 of its one-device replay.  The LM side (no kernel of its own):
 the dense, ssm, hybrid and moe families' forward, decode caches and
 train steps, and the encdec and vlm families' forward, prefill, decode
-caches and train steps, on the card against the CPU at float32; with
-bfloat16 parameters the card's draws bit for bit the CPU's, `logits_of`
+caches and train steps, on the card against the CPU at float32; the
+card's parameter draws equal to the CPU's beside meta trees of the same
+shapes; with bfloat16 parameters the card's draws bit for bit the CPU's, `logits_of`
 without a float32 copy of its output table, and reduced llama3-405b and
 arctic-480b's greedy tokens equal to the CPU's; with bfloat16
 parameters, gradient sum and moments their µ = 2 step equal to the
@@ -2180,6 +2181,43 @@ def test_bfloat16_draw_on_card_equals_cpu(cuda):
                            device="cpu")
         for a, w in zip(T.leaves(pc), T.leaves(p)):
             assert a.dtype == torch.bfloat16 and torch.equal(bits(a), bits(w))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_init_params_on_card_equals_cpu_beside_the_meta_tree(cuda, dtype):
+    """Reduced llama3-405b and arctic-480b drawn on the card equal the
+    CPU's draw, bit for bit in bfloat16 and within 4 ulp in float32 (the
+    port's draw bound against the JAX package's), with a meta tree built
+    before and after the draws; each meta tree has the drawn tree's
+    paths, shapes and dtypes and holds no storage."""
+    from repro_torch import tree as T
+    from repro_torch.configs import base as CB
+    from repro_torch.models import lm
+    for name in ("llama3-405b", "arctic-480b"):
+        cfg = dataclasses.replace(CB.reduced(CB.get(name)),
+                                  param_dtype=dtype)
+        meta = lambda: lm.init_params(cfg, prng.PRNGKey(1), model_shards=1,
+                                      device="meta")
+        before = meta()
+        pc = lm.init_params(cfg, prng.PRNGKey(1), model_shards=1,
+                            device=cuda)
+        p = lm.init_params(cfg, prng.PRNGKey(1), model_shards=1,
+                           device="cpu")
+        after = meta()
+        for (path, a), (_, w), (_, m0), (_, m1) in zip(
+                T.leaves_with_paths(pc), T.leaves_with_paths(p),
+                T.leaves_with_paths(before), T.leaves_with_paths(after)):
+            assert a.device.type == "cuda" and a.dtype == w.dtype, path
+            if dtype == "bfloat16":
+                assert torch.equal(a.cpu().view(torch.int16),
+                                   w.view(torch.int16)), path
+            else:
+                np.testing.assert_array_max_ulp(a.cpu().numpy(), w.numpy(),
+                                                maxulp=4)
+            for m in (m0, m1):
+                assert m.is_meta and m.shape == w.shape \
+                    and m.dtype == w.dtype, path
+        assert len(T.leaves(before)) == len(T.leaves(pc))
 
 
 def test_logits_of_a_bfloat16_table_makes_no_float32_copy_on_card(

@@ -60,6 +60,8 @@ def test_the_port_has_its_files():
             "src/repro_torch/models/moe.py",
             "src/repro_torch/launch/serve.py",
             "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/specs.py",
+            "src/repro_torch/launch/roofline.py",
             "src/repro_torch/models/lsh_softmax.py",
             "src/repro_torch/tree.py",
             "examples/torch_quickstart.py",

@@ -17,7 +17,11 @@ Both packages start from one state, carried across as numpy
   rtol 1e-5 / atol 1e-6 (1e-5 for the multi-step paths), old slices
   bit-identical to the input;
 * `check_divergence` and the `validate` checks: the same problem strings
-  and the same refusals as the JAX package's.
+  and the same refusals as the JAX package's, but for one declared
+  difference: `validate_index`'s recall smoke probes each item in the
+  window centred on its own slot, so it accepts a correct index whose
+  buckets hold more than 4 items, which the JAX smoke (a bucket's
+  first 4 slots) refuses; on buckets of at most 4 the verdicts are equal.
 """
 import dataclasses
 
@@ -718,17 +722,83 @@ def test_fit_state_feeds_online_update(fit_data):
                           sigs_fresh, lsh.sig_bits)
 
 
-def test_validate_index_recall_smoke_on_big_buckets_matches_jax():
-    """The recall smoke looks for each probe item among the first 4 slots
-    of its own bucket, so buckets of more than 4 items make it report
-    misses on a correct index — in both packages alike (4-bit bands over
-    200 items: ~12 items a bucket)."""
+def _big_bucket_indexes():
+    """4-bit bands over 200 items (~12 items a bucket), in both packages."""
     from repro.serve import build_index as jbuild
     sigs = np.random.default_rng(0).integers(0, 16, (3, 200)).astype(
         np.int32)
-    want = jvalidate.validate_index(jbuild(jnp.asarray(sigs), tail_cap=4))
-    got = validate_index(build_index(torch.tensor(sigs), tail_cap=4,
-                                     device="cpu"))
-    assert got == want and got and "recall smoke" in got[0]
-    assert validate_index(build_index(torch.tensor(sigs), tail_cap=4,
-                                      device="cpu"), probe=0) == []
+    return (jbuild(jnp.asarray(sigs), tail_cap=4),
+            build_index(torch.tensor(sigs), tail_cap=4, device="cpu"))
+
+
+def _largest_bucket(tidx):
+    return int((tidx.bucket_hi - tidx.bucket_lo).max())
+
+
+def test_validate_index_recall_smoke_on_big_buckets_matches_jax():
+    """A declared divergence: the JAX package's recall smoke looks for
+    each probe item among the first 4 slots of its bucket, so it refuses
+    this correct index, whose buckets hold ~12 items; the port probes
+    each item in the window centred on its own slot (`lookup_items`) and
+    accepts it, at any probe count."""
+    jidx, tidx = _big_bucket_indexes()
+    assert _largest_bucket(tidx) > 4
+    want = jvalidate.validate_index(jidx)
+    assert want and "recall smoke" in want[0]
+    assert validate_index(tidx) == []
+    assert validate_index(tidx, probe=200, seed=3) == []
+    assert validate_index(tidx, probe=0) == jvalidate.validate_index(
+        jidx, probe=0) == []
+
+
+def test_validate_index_recall_smoke_keeps_the_jax_verdicts_on_small_buckets(
+        small_index):
+    """On buckets of at most 4 items the two smokes see the same windows:
+    the verdicts equal the reference's, for every probe draw."""
+    jidx, tidx = small_index
+    assert _largest_bucket(tidx) <= 4
+    for probe, seed in ((64, 0), (40, 1), (7, 2)):
+        assert validate_index(tidx, probe=probe, seed=seed) == \
+            jvalidate.validate_index(jidx, probe=probe, seed=seed) == []
+
+
+def _corrupt_probe(index, kind, jax_side):
+    """slot_of not the inverse of sorted_ids (two items of band 0 swap
+    slots), sorted_ids not a permutation, or the first probe item's id
+    gone from band 1 (its slot holds another id)."""
+    so, si = np.array(index.slot_of), np.array(index.sorted_ids)
+    N = si.shape[1]
+    if kind == "inverse":
+        a, b = si[0, 0], si[0, N - 1]
+        so[0, a], so[0, b] = so[0, b], so[0, a]
+        edit = dict(slot_of=so)
+    elif kind == "permutation":
+        si[0, 0] = si[0, 1]
+        edit = dict(sorted_ids=si)
+    else:
+        first = np.random.default_rng(0).choice(N, size=min(64, N),
+                                                replace=False)[0]
+        s = so[1, first]
+        si[1, s] = si[1, s - 1 if s else s + 1]
+        edit = dict(sorted_ids=si)
+    bad = dataclasses.replace(index, **{
+        k: jnp.asarray(v) if jax_side else torch.tensor(v)
+        for k, v in edit.items()})
+    if jax_side:
+        object.__setattr__(bad, "_tail_host", 0)
+    return bad
+
+
+@pytest.mark.parametrize("size", ["small", "big"])
+@pytest.mark.parametrize("kind,word", [("inverse", "inverse"),
+                                       ("permutation", "permutation"),
+                                       ("probe", "permutation")])
+def test_validate_index_still_refuses_corrupt_indexes(small_index, size,
+                                                      kind, word):
+    """Each corruption is refused at both bucket sizes, with the
+    reference's own problem list."""
+    jidx, tidx = small_index if size == "small" else _big_bucket_indexes()
+    got = validate_index(_corrupt_probe(tidx, kind, False))
+    want = jvalidate.validate_index(_corrupt_probe(jidx, kind, True))
+    assert got and any(word in p for p in got)
+    assert got == want
