@@ -42,8 +42,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. fit set-up — the repo's ~100M-parameter LSH-MF model
    (`examples/train_lshmf_100m.py`: M = 700,000 users, N = 30,000 items,
    F = 128, K = 64) on `synthetic.MOVIELENS_LIKE` data reshaped to those
-   M, N and 2,000,000 ratings (10 % held out), with each stage of `fit`
-   timed on the card (encode, Top-K, the host scheduler, the
+   M, N and 2,000,000 ratings (10 % held out; made on the host in a
+   worker thread beside phases 2–4), with each stage of `fit` timed on
+   the card (encode, Top-K, the host scheduler, the
    schedule-ordered data, the eval cache), its resident MB, the
    schedule's statistics, and the signature bits that differ between two
    encodes (must be 0: the segment sum adds in COO order);
@@ -58,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    in every case the rows no live slot owns stay bit for bit;
 10. fit — `fit(use_kernels=True)` for 3 epochs with the `culsh_sgd`
     counter zeroed just before (it must equal the conflict-free steps x
-    epochs), the same fit on the plain steps (final RMSE within 1e-3),
+    epochs), one epoch of the same fit on the plain steps (its RMSE
+    within 1e-3 of the kernel fit's first),
     one epoch of plain MF (``method="none"``) through the fused CUSGD++
     step (its counter must equal the conflict-free steps), then one more
     epoch of each under `torch.profiler`, the conflict-free tiers of
@@ -127,15 +129,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     batch=4096)`, `OnlineLoop.build_service` with phase 3's
     `ServeConfig` and a 1,024-item tail, `LoopConfig` defaults, a fixed
     20,000 of the held-out ratings as the drift probe; each slice
-    submits 2 × 256 users (a quarter new ids) and even slices offer a ΔΩ
-    (phase 16's recipe; a sixth of the held-out ratings each).  A 6-slice reference arm, the counters zeroed
+    submits 2 × 256 users (a quarter new ids) and the first offers a ΔΩ
+    (phase 16's recipe; a sixth of the held-out ratings).  A 3-slice
+    reference arm (`LOOP_SLICES`; 6 slices and a ΔΩ on each even one
+    until phase 33 needed the script's time), the counters zeroed
     just before (one `lsh_retrieve` and one `candidate_score` launch a
     scored flush or warm-up; each slice's first flush against the plain
     versions), its states' leaf SHA-256 kept by seq; a drift trip forced
     on it (``drift_tol`` −0.5), whose requested rebuild of the fit's
     8-bit catalog ends as the validation gate says; then three arms
-    killed at ``loop.slice`` call 3, ``loop.ckpt`` call 1 and
-    ``loop.drift`` call 1, each recovered by `OnlineLoop.recover` to the
+    killed at ``loop.slice`` call 2, ``loop.ckpt`` call 0 and
+    ``loop.drift`` call 0 (0-based; 3, 1 and 1 with 6 slices), each
+    recovered by `OnlineLoop.recover` to the
     reference's hashes at its seq and run one more slice with nothing
     dropped; the span seconds, staleness p99 and the time to recover
     (restore, WAL replay, `build_service` and warm-up);
@@ -404,11 +409,32 @@ Phases, in order; any failure raises and the script exits non-zero:
     logits counted by `FlopCounterMode` on meta tensors at B 1 × S 128
     and at the prefill_32k cell, beside `model_flops` and the count's
     derivation (`dense_forward_flops`).
+33. (run between phases 30 and 31, on phase 30's arctic-480b tree) the
+    LM mesh: arctic-480b at full width cut to L = 1 with all 128 experts
+    served on a logical 2 × 4 ("data", "model") mesh of the card
+    (`launch/mesh.py`, `REPRO_TORCH_LOGICAL_DEVICES=8`): `make_prefill`
+    on `serve`'s request (the a2a dispatch, capacity 2.0), 32 greedy
+    steps of `make_decode_step` (the replicated dispatch and its psum),
+    one prefill with ``moe_ep2d``; the kept and dropped slots of each
+    dispatch, prefill s and decode tokens/s beside the bound of reading
+    the expert stack once a data row a step, a profiled decode step, own
+    peak MB; `segment_add` counted on the served path (the combine's
+    scatter-add, one launch a cell a dispatch).  First a one-layer cut
+    (d_model kept, 8 heads, V 2,048, 16 experts of d_ff 1,024, capacity
+    0.75, so slots drop) on the same mesh of the card and of the CPU,
+    the CPU's runs in a worker thread beside the card's: for the a2a
+    prefill, a decode step behind the card's prefill caches (the
+    replicated dispatch) and the ep2d prefill routes, then kept-slot
+    masks, then float32 logits 1e-4 of their max; a train step (loss
+    1e-5, first moments 1e-4 of each leaf's max); TF32 controls above
+    the prefill's and the step's limits; bfloat16 logits within 64u·rms
+    / 8u·rms of the CPU's float32 on the card's routes, ``wo`` zeroed
+    the control —, every card run twice, bit-equal.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–32 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–33 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -432,6 +458,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate (data sheet)
+# phase 17's stream: slices of the reference arm and of each killed arm,
+# a ΔΩ on the first, and the (0-based) fault-site calls the arms die at
+# (6 slices, a ΔΩ on each even one, kills at calls 3, 1 and 1 until
+# phase 33 needed the script's time)
+LOOP_SLICES = 3
+LOOP_KILLS = (("loop.slice", 2), ("loop.ckpt", 0), ("loop.drift", 0))
 F32_OPS_PER_S = 67e12       # H100 SXM float32 rate outside tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM bfloat16 dense tensor-core rate
 BATCHES = 64                # phase 5 micro-batches
@@ -671,19 +703,39 @@ def fused_vs_plain(state, b, hp, *, F: int, bce=False, mf=False):
     return got, want, err
 
 
-def fit_phases(args, dev, on_card: bool, power: str) -> list:
+def fit_data(args) -> tuple:
+    """Phase 8's ratings: `synthetic.generate` at the fit's size, split
+    90 / 10, all on the host (numpy) → (train, test, seconds).  `main`
+    runs it in a worker thread beside the build and phases 3–4, which
+    time nothing."""
+    import dataclasses
+
+    from repro_torch.data import synthetic
+    from repro_torch.data.sparse import train_test_split
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(
+        synthetic.MOVIELENS_LIKE, M=max(1, int(FIT_M * args.fit_scale)),
+        N=max(1, int(FIT_N * args.fit_scale)),
+        nnz=int(FIT_NNZ * args.fit_scale))
+    rows, cols, vals, _ = synthetic.generate(spec, seed=args.seed)
+    tr, te = train_test_split(np.random.default_rng(args.seed), rows, cols,
+                              vals)
+    return tr, te, time.perf_counter() - t0
+
+
+def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
     """Phases 8–11: the offline CULSH-MF fit (`train.trainer.fit`) at the
-    width of the repo's ~100M-parameter model; → (the two fused steps'
-    entries of the kernels line, the state phases 13–14 go on from)."""
+    width of the repo's ~100M-parameter model, on ``data`` (`fit_data`'s);
+    → (the two fused steps' entries of the kernels line, the state phases
+    13–14 go on from)."""
     import dataclasses
 
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import prng
     from repro_torch.core import model, sgd, simlsh, topk
-    from repro_torch.data import synthetic
-    from repro_torch.data.sparse import (conflict_free_schedule, from_coo,
-                                         train_test_split)
+    from repro_torch.data.sparse import conflict_free_schedule, from_coo
     from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
     from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
     from repro_torch.kernels.mf_sgd.ref import (apply_culsh_sgd_ref,
@@ -703,21 +755,13 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     # ---- 8. fit set-up: the stages `fit` runs, each timed ----
     M = max(1, int(FIT_M * args.fit_scale))
     N = max(1, int(FIT_N * args.fit_scale))
-    nnz = int(FIT_NNZ * args.fit_scale)
     F, K = FIT_F, FIT_K
     # one shard: these phases' launch counts must not depend on how many
     # cards the machine has (phase 20 runs the shard tier)
     cfg = FitConfig(F=F, K=K, epochs=FIT_EPOCHS, method="simlsh",
                     lsh=simlsh.SimLSHConfig(G=8, p=1, q=10, band_cap=16),
                     seed=args.seed, use_kernels=True, shards=1)
-    spec = dataclasses.replace(synthetic.MOVIELENS_LIKE, M=M, N=N, nnz=nnz)
-
-    def data():
-        rows, cols, vals, _ = synthetic.generate(spec, seed=args.seed)
-        return train_test_split(np.random.default_rng(args.seed), rows,
-                                cols, vals)
-
-    tr, te = stage("data", data)
+    tr, te, secs["data (beside phases 2-4)"] = data
     k_nb, k_init, k_ep = prng.split(prng.PRNGKey(cfg.seed), 3)  # as `fit`
     k_sig, k_top = prng.split(k_nb)
     sp = stage("from_coo", lambda: from_coo(*tr, (M, N), device=dev))
@@ -886,12 +930,16 @@ def fit_phases(args, dev, on_card: bool, power: str) -> list:
     if on_card and not torch.equal(res.JK, JK):
         print("[10 fit] J^K differs from phase 8's (signature bits flipped "
               "between encodes)", flush=True)
-    plain = fit(tr, te, (M, N), dataclasses.replace(cfg, use_kernels=False),
+    # the plain steps for one epoch, held to the kernel fit's first: the
+    # learning rate decays by the epoch's index, so epoch 0 of a longer
+    # fit is the same epoch
+    plain = fit(tr, te, (M, N), dataclasses.replace(cfg, use_kernels=False,
+                                                     epochs=1),
                 log=log("plain"), device=dev)
     rp = [h[2] for h in plain.history]
-    print(f"[10 fit] rmse with kernels {rm}; plain steps {rp}; final "
-          f"difference {abs(rm[-1] - rp[-1]):.3g} (limit 1e-3)", flush=True)
-    if not abs(rm[-1] - rp[-1]) <= 1e-3:
+    print(f"[10 fit] rmse with kernels {rm}; plain steps {rp}; epoch 0 "
+          f"difference {abs(rm[0] - rp[0]):.3g} (limit 1e-3)", flush=True)
+    if not abs(rm[0] - rp[0]) <= 1e-3:
         raise AssertionError("the kernel fit's RMSE is off the plain fit's")
     sgd_kernel.MF_LAUNCHES = 0
     mf = fit(tr, te, (M, N), dataclasses.replace(cfg, method="none",
@@ -2094,11 +2142,11 @@ def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
 def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
                power: str) -> None:
     """Phase 17: the always-on `OnlineLoop` at full width, on phase 15's
-    state.  A 6-slice reference arm (its states' leaf hashes kept by
-    seq), a drift trip forced on it, and three arms killed at
-    ``loop.slice`` call 3, ``loop.ckpt`` call 1 and ``loop.drift`` call
-    1, each recovered with `OnlineLoop.recover` and held to the
-    reference's hashes at its seq."""
+    state.  A `LOOP_SLICES`-slice reference arm (its states' leaf hashes
+    kept by seq), a drift trip forced on it, and three arms killed at
+    the `LOOP_KILLS` fault-site calls, each recovered with
+    `OnlineLoop.recover` and held to the reference's hashes at its
+    seq."""
     import dataclasses
     import hashlib
     import shutil
@@ -2126,37 +2174,32 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
     cfg = LoopConfig(tail_cap=max(1, round(1024 * args.fit_scale)))
     up_kw = dict(K=K, epochs=3, batch=4096)
 
-    # the stream, the same in every arm: a ΔΩ on slices 0, 2 and 4 (a
-    # sixth of the remaining held-out ratings each — a third until phase
-    # 29 needed the script's time: each ΔΩ's micro schedule is rebuilt
-    # on the host, in the slice and again in each replay —, plus new
-    # users rating 20 items and new items rated by 20 old users: phase
-    # 16's recipe), and 2 × B users a slice, a quarter of them new ids
-    deltas, M_, N_ = [], st0.M, st0.N
+    # the stream, the same in every arm: a ΔΩ on its first slice (a
+    # sixth of the remaining held-out ratings — one on each even slice of
+    # 6 until phase 33 needed the script's time: each ΔΩ's micro schedule
+    # is rebuilt on the host, in the slice and again in each WAL replay
+    # —, plus new users rating 20 items and new items rated by 20 old
+    # users: phase 16's recipe), and 2 × B users a slice, a quarter of
+    # them new ids
     n_u = max(1, round(100 * args.fit_scale))
     n_i = max(1, round(50 * args.fit_scale))
-    for k, part in enumerate(np.array_split(
-            np.arange(rest[0].size // 2), 3)):
-        M2, N2 = M_ + n_u, N_ + n_i
-        r = np.concatenate([np.repeat(np.arange(M_, M2), 20),
-                            rng.integers(0, M_, 20 * n_i)])
-        c = np.concatenate([rng.integers(0, N2, 20 * n_u),
-                            np.repeat(np.arange(N_, N2), 20)])
-        key = np.unique(r.astype(np.int64) * N2 + c)
-        r, c = key // N2, key % N2
-        deltas.append(((np.concatenate([rest[0][part], r]).astype(np.int32),
-                        np.concatenate([rest[1][part], c]).astype(np.int32),
-                        np.concatenate([rest[2][part],
-                                        rng.integers(1, 6, r.size)])
-                        .astype(np.float32)),
-                       M2, N2, prng.PRNGKey(args.seed + 170 + k)))
-        M_, N_ = M2, N2
-    traffic = []
-    for s in range(6):
-        m_hi = deltas[s // 2][1]
-        traffic.append(np.concatenate([
-            rng.integers(0, st0.M, 2 * B - B // 2),
-            rng.integers(st0.M, m_hi, B // 2)]).astype(np.int32))
+    part = np.arange(rest[0].size // 6)
+    M2, N2 = st0.M + n_u, st0.N + n_i
+    r = np.concatenate([np.repeat(np.arange(st0.M, M2), 20),
+                        rng.integers(0, st0.M, 20 * n_i)])
+    c = np.concatenate([rng.integers(0, N2, 20 * n_u),
+                        np.repeat(np.arange(st0.N, N2), 20)])
+    key = np.unique(r.astype(np.int64) * N2 + c)
+    r, c = key // N2, key % N2
+    delta = ((np.concatenate([rest[0][part], r]).astype(np.int32),
+              np.concatenate([rest[1][part], c]).astype(np.int32),
+              np.concatenate([rest[2][part], rng.integers(1, 6, r.size)])
+              .astype(np.float32)),
+             M2, N2, prng.PRNGKey(args.seed + 170))
+    traffic = [np.concatenate([
+        rng.integers(0, st0.M, 2 * B - B // 2),
+        rng.integers(st0.M, M2, B // 2)]).astype(np.int32)
+        for _ in range(LOOP_SLICES)]
 
     def leaf_hashes(st):
         out = {}
@@ -2180,9 +2223,9 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
         try:
             for s in slices:
                 loop.svc.submit(traffic[s])
-                if s % 2 == 0:
-                    d, M2, N2, key = deltas[s // 2]
-                    loop.offer_delta(*d, key, M_new=M2, N_new=N2)
+                if s % LOOP_SLICES == 0:
+                    d, M_new, N_new, k_d = delta
+                    loop.offer_delta(*d, k_d, M_new=M_new, N_new=N_new)
                 if on_slice is not None:
                     on_slice(s, loop)
                 try:
@@ -2226,7 +2269,7 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
         kw = dict(n_seeds=scfg.n_seeds, cap=scfg.cap, C=scfg.C,
                   window=scfg.seed_window, topn=scfg.topn,
                   tile_b=scfg.tile_b)
-        for s in range(6):
+        for s in range(LOOP_SLICES):
             drive(loop, [s], hashes=ref, on_slice=snapshot)
             # the slice's first flush against the plain versions, on the
             # state it served from
@@ -2255,11 +2298,11 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
         c = lambda n: int(reg.counter(n))
         print(f"[17 loop] M={st0.M} N={st0.N} F={st0.params.U.shape[1]} "
               f"K={K}, LoopConfig defaults (tail_cap {cfg.tail_cap}), "
-              f"holdout {n_hold} ratings; 6 slices in {wall:.2f} s to "
+              f"holdout {n_hold} ratings; {LOOP_SLICES} slices in "
+              f"{wall:.2f} s to "
               f"M={loop.state.M} N={loop.state.N} "
               f"({loop.state.sp.nnz} ratings), seq {loop.updater.seq}; "
-              f"deltas of " + "/".join(str(d[0][0].size) for d in deltas)
-              + " ratings", flush=True)
+              f"a delta of {delta[0][0].size} ratings", flush=True)
         print("[17 loop] span seconds (count: each): " + "; ".join(
             f"{n} ({len(v)}: " + ", ".join(f"{x:.3f}" for x in v) + ")"
             for n, v in spans.items()), flush=True)
@@ -2286,7 +2329,8 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
                                  f"{c('loop.slice_failures')}, dropped "
                                  f"{st['dropped']}, fallbacks "
                                  f"{st['fallbacks']}")
-        if c("loop.slices_trained") != 6 or c("online.updates") != 3:
+        if (c("loop.slices_trained") != LOOP_SLICES
+                or c("online.updates") != 1):
             raise AssertionError("the reference arm did not train every "
                                  "slice and apply every delta")
         if on_card and any(n != st["batches"] + warmups
@@ -2304,6 +2348,7 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
         gave0 = int(svc.obs.counter("serve.rebuild.gave_up"))
         swaps0 = int(svc.obs.counter("serve.rebuild.swaps"))
         before_idx = svc.index
+        t_drift = time.perf_counter()
         trip.run(3, degrade=False)
         settle(svc)
         tripped = int(trip.obs.counter("loop.drift_rebuilds"))
@@ -2315,8 +2360,8 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
               f"{tripped} trip(s) over 3 probes; the requested rebuild "
               f"ended {outcome} (index kept: {svc.index is before_idx}, "
               f"index_stale {svc.stats()['index_stale']}, builds "
-              f"{svc._rebuilder.builds}, failures {svc._rebuilder.failures})",
-              flush=True)
+              f"{svc._rebuilder.builds}, failures {svc._rebuilder.failures})"
+              f" in {time.perf_counter() - t_drift:.1f} s", flush=True)
         if tripped != 1 or outcome == "pending":
             raise AssertionError(f"drift trips {tripped}, rebuild "
                                  f"{outcome}")
@@ -2324,11 +2369,11 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
         gc.collect()
 
         # ---- three arms killed at the loop's fault sites, recovered ----
-        for site, call in (("loop.slice", 3), ("loop.ckpt", 1),
-                           ("loop.drift", 1)):
+        for site, call in LOOP_KILLS:
             root = os.path.join(base, site)
             arm = new_loop(root, obs.Registry(enabled=True))
-            if not drive(arm, range(6), kill=(site, call)):
+            t_arm = time.perf_counter()
+            if not drive(arm, range(LOOP_SLICES), kill=(site, call)):
                 raise AssertionError(f"the fault at {site} never fired")
             del arm
             gc.collect()
@@ -2344,7 +2389,7 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
             got = leaf_hashes(rec.state)
             unequal = sorted(k for k in got if got[k] != ref.get(q, {}).get(k))
             nxt = rec.slice_count
-            drive(rec, [nxt % 6])
+            drive(rec, [nxt % LOOP_SLICES])
             sync()
             rst = rec.svc.stats()
             part = lambda n: sum(rreg.span_durations(n))
@@ -2359,7 +2404,8 @@ def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
                   f"equal the reference's at seq {q}; one more slice: "
                   f"dropped {rst['dropped']}, fallbacks {rst['fallbacks']}, "
                   f"slice failures "
-                  f"{int(rreg.counter('loop.slice_failures'))}", flush=True)
+                  f"{int(rreg.counter('loop.slice_failures'))}; the arm "
+                  f"{time.perf_counter() - t_arm:.1f} s", flush=True)
             if q not in ref or unequal:
                 raise AssertionError(f"{site}: seq {q}, unequal leaves "
                                      f"{unequal}")
@@ -5931,7 +5977,7 @@ def bf16_cut_cpu(cfg, hp, toks, lg, e, lgc, copied, card: str) -> None:
                              f"without its attention output")
 
 
-def bf16_phase(args, dev, on_card: bool, power: str) -> None:
+def bf16_phase(args, dev, on_card: bool, power: str):
     """Phase 30: bfloat16 parameters — the card's 128-value normal table
     against the CPU's; llama3-405b at full width cut to L = 4 and
     arctic-480b at full width cut to L = 1 (`BF16_SERVED`), each drawn on
@@ -5944,7 +5990,8 @@ def bf16_phase(args, dev, on_card: bool, power: str) -> None:
     1-layer cut of each card vs CPU.  The CPU's reference work runs in a
     worker thread beside the card's draws, never beside serving or the
     profiler.  Writes nothing to disk and launches none of the seven
-    kernels."""
+    kernels.  → (arctic-480b's served config, its tree), which phase 33
+    serves on a mesh."""
     import dataclasses
     from concurrent.futures import ThreadPoolExecutor
 
@@ -5977,7 +6024,7 @@ def bf16_phase(args, dev, on_card: bool, power: str) -> None:
                                        param_dtype="bfloat16")
         configs.append((full, dataclasses.replace(full, L=min(depth,
                                                               full.L))))
-    parts, pending = [], None
+    parts, pending, kept = [], None, None
     with ThreadPoolExecutor(max_workers=1) as pool:
         refs = [pool.submit(bf16_draw_refs, served) for _, served in configs]
         for (full, served), ref in zip(configs, refs):
@@ -6053,6 +6100,8 @@ def bf16_phase(args, dev, on_card: bool, power: str) -> None:
                       f"cast: bfloat16 weights at bfloat16 compute are used "
                       f"as they are) ({card})", flush=True)
             job = bf16_cut_card(served, params, dev, on_card)
+            if served.family == "moe":          # phase 33 serves it
+                kept = (served, params)
             del params, leaves, out
             gc_collect(on_card)
             pending = pool.submit(bf16_cut_cpu, *job, card)
@@ -6069,6 +6118,441 @@ def bf16_phase(args, dev, on_card: bool, power: str) -> None:
         raise AssertionError("phase 30 launched a kernel it should not")
     print(f"[30 done] phase 30 in {time.perf_counter() - t_phase:.1f} s: "
           f"{', '.join(parts)} s ({card})", flush=True)
+    return kept
+
+
+# phase 33: arctic-480b served at full width with all 128 experts on a
+# logical 2 × 4 ("data", "model") mesh of the one card: 32 local experts a
+# cell (64 a cell on ep2d's data axis), 56 heads / 4, batch 4 / 2, prompt
+# 64 / 4
+MESH_SHAPE = (2, 4)
+MESH_GEN = 32
+# its card = CPU cut: one layer at arctic's d_model with 8 heads, V 2,048
+# and 16 experts (top 2) of d_ff 1,024, the dense residual MLP's too, at
+# capacity 0.75, where the dispatch drops slots
+MESH_CUT = dict(L=1, n_heads=8, vocab=2048, n_experts=16, d_ff=1024,
+                moe_dense_ff=1024, moe_capacity=0.75, microbatches=1,
+                param_dtype="float32", moment_dtype="float32",
+                grad_dtype="float32", dtype="float32")
+
+
+class ForceRoutes:
+    """`moe.router` patched while entered: its expert ids replaced by
+    ``force``'s (ids [L, B, S, k], one call a layer), the gates then the
+    softmax of this run's router logits at those experts (as
+    `moe_routes` forces them).  It patches the module, so no other
+    thread runs a forward meanwhile."""
+
+    def __init__(self, force):
+        self.force, self.calls = force, 0
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._orig = MOE.router
+
+        def forced(p, x, cfg):
+            eid = self.force[self.calls].to(x.device)
+            self.calls += 1
+            logits = torch.einsum("bsd,de->bse", x.float(),
+                                  p["router"].float())
+            return eid, torch.softmax(logits.gather(-1, eid.long()), dim=-1)
+
+        MOE.router = forced
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe as MOE
+        MOE.router = self._orig
+
+
+def logged(log) -> tuple:
+    """A dispatch log's routes [L, B, S, k] and kept-slot masks, on the
+    CPU."""
+    return (torch.stack([d["eid"] for d in log]).cpu(),
+            torch.stack([d["mask"] for d in log]).cpu())
+
+
+def mesh_prefill(cfg, p, toks, mesh, force=None):
+    """`make_prefill` on ``mesh`` → (logits on the CPU, routes [L, B, S,
+    k] and each dispatch's kept-slot mask, both on the CPU)."""
+    import contextlib
+
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps
+
+    with MOE.record_dispatches() as log, (
+            ForceRoutes(force) if force is not None
+            else contextlib.nullcontext()):
+        lg, _ = steps.make_prefill(cfg, mesh, SH.mesh_axes(mesh))(
+            p, {"tokens": toks})
+    return (lg.cpu(), *logged(log))
+
+
+def mesh_decode(cfg, p, toks, nxt, mesh, kv=None):
+    """One `make_decode_step` on ``mesh`` of the tokens ``nxt`` [B, 1]
+    (the replicated dispatch) behind the K/V caches ``kv`` of the
+    prompt ``toks`` [B, S], by default those `make_prefill` of ``toks``
+    on ``mesh`` gives → (the step's logits, routes [L, B, 1, k] and
+    kept-slot masks, on the CPU; the caches it read).  The prefill's
+    caches are bfloat16 at float32 compute too, so a card-vs-CPU check
+    gives both sides the same caches: one rounding flipped by a
+    float32 difference in the last bit moves the step's logits by ~1e-4
+    of their max."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps
+
+    B, S = toks.shape
+    axes = SH.mesh_axes(mesh)
+    if kv is None:
+        _, pc = steps.make_prefill(cfg, mesh, axes)(p, {"tokens": toks})
+        kv = (pc["k"], pc["v"])
+    cache = steps.init_cache(cfg, B, S + 1, L.torch_dtype(cfg.dtype),
+                             device=toks.device)
+    cache["k"][:, :, :S], cache["v"][:, :, :S] = (t.to(toks.device)
+                                                  for t in kv)
+    cache["pos"] = S
+    with MOE.record_dispatches() as log:
+        lg, _ = steps.make_decode_step(cfg, mesh, axes)(p, cache, nxt)
+    return (lg.cpu(), *logged(log), kv)
+
+
+def mesh_train(cfg, p, toks, mesh):
+    """One `make_train_step` on ``mesh`` of a copy of ``p`` → (loss,
+    gnorm, the first moments = 0.1·scale·g)."""
+    from repro_torch import tree as T
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps
+
+    q = T.tree_map(torch.clone, p)
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    _, opt, aux = steps.make_train_step(cfg, mesh, SH.mesh_axes(mesh))(
+        q, steps.init_opt(cfg, q), batch)
+    return float(aux["loss"]), float(aux["gnorm"]), opt["m"]
+
+
+def mesh_cut_runs(cut, p, toks, nxt, mesh, kv=None) -> dict:
+    """The cut's float32 runs on ``mesh``: the a2a prefill, a decode step
+    after it (the replicated dispatch; behind ``kv``, by default its own
+    prefill's caches), the ep2d prefill (each (logits, routes, kept-slot
+    masks)) and a train step (loss, gnorm, first moments)."""
+    import dataclasses
+
+    return dict(
+        a2a=mesh_prefill(cut, p, toks, mesh),
+        rep=mesh_decode(cut, p, toks, nxt, mesh, kv),
+        ep2d=mesh_prefill(dataclasses.replace(cut, moe_ep2d=True), p, toks,
+                          mesh),
+        train=mesh_train(cut, p, toks, mesh))
+
+
+def mesh_cut_check(full, dev, on_card: bool, card: str) -> None:
+    """Phase 33 (a): the one-layer cut (`MESH_CUT`) on the logical 2 × 4
+    mesh of the card and of the CPU, the CPU's runs in a worker thread
+    beside the card's.  For each dispatch — the a2a prefill, a decode
+    step behind the card's prefill caches (the replicated dispatch; the
+    caches are bfloat16), the ep2d prefill — routes
+    first, then the kept-slot masks, then the logits within 1e-4 of
+    their max at float32; a train step's loss within 1e-5, its first
+    moments within 1e-4 of each leaf's max; TF32 controls above the
+    prefill's and the train step's limits; at bfloat16 compute the
+    card's a2a prefill logits against the CPU's float32 ones on the
+    card's routes within phase 30's 64u·rms / 8u·rms, beside a control
+    with ``wo`` zeroed; every card run twice, bit-equal."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch import prng
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+
+    cut = dataclasses.replace(full, **MESH_CUT)
+    m_card = M.compat_mesh(MESH_SHAPE, ("data", "model"), device=dev)
+    m_cpu = M.compat_mesh(MESH_SHAPE, ("data", "model"), device="cpu")
+    p = lm.init_params(cut, prng.PRNGKey(33), model_shards=1, device=dev)
+    hp = T.tree_map(lambda t: t.cpu(), p)
+    cb = dataclasses.replace(cut, dtype="bfloat16", param_dtype="bfloat16")
+    c32 = dataclasses.replace(cb, dtype="float32")
+    p16 = T.tree_map(lambda t: t.to(torch.bfloat16), p)
+    hp16 = T.tree_map(lambda t: t.cpu(), p16)
+    rng = np.random.default_rng(33)
+    toks = torch.from_numpy(rng.integers(0, cut.vocab, (4, 64)).astype(
+        np.int32))
+    nxt = torch.from_numpy(rng.integers(0, cut.vocab, (4, 1)).astype(
+        np.int32))
+    tc, nc = toks.to(dev), nxt.to(dev)
+    t0 = time.perf_counter()
+
+    def on_cpu(kv):
+        return (mesh_cut_runs(cut, hp, toks, nxt, m_cpu, kv),
+                mesh_prefill(c32, hp16, toks, m_cpu))
+
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        got = mesh_cut_runs(cut, p, tc, nc, m_card)
+        # the CPU's decode step behind the card's prefill caches
+        cpu_job = pool.submit(on_cpu, tuple(t.cpu() for t in got["rep"][3]))
+        again = mesh_cut_runs(cut, p, tc, nc, m_card)
+        ctrl = (tf32(lambda: mesh_prefill(cut, p, tc, m_card)[0])
+                if on_card else None)
+        t_ctrl = (tf32(lambda: mesh_train(cut, p, tc, m_card)[2])
+                  if on_card else None)
+        lgb, eb, mkb = mesh_prefill(cb, p16, tc, m_card)
+        lgb2, eb2, mkb2 = mesh_prefill(cb, p16, tc, m_card)
+        ctl = dict(p16, layers=dict(p16["layers"], wo=torch.zeros_like(
+            p16["layers"]["wo"])))
+        lgc = mesh_prefill(cb, ctl, tc, m_card)[0]
+        t_card = time.perf_counter() - t0
+        want, (ref, e0, mk0) = cpu_job.result()
+    t_cpu = time.perf_counter() - t0
+    bit_equal = all(
+        torch.equal(a, b) for k in ("a2a", "rep", "ep2d")
+        for a, b in zip(got[k][:3], again[k][:3])) and (
+        got["train"][0] == again["train"][0] and all(
+            torch.equal(a, b) for a, b in zip(T.leaves(got["train"][2]),
+                                              T.leaves(again["train"][2]))))
+    fails = []
+    for k in ("a2a", "rep", "ep2d"):
+        (lg, e, mk), (h_lg, h_e, h_mk) = got[k][:3], want[k][:3]
+        same_routes, same_masks = torch.equal(e, h_e), torch.equal(mk, h_mk)
+        kept, routed = int(mk.sum()), mk.numel()
+        scale = float(h_lg.abs().max())
+        err = float((lg - h_lg).abs().max())
+        extra = ""
+        if k == "a2a" and on_card:
+            c_err = float((ctrl - h_lg).abs().max())
+            extra = f", TF32 control {c_err:.4g}"
+            if not c_err > 1e-4 * scale:
+                fails.append("the a2a limit passes TF32 products")
+        what = ("a decode step behind the card's prefill caches"
+                if k == "rep" else "prefill")
+        print(f"[33 cut] {cut_name(cut)} on the logical {MESH_SHAPE[0]}x"
+              f"{MESH_SHAPE[1]} mesh, float32, {k} dispatch ({what}, B "
+              f"{toks.shape[0]} x S {toks.shape[1]}): card vs CPU routes "
+              f"equal {same_routes}, kept-slot masks equal {same_masks} "
+              f"({kept} of {routed} slots kept, {routed - kept} dropped); "
+              f"logits max abs {err:.4g} (limit 1e-4 x {scale:.4g}){extra}"
+              f" ({card})", flush=True)
+        if not (same_routes and same_masks):
+            fails.append(f"{k}: the card's routes or kept slots differ from "
+                         f"the CPU's")
+        elif not err <= 1e-4 * scale:
+            fails.append(f"{k}: the card's float32 logits differ")
+        if k == "a2a" and kept == routed:
+            fails.append("a2a: no slot was dropped")
+    loss, gn, m = got["train"]
+    h_loss, h_gn, h_m = want["train"]
+    worst, where = worst_leaf(m, h_m)
+    t_worst = worst_leaf(t_ctrl, h_m)[0] if on_card else float("nan")
+    print(f"[33 cut] train step on the mesh, float32: loss {loss:.7g} vs "
+          f"{h_loss:.7g} (limit 1e-5 relative), gnorm {gn:.7g} vs "
+          f"{h_gn:.7g}, first moments worst {worst:.3g} of the leaf's max "
+          f"({where}; limit 1e-4), TF32 control {t_worst:.3g}; every card "
+          f"run twice bit-equal {bit_equal}; the card's runs {t_card:.1f} s,"
+          f" the CPU's beside them done at {t_cpu:.1f} s ({card})",
+          flush=True)
+    if not (abs(loss - h_loss) <= 1e-5 * abs(h_loss)
+            and abs(gn - h_gn) <= 1e-5 * abs(h_gn) and worst <= 1e-4):
+        fails.append("the card's float32 train step differs from the CPU's")
+    if on_card and not t_worst > 1e-4:
+        fails.append("the train step's limit passes TF32 products")
+    if not bit_equal:
+        fails.append("two float32 card runs differ")
+    if fails:
+        raise AssertionError("mesh cut: " + "; ".join(fails))
+    # bfloat16 compute on bfloat16 weights; the CPU's float32 forward on
+    # the same weights, on the card's routes (forced after the worker
+    # ended: the patch is the module's)
+    u = 2.0 ** -8
+    if torch.equal(eb, e0):
+        forced, mkf = ref, mk0
+    else:
+        forced, _, mkf = mesh_prefill(c32, hp16, toks, m_cpu, force=eb)
+    agree = float((eb.sort(-1).values == e0.sort(-1).values).all(-1)
+                  .float().mean())
+    rms = float(forced.pow(2).mean().sqrt())
+    d = (lgb.float() - forced).abs()
+    b_max, b_mean = float(d.max()), float(d.mean())
+    k_max = float((lgc.float() - forced).abs().max())
+    lim = (64 * u * rms, 8 * u * rms)
+    print(f"[33 cut] bfloat16 compute: routes agree with the CPU's float32 "
+          f"ones on {agree:.4f} of the (token, layer) pairs (floor 0.85); "
+          f"on the card's routes kept-slot masks equal "
+          f"{torch.equal(mkb, mkf)} ({int(mkb.sum())} of {mkb.numel()} "
+          f"kept), logits max abs {b_max:.4g}, mean {b_mean:.4g} (limits "
+          f"64u·rms {lim[0]:.4g}, 8u·rms {lim[1]:.4g}, u = 2^-8); control,"
+          f" wo zeroed: max abs {k_max:.4g}; two card runs bit-equal "
+          f"{torch.equal(lgb, lgb2) and torch.equal(mkb, mkb2)} ({card})",
+          flush=True)
+    if not agree >= 0.85 or not torch.equal(mkb, mkf):
+        raise AssertionError("mesh cut: bfloat16 routes or kept slots")
+    if not (b_max <= lim[0] and b_mean <= lim[1]):
+        raise AssertionError("mesh cut: the card's bfloat16 logits differ")
+    if on_card and not k_max > lim[0]:
+        raise AssertionError("mesh cut: the bfloat16 limit passes a layer "
+                             "without its attention output")
+    if not (torch.equal(lgb, lgb2) and torch.equal(mkb, mkb2)
+            and torch.equal(eb, eb2)):
+        raise AssertionError("mesh cut: two bfloat16 card runs differ")
+
+
+def mesh_phase(args, cfg, params, dev, on_card: bool, power: str) -> int:
+    """Phase 33: arctic-480b at full width cut to L = 1 with all 128
+    experts, phase 30's drawn tree (``cfg``, ``params``), served on the logical
+    2 × 4 mesh (`MESH_SHAPE`): `make_prefill` on `serve`'s request (batch
+    4, prompt 64; the a2a dispatch at capacity 2.0), `MESH_GEN` greedy
+    steps of `make_decode_step` (the replicated dispatch and its psum)
+    and one prefill with ``moe_ep2d`` (experts over the data axis); the
+    kept and dropped slots of each dispatch, prefill seconds and decode
+    tokens/s beside the bound of reading the expert stack once a data
+    row a step, a profiled decode step, own peak MB; (a) the card = CPU
+    cut first.  → `segment_add`'s launches on the served path (the
+    combine's scatter-add)."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.core import scatter
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import sharding as SH
+    from repro_torch.models import steps
+
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    card = (f"{torch.cuda.get_device_name(0)}, power limit {power}"
+            if on_card else power)
+    prev = os.environ.get(M.LOGICAL_DEVICES)
+    os.environ[M.LOGICAL_DEVICES] = str(MESH_SHAPE[0] * MESH_SHAPE[1])
+    try:
+        counts0 = launch_counts()
+        mesh_cut_check(cfg, dev, on_card, card)
+        t_cut = time.perf_counter() - t_phase
+        gc_collect(on_card)
+        mesh = M.compat_mesh(MESH_SHAPE, ("data", "model"), device=dev)
+        axes = SH.mesh_axes(mesh)
+        B, S = 4, 64
+        toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+        held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        # ---- the main path: counters zeroed just before ----
+        seg_cut = scatter.LAUNCHES - counts0["segment_add"]
+        scatter.LAUNCHES = 0
+        with MOE.record_dispatches() as log:
+            sync()
+            t0 = time.perf_counter()
+            logits, pc = steps.make_prefill(cfg, mesh, axes)(
+                params, {"tokens": toks})
+            sync()
+            t_pre = time.perf_counter() - t0
+            cache = steps.init_cache(cfg, B, S + MESH_GEN, device=dev)
+            cache["k"][:, :, :S], cache["v"][:, :, :S] = pc["k"], pc["v"]
+            cache["pos"] = S
+            dec = steps.make_decode_step(cfg, mesh, axes)
+            out = [torch.argmax(logits, -1).to(torch.int32)[:, None]]
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(MESH_GEN):
+                lg, cache = dec(params, cache, out[-1])
+                out.append(torch.argmax(lg[:, -1], -1).to(torch.int32)[
+                    :, None])
+            sync()
+            t_dec = time.perf_counter() - t0
+            c2d = dataclasses.replace(cfg, moe_ep2d=True)
+            t0 = time.perf_counter()
+            lg2d, _ = steps.make_prefill(c2d, mesh, axes)(
+                params, {"tokens": toks})
+            sync()
+            t_2d = time.perf_counter() - t0
+        seg = scatter.LAUNCHES
+        own = (torch.cuda.max_memory_allocated() / 1e6 - held if on_card
+               else 0.0)
+        o = torch.cat(out, 1).cpu().numpy()
+        if o.shape != (B, MESH_GEN + 1) or not ((o >= 0)
+                                               & (o < cfg.vocab)).all():
+            raise AssertionError(f"mesh serve: tokens {o.shape} out of "
+                                 f"range")
+        if not (torch.isfinite(logits).all() and torch.isfinite(lg2d).all()
+                and torch.isfinite(lg).all()):
+            raise AssertionError("mesh serve: logits not finite")
+        by = {}
+        for d in log:
+            n = by.setdefault(d["path"], [0, 0, 0, 0])
+            n[0] += 1
+            n[1] += d["routed"]
+            n[2] += int(d["sent"])
+            n[3] += int(d["kept"])
+        if sorted(by) != ["a2a", "ep2d", "rep"] or by["rep"][0] != MESH_GEN:
+            raise AssertionError(f"mesh serve: dispatches {by}")
+        disp = "; ".join(
+            f"{p} ({n} dispatch{'es' if n > 1 else ''}): {r} slots routed, "
+            f"{s} past the send capacity, {k} kept, {r - k} dropped"
+            for p, (n, r, s, k) in sorted(by.items()))
+        # the unsharded prefill on the same tree: nothing dropped there
+        plain, _ = steps.make_prefill(cfg)(params, {"tokens": toks})
+        gap = lambda a: float((a.float() - plain.float()).abs().max())
+        stack = sum(params["layers"][n].numel()
+                    * params["layers"][n].element_size()
+                    for n in ("w1", "w3", "w2"))
+        rest = sum(t.numel() * t.element_size() for t in T.leaves(params)
+                   ) - stack
+        step_bytes = axes["ndp"] * stack + rest
+        bound_s = step_bytes / HBM_BYTES_PER_S
+        print(f"[33 serve] arctic-480b cut to L=1 of 35, all "
+              f"{cfg.n_experts} experts, on the logical {MESH_SHAPE[0]}x"
+              f"{MESH_SHAPE[1]} ('data', 'model') mesh of one card, batch "
+              f"{B}, prompt {S}: prefill (a2a) {t_pre:.3f} s, decode "
+              f"{MESH_GEN} steps {t_dec:.3f} s = {B * MESH_GEN / t_dec:.1f}"
+              f" tokens/s ({1e3 * t_dec / MESH_GEN:.2f} ms a step; bound "
+              f"{1e3 * bound_s:.2f} ms a step = {B / bound_s:.1f} tokens/s: "
+              f"the {stack / 1e9:.2f} GB expert stack read once for each of "
+              f"the {axes['ndp']} data rows and the other "
+              f"{rest / 1e9:.2f} GB once), ep2d prefill {t_2d:.3f} s; "
+              f"{disp}; prefill logits vs the unsharded prefill (nothing "
+              f"dropped): a2a max abs {gap(logits):.4g}, ep2d "
+              f"{gap(lg2d):.4g} (logit max {float(plain.abs().max()):.4g})"
+              + (f"; own peak {own:.0f} MB (phases before held {held:.0f} "
+                 f"MB)" if on_card else "") + f" ({card})", flush=True)
+        if on_card:
+            from torch.profiler import ProfilerActivity, profile
+            sync()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                dec(params, cache, out[-1])
+                sync()
+                wall = time.perf_counter() - t0
+            spans, busy, by_name = device_activity(prof)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+            print(f"[33 profile] one decode step on the mesh in "
+                  f"{1e3 * wall:.1f} ms (profiled): {len(spans)} device "
+                  f"activities, busy {busy / 1e3:.1f} ms (share "
+                  f"{busy / 1e6 / wall:.3f}); by kernel ms: " + "; ".join(
+                      f"{n[:60]} {t / 1e3:.2f}" for n, t in top)
+                  + f" ({card})", flush=True)
+        others = {k: v - counts0[k] for k, v in launch_counts().items()
+                  if k != "segment_add"}
+        print(f"[33 kernels] segment_add launches on the served path: {seg}"
+              f" (the combine's scatter-add, one a cell a dispatch: "
+              f"{len(log)} dispatches x {mesh.size} cells), in the cut's "
+              f"checks {seg_cut}; the other kernels' {others}", flush=True)
+        if on_card and seg != len(log) * mesh.size:
+            raise AssertionError(f"segment_add launched {seg} times in "
+                                 f"{len(log)} dispatches")
+        if any(others.values()):
+            raise AssertionError("phase 33 launched a kernel it should not")
+    finally:
+        if prev is None:
+            os.environ.pop(M.LOGICAL_DEVICES, None)
+        else:
+            os.environ[M.LOGICAL_DEVICES] = prev
+    print(f"[33 done] phase 33 in {time.perf_counter() - t_phase:.1f} s "
+          f"(the cut {t_cut:.1f} s) ({card})", flush=True)
+    return seg
 
 
 # phase 31: llama3-405b and arctic-480b trained in their own bfloat16
@@ -6726,6 +7210,7 @@ def main(argv=None) -> int:
               "rehearsal; the card runs the full configurations",
               file=sys.stderr)
         return 2
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch import convert, prng
     from repro_torch.core import simlsh
@@ -6742,6 +7227,11 @@ def main(argv=None) -> int:
                                    window_slices)
 
     t_start = time.perf_counter()
+    # phase 8's host-side ratings, made beside the build and phases 3–4
+    # (which time nothing); phase 5 waits for them before it serves
+    pool = ThreadPoolExecutor(max_workers=1)
+    fit_job = pool.submit(fit_data, args)
+    pool.shutdown(wait=False)
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 (the default)
     torch.backends.cudnn.allow_tf32 = False
 
@@ -6846,6 +7336,11 @@ def main(argv=None) -> int:
           f"B={b_odd}, and topn=50 (two selection passes)", flush=True)
 
     # ---- 5. serve: the main path, counters zeroed just before ----
+    t0 = time.perf_counter()
+    fit_in = fit_job.result()
+    print(f"[8 data] the fit's ratings made on the host in {fit_in[2]:.1f} "
+          f"s beside phases 2-4; phase 5 waited {time.perf_counter() - t0:.1f}"
+          f" s for them", flush=True)
     lsh_kernel.LAUNCHES = 0
     score_kernel.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -6953,7 +7448,7 @@ def main(argv=None) -> int:
              ms=sc_ms, plain_ms=sc_plain, bound_ms=sc_bound,
              bound_by=sc_by, library_ms=None),
     ]
-    entries, ctx = fit_phases(args, dev, on_card, power)
+    entries, ctx = fit_phases(args, fit_in, dev, on_card, power)
     kernels += entries
     kernels.append(encode_phase(sp, lsh, prng.PRNGKey(args.seed, device=dev),
                                 sigs, dev, on_card, power))
@@ -6992,17 +7487,22 @@ def main(argv=None) -> int:
         draws.phase = "29"
         frontend_train_phase(args, dev, on_card, power)
         draws.phase = "30"
-        bf16_phase(args, dev, on_card, power)
+        arctic = bf16_phase(args, dev, on_card, power)
+        draws.phase = "33"
+        seg33 = mesh_phase(args, *arctic, dev, on_card, power)
+        del arctic
+        gc_collect(on_card)
         draws.phase = "31"
         bf16_train_phase(args, dev, on_card, power)
     finally:
         draws.uninstall()
     roofline_phase(draws, on_card, power)
-    for k in kernels:                  # phase 16's main path and phase 24's
+    for k in kernels:        # phase 16's main path, phase 24's and 33's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "
-                  f"{k['launches']}, phase 24 {seg24}", flush=True)
-            k["launches"] += seg24
+                  f"{k['launches']}, phase 24 {seg24}, phase 33 {seg33}",
+                  flush=True)
+            k["launches"] += seg24 + seg33
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if not on_card:
         print("chip_smoke: CPU rehearsal finished; a result needs a CUDA "

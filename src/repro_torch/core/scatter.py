@@ -26,6 +26,9 @@ collide.  Not `torch.use_deterministic_algorithms`, a process-wide
 switch that changes other operators and makes some raise; not
 `scatter_reduce_`, which is just as atomic.
 
+`gather_rows` is a row gather whose backward goes through
+`index_add_det_`: the gathered ids repeat.
+
 ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
@@ -36,8 +39,8 @@ import torch
 
 from repro_torch.kernels import _build, KernelTypeError, KernelValueError
 
-__all__ = ["LAUNCHES", "SegmentPlan", "index_add_det_", "index_add_det",
-           "segment_plan"]
+__all__ = ["LAUNCHES", "SegmentPlan", "gather_rows", "index_add_det_",
+           "index_add_det", "segment_plan"]
 
 LAUNCHES = 0
 
@@ -117,3 +120,32 @@ def index_add_det(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
     """Out-of-place `index_add_det_`: a copy of ``dst`` with the rows
     added."""
     return index_add_det_(dst.clone(), idx, src, plan=plan)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``E[idx]``; the backward adds the rows' gradients into ``E``'s in
+    index order (`index_add_det_`), in float32 and rounded to the
+    gradient's dtype once."""
+
+    @staticmethod
+    def forward(ctx, E, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = E.shape[0]
+        return E[idx.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        gE = torch.zeros((ctx.rows, g.shape[-1]), dtype=torch.float32,
+                         device=g.device)
+        index_add_det_(gE, idx.reshape(-1).long(),
+                       g.reshape(-1, g.shape[-1]).float())
+        return gE.to(g.dtype), None
+
+
+def gather_rows(E: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``E[idx]`` ([*idx.shape, D]) with a deterministic backward: the ids
+    repeat (a label token, a candidate drawn twice, the k slots of one
+    token), and autograd's own backward of an index adds them with
+    atomics on the card, in an order that changes from run to run."""
+    return _GatherRows.apply(E, idx)

@@ -1,5 +1,7 @@
-"""The shard mesh of the multi-device tiers (`repro/launch/mesh.py`'s
-`make_shard_mesh` and `serve_shard_count`).
+"""The meshes of the multi-device paths (`repro/launch/mesh.py`): the
+1-D shard mesh of the LSH-MF tiers (`make_shard_mesh`,
+`serve_shard_count`) and the LM meshes (`compat_mesh`, `make_host_mesh`,
+`make_production_mesh`, `use_mesh`).
 
 The JAX package drives D devices from one process through
 `jax.shard_map`.  The port keeps that single-controller shape: a
@@ -7,6 +9,14 @@ The JAX package drives D devices from one process through
 live on its device, and the two collectives the tiers use are explicit
 copies (`psum`, `ppermute`).  On a host with D cards the mesh is
 ``cuda:0 … cuda:D−1``.
+
+An `LMMesh` is the same idea over named axes (``("data", "model")`` or
+``("pod", "data", "model")``): an ordered grid of cells, cell ``c`` a
+tuple of coordinates in row-major order living on one device.  A
+`shard_map` region of the reference runs here one cell after another on
+that cell's block (`models/sharding.py::NamedSharding.blocks`), and its
+collectives are `all_to_all` and `psum_over` across the cells of the
+named axes, copies made in the cells' order.
 
 ``REPRO_TORCH_LOGICAL_DEVICES=n`` makes `device_count` report ``n``
 devices that all live on the caller's one device (the CPU or one card):
@@ -19,9 +29,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
+import math
 import os
 
+import numpy as np
 import torch
+
+from repro_torch.device import resolve_device
 
 LOGICAL_DEVICES = "REPRO_TORCH_LOGICAL_DEVICES"
 
@@ -127,3 +142,160 @@ def ppermute(parts: list, perm) -> list:
         out[dst] = copy_to(parts[src], parts[dst].device)
     return [torch.zeros_like(p) if o is None else o
             for o, p in zip(out, parts)]
+
+
+# --------------------------------------------------------------------------
+# LM meshes: named axes over a grid of cells
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LMMesh:
+    """A grid of cells over named axes; cell ``c`` (a tuple of
+    coordinates, one an axis) lives on ``cell_devices[flat(c)]``, the
+    cells in row-major order (several cells may share one device)."""
+
+    axis_names: tuple[str, ...]
+    axis_sizes: tuple[int, ...]
+    cell_devices: tuple[torch.device, ...]
+
+    @property
+    def shape(self) -> dict:
+        """Axis name → size, in axis order (`jax.sharding.Mesh.shape`)."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.axis_sizes)
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The cells' devices as an object array of the mesh's shape."""
+        out = np.empty(self.size, dtype=object)
+        out[:] = list(self.cell_devices)
+        return out.reshape(self.axis_sizes)
+
+    def cells(self) -> list:
+        """Every cell's coordinates, in row-major order."""
+        return list(itertools.product(*(range(n) for n in self.axis_sizes)))
+
+    def device_of(self, cell) -> torch.device:
+        return self.cell_devices[int(np.ravel_multi_index(cell,
+                                                          self.axis_sizes))]
+
+    def index(self, cell, axes) -> int:
+        """``cell``'s index along ``axes`` (a name or a tuple of names,
+        the first the major one): `lax.axis_index` of those axes."""
+        i = 0
+        for a in _names(axes):
+            k = self.axis_names.index(a)
+            i = i * self.axis_sizes[k] + cell[k]
+        return i
+
+    def groups(self, axes) -> list:
+        """The cells split into the groups a collective over ``axes``
+        spans: cells that differ only along ``axes``, each group ordered
+        by `index` along them."""
+        names = _names(axes)
+        out = {}
+        for c in self.cells():
+            rest = tuple(x for a, x in zip(self.axis_names, c)
+                         if a not in names)
+            out.setdefault(rest, []).append(c)
+        return [sorted(g, key=lambda c: self.index(c, names))
+                for g in out.values()]
+
+
+def _names(axes) -> tuple:
+    """An axis entry (a name, a tuple of names or None) → its names."""
+    if axes is None:
+        return ()
+    return tuple(axes) if isinstance(axes, (tuple, list)) else (axes,)
+
+
+def compat_mesh(shape, axes, device=None) -> LMMesh:
+    """A mesh of ``shape`` over the named ``axes``, by `make_shard_mesh`'s
+    rule: the cards ``cuda:0 …`` when the host has as many as the mesh
+    has cells, else — where `LOGICAL_DEVICES` is at least that many —
+    logical cells of ``device`` (``cuda`` unless asked).  Raises when
+    neither holds: never a smaller mesh."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes) or len(set(axes)) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} do not match")
+    dev = resolve_device(device)
+    n = math.prod(shape)
+    if n < 1:
+        raise ValueError(f"a mesh needs ≥ 1 cell, got shape {shape}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if n > 1 and dev.type == "cuda" and torch.cuda.device_count() >= n:
+        cells = tuple(torch.device("cuda", d) for d in range(n))
+    elif n == 1 or n <= (_logical() or 0):
+        cells = (dev,) * n
+    else:
+        raise ValueError(f"a {'x'.join(map(str, shape))} mesh ({n} cells) "
+                         f"exceeds the {device_count(dev)} {dev.type} "
+                         f"device(s)")
+    return LMMesh(axes, shape, cells)
+
+
+def make_host_mesh(data: int = 2, model: int = 2, device=None) -> LMMesh:
+    """A small ``("data", "model")`` mesh (the CPU tests' 2 × 2)."""
+    return compat_mesh((data, model), ("data", "model"), device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None) -> LMMesh:
+    """16 × 16 ``("data", "model")``, or 2 × 16 × 16 ``("pod", "data",
+    "model")``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return compat_mesh(shape, axes, device)
+
+
+_MESHES: list = []
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: LMMesh):
+    """Install ``mesh`` as the current mesh (`current_mesh`) for the
+    block; sharding constraints are checked against it."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def current_mesh() -> LMMesh | None:
+    """The mesh `use_mesh` installed last, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+def all_to_all(parts: dict, mesh: LMMesh, axes, split_axis: int = 0,
+               concat_axis: int = 0) -> dict:
+    """`lax.all_to_all` over ``axes``: in each group of n cells
+    (`LMMesh.groups`), cell i's part splits into n chunks along
+    ``split_axis``, and cell j receives the j-th chunks of the group's
+    cells in group order, joined along ``concat_axis``, on its
+    device.  ``parts`` maps each cell to its tensor."""
+    out = {}
+    for group in mesh.groups(axes):
+        chunks = [parts[c].chunk(len(group), split_axis) for c in group]
+        for j, c in enumerate(group):
+            dev = mesh.device_of(c)
+            out[c] = torch.cat([ch[j].to(dev) for ch in chunks], concat_axis)
+    return out
+
+
+def psum_over(parts: dict, mesh: LMMesh, axes) -> dict:
+    """`lax.psum` over ``axes``: in each group the parts summed in group
+    order on the first cell's device, then a copy on each cell's."""
+    out = {}
+    for group in mesh.groups(axes):
+        dev0 = mesh.device_of(group[0])
+        total = parts[group[0]]
+        for c in group[1:]:
+            total = total + parts[c].to(dev0)
+        for c in group:
+            out[c] = total.to(mesh.device_of(c))
+    return out

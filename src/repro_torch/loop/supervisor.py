@@ -488,9 +488,11 @@ class OnlineLoop:
         than replay a different program.  ``base_state`` seeds a run that
         crashed before its first checkpoint.  A restored checkpoint lands
         on ``device``: by default ``base_state``'s device when one is
-        given, else the card.  The spans ``loop.recover.restore``,
-        ``resil.wal.replay`` (one per entry) and ``loop.recover.service``
-        split the time to recover."""
+        given, else the card.  Replay keeps the micro schedule while Ω̂
+        is stable, as the live loop does, and hands it to the recovered
+        loop.  The spans ``loop.recover.restore``, ``resil.wal.replay``
+        (one per entry) and ``loop.recover.service`` split the time to
+        recover."""
         reg = registry if registry is not None else obs.scoped()
         if device is None and base_state is not None:
             device = base_state.params.U.device
@@ -512,6 +514,7 @@ class OnlineLoop:
                            batch=batch, ckpt_every=10 ** 9, guard=guard,
                            registry=reg, _seq=step, _ckpt_seq=step)
         want = up._static_meta()
+        sched = None
         for e in up.wal.entries(after=step):
             for k, v in want.items():
                 if e.meta.get(k) != v:
@@ -528,13 +531,13 @@ class OnlineLoop:
                           for i in range(e.meta["n_deltas"])]
                 with reg.span("resil.wal.replay"):
                     try:
-                        up.state, _ = _apply_slice(
+                        up.state, sched = _apply_slice(
                             up.state, deltas, rounds=e.meta["rounds"],
                             epoch0=e.meta["epoch0"],
                             mkey=e.arrays["mkey"], lsh=lsh, hp=hp, K=K,
                             epochs=epochs, batch=batch,
                             micro_batch=e.meta["micro_batch"], guard=guard,
-                            registry=reg)
+                            registry=reg, sched=sched)
                     except DivergenceError:
                         reg.counter_add("loop.guard_trips")  # replay-stable
                 micro = e.meta["epoch0"] + e.meta["rounds"]
@@ -560,5 +563,7 @@ class OnlineLoop:
         with reg.span("loop.recover.service"):
             svc = cls.build_service(up.state, serve_cfg,
                                     tail_cap=cfg.tail_cap)
-        return cls(up, svc, cfg, holdout=holdout, registry=reg,
+        loop = cls(up, svc, cfg, holdout=holdout, registry=reg,
                    _slice=slice_, _micro=micro)
+        loop._sched = sched
+        return loop

@@ -10,8 +10,8 @@ Conventions, as the JAX package's:
 The JAX package's attention is plain `jnp` math, not a Pallas kernel, so
 its counterpart here is the same chunked masked softmax in `torch`.  The
 sequence-sharding helpers (`shard_acts`, `gather_seq`, `scatter_seq`)
-are not ported: one device holds the whole sequence (ROADMAP Queue 1
-item 9, `models/sharding.py`).
+are the reference's layout constraints: under its condition they check
+their spec against the mesh (`sharding.constrain`) and return ``x``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import math
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.sharding import P, constrain
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
           "float16": torch.float16}
@@ -136,3 +137,23 @@ def mlp(p, x):
     u = torch.einsum("bsd,df->bsf", x, p["w3"].to(x.dtype))
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return torch.einsum("bsf,fd->bsd", h, p["w2"].to(x.dtype))
+
+
+def shard_acts(x, cfg: ArchConfig, mesh_axes):
+    """Sequence-parallel layout of stored activations: ``P(dp, tp, None)``."""
+    if cfg.seq_shard_acts and x.ndim == 3 and mesh_axes:
+        return constrain(x, P(mesh_axes["dp"], mesh_axes["tp"], None))
+    return x
+
+
+def gather_seq(x, cfg: ArchConfig, mesh_axes):
+    """Megatron-SP entry: the sequence dim whole before a TP sub-layer,
+    ``P(dp, None, None)``."""
+    if cfg.seq_shard_acts and x.ndim == 3 and mesh_axes:
+        return constrain(x, P(mesh_axes["dp"], None, None))
+    return x
+
+
+def scatter_seq(x, cfg: ArchConfig, mesh_axes):
+    """Megatron-SP exit: back to the sequence-sharded residual."""
+    return shard_acts(x, cfg, mesh_axes)

@@ -14,10 +14,19 @@ cross-attention sub-layer on the encoder's output (`_forward_encdec`;
 the encoder's output reaches every decoder layer, so its gradient is
 the sum of the L layers' cross K/V products).  Layer stacks are dicts
 of tensors with a leading L dim, applied layer by layer (the JAX
-package's `lax.scan`); on one device there is no sharding constraint
-and no scheduling barrier (`_opt_barrier` pins the FSDP gathers of
-training).  Training remats each stacked layer, as the reference does
-(`_scan_layers`); the hybrid's shared block is not rematerialised.
+package's `lax.scan`); there is no scheduling barrier (`_opt_barrier`
+pins the FSDP gathers of training).  Training remats each stacked
+layer, as the reference does (`_scan_layers`); the hybrid's shared block
+is not rematerialised.
+
+``mesh`` / ``mesh_axes`` (an `LMMesh` and `sharding.mesh_axes` of it)
+follow the reference's call sites: the moe family's experts run on the
+mesh (`moe.moe_ffn`, or `moe.moe_ffn_ep2d` with ``cfg.moe_ep2d``),
+whose capacities may drop slots; every other use of the mesh is a
+sharding constraint, checked and leaving the values as they are
+(`shard_vocab`, `layers.shard_acts` / `gather_seq` / `scatter_seq`, the
+ring layout of attention whose heads the model axis does not divide).
+``mesh=None``, the default, is the single-device path.
 
 Weights are kept in ``cfg.param_dtype`` (float32, or bfloat16 for
 llama3-405b and arctic-480b) and cast to ``cfg.dtype`` (bfloat16) where
@@ -27,6 +36,7 @@ copied.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -36,9 +46,11 @@ import torch.utils.checkpoint
 from repro_torch import prng
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import use_mesh
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
+from repro_torch.models.sharding import P, constrain
 
 PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # stacks of attention blocks: a K/V cache, prefilled by one forward
@@ -232,7 +244,7 @@ def init_params(cfg: ArchConfig, key, model_shards: int = 16, device=None):
 
 
 def _attn_sublayer(pl, x, cfg, *, causal, q_offset=0, window=0,
-                   kv_cache=None, cache_pos=None):
+                   kv_cache=None, cache_pos=None, mesh_axes=None):
     """Attention residual sub-layer.
 
     Returns (x', info) with info["kv"] = this block's (roped) K/V — what a
@@ -240,9 +252,16 @@ def _attn_sublayer(pl, x, cfg, *, causal, q_offset=0, window=0,
     when one was passed in (decode), written in place at ``cache_pos``
     (the JAX package's `dynamic_update_slice`, start clamped alike).
     """
-    xn = L.rms_norm(x, pl["ln1"], cfg.norm_eps)
+    xn = L.gather_seq(L.rms_norm(x, pl["ln1"], cfg.norm_eps), cfg, mesh_axes)
     q, k, v = L.qkv_proj(pl, xn, cfg)
     S = xn.shape[1]
+    if mesh_axes and cfg.n_heads_padded % mesh_axes["ntp"] != 0 and S > 1:
+        # ring-attention layout: queries sequence-sharded over tp, K/V
+        # whole over tp (heads the model axis does not divide)
+        dp, tp = mesh_axes["dp"], mesh_axes["tp"]
+        q = constrain(q, P(dp, tp, None, None))
+        k = constrain(k, P(dp, None, None, None))
+        v = constrain(v, P(dp, None, None, None))
     pos = q_offset + torch.arange(S, device=x.device)
     q = L.rope(q, pos, cfg.rope_theta)
     k = L.rope(k, pos, cfg.rope_theta)
@@ -256,7 +275,8 @@ def _attn_sublayer(pl, x, cfg, *, causal, q_offset=0, window=0,
         info["cache"] = (ck, cv)
     o = L.attention(q, k, v, q_offset=q_offset, causal=causal,
                     query_chunk=cfg.query_chunk, window=window)
-    return x + L.attn_out(pl, o, x.dtype), info
+    return x + L.scatter_seq(L.attn_out(pl, o, x.dtype), cfg,
+                             mesh_axes), info
 
 
 def _cross_sublayer(plx, h, xk, xv, cfg):
@@ -277,24 +297,41 @@ def _cross_kv(plx, xe):
                  for n in ("wk", "wv"))
 
 
-def _ffn_sublayer(pl, x, cfg):
+def _ffn_sublayer(pl, x, cfg, mesh=None, mesh_axes=None, shard_seq=True):
+    """The MLP residual sub-layer; the moe family's routed experts run
+    `moe_dense_ref` without a mesh, else `moe_ffn_ep2d` (with
+    ``cfg.moe_ep2d`` and ``shard_seq``) or `moe_ffn` at
+    ``cfg.moe_capacity``, then arctic's dense residual MLP."""
     check_family(cfg)
     xn = L.rms_norm(x, pl["ln2"], cfg.norm_eps)
     if cfg.family == "moe" and cfg.n_experts:
         eid, gate = MOE.router(pl, xn, cfg)
-        y = MOE.moe_dense_ref(pl, xn, eid, gate, cfg)
+        if mesh is None:
+            y = MOE.moe_dense_ref(pl, xn, eid, gate, cfg)
+        elif cfg.moe_ep2d and shard_seq:
+            y = MOE.moe_ffn_ep2d(pl, xn, eid, gate, cfg, mesh, mesh_axes,
+                                 capacity_factor=cfg.moe_capacity)
+        else:
+            y = MOE.moe_ffn(pl, xn, eid, gate, cfg, mesh, mesh_axes,
+                            capacity_factor=cfg.moe_capacity,
+                            shard_seq=shard_seq)
         if cfg.moe_dense_ff:
-            y = y + L.mlp(dict(w1=pl["w1d"], w3=pl["w3d"], w2=pl["w2d"]), xn)
+            xg = L.gather_seq(xn, cfg, mesh_axes)
+            y = y + L.scatter_seq(
+                L.mlp(dict(w1=pl["w1d"], w3=pl["w3d"], w2=pl["w2d"]), xg),
+                cfg, mesh_axes)
         return x + y
-    return x + L.mlp(pl, x=xn)
+    xg = L.gather_seq(xn, cfg, mesh_axes)
+    return x + L.scatter_seq(L.mlp(pl, x=xg), cfg, mesh_axes)
 
 
-def _dense_block(pl, x, cfg, *, causal=True, q_offset=0, window=0,
-                 kv_cache=None, cache_pos=None):
+def _dense_block(pl, x, cfg, mesh=None, mesh_axes=None, *, causal=True,
+                 q_offset=0, window=0, kv_cache=None, cache_pos=None,
+                 shard_seq=True):
     x, info = _attn_sublayer(pl, x, cfg, causal=causal, q_offset=q_offset,
                              window=window, kv_cache=kv_cache,
-                             cache_pos=cache_pos)
-    x = _ffn_sublayer(pl, x, cfg)
+                             cache_pos=cache_pos, mesh_axes=mesh_axes)
+    x = _ffn_sublayer(pl, x, cfg, mesh, mesh_axes, shard_seq=shard_seq)
     return x, info
 
 
@@ -328,15 +365,27 @@ def _scan_layers(body, x, per_layer: list, remat: bool = False):
     return x
 
 
-def embed_tokens(p, cfg, tokens):
+def shard_vocab(x, mesh_axes):
+    """Pin a [..., V] tensor to the table's vocab layout, ``P(dp, …,
+    tp)`` (a constraint: ``x`` is returned as it is)."""
+    if mesh_axes and x.ndim >= 2:
+        return constrain(x, P(*([mesh_axes["dp"]] + [None] * (x.ndim - 2)
+                                + [mesh_axes["tp"]])))
+    return x
+
+
+def embed_tokens(p, cfg, tokens, mesh_axes=None, one_hot=True):
     """Token lookup as the reference's one-hot product in ``cfg.dtype``
-    (its vocab-sharded form; one device computes the same product)."""
+    (its vocab-sharded form), or with ``one_hot=False`` its row gather."""
     dt = L.torch_dtype(cfg.dtype)
+    if not one_hot:
+        return p["embed"][tokens.long()].to(dt)
     V = p["embed"].shape[0]
     # a comparison, not `F.one_hot`, whose range check reads the ids back
     # to the host (a stream sync every decode step)
-    oh = (tokens.long()[..., None]
-          == torch.arange(V, device=tokens.device)).to(dt)
+    oh = shard_vocab((tokens.long()[..., None]
+                      == torch.arange(V, device=tokens.device)).to(dt),
+                     mesh_axes)
     return torch.einsum("bsv,vd->bsd", oh, p["embed"].to(dt))
 
 
@@ -344,37 +393,57 @@ def out_embedding(p, cfg):
     return p["embed"] if cfg.tie_embeddings else p["out_embed"]
 
 
-def _ssm_body(cfg: ArchConfig):
+def _ssm_body(cfg: ArchConfig, mesh_axes=None):
     """One Mamba2 residual layer, ``(pl, h) → h``."""
     def body(pl, h):
-        y = SSM.mamba_block(pl, L.rms_norm(h, pl["ln"], cfg.norm_eps),
-                            cfg)[0]
-        return h + y
+        xn = L.gather_seq(L.rms_norm(h, pl["ln"], cfg.norm_eps), cfg,
+                          mesh_axes)
+        return h + L.scatter_seq(SSM.mamba_block(pl, xn, cfg)[0], cfg,
+                                 mesh_axes)
     return body
 
 
-def forward(cfg: ArchConfig, p, batch):
+def _acts(body, cfg, mesh_axes):
+    """``body`` with the stored activations' layout after it (the
+    reference's `_scan_layers` step)."""
+    if not mesh_axes:
+        return body
+    return lambda pl, h: L.shard_acts(body(pl, h), cfg, mesh_axes)
+
+
+def mesh_context(mesh):
+    """`use_mesh(mesh)`, or nothing without a mesh."""
+    return contextlib.nullcontext() if mesh is None else use_mesh(mesh)
+
+
+def forward(cfg: ArchConfig, p, batch, mesh=None, mesh_axes=None):
     """Token inputs → final hidden states [B, S, D] (normed).  With a
     frontend stub (vlm, or ``cfg.frontend == "embed_stub"`` outside
     encdec) ``batch["frontend_embeds"]`` [B, P, D], when given, is cast
     to ``cfg.dtype`` and prepended: the states are [B, P + S, D], causal
     over the prefix too.  encdec encodes the frontend embeddings and
-    returns the decoder's states over the tokens (`_forward_encdec`)."""
+    returns the decoder's states over the tokens (`_forward_encdec`).
+    With ``mesh`` the moe family's experts run on it (module docstring)."""
     check_family(cfg)
-    if cfg.family == "encdec":
-        return _forward_encdec(cfg, p, batch)
-    x = embed_tokens(p, cfg, batch["tokens"])
-    if ((cfg.family == "vlm" or cfg.frontend == "embed_stub")
-            and "frontend_embeds" in batch):
-        x = torch.cat([L.cast(batch["frontend_embeds"], cfg), x], dim=1)
-    if cfg.family in KV_FAMILIES:
-        body = lambda pl, h: _dense_block(pl, h, cfg)[0]
-        x = _scan_layers(body, x, unstack(p["layers"]), cfg.remat)
-    elif cfg.family == "ssm":
-        x = _scan_layers(_ssm_body(cfg), x, unstack(p["layers"]), cfg.remat)
-    else:
-        x = _forward_hybrid(cfg, p, x)
-    return L.rms_norm(x, p["final_norm"], cfg.norm_eps)
+    with mesh_context(mesh):
+        if cfg.family == "encdec":
+            return _forward_encdec(cfg, p, batch, mesh, mesh_axes)
+        x = embed_tokens(p, cfg, batch["tokens"], mesh_axes)
+        if ((cfg.family == "vlm" or cfg.frontend == "embed_stub")
+                and "frontend_embeds" in batch):
+            x = torch.cat([L.cast(batch["frontend_embeds"], cfg), x], dim=1)
+        if cfg.family in KV_FAMILIES:
+            body = lambda pl, h: _dense_block(pl, h, cfg, mesh,
+                                              mesh_axes)[0]
+            x = _scan_layers(_acts(body, cfg, mesh_axes), x,
+                             unstack(p["layers"]), cfg.remat)
+        elif cfg.family == "ssm":
+            x = _scan_layers(_acts(_ssm_body(cfg, mesh_axes), cfg,
+                                   mesh_axes), x, unstack(p["layers"]),
+                             cfg.remat)
+        else:
+            x = _forward_hybrid(cfg, p, x, mesh, mesh_axes)
+        return L.rms_norm(x, p["final_norm"], cfg.norm_eps)
 
 
 def _hybrid_groups(cfg: ArchConfig):
@@ -388,41 +457,45 @@ def _hybrid_groups(cfg: ArchConfig):
     return out
 
 
-def _forward_hybrid(cfg, p, x):
+def _forward_hybrid(cfg, p, x, mesh=None, mesh_axes=None):
     """The shared block (with the hybrid ``cfg``), then the group's Mamba2
     layers, for each group; the layers are unstacked once, so each
     weight's gradient is stacked once over all the groups."""
     per_layer = unstack(p["layers"])
-    body = _ssm_body(cfg)
+    body = _acts(_ssm_body(cfg, mesh_axes), cfg, mesh_axes)
     for start, size in _hybrid_groups(cfg):
-        x, _ = _dense_block(p["shared_attn"], x, cfg, causal=True)
+        x, _ = _dense_block(p["shared_attn"], x, cfg, mesh, mesh_axes,
+                            causal=True)
         x = _scan_layers(body, x, per_layer[start:start + size], cfg.remat)
     return x
 
 
-def _encode(cfg: ArchConfig, p, frontend_embeds):
+def _encode(cfg: ArchConfig, p, frontend_embeds, mesh=None, mesh_axes=None):
     """encdec's encoder: the frame embeddings [B, T, D] in ``cfg.dtype``
     through ``p["enc"]``'s dense layers, bidirectional (still roped, as
     the reference's self-attention always is), then ``enc_norm``."""
-    body = lambda pl, h: _dense_block(pl, h, cfg, causal=False)[0]
-    xe = _scan_layers(body, L.cast(frontend_embeds, cfg), unstack(p["enc"]),
+    body = lambda pl, h: _dense_block(pl, h, cfg, mesh, mesh_axes,
+                                      causal=False)[0]
+    xe = _scan_layers(_acts(body, cfg, mesh_axes),
+                      L.cast(frontend_embeds, cfg), unstack(p["enc"]),
                       cfg.remat)
     return L.rms_norm(xe, p["enc_norm"], cfg.norm_eps)
 
 
-def _forward_encdec(cfg, p, batch):
+def _forward_encdec(cfg, p, batch, mesh=None, mesh_axes=None):
     """The encoder over ``batch["frontend_embeds"]``, then each decoder
     layer: causal self-attention, cross-attention on the encoder's
     output (`_cross_kv`), the MLP; then ``final_norm``."""
-    xe = _encode(cfg, p, batch["frontend_embeds"])
+    xe = _encode(cfg, p, batch["frontend_embeds"], mesh, mesh_axes)
 
     def body(pls, h):
         pl, plx = pls
-        h, _ = _attn_sublayer(pl, h, cfg, causal=True)
+        h, _ = _attn_sublayer(pl, h, cfg, causal=True, mesh_axes=mesh_axes)
         h = _cross_sublayer(plx, h, *_cross_kv(plx, xe), cfg)
-        return _ffn_sublayer(pl, h, cfg)
+        return _ffn_sublayer(pl, h, cfg, mesh, mesh_axes)
 
-    x = _scan_layers(body, embed_tokens(p, cfg, batch["tokens"]),
+    x = _scan_layers(_acts(body, cfg, mesh_axes),
+                     embed_tokens(p, cfg, batch["tokens"], mesh_axes),
                      list(zip(unstack(p["dec"]), unstack(p["dec_cross"]))),
                      cfg.remat)
     return L.rms_norm(x, p["final_norm"], cfg.norm_eps)

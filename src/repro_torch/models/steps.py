@@ -14,6 +14,12 @@ given; the cache's ``pos`` is a host int.  A microbatched step whose
 parameters are all in ``cfg.grad_dtype`` accumulates its gradients in
 place (`_accumulate_in_place`), and `adam_update` divides a bfloat16
 sum slice by slice.
+
+``mesh`` / ``mesh_axes`` are the reference's: the moe family's experts
+run on the mesh (`lm.py`), prefill and training through the a2a
+dispatch, decode through the replicated one (``shard_seq=False``); the
+logits' vocab layout and the gradients' parameter layout (`pin_grads`)
+are checked constraints.  ``mesh=None`` is the single-device path.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.core import scatter
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import lm
+from repro_torch.models import sharding as SH
 from repro_torch.models import ssm as SSM
 
 # --------------------------------------------------------------------------
@@ -32,41 +39,13 @@ from repro_torch.models import ssm as SSM
 # --------------------------------------------------------------------------
 
 
-class _GatherRows(torch.autograd.Function):
-    """``E[idx]`` whose backward adds the rows' gradients into ``E``'s in
-    index order (`core/scatter.py::index_add_det_`): the ids repeat (a
-    label token, a candidate drawn twice), and autograd's own backward
-    of an index adds them with atomics on the card, in an order that
-    changes from run to run."""
-
-    @staticmethod
-    def forward(ctx, E, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = E.shape[0]
-        return E[idx.long()]
-
-    @staticmethod
-    def backward(ctx, g):
-        idx, = ctx.saved_tensors
-        gE = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype,
-                         device=g.device)
-        scatter.index_add_det_(gE, idx.reshape(-1).long(),
-                               g.reshape(-1, g.shape[-1]))
-        return gE, None
-
-
-def gather_rows(E: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``E[idx]`` ([*idx.shape, D]) with a deterministic backward."""
-    return _GatherRows.apply(E, idx)
-
-
-def lm_loss(cfg: ArchConfig, p, batch):
+def lm_loss(cfg: ArchConfig, p, batch, mesh=None, mesh_axes=None):
     """Mean next-token NLL over ``batch["mask"]`` (default: every token).
     With ``cfg.lsh_softmax`` and ``batch["cands"]`` the normaliser runs
     over the candidates and the label (the paper's technique at the
     softmax, `models/lsh_softmax.py`), else over the whole vocabulary."""
     lm.check_family(cfg)
-    h = lm.forward(cfg, p, batch)                            # [B, S_all, D]
+    h = lm.forward(cfg, p, batch, mesh, mesh_axes)           # [B, S_all, D]
     labels = batch["labels"]
     S_txt = labels.shape[1]
     if h.shape[1] != S_txt:                                  # frontend prefix
@@ -82,16 +61,16 @@ def lm_loss(cfg: ArchConfig, p, batch):
     h32 = h.float()
     if cfg.lsh_softmax and "cands" in batch:
         cands = batch["cands"]
-        Ec = gather_rows(E, cands).to(dt)                    # [C, D]
+        Ec = scatter.gather_rows(E, cands).to(dt)            # [C, D]
         logits_c = h32 @ Ec.float().T
-        e_lab = gather_rows(E, labels).to(dt)                # [B, S, D]
+        e_lab = scatter.gather_rows(E, labels).to(dt)        # [B, S, D]
         logit_lab = (h32 * e_lab.float()).sum(-1)
         # exclude accidental label hits among the candidates
         hit = cands[None, None, :] == labels[..., None]
         logits_c = torch.where(hit, -1e30, logits_c)
         lse = torch.logaddexp(torch.logsumexp(logits_c, -1), logit_lab)
     else:
-        logits = logits_of(cfg, p, h)
+        logits = lm.shard_vocab(logits_of(cfg, p, h), mesh_axes)
         lse = torch.logsumexp(logits, -1)
         # the reference's masked one-hot sum: every other term is an
         # exact 0, so the gathered label column is the same float
@@ -100,12 +79,13 @@ def lm_loss(cfg: ArchConfig, p, batch):
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def value_and_grad(cfg: ArchConfig, params, batch):
+def value_and_grad(cfg: ArchConfig, params, batch, mesh=None,
+                   mesh_axes=None):
     """(`lm_loss`, ∂ `lm_loss` / ∂params as a tree shaped like
     ``params``) by autograd; ``params`` itself is left without grad."""
     lm.check_family(cfg)
     tp = T.tree_map(lambda t: t.detach().requires_grad_(True), params)
-    loss = lm_loss(cfg, tp, batch)
+    loss = lm_loss(cfg, tp, batch, mesh, mesh_axes)
     g = torch.autograd.grad(loss, T.leaves(tp))
     return loss.detach(), T.unflatten(params, list(g))
 
@@ -185,7 +165,8 @@ def adam_update(cfg: ArchConfig, params, grads, opt, *, lr=3e-4, b1=0.9,
 # --------------------------------------------------------------------------
 
 
-def _accumulate_in_place(cfg, params, mbs, rest, mb_mask):
+def _accumulate_in_place(cfg, params, mbs, rest, mb_mask, mesh=None,
+                         mesh_axes=None):
     """(Σ w_i·loss_i, Σ w_i·∂loss_i/∂params) over the microbatches, the
     gradients summed into one tree in the parameters' dtype as the
     backward passes make them: each leaf's ``.grad`` starts at zeros and
@@ -202,13 +183,14 @@ def _accumulate_in_place(cfg, params, mbs, rest, mb_mask):
     dev = leaves[0].device
     loss = torch.zeros((), dtype=torch.float32, device=dev)
     for i, w in enumerate(mb_mask.to(dev)):
-        l_i = lm_loss(cfg, tp, {k: v[i] for k, v in mbs.items()} | rest)
+        l_i = lm_loss(cfg, tp, {k: v[i] for k, v in mbs.items()} | rest,
+                      mesh, mesh_axes)
         torch.autograd.backward(l_i, grad_tensors=w, inputs=leaves)
         loss = loss + w * l_i.detach()
     return loss, T.unflatten(params, [t.grad for t in leaves])
 
 
-def make_train_step(cfg: ArchConfig, lr=3e-4):
+def make_train_step(cfg: ArchConfig, mesh=None, mesh_axes=None, lr=3e-4):
     """→ ``train_step(params, opt, batch) → (params, opt, {"loss",
     "gnorm"})``.  With ``cfg.microbatches`` µ > 1 every batch entry whose
     leading dim is a multiple of µ (``cands`` too, as in the reference) is
@@ -223,14 +205,26 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
     microbatch gradient is rounded into a ``grad_dtype`` tree, as the
     reference does.  A float32 sum is divided by Σw in place; a bfloat16
     one, whose quotient is float32 in the reference (JAX's type
-    promotion), is divided slice by slice inside `adam_update`."""
+    promotion), is divided slice by slice inside `adam_update`.  With a
+    mesh each gradient's layout is checked against its parameter's spec
+    (`pin_grads`)."""
     lm.check_family(cfg)
     nmicro = max(1, cfg.microbatches)
+
+    def pin_grads(params, g):
+        if mesh_axes is None:
+            return g
+        with lm.mesh_context(mesh):
+            for leaf, spec in zip(T.leaves(g), SH.spec_leaves(
+                    SH.param_specs(cfg, params, mesh_axes))):
+                SH.constrain(leaf, spec)
+        return g
 
     def train_step(params, opt, batch):
         denom = None
         if nmicro == 1:
-            loss, grads = value_and_grad(cfg, params, batch)
+            loss, grads = value_and_grad(cfg, params, batch, mesh,
+                                         mesh_axes)
         else:
             batch = dict(batch)
             mb_mask = batch.pop("mb_mask", None)
@@ -247,7 +241,7 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
             denom = torch.clamp(mb_mask.sum(), min=1.0)
             if all(t.dtype == gd for t in T.leaves(params)):
                 loss, grads = _accumulate_in_place(cfg, params, mbs, rest,
-                                                   mb_mask)
+                                                   mb_mask, mesh, mesh_axes)
             else:
                 grads = T.tree_map(lambda x: torch.zeros(
                     x.shape, dtype=gd, device=x.device), params)
@@ -256,7 +250,7 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
                     w = mb_mask[i]
                     l_i, g = value_and_grad(
                         cfg, params, {k: v[i] for k, v in mbs.items()}
-                        | rest)
+                        | rest, mesh, mesh_axes)
                     grads = T.tree_map(
                         lambda a, b: a + (w * b).to(a.dtype), grads, g)
                     loss = loss + w * l_i
@@ -265,6 +259,7 @@ def make_train_step(cfg: ArchConfig, lr=3e-4):
                 for g in T.leaves(grads):
                     g.div_(denom)
                 denom = None
+        grads = pin_grads(params, grads)
         params, opt, gnorm = adam_update(cfg, params, grads, opt, lr=lr,
                                          denom=denom)
         return params, opt, dict(loss=loss, gnorm=gnorm)
@@ -388,16 +383,26 @@ def _decode_ssm_layer(pl, h, cfg, cache, i):
     return h + y
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None, mesh_axes=None):
     """→ ``decode(params, cache, tokens [B, 1]) → (logits [B, 1, V]
     float32, cache)``.  encdec's step writes its self-attention K/V at
     ``pos`` and reads the cross K/V (``cross_k`` / ``cross_v``, all T
-    slots) without changing them."""
+    slots) without changing them.  With a mesh the moe family's experts
+    run `moe.moe_ffn`'s replicated path (``shard_seq=False``)."""
     lm.check_family(cfg)
+
+    def logits(params, h):
+        return lm.shard_vocab(logits_of(cfg, params, h), mesh_axes)
+
+    def ffn(pl, h):
+        return lm._ffn_sublayer(pl, h, cfg, mesh, mesh_axes, shard_seq=False)
+
+    def embed(params, tokens):
+        return lm.embed_tokens(params, cfg, tokens, mesh_axes)
 
     @torch.no_grad()
     def decode_dense(params, cache, tokens):
-        x = lm.embed_tokens(params, cfg, tokens)                     # [B,1,D]
+        x = embed(params, tokens)                                    # [B,1,D]
         pos = cache["pos"]
         h = x
         for i in range(cfg.L):
@@ -405,24 +410,24 @@ def make_decode_step(cfg: ArchConfig):
             h, _ = lm._attn_sublayer(
                 pl, h, cfg, causal=True, q_offset=pos,
                 kv_cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
-            h = lm._ffn_sublayer(pl, h, cfg)
+            h = ffn(pl, h)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return logits_of(cfg, params, h), dict(cache, pos=pos + 1)
+        return logits(params, h), dict(cache, pos=pos + 1)
 
     @torch.no_grad()
     def decode_ssm(params, cache, tokens):
-        h = lm.embed_tokens(params, cfg, tokens)
+        h = embed(params, tokens)
         cache = dict(cache)
         for i in range(cfg.L):
             h = _decode_ssm_layer(lm.layer(params["layers"], i), h, cfg,
                                   cache, i)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         cache["pos"] += 1
-        return logits_of(cfg, params, h), cache
+        return logits(params, h), cache
 
     @torch.no_grad()
     def decode_hybrid(params, cache, tokens):
-        h = lm.embed_tokens(params, cfg, tokens)
+        h = embed(params, tokens)
         cache = dict(cache)
         pos = cache["pos"]
         Tw = cache["k"].shape[2]
@@ -432,17 +437,17 @@ def make_decode_step(cfg: ArchConfig):
                 params["shared_attn"], h, cfg, causal=True, q_offset=pos,
                 kv_cache=(cache["k"][gi], cache["v"][gi]),
                 cache_pos=pos % Tw)
-            h = lm._ffn_sublayer(params["shared_attn"], h, cfg)
+            h = ffn(params["shared_attn"], h)
             for i in range(start, start + size):
                 h = _decode_ssm_layer(lm.layer(params["layers"], i), h, cfg,
                                       cache, i)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         cache["pos"] = pos + 1
-        return logits_of(cfg, params, h), cache
+        return logits(params, h), cache
 
     @torch.no_grad()
     def decode_encdec(params, cache, tokens):
-        h = lm.embed_tokens(params, cfg, tokens)
+        h = embed(params, tokens)
         pos = cache["pos"]
         for i in range(cfg.L):
             pl = lm.layer(params["dec"], i)
@@ -454,28 +459,41 @@ def make_decode_step(cfg: ArchConfig):
                 lm.layer(params["dec_cross"], i), h,
                 cache["cross_k"][i].to(h.dtype),
                 cache["cross_v"][i].to(h.dtype), cfg)
-            h = lm._ffn_sublayer(pl, h, cfg)
+            h = ffn(pl, h)
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return logits_of(cfg, params, h), dict(cache, pos=pos + 1)
+        return logits(params, h), dict(cache, pos=pos + 1)
 
-    return {"dense": decode_dense, "moe": decode_dense, "vlm": decode_dense,
-            "ssm": decode_ssm, "hybrid": decode_hybrid,
-            "encdec": decode_encdec}[cfg.family]
+    return _on_mesh(mesh, {
+        "dense": decode_dense, "moe": decode_dense, "vlm": decode_dense,
+        "ssm": decode_ssm, "hybrid": decode_hybrid,
+        "encdec": decode_encdec}[cfg.family])
 
 
-def make_prefill(cfg: ArchConfig):
+def _on_mesh(mesh, fn):
+    """``fn`` run under `use_mesh(mesh)` (``fn`` itself without a mesh)."""
+    if mesh is None:
+        return fn
+
+    def run(*args):
+        with lm.mesh_context(mesh):
+            return fn(*args)
+    return run
+
+
+def make_prefill(cfg: ArchConfig, mesh=None, mesh_axes=None):
     """Forward over the prompt → (last-token logits [B, V] float32, cache).
     The dense, moe and vlm families' cache holds the K/V of the prompt —
     behind ``batch["frontend_embeds"]`` [B, P, D] when given, so T = P +
     S positions — in bfloat16, and ``pos`` = T.  The ssm, hybrid and
     encdec families' is ``{"pos": S}`` alone, as in the reference: their
     prefill is the forward, and it fills no cache (`launch/serve.py`
-    prefills them by sequential decode)."""
+    prefills them by sequential decode).  With a mesh the moe family's
+    experts run `moe.moe_ffn`'s a2a path (or `moe_ffn_ep2d`)."""
     lm.check_family(cfg)
 
     @torch.no_grad()
     def prefill_dense(params, batch):
-        x = lm.embed_tokens(params, cfg, batch["tokens"])
+        x = lm.embed_tokens(params, cfg, batch["tokens"], mesh_axes)
         if "frontend_embeds" in batch:
             x = torch.cat([L.cast(batch["frontend_embeds"], cfg), x], dim=1)
         T = x.shape[1]
@@ -484,7 +502,8 @@ def make_prefill(cfg: ArchConfig):
             pl = lm.layer(params["layers"], i)
             h, info = lm._attn_sublayer(pl, h, cfg, causal=True)
             k, v = info["kv"]
-            h = lm._ffn_sublayer(pl, h, cfg)
+            h = L.shard_acts(lm._ffn_sublayer(pl, h, cfg, mesh, mesh_axes),
+                             cfg, mesh_axes)
             ks.append(k.to(torch.bfloat16))
             vs.append(v.to(torch.bfloat16))
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -494,8 +513,9 @@ def make_prefill(cfg: ArchConfig):
 
     @torch.no_grad()
     def prefill_generic(params, batch):
-        h = lm.forward(cfg, params, batch)
+        h = lm.forward(cfg, params, batch, mesh, mesh_axes)
         return (logits_of(cfg, params, h[:, -1]),
                 {"pos": batch["tokens"].shape[1]})
 
-    return prefill_dense if cfg.family in lm.KV_FAMILIES else prefill_generic
+    return _on_mesh(mesh, prefill_dense if cfg.family in lm.KV_FAMILIES
+                    else prefill_generic)

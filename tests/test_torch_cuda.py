@@ -31,7 +31,11 @@ without a float32 copy of its output table, and reduced llama3-405b and
 arctic-480b's greedy tokens equal to the CPU's; with bfloat16
 parameters, gradient sum and moments their µ = 2 step equal to the
 CPU's, and a step whose memory rises by one table's gradient, not one a
-block.
+block.  The LM mesh on eight logical cells of the card: a one-layer
+moe cut's prefill, decode and train step equal to the CPU's on the same
+2 × 4 mesh (routes, kept slots, values; a2a and ep2d), and `moe_ffn` /
+`moe_ffn_ep2d` forward and backward bit-equal over two runs, the
+combine through `segment_add`.
 """
 import dataclasses
 import pathlib
@@ -2385,3 +2389,94 @@ def test_bfloat16_step_memory_on_card(cuda, monkeypatch):
     monkeypatch.setattr(steps, "_BlockedLogits", Sliced)
     ctrl = rise()
     assert ctrl > limit, (ctrl, limit)
+
+
+def _mesh_cut(name="arctic-480b", **kw):
+    """Reduced arctic-480b with 16 experts (top 2) at capacity 0.75, where
+    the dispatch drops slots, at float32."""
+    from repro_torch.configs import base as CB
+    return dataclasses.replace(CB.reduced(CB.get(name)), n_experts=16,
+                               moe_capacity=0.75, dtype="float32", **kw)
+
+
+@pytest.mark.parametrize("ep2d", [False, True])
+def test_lm_mesh_on_card_matches_cpu(cuda, monkeypatch, ep2d):
+    """A one-layer cut on the logical 2 × 4 mesh of the card and of the
+    CPU: prefill routes equal, then the kept-slot masks, then the logits
+    within 1e-4 of their max; the same for a decode step behind the
+    card's prefill caches (the replicated dispatch); a train step's loss
+    within 1e-5 and first moments within 1e-4 of each leaf's max.  Slots
+    are dropped."""
+    from chip_smoke import mesh_decode, mesh_prefill, mesh_train
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import lm
+    monkeypatch.setenv(M.LOGICAL_DEVICES, "8")
+    cfg = _mesh_cut(L=1, moe_ep2d=ep2d)
+    mc = M.compat_mesh((2, 4), ("data", "model"), device=cuda)
+    mh = M.compat_mesh((2, 4), ("data", "model"), device="cpu")
+    assert {d.type for d in mc.cell_devices} == {"cuda"}
+    p = lm.init_params(cfg, prng.PRNGKey(0), model_shards=1, device="cpu")
+    pc = T.tree_map(lambda t: t.to(cuda), p)
+    toks = torch.randint(0, cfg.vocab, (4, 32), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(0))
+    lg, e, mk = mesh_prefill(cfg, pc, toks.to(cuda), mc)
+    lg0, e0, mk0 = mesh_prefill(cfg, p, toks, mh)
+    assert torch.equal(e, e0)
+    assert torch.equal(mk, mk0) and not bool(mk.all())
+    scale = float(lg0.abs().max())
+    assert float((lg - lg0).abs().max()) <= 1e-4 * scale
+    lg, e, mk, kv = mesh_decode(cfg, pc, toks.to(cuda),
+                                toks[:, :1].to(cuda), mc)
+    lg0, e0, mk0, _ = mesh_decode(cfg, p, toks, toks[:, :1], mh, kv)
+    assert torch.equal(e, e0) and torch.equal(mk, mk0)
+    assert float((lg - lg0).abs().max()) <= 1e-4 * float(lg0.abs().max())
+    loss, gn, m = mesh_train(cfg, pc, toks.to(cuda), mc)
+    loss0, gn0, m0 = mesh_train(cfg, p, toks, mh)
+    assert abs(loss - loss0) <= 1e-5 * abs(loss0)
+    for a, w in zip(T.leaves(m), T.leaves(m0)):
+        assert float((a.cpu() - w).abs().max()) <= 1e-4 * float(
+            w.abs().max())
+
+
+@pytest.mark.parametrize("path", ["a2a", "rep", "ep2d"])
+def test_moe_dispatch_on_card_is_bit_reproducible(cuda, monkeypatch, path):
+    """`moe_ffn` (a2a and rep) and `moe_ffn_ep2d` on the card's logical
+    2 × 4 mesh, forward and backward twice: bit-equal outputs and
+    gradients, the combine through `segment_add` (launched once a cell)."""
+    from repro_torch.core import scatter
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import moe
+    from repro_torch.models import sharding as SH
+    monkeypatch.setenv(M.LOGICAL_DEVICES, "8")
+    cfg = _mesh_cut(moe_top_k=4)
+    mesh = M.compat_mesh((2, 4), ("data", "model"), device=cuda)
+    axes = SH.mesh_axes(mesh)
+    g = torch.Generator().manual_seed(0)
+    D, E, ff = cfg.d_model, cfg.n_experts, cfg.d_ff
+    w = {n: (0.05 * torch.randn(*s, generator=g)).to(cuda)
+         for n, s in (("router", (D, E)), ("w1", (E, D, ff)),
+                      ("w3", (E, D, ff)), ("w2", (E, ff, D)))}
+    x0 = torch.randn(4, 16, D, generator=g).to(cuda)
+    cot = torch.randn(4, 16, D, generator=g).to(cuda)
+    eid, gate0 = moe.router(w, x0, cfg)
+
+    def run():
+        x = x0.clone().requires_grad_(True)
+        gate = gate0.clone().requires_grad_(True)
+        ws = {n: w[n].clone().requires_grad_(True) for n in ("w1", "w3",
+                                                             "w2")}
+        before = scatter.LAUNCHES
+        if path == "ep2d":
+            y = moe.moe_ffn_ep2d(ws, x, eid, gate, cfg, mesh, axes)
+        else:
+            y = moe.moe_ffn(ws, x, eid, gate, cfg, mesh, axes,
+                            shard_seq=path == "a2a")
+        assert scatter.LAUNCHES - before == mesh.size
+        (y * cot).sum().backward()
+        return [y.detach(), x.grad, gate.grad,
+                *(ws[n].grad for n in ("w1", "w3", "w2"))]
+
+    a, b = run(), run()
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)

@@ -62,6 +62,8 @@ def test_the_port_has_its_files():
             "src/repro_torch/launch/train.py",
             "src/repro_torch/launch/specs.py",
             "src/repro_torch/launch/roofline.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/models/sharding.py",
             "src/repro_torch/models/lsh_softmax.py",
             "src/repro_torch/tree.py",
             "examples/torch_quickstart.py",

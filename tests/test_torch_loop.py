@@ -435,6 +435,35 @@ def test_loop_kill_at_site_recovers_bit_identical(online_state,
     assert st["users"] >= 16 and st["dropped"] == 0
 
 
+def test_loop_recover_reuses_the_micro_schedule(online_state, tmp_path,
+                                                monkeypatch):
+    """WAL replay builds the micro schedule once for each change of Ω̂
+    (an entry with a ΔΩ, or the first), as the live loop does, and the
+    recovered loop's next slice without a ΔΩ builds none."""
+    from repro_torch.loop import supervisor
+    _, st0, _, lsh = online_state
+    loop = _resil_loop(tmp_path, online_state)
+    killed, _ = _drive_loop(loop, 6, kill_site="loop.drift", kill_call=1)
+    assert killed
+    del loop
+    built = []
+    real = supervisor.build_micro_schedule
+    monkeypatch.setattr(supervisor, "build_micro_schedule",
+                        lambda *a, **k: built.append(1) or real(*a, **k))
+    rec = OnlineLoop.recover(str(tmp_path), lsh, Hyper(), LOOP_SERVE, K=8,
+                             epochs=1, batch=512, cfg=LOOP_CFG,
+                             base_state=st0)
+    entries = list(rec.updater.wal.entries(after=rec.updater._ckpt_seq))
+    assert len(entries) >= 2
+    want = sum(1 for i, e in enumerate(entries)
+               if i == 0 or e.meta["n_deltas"])
+    assert len(built) == want < len(entries)
+    assert rec._sched.sp is rec.state.sp
+    rec.svc.submit(np.arange(16, dtype=np.int32))
+    rec.run_slice()
+    assert len(built) == want
+
+
 def test_loop_recovered_service_sheds_but_answers_everyone(online_state,
                                                            tmp_path):
     """After a kill + recover, an overload burst degrades (popularity
