@@ -7,8 +7,10 @@ the Table-10 comparison with the NCF models, the examples, dense LM
 serving and training, the ssm and hybrid LM families, moe LM serving
 and training, encdec and vlm LM serving and training, and bfloat16
 parameters serving llama3-405b and arctic-480b and training them in
-bfloat16 parameters, gradients and moments, and the analytic roofline
-of every config × shape cell on meta tensors — on one CUDA card.
+bfloat16 parameters, gradients and moments, the analytic roofline
+of every config × shape cell on meta tensors, and the dry run of every
+cell on a meta 16 × 16 mesh with one serving cell's peak measured — on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -231,8 +233,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     relative, each gradient leaf within 1e-4 of its own max |g| and a
     TF32 control above it, Adam of the card's gradients 1e-6) and the
     card's bfloat16 loss within 4u of the CPU's float32 one;
-    `repro_torch.launch.train.train_loop` at full width cut to 7 of the
-    28 layers (2.66·10⁸ float32 parameters, batch 8 × seq 128, the
+    `repro_torch.launch.train.train_loop` at full width cut to 4 of the
+    28 layers (7 until phase 34; 2.18·10⁸ float32 parameters, batch 8 ×
+    seq 128, the
     reference CLI's) for 20 steps in two calls, the second resuming from the first's
     step-10 checkpoint (restored bit for bit; in a temp dir under
     `build/`, removed): step seconds, tokens/s against a bound from the
@@ -252,17 +255,18 @@ Phases, in order; any failure raises and the script exits non-zero:
     float32 one, `ssd_chunked` at chunk 64 against 256 (S = 256,
     float32, the JAX test's 1e-4), each limit beside a control that must
     read above it (the conv state dropped each step; each chunk alone);
-    `repro_torch.launch.serve.serve` at full width (mamba2-370m cut to
-    12 of its 48 layers, 24 until phase 31; zamba2-7b cut to 12 of its 81 layers, two of
-    its 14 groups; batch 4, a 64-token prompt
+    `repro_torch.launch.serve.serve` at full width (both cut to 6
+    layers — mamba2-370m of its 48, zamba2-7b of its 81, one of its 14
+    groups; 12 until phase 34; batch 4, a 64-token prompt
     prefilled by sequential decode, 32 tokens): draw, prefill and decode
     seconds, tokens/s beside the bound of reading the weights once a
     step, resident and peak MB, a profiled decode step; mamba2-370m
-    trained at full width cut to L = 12 of 48 (for the script's time)
-    through `train_loop` (batch 8 × 128, lr 3e-4,
+    trained at full width cut to L = 6 of 48 (12 until phase 34; for
+    the script's time) through `train_loop` (batch 8 × 128, lr 3e-4,
     20 steps in two calls, the second resuming from a step-10
     checkpoint restored bit for bit, the loss falling), the step timed
-    over batches drawn beforehand; zamba2-7b cut to L = 24 (µ = 2, lr
+    over batches drawn beforehand; zamba2-7b
+    cut to L = 12 (24 until phase 34; µ = 2, lr
     1e-4) for 5 steps, the loss falling, its peak MB; card-vs-CPU
     gradients on each model's 2-layer cut (each leaf within 1e-4 of its
     max |g|, a TF32 control above it).  None of the seven kernels
@@ -430,11 +434,25 @@ Phases, in order; any failure raises and the script exits non-zero:
     the prefill's and the step's limits; bfloat16 logits within 64u·rms
     / 8u·rms of the CPU's float32 on the card's routes, ``wo`` zeroed
     the control —, every card run twice, bit-equal.
+34. the dry run (`launch/dryrun.py`, `perf.py`, `report.py`), no kernel:
+    (a) ``python -m repro_torch.launch.dryrun --all --roofline`` in a
+    subprocess started before phase 3 with one thread and no card,
+    beside the card phases, collected here: 40 records on the 16 × 16
+    meta mesh, 32 OK and 8 SKIP with the configs' reasons; every OK
+    record's per-chip products > 0 and its `model_flops_global` /
+    `hbm_bytes_per_chip` `==` `roofline.py`'s analytic functions; the
+    moe cells' counted collective bytes `==` their formula (printed);
+    llama3-8b prefill_32k's composed products `==` one count of the
+    whole step at full depth; both `report.py` tables and the sweep's
+    wall time.  (b) `perf.run("llama3-8b", "decode_32k", L=2,
+    do_mem=True)`: the cut drawn and stepped once on the card, its
+    measured peak beside its meta argument bytes (peak ≥ arguments,
+    temporaries = the difference), in at most 30 s.
 
 The second-last line is a JSON object listing the kernels; the last line
 is ``{"ok": true, "device": {...}}``.  Without a CUDA card the script
 exits non-zero before printing any result.  ``--device cpu --n-items
-20000 --fit-scale 0.01`` rehearses phases 3–33 on the CPU with the plain
+20000 --fit-scale 0.01`` rehearses phases 3–34 on the CPU with the plain
 versions and then exits 3, also without a result; on the card both
 sizes must keep their defaults, so a result always comes from the full
 configurations.
@@ -484,6 +502,13 @@ GSM_NNZ = 500_000
 # phase 28: llava-next's stub image prefix, anyres at 5 tiles of 576
 # patches (the JAX package's `launch/specs.py` VLM_PATCHES)
 VLM_PATCHES = 2880
+# phase 25's depths at full width: both served at 6 layers, mamba2-370m
+# trained at 6 for 20 loop steps (a checkpoint at step 10), zamba2-7b at
+# 12 (served at 12 and 12, trained at 12 and 24, until phase 34 needed
+# the script's time).  Not fewer steps: a resumed loop draws the seed's
+# first batches again, so over 10 steps the loss after the resume need
+# not fall (it read 5.632 at step 5, 5.679 at step 9)
+SSM_SERVE_L, SSM_TRAIN_L, SSM_STEPS, ZAMBA_TRAIN_L = 6, 6, 20, 12
 # phase 32 reads the timed training cells of phases 24, 27, 29 and 31
 TIMED_CELLS: list = []
 # phase 21: Table 10 at MOVIELENS_LIKE's M × N, 15 interactions a user
@@ -3586,9 +3611,9 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
 
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     t_phase = time.perf_counter()
-    # full width, 7 of the 28 layers: the depth is cut for the script's
-    # time limit (PERF.md §4)
-    full = dataclasses.replace(CB.get("qwen3-0.6b"), L=7)
+    # full width, 4 of the 28 layers (7 until phase 34): the depth is cut
+    # for the script's time limit (PERF.md §4)
+    full = dataclasses.replace(CB.get("qwen3-0.6b"), L=4)
     if not on_card:
         full = CB.reduced(full)                  # rehearsal size
     u = 2.0 ** -8                                # bfloat16's unit roundoff
@@ -3974,9 +3999,9 @@ def ssm_step_flops(cfg, B: int, S: int) -> tuple[float, float]:
 def ssm_phase(args, dev, on_card: bool, power: str) -> None:
     """Phase 25: the ssm and hybrid families (mamba2-370m, zamba2-7b) —
     checks on 2-layer cuts of their full widths, serving at full width
-    and depth through `repro_torch.launch.serve.serve`, and training:
-    mamba2-370m at full width cut to L = 24 through `train_loop`,
-    zamba2-7b at L = 24.
+    cut to `SSM_SERVE_L` layers through `repro_torch.launch.serve.serve`,
+    and training: mamba2-370m at full width cut to `SSM_TRAIN_L` through
+    `train_loop`, zamba2-7b at `ZAMBA_TRAIN_L`.
     Launches none of the seven kernels (no `pallas_call` on this path,
     and ``lsh_softmax`` is off in both configs)."""
     import dataclasses
@@ -4156,13 +4181,11 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
         del xs, dt, Bm, Cm, y256, y64, alone
         gc_collect(on_card)
 
-    # ---- (b) serving at full width; zamba2-7b cut to 2 of its 14 groups
-    # and mamba2-370m to 12 of its 48 layers (24 until phase 31; phases
-    # 26 and 29–31 take the time it saves) ----
+    # ---- (b) serving at full width, both cut to `SSM_SERVE_L` layers ----
     t_a = time.perf_counter() - t_phase
     for full in fulls:
         if on_card:
-            full = dataclasses.replace(full, L=12)
+            full = dataclasses.replace(full, L=SSM_SERVE_L)
         held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
         t0 = time.perf_counter()
         params = lm.init_params(full, prng.PRNGKey(0), model_shards=1,
@@ -4199,10 +4222,10 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
     # mamba2-370m at full width: card vs CPU on the cut, then train_loop
     mamba, zamba = fulls
     grads_vs_cpu(dataclasses.replace(mamba, L=2), mamba.name)
-    # trained cut to 12 of its 48 layers (the whole script's time:
-    # phases 28 and 29 came after it)
-    mamba = dataclasses.replace(mamba, L=12) if on_card else mamba
-    Bt, St, N_STEPS, N_TIMED = 8, 128, 20, 6
+    # trained cut to `SSM_TRAIN_L` of its 48 layers (the whole script's
+    # time: phases 28-34 came after it)
+    mamba = dataclasses.replace(mamba, L=SSM_TRAIN_L) if on_card else mamba
+    Bt, St, N_STEPS, N_TIMED = 8, 128, SSM_STEPS, 6
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -4247,7 +4270,8 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
            + adam_bytes / HBM_BYTES_PER_S)
     print(f"[25 train] {mamba.name} (L={mamba.L}, {nparam / 1e6:.2f}e6 "
           f"float32 params) batch {Bt} seq {St}, lr 3e-4, {N_STEPS} steps in "
-          f"two train_loop calls (a checkpoint at step 10, the second "
+          f"two train_loop calls (a checkpoint at step {N_STEPS // 2}, the "
+          f"second "
           f"resumes from it): loop wall {wall1:.1f} + {wall2:.1f} s; then "
           f"{N_TIMED} steps of make_train_step, step s median of steps "
           f"3-{N_TIMED - 1} {step_s:.4f} (min {min(marks[3:]):.4f}, max "
@@ -4256,30 +4280,33 @@ def ssm_phase(args, dev, on_card: bool, power: str) -> None:
           f"{BF16_OPS_PER_S / 1e12:.0f} TFLOP/s, {f32 / 1e12:.3f} TFLOP "
           f"float32 at {F32_OPS_PER_S / 1e12:.0f}, Adam "
           f"{adam_bytes / 1e9:.2f} GB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s);"
-          f" loss step 0 {losses[0]:.4f}, step 10 {losses[10]:.4f}, step 19 "
-          f"{losses[19]:.4f}; "
-          + (f"peak over the first 10 steps {peak:.0f} MB (phases before "
+          f" loss step 0 {losses[0]:.4f}, step {N_STEPS // 2} "
+          f"{losses[N_STEPS // 2]:.4f}, step {N_STEPS - 1} "
+          f"{losses[N_STEPS - 1]:.4f}; "
+          + (f"peak over the first {N_STEPS // 2} steps {peak:.0f} MB "
+             f"(phases before "
              f"it held {held:.0f} MB) " if on_card else "")
           + f"(power limit {power})", flush=True)
     print(f"[25 ckpt] step {step} restored in {t_restore:.1f} s: every leaf "
-          f"equal to the state saved at step 10: {same}", flush=True)
+          f"equal to the state saved at step {N_STEPS // 2}: {same}",
+          flush=True)
     if not (same and step == N_STEPS // 2
             and f"resumed from step {N_STEPS // 2}" in logs):
-        raise AssertionError("the step-10 checkpoint did not restore bit "
-                             "for bit")
-    if not (np.isfinite(losses).all() and losses[19] < losses[10]
-            < losses[0]):
+        raise AssertionError(f"the step-{N_STEPS // 2} checkpoint did not "
+                             f"restore bit for bit")
+    if not (np.isfinite(losses).all() and losses[N_STEPS - 1]
+            < losses[N_STEPS // 2] < losses[0]):
         raise AssertionError(f"the mamba2 loss did not fall: {losses}")
     del params, opt
     gc_collect(on_card)
 
-    # zamba2-7b: card vs CPU on its L = 2 cut, then L = 24 with µ = 2 at
+    # zamba2-7b: card vs CPU on its L = 2 cut, then L = 12 with µ = 2 at
     # lr 1e-4, mamba2's 3e-4 scaled by the widths' ratio 1,024 / 3,584:
     # Adam's first steps move every weight by ~lr, so a logit moves by
     # ~lr·d, and at 3e-4 the loss rose from step 2 on (PERF.md §6)
     grads_vs_cpu(dataclasses.replace(zamba, L=2), zamba.name)
     z_lr = 1e-4
-    z24 = dataclasses.replace(zamba, L=24) if on_card else \
+    z24 = dataclasses.replace(zamba, L=ZAMBA_TRAIN_L) if on_card else \
         dataclasses.replace(zamba, microbatches=2)
     held = torch.cuda.memory_allocated() / 1e6 if on_card else 0.0
     if on_card:
@@ -7190,6 +7217,213 @@ def roofline_phase(draws: DrawLog, on_card: bool, power: str) -> None:
     print(f"[32 done] {time.perf_counter() - t_phase:.2f} s", flush=True)
 
 
+DRYRUN_TIMEOUT_S = 900      # phase 34 (a): the sweep's own limit
+MEM_CELL = ("llama3-8b", "decode_32k", [("L", 2)])   # phase 34 (b)
+
+
+def dryrun_sweep_start() -> dict:
+    """Phase 34 (a), started before the card phases: ``python -m
+    repro_torch.launch.dryrun --all --roofline`` in a subprocess with one
+    thread and no card (``CUDA_VISIBLE_DEVICES`` empty), its records in a
+    temp dir under ``build/``, its output in files there.  The process is
+    killed and the dir removed at exit, whatever happens."""
+    import atexit
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    out = tempfile.mkdtemp(prefix="chip_smoke_dryrun_",
+                           dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    log = open(os.path.join(out, "sweep.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--roofline", "--out", os.path.join(out, "dryrun")],
+        cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(shutil.rmtree, out, True)
+    atexit.register(proc.kill)
+    return dict(proc=proc, out=out, log=log, t0=time.perf_counter(),
+                t_wall0=time.time())
+
+
+def moe_a2a_bytes(cfg, shape, axes) -> tuple[int, str]:
+    """The counted collective bytes a moe cell must show, per device, and
+    the formula: per dispatch and receiving cell n·C_send·(2·D·b + 4)
+    forward (the rows out, the int32 expert ids, the rows back) and
+    n·C_send·2·D·b in a training cell's backward (the remat runs the
+    forward again), × the moe layers and µ; a decode step's replicated
+    dispatch one all-reduce of its b_dp·D·b output block a layer."""
+    from repro_torch.launch import roofline as R
+    from repro_torch.models import layers as L
+
+    b = L.torch_dtype(cfg.dtype).itemsize
+    D, k, n = cfg.d_model, cfg.moe_top_k, axes["ntp"]
+    mshape = R.micro_shape(shape, cfg)
+    mu = max(1, cfg.microbatches) if shape.kind == "train" else 1
+    b_dp = mshape.global_batch // axes["ndp"]
+    if shape.kind == "decode":
+        return (cfg.L * b_dp * D * b,
+                f"all-reduce L·b_dp·D·b = {cfg.L}·{b_dp}·{D}·{b}")
+    s_loc = mshape.seq_len // n
+    C_send = max(1, int(round(b_dp * s_loc * k / n * cfg.moe_capacity)))
+    fwd = n * C_send * (2 * D * b + 4)
+    if shape.kind == "train":
+        per = fwd * (2 if cfg.remat else 1) + n * C_send * 2 * D * b
+        text = (f"all-to-all L·µ·((1 + remat)·n·C_send·(2·D·b + 4) + "
+                f"n·C_send·2·D·b) = {cfg.L}·{mu}·({1 + cfg.remat}·{n}·"
+                f"{C_send}·{2 * D * b + 4} + {n}·{C_send}·{2 * D * b})")
+    else:
+        per = fwd
+        text = (f"all-to-all L·n·C_send·(2·D·b + 4) = {cfg.L}·{n}·{C_send}"
+                f"·{2 * D * b + 4}")
+    return cfg.L * mu * per, text
+
+
+def dryrun_phase(sweep: dict, on_card: bool, power: str) -> None:
+    """Phase 34: the dry run (`launch/dryrun.py`, `perf.py`, `report.py`).
+    (a) collects the sweep started before the card phases and checks its
+    40 records; (b) measures one serving cell's peak on the card with
+    `perf.run(..., do_mem=True)`.  Launches no kernel."""
+    import glob
+    import shutil
+
+    from repro_torch.configs import base as CB
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import perf as PF
+    from repro_torch.launch import report as RP
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import sharding as SH
+
+    t_phase = time.perf_counter()
+    counts0 = launch_counts()
+    card = (f"{torch.cuda.get_device_name(0)}, {power}" if on_card
+            else "cpu rehearsal")
+    # ---- (a) the sweep ----
+    proc = sweep["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (
+            time.perf_counter() - sweep["t0"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"the dry-run sweep ran past "
+                             f"{DRYRUN_TIMEOUT_S} s")
+    waited = time.perf_counter() - t_phase
+    sweep["log"].close()
+    log_path = os.path.join(sweep["out"], "sweep.log")
+    wall = os.path.getmtime(log_path) - sweep["t_wall0"]
+    with open(log_path) as f:
+        text = f.read()
+    lines = [ln for ln in text.splitlines()
+             if ln[:4] in ("OK  ", "SKIP", "FAIL")]
+    recs = {}
+    for path in glob.glob(os.path.join(sweep["out"], "dryrun", "16x16",
+                                       "*.json")):
+        with open(path) as f:
+            r = json.load(f)
+        recs[(r["arch"], r["shape"])] = r
+    counted = sum(r.get("count_s", 0.0) for r in recs.values())
+    print(f"[34 sweep] `python -m repro_torch.launch.dryrun --all "
+          f"--roofline` in a subprocess beside phases 3-33: exit {rc}, wall "
+          f"{wall:.1f} s (its cells' count_s sum to {counted:.1f} s); phase "
+          f"34 waited {waited:.1f} s for it; {len(lines)} lines: "
+          f"{sum(ln.startswith('OK') for ln in lines)} OK, "
+          f"{sum(ln.startswith('SKIP') for ln in lines)} SKIP, "
+          f"{sum(ln.startswith('FAIL') for ln in lines)} FAIL", flush=True)
+    if rc != 0:
+        raise AssertionError(f"the dry-run sweep exited {rc}:\n"
+                             f"{text[-4000:]}")
+    cells = CB.cells(include_skips=True)
+    if len(recs) != 40 or set(recs) != {c[:2] for c in cells}:
+        raise AssertionError(f"the sweep wrote {len(recs)} records")
+    axes = dict(dp="data", tp="model", ndp=16, ntp=16)
+    n_ok = 0
+    for arch, shape_name, ok, why in cells:
+        r = recs[(arch, shape_name)]
+        if r["skipped"] != (not ok) or r["skip_reason"] != why:
+            raise AssertionError(f"{arch} x {shape_name}: skip "
+                                 f"{r['skipped']} ({r['skip_reason']!r}), "
+                                 f"the configs say {not ok} ({why!r})")
+        if not ok:
+            continue
+        n_ok += 1
+        cfg, shape = CB.get(arch), CB.SHAPES[shape_name]
+        x = r["roofline"]
+        if not r["cost_analysis"]["flops"] > 0:
+            raise AssertionError(f"{arch} x {shape_name}: no products")
+        if (x["model_flops_global"] != R.model_flops(cfg, shape, 16)
+                or x["hbm_bytes_per_chip"] != R.analytic_hbm_bytes(
+                    cfg, shape, axes)):
+            raise AssertionError(f"{arch} x {shape_name}: the record's "
+                                 f"analytic fields are not roofline.py's")
+        if cfg.family == "moe":
+            want, formula = moe_a2a_bytes(cfg, shape, axes)
+            kind = "all-reduce" if shape.kind == "decode" else "all-to-all"
+            got = r["collectives_in_module"]
+            print(f"[34 moe] {arch} x {shape_name}: {kind} {got.get(kind, 0):,}"
+                  f" bytes a device counted, {formula} = {want:,}", flush=True)
+            if got != {kind: want}:
+                raise AssertionError(f"{arch} x {shape_name}: collectives "
+                                     f"{got}, the formula says {want}")
+        elif r["collectives_in_module"]:
+            raise AssertionError(f"{arch} x {shape_name}: a dense family "
+                                 f"counted {r['collectives_in_module']}")
+    if n_ok != 32:
+        raise AssertionError(f"{n_ok} cells ran, not 32")
+    # llama3-8b prefill_32k: the composition against one direct count
+    cfg, shape = CB.get("llama3-8b"), CB.SHAPES["prefill_32k"]
+    t0 = time.perf_counter()
+    with DR.production_cells():
+        mesh = make_production_mesh(device="meta")
+        fn, in_sh, args, _ = DR.build_cell(cfg, shape, mesh,
+                                           SH.mesh_axes(mesh))
+        direct = R._count_cost(fn, in_sh, args, mesh)
+    composed = recs[("llama3-8b", "prefill_32k")]["cost_analysis"]
+    print(f"[34 compose] llama3-8b x prefill_32k on the 16 x 16 meta mesh: "
+          f"composed fixed + 32·layer {composed['flops_global']:,} products"
+          f", one count at full depth {direct.flops:,} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if composed["flops_global"] != direct.flops:
+        raise AssertionError("the composed count is not the direct one")
+    root = os.path.join(sweep["out"], "dryrun")
+    for section in (RP.dryrun_table, RP.roofline_table):
+        for row in section("16x16", root).splitlines():
+            print(f"[34 report] {row}", flush=True)
+    shutil.rmtree(sweep["out"], ignore_errors=True)
+    # ---- (b) one serving cell's peak on the card ----
+    arch, shape_name, over = MEM_CELL
+    if on_card:
+        t0 = time.perf_counter()
+        rec = PF.run(arch, shape_name, over, "chip_smoke", True,
+                     outdir=os.path.join(ROOT, "build", "chip_smoke_perf"))
+        t_mem = time.perf_counter() - t0
+        shutil.rmtree(os.path.join(ROOT, "build", "chip_smoke_perf"),
+                      ignore_errors=True)
+        print(f"[34 mem] {arch} x {shape_name} cut to "
+              f"{', '.join(f'{k}={v}' for k, v in over)} at one card's axes"
+              f": peak {rec['peak_bytes']:,} bytes ({rec['peak_gib']} GiB, "
+              f"{rec['peak_source']}) beside the meta arguments "
+              f"{rec['argument_bytes']:,} bytes ({rec['argument_gib']} GiB): "
+              f"temporaries {rec['temp_gib']} GiB; roofline {rec['bound']} "
+              f"t_step {1e3 * rec['t_step']:.3f} ms on the 16 x 16 mesh; "
+              f"{t_mem:.1f} s ({card})", flush=True)
+        if not rec["peak_bytes"] >= rec["argument_bytes"] > 0:
+            raise AssertionError("the measured peak is below the arguments")
+        if t_mem > 30.0:
+            raise AssertionError(f"perf --mem took {t_mem:.1f} s (> 30 s)")
+    else:
+        print(f"[34 mem] skipped: `perf --mem` measures on a card ({card})",
+              flush=True)
+    launched = {k: v - counts0[k] for k, v in launch_counts().items()}
+    if any(launched.values()):
+        raise AssertionError(f"phase 34 launched a kernel: {launched}")
+    print(f"[34 done] phase 34 in {time.perf_counter() - t_phase:.1f} s "
+          f"({card})", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default="cuda",
@@ -7227,6 +7461,7 @@ def main(argv=None) -> int:
                                    window_slices)
 
     t_start = time.perf_counter()
+    sweep = dryrun_sweep_start()        # phase 34 (a), beside the rest
     # phase 8's host-side ratings, made beside the build and phases 3–4
     # (which time nothing); phase 5 waits for them before it serves
     pool = ThreadPoolExecutor(max_workers=1)
@@ -7497,6 +7732,7 @@ def main(argv=None) -> int:
     finally:
         draws.uninstall()
     roofline_phase(draws, on_card, power)
+    dryrun_phase(sweep, on_card, power)
     for k in kernels:        # phase 16's main path, phase 24's and 33's
         if k["name"] == "segment_add":
             print(f"[24 kernels] segment_add launches: phase 16 "

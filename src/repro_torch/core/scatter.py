@@ -10,7 +10,8 @@ log's replay (`resil.wal`) must reproduce a state bit for bit.
 
 * on the CPU it *is* ``dst.index_add_(0, idx, src)``, which adds in
   index order (``dst[idx[i]] += src[i]`` for i = 0, 1, …), so every CPU
-  result keeps its bits;
+  result keeps its bits; on the meta device too, where it computes
+  shapes only (a dry run counts its callers, `launch/roofline.py`);
 * on the card it sorts ``idx`` stably and launches the hand-written
   `csrc/segment_add.cu`: one thread per (run of equal ids, column)
   starts from ``dst[id, c]``, adds the run's rows in sorted (= original)
@@ -72,7 +73,7 @@ def index_add_det_(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor,
     (from `segment_plan` of the same ``idx``) skips the sort."""
     global LAUNCHES
     dev = dst.device
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
         return dst.index_add_(0, idx, src)
     if dev.type != "cuda":
         raise KernelValueError(f"index_add_det_: unsupported device {dev}")

@@ -16,7 +16,14 @@ tuple of coordinates in row-major order living on one device.  A
 `shard_map` region of the reference runs here one cell after another on
 that cell's block (`models/sharding.py::NamedSharding.blocks`), and its
 collectives are `all_to_all` and `psum_over` across the cells of the
-named axes, copies made in the cells' order.
+named axes, copies made in the cells' order.  Each is a
+`torch.autograd.Function` whose backward is the reverse collective (an
+all-to-all with its split and concat axes swapped; a `psum_over` of the
+gradients), so a training step's backward collectives are collectives
+of the program too.  Inside `count_collectives()` every collective
+reports ``(kind, bytes)`` — the reference's HLO names ``"all-to-all"``
+and ``"all-reduce"``, and the output bytes one receiving cell gets — in
+program order, the backward's included.
 
 ``REPRO_TORCH_LOGICAL_DEVICES=n`` makes `device_count` report ``n``
 devices that all live on the caller's one device (the CPU or one card):
@@ -271,13 +278,37 @@ def current_mesh() -> LMMesh | None:
     return _MESHES[-1] if _MESHES else None
 
 
-def all_to_all(parts: dict, mesh: LMMesh, axes, split_axis: int = 0,
-               concat_axis: int = 0) -> dict:
-    """`lax.all_to_all` over ``axes``: in each group of n cells
-    (`LMMesh.groups`), cell i's part splits into n chunks along
-    ``split_axis``, and cell j receives the j-th chunks of the group's
-    cells in group order, joined along ``concat_axis``, on its
-    device.  ``parts`` maps each cell to its tensor."""
+_COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """The collective counter on for the block: → the list each
+    `all_to_all` and `psum_over` (forward or backward) appends its
+    ``(kind, bytes)`` to, ``bytes`` the output bytes of one receiving
+    cell.  The counter is the process's, not the thread's: autograd runs
+    a backward on threads of its own, and those collectives count too;
+    count in a process, or at a time, where no other mesh work runs."""
+    log: list = []
+    _COUNTERS.append(log)
+    try:
+        yield log
+    finally:
+        _COUNTERS.remove(log)
+
+
+def _report(kind: str, out: dict) -> None:
+    """One collective to the open counters: every cell receives a block
+    of the same shape on the mesh paths, so one cell's bytes (the
+    largest) stand for the collective."""
+    if _COUNTERS:
+        nbytes = max(t.numel() * t.element_size() for t in out.values())
+        for log in _COUNTERS:
+            log.append((kind, nbytes))
+
+
+def _a2a(parts: dict, mesh: LMMesh, axes, split_axis: int,
+         concat_axis: int) -> dict:
     out = {}
     for group in mesh.groups(axes):
         chunks = [parts[c].chunk(len(group), split_axis) for c in group]
@@ -287,9 +318,7 @@ def all_to_all(parts: dict, mesh: LMMesh, axes, split_axis: int = 0,
     return out
 
 
-def psum_over(parts: dict, mesh: LMMesh, axes) -> dict:
-    """`lax.psum` over ``axes``: in each group the parts summed in group
-    order on the first cell's device, then a copy on each cell's."""
+def _psum(parts: dict, mesh: LMMesh, axes) -> dict:
     out = {}
     for group in mesh.groups(axes):
         dev0 = mesh.device_of(group[0])
@@ -297,5 +326,63 @@ def psum_over(parts: dict, mesh: LMMesh, axes) -> dict:
         for c in group[1:]:
             total = total + parts[c].to(dev0)
         for c in group:
-            out[c] = total.to(mesh.device_of(c))
+            out[c] = copy_to(total, mesh.device_of(c))
     return out
+
+
+class _Collective(torch.autograd.Function):
+    """One collective over the cells' tensors (``xs`` in row-major cell
+    order); its backward is the reverse collective of the gradients,
+    counted like the forward."""
+
+    @staticmethod
+    def forward(ctx, op, mesh, axes, split_axis, concat_axis, *xs):
+        ctx.args = (op, mesh, axes, split_axis, concat_axis)
+        return tuple(_run(op, dict(zip(mesh.cells(), xs)), mesh, axes,
+                          split_axis, concat_axis).values())
+
+    @staticmethod
+    def backward(ctx, *gs):
+        op, mesh, axes, split_axis, concat_axis = ctx.args
+        g = _collective(op, dict(zip(mesh.cells(), gs)), mesh, axes,
+                        concat_axis, split_axis)
+        return (None,) * 5 + tuple(g[c] for c in mesh.cells())
+
+
+def _run(op, parts, mesh, axes, split_axis, concat_axis) -> dict:
+    out = (_a2a(parts, mesh, axes, split_axis, concat_axis)
+           if op == "all-to-all" else _psum(parts, mesh, axes))
+    _report(op, out)
+    return {c: out[c] for c in mesh.cells()}
+
+
+def _collective(op, parts, mesh, axes, split_axis, concat_axis) -> dict:
+    xs = [parts[c] for c in mesh.cells()]
+    if not (torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return _run(op, parts, mesh, axes, split_axis, concat_axis)
+    return dict(zip(mesh.cells(), _Collective.apply(
+        op, mesh, axes, split_axis, concat_axis, *xs)))
+
+
+def all_to_all(parts: dict, mesh: LMMesh, axes, split_axis: int = 0,
+               concat_axis: int = 0, *, count: bool = True) -> dict:
+    """`lax.all_to_all` over ``axes``: in each group of n cells
+    (`LMMesh.groups`), cell i's part splits into n chunks along
+    ``split_axis``, and cell j receives the j-th chunks of the group's
+    cells in group order, joined along ``concat_axis``, on its
+    device.  ``parts`` maps each cell to its tensor.  ``count=False``
+    (a copy that is not part of the program: a dispatch log's masks)
+    reports to no counter."""
+    if not count:
+        return _a2a(parts, mesh, axes, split_axis, concat_axis)
+    return _collective("all-to-all", parts, mesh, axes, split_axis,
+                       concat_axis)
+
+
+def psum_over(parts: dict, mesh: LMMesh, axes, *, count: bool = True) -> dict:
+    """`lax.psum` over ``axes``: in each group the parts summed in group
+    order on the first cell's device, then a copy on each cell's.
+    ``count=False`` as for `all_to_all`."""
+    if not count:
+        return _psum(parts, mesh, axes)
+    return _collective("all-reduce", parts, mesh, axes, 0, 0)

@@ -1,10 +1,11 @@
-"""Analytic roofline terms for one H100 (`repro/launch/roofline.py`'s
-analytic half, :260-386).
+"""Roofline terms for one H100 (`repro/launch/roofline.py`): the
+analytic half (:260-386) and the count-based half that stands for its
+compile-based one (:1-259).
 
-The three counts are plain arithmetic on a config and the same as the
-reference's at the same ``axes`` (``ndp``, ``ntp``) and
-``model_shards``: `param_counts` (a sum of ``numel`` over the meta
-parameter tree, the moe family's inactive experts removed),
+**The analytic half.**  The three counts are plain arithmetic on a
+config and the same as the reference's at the same ``axes`` (``ndp``,
+``ntp``) and ``model_shards``: `param_counts` (a sum of ``numel`` over
+the meta parameter tree, the moe family's inactive experts removed),
 `model_flops` (6·N_active·tokens to train, 2·N_active·tokens to serve,
 plus attention against the context) and `analytic_hbm_bytes` (a step's
 device-memory traffic on one chip by documented formulas).  Only
@@ -46,11 +47,48 @@ Term by term, count − model_flops is:
   query chunks and padded heads.
 
 llama3-8b at B 1 × S 128: 2.0643·10¹² counted, of which the products
-without the logits are 1.9298·10¹² (2·N·t = 2.0557·10¹²).  The moe
-family cannot be counted this way: its expert dispatch reads the group
-bounds to the host, and a meta tensor holds no values.
+without the logits are 1.9298·10¹² (2·N·t = 2.0557·10¹²).  Off a mesh
+the moe family cannot be counted this way (`moe_dense_ref` reads the
+group bounds to the host); on a mesh its dispatch has static shapes and
+counts like the rest.
+
+**The count-based half** (`extract_cost` and its helpers).  The
+reference compiles each cell with XLA and reads `cost_analysis()` and
+the collectives of the HLO text; neither exists here.  `_count_cost`
+(the reference's `_compile_cost`) runs the cell's function once on meta
+tensors on a mesh of logical cells, under `FlopCounterMode` and
+`launch/mesh.py::count_collectives`.  `extract_cost` keeps the
+reference's composition: probes at L1 and L2 layers (the hybrid's
+group marginals and its partial group ``Lpart``), ``layer = C(L2) −
+C(L1)``, ``fixed = C(L1) − layer``, ``fixed + L·layer``, × µ, + the
+optimiser.  Where it differs:
+
+* **per-chip operations = the mesh-wide count / nchips.**  The port's
+  single-controller program does each cell's share once, so this is
+  the mean over the cells; XLA's is one device's post-SPMD count.  The
+  composition runs on the mesh-wide integers (``flops_global``), so it
+  is exact; the division comes last.
+* **products only.**  `FlopCounterMode`'s rule (phase 32's, and the
+  one the tensor-core peak counts); XLA adds elementwise work.  Adam is
+  elementwise, so `_opt_cost` counts 0.
+* **no `_attn_chunk_correction`.**  XLA costs a ``lax.map`` body once;
+  the port counts every query chunk already.  The function is ported
+  for the parity of its value, and not applied.
+* **``coll_bytes == coll_bytes_raw``.**  The port moves bfloat16 at its
+  own width; `bf16_coll_correction` (XLA-CPU's float32 width) is not
+  applied.
+* **``bytes_xla_upper`` is None**: there is no XLA byte count.  The
+  bytes term is `analytic_hbm_bytes`, as in the reference.
+* **the dense families' GSPMD collectives count 0.**  The reference's
+  FSDP all-gathers and gradient reduce-scatters are XLA's; the port
+  checks those layouts (`sharding.constrain`) and moves nothing.  The
+  counted collectives are the moe dispatch's all-to-alls (forward, the
+  remat's recompute of the forward, and backward) and the replicated
+  path's all-reduce.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
@@ -58,7 +96,9 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.launch import specs
+from repro_torch.launch.mesh import count_collectives, use_mesh
 from repro_torch.models import lm, steps
+from repro_torch.models import sharding as SH
 from repro_torch.models import ssm as SSM
 
 PEAK_FLOPS = 989e12          # H100 SXM dense bfloat16 (data sheet)
@@ -234,3 +274,199 @@ def dense_forward_flops(cfg: ArchConfig, B: int, S: int,
                 vector_params=-2 * t * (L * vec + D),
                 attention=L * (4 * B * Sq * S * Hp * hd
                                - 2 * B * S * S * H * hd))
+
+
+# --------------------------------------------------------------------------
+# count-based cost terms (the reference's compile-based half)
+# --------------------------------------------------------------------------
+
+
+def collective_bytes(schedule) -> dict:
+    """Per-kind output bytes of the collectives (per device): the
+    reference's, over a `count_collectives` list in place of HLO text."""
+    out = {}
+    for kind, nbytes in schedule:
+        out[kind] = out.get(kind, 0) + nbytes
+    return out
+
+
+def collective_schedule(schedule, limit: int = 2000) -> list:
+    """(kind, bytes) in program order — the dry run's collective
+    schedule."""
+    return [(kind, nbytes) for kind, nbytes in schedule[:limit]]
+
+
+@dataclasses.dataclass
+class Cost:
+    flops: float = 0.0
+    bytes: float = 0.0
+    coll: dict = dataclasses.field(default_factory=dict)
+
+    def __add__(self, o):
+        coll = dict(self.coll)
+        for k, v in o.coll.items():
+            coll[k] = coll.get(k, 0) + v
+        return Cost(self.flops + o.flops, self.bytes + o.bytes, coll)
+
+    def __sub__(self, o):
+        coll = dict(self.coll)
+        for k, v in o.coll.items():
+            coll[k] = coll.get(k, 0) - v
+        return Cost(self.flops - o.flops, self.bytes - o.bytes, coll)
+
+    def __mul__(self, s):
+        return Cost(self.flops * s, self.bytes * s,
+                    {k: v * s for k, v in self.coll.items()})
+
+    @property
+    def coll_bytes(self):
+        return sum(self.coll.values())
+
+
+def _count_cost(fn, in_shardings, args, mesh, schedule=None) -> Cost:
+    """The reference's `_compile_cost`: ``fn(*args)`` once on meta
+    tensors under `use_mesh`, `FlopCounterMode` and `count_collectives`
+    → Cost(the mesh-wide products (an int), 0 bytes, per-device
+    collective bytes by kind).  Each argument's layout is checked against
+    its sharding first (`shard_shape` raises where a sharded dimension
+    does not divide), as the compile would.  ``schedule``, a list, gets
+    the counted ``(kind, bytes)`` in program order."""
+    for leaf, sh in zip(T.leaves(args), T.leaves(in_shardings),
+                        strict=True):
+        sh.shard_shape(getattr(leaf, "shape", ()))
+    with use_mesh(mesh), FlopCounterMode(display=False) as counter, \
+            count_collectives() as log:
+        fn(*args)
+    if schedule is not None:
+        schedule.extend(log)
+    return Cost(counter.get_total_flops(), 0, collective_bytes(log))
+
+
+MAX_COST_QC = 2048   # keep chunk tensors < 2^31 elements (XLA int32 paths)
+
+
+def _cost_cfg(cfg: ArchConfig, L: int, enc: int | None = None,
+              shape_seq: int = 0) -> ArchConfig:
+    qc = min(max(cfg.query_chunk, shape_seq or 1), MAX_COST_QC)
+    return dataclasses.replace(
+        cfg, L=L,
+        enc_layers=enc if enc is not None else cfg.enc_layers,
+        unroll_layers=True, microbatches=1,
+        query_chunk=qc,
+    )
+
+
+def _attn_chunk_correction(cfg: ArchConfig, shape: ShapeSpec, axes) -> float:
+    """The reference's FLOPs per layer of the attention chunks that XLA's
+    `cost_analysis` does not count (a ``lax.map`` body is costed once):
+    per chunk ≈ B_loc·H_loc·qc·T·(4·hd + 8).  The port counts every
+    chunk, so `extract_cost` does not add it."""
+    S = shape.seq_len
+    qc = min(max(cfg.query_chunk, S), MAX_COST_QC)
+    if shape.kind == "decode" or S <= qc or not cfg.n_heads:
+        return 0.0
+    nchunks = -(-S // qc)
+    B_loc = max(1, shape.global_batch // axes["ndp"])
+    H_loc = max(1, cfg.n_heads // axes["ntp"])
+    per_chunk = B_loc * H_loc * qc * S * (4.0 * cfg.hd + 8.0)
+    n_attn = 3 if cfg.family == "encdec" else 1
+    fwd = (nchunks - 1) * per_chunk * n_attn
+    # train backward recomputes (remat) + differentiates: ≈ 3.5× fwd total
+    return fwd * (3.5 if shape.kind == "train" else 1.0)
+
+
+def _mk_args(cfg, shape, mesh, axes, kind):
+    """(fn, in_shardings, args) for one cost count: one microbatch's
+    gradient (train), the prefill or a decode step, on meta tensors."""
+    params = specs.param_specs(cfg, axes["ntp"])
+    psp = SH.to_named(SH.param_specs(cfg, params, axes), mesh)
+    if kind == "train":
+        b = specs.batch_specs_for(cfg, shape)
+        bsp = SH.to_named(SH.batch_specs(cfg, b, axes), mesh)
+
+        def fwdbwd(p, batch):
+            return steps.value_and_grad(cfg, p, batch, mesh, axes)[1]
+
+        return fwdbwd, (psp, bsp), (params, b)
+    if kind == "prefill":
+        b = specs.prefill_specs_for(cfg, shape)
+        bsp = SH.to_named(SH.batch_specs(cfg, b, axes), mesh)
+        return steps.make_prefill(cfg, mesh, axes), (psp, bsp), (params, b)
+    cache, tokens = specs.decode_specs_for(cfg, shape)
+    csp = SH.to_named(SH.cache_specs(cfg, cache, axes), mesh)
+    tsp = SH.to_named(
+        SH.batch_specs(cfg, {"tokens": tokens}, axes), mesh)["tokens"]
+    fn = steps.make_decode_step(cfg, mesh, axes)
+    return fn, (psp, csp, tsp), (params, cache, tokens)
+
+
+def _opt_cost(cfg, mesh, axes) -> Cost:
+    """Adam over the whole meta tree: elementwise, so 0 products."""
+    params = specs.param_specs(cfg, axes["ntp"])
+    psp = SH.to_named(SH.param_specs(cfg, params, axes), mesh)
+    opt = steps.init_opt(cfg, params)
+    osp = dict(m=psp, v=psp, count=SH.to_named(SH.P(), mesh))
+
+    def upd(p, g, o):
+        p2, o2, _ = steps.adam_update(cfg, p, g, o)
+        return p2, o2
+
+    return _count_cost(upd, (psp, psp, osp), (params, params, opt), mesh)
+
+
+def _layer_counts(cfg: ArchConfig):
+    """(L1, L2, extra) probe sizes per family."""
+    if cfg.family == "hybrid":
+        k = cfg.attn_every
+        return k, 2 * k, cfg.L % k or None     # group marginals (+ partial)
+    return 1, 2, None
+
+
+def micro_shape(shape: ShapeSpec, cfg: ArchConfig) -> ShapeSpec:
+    mu = max(1, cfg.microbatches) if shape.kind == "train" else 1
+    return dataclasses.replace(shape,
+                               global_batch=max(1, shape.global_batch // mu))
+
+
+def extract_cost(cfg: ArchConfig, shape: ShapeSpec, mesh, axes) -> dict:
+    """Composed per-device cost for the full (arch × shape) cell, by the
+    reference's composition on counted probes (module docstring).  Beside
+    the reference's keys: ``flops_global`` (the mesh-wide products, an
+    int) and ``schedule`` (the L1 probe's counted collectives in program
+    order)."""
+    kind = shape.kind
+    mshape = micro_shape(shape, cfg)
+    mu = max(1, cfg.microbatches) if kind == "train" else 1
+    L1, L2, Lpart = _layer_counts(cfg)
+    schedule: list = []
+
+    def cost_at(L, sched=None):
+        c = _cost_cfg(cfg, L, enc=(L if cfg.family == "encdec" else None),
+                      shape_seq=mshape.seq_len)
+        return _count_cost(*_mk_args(c, mshape, mesh, axes, kind), mesh=mesh,
+                           schedule=sched)
+
+    C1, C2 = cost_at(L1, schedule), cost_at(L2)
+    layer = C2 - C1
+    fixed = C1 - layer
+    if cfg.family == "hybrid":
+        total = fixed + layer * (cfg.L // cfg.attn_every)
+        if Lpart:
+            total = total + (cost_at(Lpart) - fixed)
+    else:
+        # encdec: enc and dec scale together in the probes (enc=dec=L)
+        total = fixed + layer * cfg.L
+    total = total * mu
+    if kind == "train":
+        total = total + _opt_cost(cfg, mesh, axes)
+    nchips = mesh.size
+    return dict(flops=total.flops / nchips,
+                flops_global=total.flops,
+                bytes=analytic_hbm_bytes(cfg, shape, axes),
+                bytes_xla_upper=None,
+                coll=total.coll,
+                coll_bytes=total.coll_bytes,
+                coll_bytes_raw=total.coll_bytes,
+                per_layer_flops=layer.flops / nchips,
+                fixed_flops=fixed.flops / nchips,
+                schedule=schedule)

@@ -37,7 +37,10 @@ Inside `record_dispatches()` each dispatch made by the same thread
 appends one record to its log: its path, the expert ids [B, S, k] it
 routed, the routed slots, the slots kept past the send capacity and past
 both, and the kept-slot mask [B, S, k] (device tensors, read when the
-caller chooses).
+caller chooses).  The log's copies (the kept-slot masks sent back) are
+not part of the program: they report to no collective counter
+(`launch/mesh.py::count_collectives`).  The expert ids travel as int32,
+as the reference's do.
 """
 from __future__ import annotations
 
@@ -290,9 +293,9 @@ def _a2a_dispatch(mesh, axes, xb, eb, gb, w1b, w3b, w2b, E_loc, k,
         sent.append(keep.sum())
         send_x[c] = xt.new_zeros((R + 1, D)).index_put(
             (addr,), scatter.gather_rows(xt, slot_tok[order]))[:R]
-        send_e[c] = torch.full((R + 1,), -1, dtype=torch.long,
+        send_e[c] = torch.full((R + 1,), -1, dtype=torch.int32,
                                device=xt.device).index_put(
-            (addr,), slot_eid[order] % E_loc)[:R]
+            (addr,), (slot_eid[order] % E_loc).int())[:R]
         send_src[c] = torch.zeros(R + 1, dtype=torch.long,
                                   device=xt.device).index_put(
             (addr,), order)[:R]
@@ -319,7 +322,7 @@ def _a2a_dispatch(mesh, axes, xb, eb, gb, w1b, w3b, w2b, E_loc, k,
         return out, None
     # a slot is kept when an address it was sent to came back kept
     ret_ok = all_to_all({c: v.reshape(n, C_send) for c, v in ok.items()},
-                        mesh, axes)
+                        mesh, axes, count=False)
     masks = {}
     for c in cells:
         hit = (send_e[c] >= 0) & ret_ok[c].reshape(R)
@@ -382,7 +385,7 @@ def moe_ffn(p, x, eid, gate, cfg: ArchConfig, mesh: LMMesh, mesh_axes,
             xb[c].shape)
     if log:           # each slot is one cell's: kept where that cell kept it
         masks = psum_over({c: v.reshape(eb[c].shape).int()
-                           for c, v in ok.items()}, mesh, tp)
+                           for c, v in ok.items()}, mesh, tp, count=False)
         _log("rep", mesh, spec_x, {c: v > 0 for c, v in masks.items()},
              eid, eid.numel())
     return NamedSharding(mesh, spec_x).assemble(psum_over(out, mesh, tp),

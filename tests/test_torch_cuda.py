@@ -2480,3 +2480,21 @@ def test_moe_dispatch_on_card_is_bit_reproducible(cuda, monkeypatch, path):
     a, b = run(), run()
     for u, v in zip(a, b):
         assert torch.equal(u, v)
+
+
+def test_perf_mem_peak_on_card_is_at_least_the_arguments(cuda, tmp_path):
+    """`perf.run(..., do_mem=True)` draws the cut on the card and runs one
+    step: its measured peak is at least the cut's meta argument bytes
+    (the arguments are resident through the step), and names the card."""
+    from repro_torch.configs import base as CB
+    from repro_torch.launch import perf
+    rec = perf.run("qwen3-0.6b", "decode_32k", [("L", 1)], "cuda", True,
+                   outdir=str(tmp_path))
+    assert rec["peak_bytes"] >= rec["argument_bytes"] > 0
+    assert rec["peak_source"].startswith("measured on ")
+    assert rec["argument_bytes"] == perf._meta_argument_bytes(
+        dataclasses.replace(CB.get("qwen3-0.6b"), L=1),
+        CB.SHAPES["decode_32k"])
+    cfg = dataclasses.replace(CB.reduced(CB.get("arctic-480b")), L=1)
+    got = perf.measure_peak(cfg, CB.ShapeSpec("train_s", 32, 4, "train"))
+    assert got["peak_bytes"] >= got["argument_bytes"] > 0

@@ -63,6 +63,9 @@ def test_the_port_has_its_files():
             "src/repro_torch/launch/specs.py",
             "src/repro_torch/launch/roofline.py",
             "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/launch/perf.py",
+            "src/repro_torch/launch/report.py",
             "src/repro_torch/models/sharding.py",
             "src/repro_torch/models/lsh_softmax.py",
             "src/repro_torch/tree.py",

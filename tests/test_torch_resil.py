@@ -121,11 +121,21 @@ def test_index_add_adds_in_index_order():
 
 
 def test_index_add_det_refuses_other_devices_and_shapes():
+    """Meta tensors take `index_add_`'s shape-only branch (a dry run
+    counts through the scatter); a device that is neither the CPU, meta
+    nor the card is refused (a stand-in: no such device exists here)."""
+    out = scatter.index_add_det_(torch.zeros(3, device="meta"),
+                                 torch.zeros(1, dtype=torch.long,
+                                             device="meta"),
+                                 torch.zeros(1, device="meta"))
+    assert out.shape == (3,) and out.device.type == "meta"
+
+    class OnXpu:
+        device = torch.device("xpu")
+
     with pytest.raises(ValueError, match="unsupported device"):
-        scatter.index_add_det_(torch.zeros(3, device="meta"),
-                               torch.zeros(1, dtype=torch.long,
-                                           device="meta"),
-                               torch.zeros(1, device="meta"))
+        scatter.index_add_det_(OnXpu(), torch.zeros(1, dtype=torch.long),
+                               torch.zeros(1))
 
 
 # ---------------------------------------------------------------- rebuild
