@@ -554,6 +554,15 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def sm_clock() -> float:
+    """The card's maximum SM clock in MHz (`nvidia-smi`)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def median_ms(fn, device, iters: int = 30, warmup: int = 3) -> float:
     """Median time of ``fn`` with a cold L2, as a serving flush finds it.
 
@@ -759,7 +768,7 @@ def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import prng
-    from repro_torch.core import model, sgd, simlsh, topk
+    from repro_torch.core import model, scatter, sgd, simlsh, topk
     from repro_torch.data.sparse import conflict_free_schedule, from_coo
     from repro_torch.kernels.mf_sgd import kernel as sgd_kernel
     from repro_torch.kernels.mf_sgd.ops import culsh_hyper, mf_hyper
@@ -1016,6 +1025,8 @@ def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
                      scales=(on_dev(sched.lo_scale_i),
                              on_dev(sched.lo_scale_j)))
 
+        prof_events = []    # each profile's device (name, µs)
+
         def profiled(run, *a):
             sync()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1023,11 +1034,23 @@ def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
                 run(*a)
                 sync()
                 wall_us = (time.perf_counter() - t0) * 1e6
+            prof_events.append([
+                (e.name, e.time_range.end - e.time_range.start)
+                for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA])
             return wall_us, device_activity(prof)
+
+        def launches_of(spans_by_name, part):
+            """(launches, µs) of the device kernels whose name holds
+            ``part`` (case-insensitive)."""
+            hits = [v for n, v in spans_by_name.items()
+                    if part in n.lower()]
+            return sum(k for k, _ in hits), sum(us for _, us in hits)
 
         for name, state, data_, mf_only in (
                 ("culsh_sgd", model.pack_params(res.params), sd, False),
                 ("mf_sgd", model.pack_params(mf.params), sd_mf, True)):
+            seg0 = (scatter.LAUNCHES, scatter.GROUP_LAUNCHES, scatter.SORTS)
             wall_us, (spans, busy, by_name) = profiled(epoch, state, data_,
                                                        mf_only)
             mine = [us for n, us in by_name.items() if kernel_of[name] in n]
@@ -1036,6 +1059,32 @@ def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
                   f"us, device busy {busy:.0f} us ({busy / wall_us:.3f} of "
                   f"the wall), {len(spans)} device activities, "
                   f"{in_loop[name]:.5f} ms per kernel launch", flush=True)
+            counted = {}
+            for e in prof_events[-1]:
+                c, us = counted.get(e[0], (0, 0.0))
+                counted[e[0]] = (c + 1, us + e[1])
+            n_add, us_add = launches_of(counted, "segment_add_kernel")
+            n_grp, us_grp = launches_of(counted, "segment_group_kernel")
+            n_sort, us_sort = launches_of(counted, "sort")
+            seg = [b - a for a, b in zip(seg0, (
+                scatter.LAUNCHES, scatter.GROUP_LAUNCHES, scatter.SORTS))]
+            print(f"[10 profile]   the leftover scatters: segment_add "
+                  f"{n_add} launches, {us_add / max(n_add, 1):.2f} us a "
+                  f"launch; segment_group {n_grp} launches (both ids of a "
+                  f"batch in one), {us_grp / max(n_grp, 1):.2f} us a "
+                  f"launch; torch.sort by the scatters {seg[2]} (counters: "
+                  f"segment_add {seg[0]}, grouping {seg[1]}); sort kernels "
+                  f"in the profiled epoch {n_sort} ({us_sort:.0f} us)",
+                  flush=True)
+            # the counters decide (the profiler may drop a few records);
+            # a batch groups its row and column ids in one launch
+            if (seg[2] or (on_card and not n_add)
+                    or seg[0] != 2 * seg[1]):
+                raise AssertionError(f"{name} epoch: the leftover scatters "
+                                     f"sorted {seg[2]} times, or launched "
+                                     f"segment_add {seg[0]} times for "
+                                     f"{seg[1]} groupings (profiled "
+                                     f"{n_add})")
             for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
                 print(f"[10 profile]   {us / 1e3:9.2f} ms  {n[:90]}",
                       flush=True)
@@ -1055,7 +1104,7 @@ def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
                                      f"conflict-free {name} step")
         # the profiles hold ~10⁵ Python objects; free them so no collector
         # pause lands in the timed host gaps below and in phase 11
-        del spans, by_name
+        del spans, by_name, prof_events
         gc.collect()
         # one epoch of each in its two parts, unprofiled: the leftover share
         nb_lo = res.schedule_stats["nb_lo"]
@@ -1137,7 +1186,13 @@ def fit_phases(args, data: tuple, dev, on_card: bool, power: str) -> list:
              ms=timed["mf_sgd"]["ms"], plain_ms=timed["mf_sgd"]["plain"],
              bound_ms=mf_bound, bound_by=mf_by, library_ms=None),
     ]
-    return entries, dict(res=res, sp=sp, tr=tr, te=te, shape=(M, N), cfg=cfg)
+    # phase 16 times the first leftover batch's col-plane scatter
+    lo = None
+    if len(sched.lo_starts):
+        s0, w0 = int(sched.lo_starts[0]), int(sched.widths[0])
+        lo = (sd.j[s0:s0 + w0].long(), pp.col)
+    return entries, dict(res=res, sp=sp, tr=tr, te=te, shape=(M, N), cfg=cfg,
+                         lo=lo)
 
 
 def encode_phase(sp, lsh, key, sigs, dev, on_card: bool, power: str) -> dict:
@@ -1801,6 +1856,7 @@ def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
         reg = obs.Registry(enabled=True)
         crash_dir = os.path.join(root, "crash")
         scatter.LAUNCHES = 0       # the main path: updates, crash, recovery
+        scatter.GROUP_LAUNCHES = scatter.RUN_LAUNCHES = scatter.SORTS = 0
         up = OnlineUpdater(st, lsh, hp, root=crash_dir, registry=reg, **kw)
         crashed = False
         for k, (d, M2, N2, key) in enumerate(ds):
@@ -1822,7 +1878,9 @@ def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
                                     registry=reg, **kw)
         sync()
         recover_s = time.perf_counter() - t0
-        seg_launches = scatter.LAUNCHES
+        seg_launches, group_launches = (scatter.LAUNCHES,
+                                        scatter.GROUP_LAUNCHES)
+        seg_sorts = (scatter.RUN_LAUNCHES, scatter.SORTS)
         whole = OnlineUpdater(st, lsh, hp, root=os.path.join(root, "whole"),
                               **kw)
         for d, M2, N2, key in ds:
@@ -1844,54 +1902,118 @@ def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
               + ", ".join(f"{x:.3f}" for x in spans["resil.wal.replay"])
               + f" s) to seq {rec.seq}; {len(ta) - len(unequal)} of "
               f"{len(ta)} leaves equal the uninterrupted updater's "
-              f"(torch.equal); segment_add launches {seg_launches}",
+              f"(torch.equal); segment_add launches {seg_launches}, its "
+              f"grouping {group_launches} (run-table launches past "
+              f"GROUP_MAX {seg_sorts[0]}, torch.sort {seg_sorts[1]})",
               flush=True)
         if not crashed or rec.seq != 3 or wal_bytes == [] or unequal:
             raise AssertionError(f"WAL recovery: crashed {crashed}, seq "
                                  f"{rec.seq}, unequal leaves {unequal}")
-        if on_card and not seg_launches:
-            raise AssertionError("segment_add never launched on the main "
-                                 "path")
+        if on_card and not (seg_launches and group_launches):
+            raise AssertionError(f"segment_add launched {seg_launches} and "
+                                 f"its grouping {group_launches} times on "
+                                 f"the main path")
 
-        # the kernel against its plain version at the online step's shape:
-        # one batch of 4,096 ΔΩ columns scattered into V
-        jv = torch.as_tensor(ds[0][0][1][:4096], device=dev).long()
+        # the kernels against their plain versions, timed at three shapes:
+        # the online step's (4,096 ΔΩ columns into V), the fit's first
+        # leftover col-plane scatter (phase 8's schedule, into pp.col),
+        # and one hot id carrying 4,096 rows into V
         V = whole.state.params.V
+        jv = torch.as_tensor(ds[0][0][1][:4096], device=dev).long()
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        src = 1e-3 * torch.randn((jv.numel(), V.shape[1]), generator=gen,
-                                 device=dev)
-        want = V.to("cpu", copy=True).index_add_(0, jv.cpu(), src.cpu())
-        got = scatter.index_add_det_(V.clone(), jv, src)
+        shapes = [("online", V, jv)]
+        if serve["lo"] is not None:
+            shapes.append(("fit leftover", serve["lo"][1], serve["lo"][0]))
+        shapes.append(("hot id", V, torch.full(
+            (4096,), int(jv[0]), dtype=torch.long, device=dev)))
+        sm_clock_mhz = sm_clock() if on_card else float("nan")
+        seg_err, seg_rows = 0.0, {}
+        for name, plane, ids in shapes:
+            src = 1e-3 * torch.randn((ids.numel(), plane.shape[1]),
+                                     generator=gen, device=dev)
+            want = plane.to("cpu", copy=True).index_add_(0, ids.cpu(),
+                                                         src.cpu())
+            got = scatter.index_add_det_(plane.clone(), ids, src)
+            plan = scatter.segment_plan(ids)
+            ref = scatter.segment_plan_plain(ids.cpu())
+            same_plan = not on_card or (
+                torch.equal(plan.order.cpu(), ref.order)
+                and all(torch.equal(a.cpu(), b)
+                        for a, b in zip(plan.table(), ref.table())))
+            if not torch.equal(got.cpu(), want) or not same_plan:
+                raise AssertionError(f"segment_add at the {name} shape: "
+                                     f"equal {torch.equal(got.cpu(), want)}"
+                                     f", plan equal {same_plan}")
+            seg_err = max(seg_err, float((got.cpu() - want).abs().max()))
+            atomic_err = float((plane.clone().index_add_(0, ids, src)
+                                - got).abs().max())
+            Pk, Pp = plane.clone(), plane.clone()
+            t = dict(
+                grouped=graph_ms(lambda: scatter.index_add_det_(Pk, ids, src),
+                                 dev),
+                cold=median_ms(lambda: scatter.index_add_det_(Pk, ids, src),
+                               dev),
+                plan=graph_ms(lambda: scatter.index_add_det_(
+                    Pk, ids, src, plan=plan), dev),
+                group=graph_ms(lambda: scatter.segment_plan(ids), dev),
+                lib=graph_ms(lambda: Pp.index_add_(0, ids, src), dev))
+            _, _, lengths, longs = ref.table()
+            n, w, uniq = ids.numel(), plane.shape[1], lengths.numel()
+            L_max = int(lengths.max())
+            # bytes: the ids and src read once, each touched dst row read
+            # and written once; operations: one add per src element
+            bnd, by = bound_ms(8 * n + 4 * n * w + 2 * 4 * uniq * w, n * w)
+            # the chain: L_max dependent float32 adds of 4 cycles each
+            floor = L_max * 4 / (sm_clock_mhz * 1e3)
+            seg_rows[name] = dict(t, bound=bnd, by=by, floor=floor)
+            print(f"[16 time] segment_add, {name}: n={n} ({uniq} distinct "
+                  f"ids, L_max {L_max}, {longs.numel()} runs past "
+                  f"{scatter.LONG_RUN} rows) width={w} into "
+                  f"[{plane.shape[0]}, {plane.shape[1]}] at row stride "
+                  f"{plane.stride(0)}: equal to the CPU's index_add_ bit "
+                  f"for bit, the plan equal to the plain grouping's (the "
+                  f"card's atomic index_add_ is off by up to "
+                  f"{atomic_err:.3g}); with its grouping {t['grouped']:.5f} "
+                  f"ms (CUDA graph of 50 calls, median of 20 replays), "
+                  f"{t['cold']:.4f} ms cold L2; with a plan "
+                  f"{t['plan']:.5f} ms; the grouping alone {t['group']:.5f}"
+                  f" ms; index_add_ (the plain version and the library "
+                  f"call) {t['lib']:.5f} ms; bound {bnd:.5f} ms ({by}); "
+                  f"chain floor {floor:.5f} ms ({L_max} adds x 4 cycles at "
+                  f"{sm_clock_mhz:.0f} MHz) (power limit {power})",
+                  flush=True)
+            del Pk, Pp, got, want, src
+        # past GROUP_MAX: torch.sort, then the run-table kernel
+        big = (torch.randint(0, 1 << 20, (1 << 17,), generator=gen,
+                             device=dev) % V.shape[0]) \
+            * (torch.rand(1 << 17, generator=gen, device=dev) > 0.3)
+        src = torch.randn((big.numel(), V.shape[1]), generator=gen,
+                          device=dev)
+        want = V.to("cpu", copy=True).index_add_(0, big.cpu(), src.cpu())
+        plan = scatter.segment_plan(big)
+        got = scatter.index_add_det_(V.clone(), big, src, plan=plan)
+        if on_card:
+            ref = scatter.segment_plan_plain(big.cpu())
+            if not (torch.equal(plan.order.cpu(), ref.order) and all(
+                    torch.equal(a.cpu(), b)
+                    for a, b in zip(plan.table(), ref.table()))):
+                raise AssertionError("the run table past GROUP_MAX differs")
         if not torch.equal(got.cpu(), want):
-            raise AssertionError("segment_add differs from the CPU's "
-                                 "index_add_")
-        seg_err = float((got.cpu() - want).abs().max())
-        atomic_err = float((V.clone().index_add_(0, jv, src) - got).abs()
-                           .max())
-        Vk, Vp = V.clone(), V.clone()
-        seg_ms = graph_ms(lambda: scatter.index_add_det_(Vk, jv, src), dev)
-        seg_cold = median_ms(lambda: scatter.index_add_det_(Vk, jv, src),
-                             dev)
-        plan = scatter.segment_plan(jv)
-        kern_ms = graph_ms(lambda: scatter.index_add_det_(Vk, jv, src,
-                                                          plan=plan), dev)
-        plain_ms = graph_ms(lambda: Vp.index_add_(0, jv, src), dev)
-        uniq = int(torch.unique(jv).numel())
-        n, w = jv.numel(), V.shape[1]
-        # bytes: the ids and src read once, each touched dst row read and
-        # written once; operations: one add per src element
-        seg_bound, seg_by = bound_ms(8 * n + 4 * n * w + 2 * 4 * uniq * w,
-                                     n * w)
-        print(f"[16 time] segment_add at n={n} ({uniq} distinct ids) "
-              f"width={w} into V [{V.shape[0]}, {w}]: equal to the CPU's "
-              f"index_add_ bit for bit (the card's atomic index_add_ is off "
-              f"by up to {atomic_err:.3g}); with its sort {seg_ms:.5f} ms "
-              f"(CUDA graph of 50 calls, median of 20 replays), "
-              f"{seg_cold:.4f} ms cold L2; the kernel alone (sort reused) "
-              f"{kern_ms:.5f} ms; index_add_ (the plain version and the "
-              f"library call) {plain_ms:.5f} ms; bound {seg_bound:.5f} ms "
-              f"({seg_by}) (power limit {power})", flush=True)
-        del up, rec, whole, ta, tb, V, Vk, Vp, got, want
+            raise AssertionError("segment_add past GROUP_MAX differs")
+        print(f"[16 check] segment_add past GROUP_MAX: {big.numel()} ids "
+              f"(id 0 carrying {int((big == 0).sum())} rows) sorted by "
+              f"torch.sort, the run table by its kernel equal to the plain "
+              f"grouping's, the scatter equal to the CPU's index_add_",
+              flush=True)
+        online = seg_rows["online"]
+        seg_ms, plain_ms = online["grouped"], online["lib"]
+        # the kernels line's bound: the larger of the bytes (or peak-rate
+        # operations) bound and the chain floor, whose L_max dependent
+        # adds are operations too
+        seg_bound, seg_by = max((online["bound"], online["by"]),
+                                (online["floor"], "operations"))
+        del plan, got, want, src, big
+        del up, rec, whole, ta, tb, V
     finally:
         shutil.rmtree(root, ignore_errors=True)
     gc.collect()
@@ -2161,7 +2283,7 @@ def resil_phase(args, octx: dict, serve: dict, dev, on_card: bool,
                          "index_add_, src/repro_torch/core/scatter.py)",
                 launches=seg_launches, max_abs_err=seg_err, ms=seg_ms,
                 plain_ms=plain_ms, bound_ms=seg_bound, bound_by=seg_by,
-                library_ms=plain_ms)
+                library_ms=plain_ms, group_launches=group_launches)
 
 
 def loop_phase(args, octx: dict, scfg, dev, on_card: bool,
@@ -3838,6 +3960,7 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
         raise AssertionError("the full-cover simLSH loss is not the full "
                              "loss")
     scatter.LAUNCHES = 0           # the main path: 20 simLSH steps
+    scatter.GROUP_LAUNCHES = scatter.SORTS = 0
     t0 = time.perf_counter()
     lsh_losses, t_refresh = [], 0.0
     for s_, b in enumerate(batches):
@@ -3858,7 +3981,8 @@ def lm_train_phase(args, dev, on_card: bool, power: str) -> int:
           f"{V} x {lcfg.d_model} tied embedding every 10 steps ({t_refresh:.2f}"
           f" s for 2): {wall:.2f} s, loss {lsh_losses[0]:.4f} -> "
           f"{lsh_losses[10]:.4f} -> {lsh_losses[-1]:.4f}; segment_add "
-          f"launches {seg}", flush=True)
+          f"launches {seg}, its grouping {scatter.GROUP_LAUNCHES}, "
+          f"torch.sort {scatter.SORTS}", flush=True)
     if not (np.isfinite(lsh_losses).all()
             and lsh_losses[-1] < lsh_losses[0]):
         raise AssertionError(f"the simLSH loss did not fall: {lsh_losses}")
@@ -6469,6 +6593,7 @@ def mesh_phase(args, cfg, params, dev, on_card: bool, power: str) -> int:
         # ---- the main path: counters zeroed just before ----
         seg_cut = scatter.LAUNCHES - counts0["segment_add"]
         scatter.LAUNCHES = 0
+        scatter.GROUP_LAUNCHES = scatter.SORTS = 0
         with MOE.record_dispatches() as log:
             sync()
             t0 = time.perf_counter()
@@ -6496,6 +6621,7 @@ def mesh_phase(args, cfg, params, dev, on_card: bool, power: str) -> int:
             sync()
             t_2d = time.perf_counter() - t0
         seg = scatter.LAUNCHES
+        seg_group = (scatter.GROUP_LAUNCHES, scatter.SORTS)
         own = (torch.cuda.max_memory_allocated() / 1e6 - held if on_card
                else 0.0)
         o = torch.cat(out, 1).cpu().numpy()
@@ -6565,7 +6691,8 @@ def mesh_phase(args, cfg, params, dev, on_card: bool, power: str) -> int:
                   if k != "segment_add"}
         print(f"[33 kernels] segment_add launches on the served path: {seg}"
               f" (the combine's scatter-add, one a cell a dispatch: "
-              f"{len(log)} dispatches x {mesh.size} cells), in the cut's "
+              f"{len(log)} dispatches x {mesh.size} cells; its grouping "
+              f"{seg_group[0]}, torch.sort {seg_group[1]}), in the cut's "
               f"checks {seg_cut}; the other kernels' {others}", flush=True)
         if on_card and seg != len(log) * mesh.size:
             raise AssertionError(f"segment_add launched {seg} times in "
@@ -7692,7 +7819,7 @@ def main(argv=None) -> int:
     octx = online_phase(args, ctx, cfg, dev, on_card, power)
     kernels.append(resil_phase(
         args, octx, dict(params=params, sp=sp, sigs=sigs, cfg=cfg,
-                         p5=(st["p50_ms"], st["p99_ms"])),
+                         p5=(st["p50_ms"], st["p99_ms"]), lo=ctx["lo"]),
         dev, on_card, power))
     loop_phase(args, octx, cfg, dev, on_card, power)
     comparators_phase(args, ctx, dev, on_card, power)

@@ -108,7 +108,7 @@ def masked_culsh_step(p: Params, bt: Batch, hp: Hyper, decay, M_old: int,
     new_i = (i >= M_old)[:, None]
     new_j = (j >= N_old)[:, None]
     keep = lambda d, m: torch.where(m, d, torch.zeros((), device=d.device))
-    pi, pj = scatter.segment_plan(i), scatter.segment_plan(j)
+    pi, pj = scatter.segment_plans(i, j)        # one grouping launch
     add = scatter.index_add_det_
     add(p.U, i, keep(du, new_i), plan=pi)
     add(p.b, i, keep(db, new_i[:, 0]), plan=pi)

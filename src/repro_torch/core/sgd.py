@@ -155,8 +155,9 @@ def mf_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
     _, _, si_c, sj_c = _batch_scales(pp.row.shape[0], pp.col.shape[0], bt,
                                      conflict_free, scales)
     du, dv = _mf_deltas(bt, e, ui, vj, hp, decay, si_c, sj_c)
-    scatter.index_add_det_(pp.row[:, :F], i, du)
-    scatter.index_add_det_(pp.col[:, :F], j, dv)
+    pi, pj = scatter.segment_plans(i, j)        # one grouping launch
+    scatter.index_add_det_(pp.row[:, :F], i, du, plan=pi)
+    scatter.index_add_det_(pp.col[:, :F], j, dv, plan=pj)
     return pp
 
 
@@ -185,7 +186,7 @@ def culsh_step(p: Params, bt: Batch, hp: Hyper, decay, bce: bool = False,
     most once, making the summed scatter exactly the parallel Eq. (5)."""
     i, j, (db, dbh, du, dv, dw, dc) = culsh_batch_deltas(
         p, bt, hp, decay, bce, conflict_free, bh_nb)
-    pi, pj = scatter.segment_plan(i), scatter.segment_plan(j)
+    pi, pj = scatter.segment_plans(i, j)        # one grouping launch
     add = lambda t, ids, d, plan: scatter.index_add_det(t, ids, d, plan=plan)
     return dataclasses.replace(
         p, b=add(p.b, i, db, pi), bh=add(p.bh, j, dbh, pj),
@@ -215,9 +216,12 @@ def culsh_step_packed(pp: PackedParams, bt: Batch, hp: Hyper, decay,
                                        conflict_free, scales)
     db, dbh, du, dv, dw, dc = _culsh_deltas(
         bt, e, aux, b_i, bh_j, ui, vj, wj, cj, hp, decay, si, sj, si_c, sj_c)
-    scatter.index_add_det_(pp.row, i, torch.cat([du, db[:, None]], dim=1))
+    pi, pj = scatter.segment_plans(i, j)        # one grouping launch
+    scatter.index_add_det_(pp.row, i, torch.cat([du, db[:, None]], dim=1),
+                           plan=pi)
     scatter.index_add_det_(pp.col, j,
-                           torch.cat([dv, dw, dc, dbh[:, None]], dim=1))
+                           torch.cat([dv, dw, dc, dbh[:, None]], dim=1),
+                           plan=pj)
     return pp
 
 

@@ -54,8 +54,12 @@ SIGNATURES = {
     # u, v, w, c, resid, impl, bbar, sR, sN, out, B, F, K, stream
     "neighbor_predict_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _P],
-    # dst, ld, rows, sorted_ids, order, src, n, width, stream
-    "segment_add_launch": [_P, _L, _L, _P, _P, _P, _L, _I, _P],
+    # &GroupJob[count], count, long_run, stream
+    "segment_group_launch": [_P, _I, _I, _P],
+    # sorted, order, n, long_run, plan, scratch, stream
+    "segment_runs_launch": [_P, _P, _L, _I, _P, _P, _P],
+    # dst, ld, rows, src, n, width, plan, stream
+    "segment_add_launch": [_P, _L, _L, _P, _L, _I, _P, _P],
 }
 
 _lock = threading.Lock()

@@ -922,50 +922,147 @@ def test_fit_kernel_impl_ref_launches_nothing_and_compile_seconds(cuda):
 
 # ------------------------------------------- deterministic scatter, resilience
 
+def _zipf_ids(rng, n, hi):
+    """``n`` ids below ``hi`` drawn with a few hot ones (runs past the
+    add kernel's long-run threshold) among many rare ones."""
+    return (rng.zipf(1.3, n) - 1) % hi
+
+
 def _scatter_inputs(kind, rng):
     """(plane, width, idx, src) on the CPU: the scatter's dst is
     ``plane[:, :width]`` (a column slice of a wider plane) when ``width``
     is set, else the whole plane."""
-    plane, width, n, hi = {
-        "1-D": (torch.zeros(700), None, 5000, 700),
-        "2-D": (torch.zeros(300, 33), None, 900, 300),
-        "column slice": (torch.zeros(300, 257), 128, 512, 300),
-        "fit leftover batch": (torch.zeros(3000, 257), None, 512, 3000),
-        "all colliding": (torch.zeros(4, 9), None, 3000, 1)}[kind]
+    if kind == "hot id among singletons":       # one id carries 10,000 rows
+        plane, width = torch.zeros(20000, 128), None
+        idx = np.concatenate([np.full(10000, 7),
+                              rng.permutation(np.arange(100, 20000))[:3000]])
+        idx = idx[rng.permutation(idx.size)]
+    elif kind.startswith("n = "):               # about the grouping threshold
+        n = int(kind[4:].split()[0].replace(",", ""))
+        plane, width = torch.zeros(3000, 40), None
+        idx = _zipf_ids(rng, n, 3000)
+    elif kind == "width 1 at n = 2e6":
+        plane, width = torch.zeros(700000), None
+        idx = _zipf_ids(rng, 2_000_000, 700000)
+    elif kind == "LM row of width 7,168":
+        plane, width = torch.zeros(2000, 7168), None
+        idx = _zipf_ids(rng, 1024, 2000)
+    elif kind in ("width 2", "width 5"):        # long runs, narrow tiles
+        plane, width = torch.zeros(60, int(kind[-1])), None
+        idx = rng.integers(0, 60, 3000)
+    else:
+        plane, width, n, hi = {
+            "1-D": (torch.zeros(700), None, 5000, 700),
+            "2-D": (torch.zeros(300, 33), None, 900, 300),
+            "column slice": (torch.zeros(300, 257), 128, 512, 300),
+            "fit leftover batch": (torch.zeros(3000, 257), None, 512, 3000),
+            "all colliding": (torch.zeros(4, 9), None, 3000, 1)}[kind]
+        idx = rng.integers(0, hi, n) + (2 if kind == "all colliding" else 0)
     plane.copy_(torch.tensor(rng.normal(size=plane.shape).astype(np.float32)))
-    idx = rng.integers(0, hi, n) + (2 if kind == "all colliding" else 0)
+    n = idx.size
     shape = (n,) + ((width,) if width else tuple(plane.shape[1:]))
     src = rng.normal(size=shape) * 10.0 ** rng.integers(-4, 5, shape)
     return plane, width, torch.tensor(idx), torch.tensor(
         src.astype(np.float32))
 
 
-@pytest.mark.parametrize("kind", ["1-D", "2-D", "column slice",
-                                  "fit leftover batch", "all colliding"])
+_SCATTER_KINDS = ["1-D", "2-D", "column slice", "fit leftover batch",
+                  "all colliding", "hot id among singletons", "n = 8,191",
+                  "n = 8,192", "n = 8,193", "width 1 at n = 2e6",
+                  "LM row of width 7,168", "n = 1", "width 2", "width 5"]
+
+
+@pytest.mark.parametrize("kind", _SCATTER_KINDS)
 def test_segment_add_on_card_equals_cpu_index_add(cuda, kind):
     """The card's deterministic scatter gives the CPU's `index_add_` bits,
-    and the same bits on every run (the atomic `index_add_` need not);
-    the columns outside a slice stay as they were."""
+    and the same bits on every run (the atomic `index_add_` need not),
+    with and without a plan; the columns outside a slice stay as they
+    were.  Each call launches the add kernel once; without a plan it
+    groups on the card (one grouping launch, no sort) up to
+    `GROUP_MAX` ids, and sorts once above."""
     from repro_torch.core import scatter
     plane, width, idx, src = _scatter_inputs(kind, np.random.default_rng(0))
     view = (lambda t: t[:, :width]) if width else (lambda t: t)
     want = plane.clone()
     view(want).index_add_(0, idx, src)
+    small = idx.numel() <= scatter.GROUP_MAX
     outs = []
     for _ in range(2):
         g = plane.to(cuda)
-        before = scatter.LAUNCHES
+        before = (scatter.LAUNCHES, scatter.GROUP_LAUNCHES,
+                  scatter.RUN_LAUNCHES, scatter.SORTS)
         got = scatter.index_add_det_(view(g), idx.to(cuda), src.to(cuda))
         torch.cuda.synchronize()
-        assert scatter.LAUNCHES == before + 1
+        after = (scatter.LAUNCHES, scatter.GROUP_LAUNCHES,
+                 scatter.RUN_LAUNCHES, scatter.SORTS)
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, 1, 0, 0] if small else [1, 0, 1, 1])
         assert got.data_ptr() == g.data_ptr()
         outs.append(g.cpu())
     assert torch.equal(outs[0], want), float((outs[0] - want).abs().max())
     assert torch.equal(outs[0], outs[1])
     g = plane.to(cuda)
     plan = scatter.segment_plan(idx.to(cuda))
+    before = (scatter.LAUNCHES, scatter.GROUP_LAUNCHES, scatter.SORTS)
     scatter.index_add_det_(view(g), idx.to(cuda), src.to(cuda), plan=plan)
     assert torch.equal(g.cpu(), want)
+    scatter.index_add_det_(view(g), idx.to(cuda), -src.to(cuda), plan=plan)
+    assert (scatter.LAUNCHES - before[0], scatter.GROUP_LAUNCHES - before[1],
+            scatter.SORTS - before[2]) == (2, 0, 0)
+    again = want.clone()
+    view(again).index_add_(0, idx, -src)
+    assert torch.equal(g.cpu(), again)
+
+
+@pytest.mark.parametrize("kind", _SCATTER_KINDS)
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_segment_plan_on_card_equals_plain(cuda, kind, dtype):
+    """The grouping kernel's (or, past `GROUP_MAX`, the sort's and the
+    run-table kernel's) positions, run ids, starts, lengths and long runs
+    equal the plain stable sort + `unique_consecutive`'s, from int64 and
+    int32 ids; the plain add on that plan equals `index_add_`."""
+    from repro_torch.core import scatter
+    plane, width, idx, src = _scatter_inputs(kind, np.random.default_rng(1))
+    idx = idx.to(dtype)
+    got = scatter.segment_plan(idx.to(cuda))
+    want = scatter.segment_plan_plain(idx)
+    torch.cuda.synchronize()
+    assert got.n == want.n == idx.numel()
+    assert torch.equal(got.order.cpu(), want.order)
+    for a, b in zip(got.table(), want.table()):
+        assert torch.equal(a.cpu(), b)
+    if idx.numel() <= 4096 and plane.numel() <= 10 ** 6:
+        dst = plane[:, :width] if width else plane
+        assert torch.equal(scatter.segment_add_plain(dst.clone(), src, want),
+                           dst.clone().index_add_(0, idx.long(), src))
+
+
+def test_segment_plans_group_several_vectors_in_one_launch(cuda):
+    """`segment_plans` groups two vectors of at most `GROUP_MAX` ids in
+    one launch (one block each), sorts a larger one, refuses a third
+    vector, and each plan equals its vector's own plain plan; on the CPU
+    every plan is None."""
+    from repro_torch.core import scatter
+    rng = np.random.default_rng(2)
+    pairs = [[torch.tensor(_zipf_ids(rng, n, hi)) for n, hi in pair]
+             for pair in (((512, 700000), (512, 30150)),
+                          ((4096, 30150), (1, 3)),
+                          ((8192, 5000), (9000, 100)), ((0, 1),))]
+    before = (scatter.GROUP_LAUNCHES, scatter.RUN_LAUNCHES, scatter.SORTS)
+    plans = [scatter.segment_plans(*(i.to(cuda) for i in pair))
+             for pair in pairs]
+    torch.cuda.synchronize()
+    assert (scatter.GROUP_LAUNCHES - before[0], scatter.RUN_LAUNCHES
+            - before[1], scatter.SORTS - before[2]) == (4, 1, 1)
+    for idx, got in zip(sum(pairs, []), sum(plans, [])):
+        want = scatter.segment_plan_plain(idx)
+        assert got.n == want.n
+        assert torch.equal(got.order.cpu(), want.order)
+        for a, b in zip(got.table(), want.table()):
+            assert torch.equal(a.cpu(), b)
+    with pytest.raises(ValueError, match="at most 2"):
+        scatter.segment_plans(*(i.to(cuda) for i in pairs[0] + pairs[3]))
+    assert scatter.segment_plans(*pairs[0]) == [None, None]
 
 
 def test_segment_add_refuses_what_the_kernel_does_not_take(cuda):
